@@ -1,0 +1,476 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+  1. environment: the card's name and power limit (nvidia-smi), TF32 off,
+     and the hand-written CUDA kernels built from ``src/repro_torch/csrc``;
+  2. kernel parity at the main path's shapes: every kernel against its
+     plain PyTorch version on the same inputs (bf16, plus f32 at a smaller
+     size), with its time, the plain version's time, one PyTorch library
+     call's time as a yardstick, and the card's least time for the work;
+  3. the main path: ``ServeEngine`` serving full-width qwen15-moe-a27b
+     (random weights from a seed, bf16, paged KV, chunked prefill, greedy,
+     HarMoEny policy at one rank), with each kernel's launch count over
+     that run, which must be > 0;
+  4. correctness of what comes out: every request finished with its
+     tokens in the vocabulary, finite logits of the expected shape, and,
+     on a small configuration, the card's token streams equal to the
+     plain versions' streams on the CPU.
+The line before the last is a JSON object of the kernels' numbers; the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the repository's ``src/`` beside it, the script exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_S = 3.35e12                 # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
+              "float32": 67e12}       # float32 outside the tensor cores
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+REPLACES = {
+    "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:88",
+    "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:126",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name, got, ref, dtype_name):
+    import torch
+    g, r = got.float(), ref.float()
+    if g.shape != r.shape:
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} != {tuple(r.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    tol = TOL[dtype_name]
+    err = (g - r).abs()
+    excess = float((err - (tol + tol * r.abs())).max())
+    max_err = float(err.max())
+    if excess > 0:
+        raise AssertionError(f"{name}: max abs err {max_err:.3e} exceeds "
+                             f"atol=rtol={tol} by {excess:.3e}")
+    return max_err, tol
+
+
+def bound(bytes_moved: float, flops: float, dtype_name: str):
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernel parity
+# ----------------------------------------------------------------------
+def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
+                 time_it):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_gmm import ops
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = len(sizes)
+    sizes_t = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    padded = ((sizes_t + block_m - 1) // block_m) * block_m
+    assert int(padded.sum()) <= M
+    x = torch.zeros((M, d), dtype=dtype, device=dev)
+    off = 0
+    for s, p in zip(sizes, padded.tolist()):
+        x[off:off + s] = (torch.randn((s, d), generator=g, device=dev)
+                          * 0.5).to(dtype)
+        off += p
+
+    def w(n, a, b, fan_in):
+        return (torch.randn((n, a, b), generator=g, device=dev)
+                * (2.0 / fan_in) ** 0.5).to(dtype)
+    K = G - n_local
+    w_in, w_gate, w_out = w(n_local, d, f, d), w(n_local, d, f, d), w(n_local, f, d, f)
+    foreign = (w(K, d, f, d), w(K, f, d, f), w(K, d, f, d)) if K else None
+    tg = ops.tile_group_map(padded, M // block_m, block_m)
+    kw = dict(w_gate=w_gate, act="silu", block_m=block_m, foreign=foreign)
+    got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
+    ref = ops.moe_gmm_plain(x, w_in, w_out, tg, **kw)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    err, tol = compare(f"moe_gmm[{label}]", got, ref, dname)
+    rec = {"case": label, "dtype": dname, "M": M, "G": G, "d": d, "f": f,
+           "max_abs_err": err, "tol": tol}
+    if time_it:
+        fi, fo, fg = foreign if foreign else (None, None, None)
+        all_in = torch.cat([w_in, fi]) if K else w_in
+        all_gate = torch.cat([w_gate, fg]) if K else w_gate
+        all_out = torch.cat([w_out, fo]) if K else w_out
+        offs = [0] + torch.cumsum(padded, 0).tolist()
+        live = [(gi, offs[gi], s) for gi, s in enumerate(sizes) if s]
+
+        def library():            # one matmul chain per live group
+            y = torch.zeros_like(x)
+            for gi, o, s in live:
+                xg = x[o:o + s]
+                h = F.silu(xg @ all_gate[gi]) * (xg @ all_in[gi])
+                y[o:o + s] = h @ all_out[gi]
+            return y
+        rec["ms"] = cuda_ms(lambda: ops.moe_gmm(x, w_in, w_out, tg, **kw), 10)
+        rec["plain_ms"] = cuda_ms(
+            lambda: ops.moe_gmm_plain(x, w_in, w_out, tg, **kw), 3, 1)
+        rec["library_ms"] = cuda_ms(library, 10)
+        esz = x.element_size()
+        n_live = len(live)
+        bytes_moved = (2 * M * d * esz + 3 * n_live * d * f * esz
+                       + tg.numel() * 4)
+        flops = 6.0 * sum(sizes) * d * f
+        rec["bound_ms"], rec["bound_by"] = bound(bytes_moved, flops, dname)
+    return rec
+
+
+def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
+                         softcap, dtype, seed, time_it, slab=False):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if slab:                   # the slab-as-pool view: identity tables
+        num_phys = B * n_blocks
+        table = torch.arange(num_phys, dtype=torch.int32,
+                             device=dev).reshape(B, n_blocks)
+    else:                      # shuffled chains, tails on the null block 0
+        num_phys = B * n_blocks + 1
+        perm = torch.randperm(num_phys - 1, generator=g, device=dev) + 1
+        table = torch.zeros((B, n_blocks), dtype=torch.int32, device=dev)
+        for b, L in enumerate(lengths):
+            nb = -(-L // bs)
+            table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(torch.int32)
+    P = num_phys * bs
+    k_pool = torch.randn((1, P, Hkv, hd), generator=g, device=dev).to(dtype)
+    v_pool = torch.randn((1, P, Hkv, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(block_size=bs, softcap=softcap)
+    got = ops.paged_attention(q, k_pool, v_pool, table, cl, **kw)
+    ref = ops.paged_attention_plain(q, k_pool, v_pool, table, cl, **kw)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    err, tol = compare(f"paged_attention[{label}]", got, ref, dname)
+    rec = {"case": label, "dtype": dname, "B": B, "S": S, "H": H, "Hkv": Hkv,
+           "hd": hd, "block_size": bs, "lengths": list(lengths),
+           "max_abs_err": err, "tol": tol}
+    if time_it:
+        # the library call attends over K/V already gathered to [B, H, L, hd]
+        L = n_blocks * bs
+        log_pos = torch.arange(L, device=dev)
+        phys = table.long()[:, log_pos // bs] * bs + log_pos % bs
+        rep = H // Hkv
+        kg = k_pool[0][phys].repeat_interleave(rep, 2).transpose(1, 2)
+        vg = v_pool[0][phys].repeat_interleave(rep, 2).transpose(1, 2)
+        q_pos = cl[:, None] - S + torch.arange(S, device=dev)[None]
+        mask = ((log_pos[None, None] <= q_pos[:, :, None])
+                & (log_pos[None, None] < cl[:, None, None]))[:, None]
+        qt = q.transpose(1, 2)
+        rec["ms"] = cuda_ms(
+            lambda: ops.paged_attention(q, k_pool, v_pool, table, cl, **kw), 20)
+        rec["plain_ms"] = cuda_ms(
+            lambda: ops.paged_attention_plain(q, k_pool, v_pool, table, cl,
+                                              **kw), 10)
+        rec["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask),
+            20)
+        esz = q.element_size()
+        visible = 0          # (query, kv position) pairs the masks keep
+        for b, Lb in enumerate(lengths):
+            for i in range(S):
+                visible += max(0, min(Lb - S + i + 1, Lb))
+        kv_bytes = sum(lengths) * Hkv * hd * 2 * esz
+        bytes_moved = 2 * q.numel() * esz + kv_bytes + table.numel() * 4
+        flops = 4.0 * visible * H * hd
+        rec["bound_ms"], rec["bound_by"] = bound(bytes_moved, flops, dname)
+    return rec
+
+
+def kernel_parity(cfg, *, max_seq_len, prefill_chunk, block_size):
+    import torch
+    from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    out = {"moe_gmm": [], "paged_attention": []}
+    E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    bf = torch.bfloat16
+    # decode at 4 slots: 4 tokens x top-4 = 16 units on 16 experts
+    dec = [0] * (E + K)
+    for e in range(0, 60, 4)[:15]:
+        dec[e] = 1
+    dec[2] = 1
+    # prefill chunk of 32 tokens: 128 units spread over the experts, and
+    # one foreign group carrying load (the fetched-weights path)
+    pre = [(3 * e + 1) % 5 for e in range(E)] + [0] * K
+    pre[E + 1] = 2
+    pre[0] += 128 - sum(pre)
+    skew = [0] * (E + K)
+    skew[7] = 128                        # empty groups, all load on one
+    # M is the dispatch buffer's c_total (MoEBlockSpec) at each shape
+    for label, sizes, M in (("decode", dec, 8320), ("prefill", pre, 8448),
+                            ("one_group", skew, 8448)):
+        out["moe_gmm"].append(moe_gmm_case(
+            label, sizes, M=M, n_local=E, d=d, f=f, block_m=128, dtype=bf,
+            seed=1, time_it=True))
+    out["moe_gmm"].append(moe_gmm_case(
+        "f32_small", [40, 0, 7, 128, 0, 3, 1, 0], M=640, n_local=6, d=256,
+        f=192, block_m=64, dtype=torch.float32, seed=2, time_it=False))
+
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    s_pad = -(-max_seq_len // prefill_chunk) * prefill_chunk
+    nb = -(-s_pad // block_size)
+    out["paged_attention"].append(paged_attention_case(
+        "decode", B=4, S=1, H=H, Hkv=Hkv, hd=hd, bs=block_size,
+        lengths=[1, 77, 200, s_pad], n_blocks=nb, softcap=0.0, dtype=bf,
+        seed=3, time_it=True))
+    bs_slab = largest_block_divisor(s_pad)
+    out["paged_attention"].append(paged_attention_case(
+        "prefill_chunk", B=1, S=prefill_chunk, H=H, Hkv=Hkv, hd=hd,
+        bs=bs_slab, lengths=[160 + prefill_chunk], n_blocks=s_pad // bs_slab,
+        softcap=0.0, dtype=bf, seed=4, time_it=True, slab=True))
+    out["paged_attention"].append(paged_attention_case(
+        "f32_gqa_softcap", B=3, S=4, H=8, Hkv=2, hd=64, bs=5,
+        lengths=[4, 23, 40], n_blocks=8, softcap=30.0, dtype=torch.float32,
+        seed=5, time_it=False))
+    for name, recs in out.items():
+        for r in recs:
+            log(f"[parity] {name} {json.dumps(r)}")
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 3/4: the main path
+# ----------------------------------------------------------------------
+def small_reference_check(seed: int = 0) -> None:
+    """A reduced qwen15-moe-a27b in f32: the card's greedy streams through
+    the kernels equal the CPU's through the plain versions."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, ServeEngine, VirtualClock, \
+        engine_config_for
+    cfg = get_config("qwen15-moe-a27b").reduced()
+    rng = torch.Generator().manual_seed(seed)
+    reqs = [(int(torch.randint(5, 40, (1,), generator=rng)),) for _ in range(5)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy()
+               for (n,) in reqs]
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, batch=3, seq_len=40, device=dev)
+        params = build_model(cfg, batch=3, seq_len=40, device="cpu").init(seed)
+        params = _to(params, dev)
+        ecfg = engine_config_for(cfg, max_slots=3, prompt_len=40,
+                                 max_new_tokens=8, prefill_chunk=16,
+                                 kv_block_size=8)
+        eng = ServeEngine(model, params, ecfg, clock=VirtualClock(0.1),
+                          device=dev)
+        out = {}
+        orig = eng._finish
+
+        def capture(st, now, out=out, orig=orig):
+            out[st.req.rid] = list(st.output)
+            orig(st, now)
+        eng._finish = capture
+        eng.run([Request(rid=i, tokens=p, max_new_tokens=8)
+                 for i, p in enumerate(prompts)])
+        streams[dev] = out
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(f"small reference: card streams "
+                             f"{streams['cuda']} != cpu streams {streams['cpu']}")
+    log(f"[reference] reduced qwen15-moe-a27b f32: {len(prompts)} greedy "
+        f"streams on the card equal the CPU plain-version streams")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
+              slots, new_tokens, seed):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    t0 = time.perf_counter()
+    model = build_model(cfg, batch=slots, seq_len=max_seq_len)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[main] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
+                        prefill_chunk=prefill_chunk, kv_block_size=block_size)
+    eng = ServeEngine(model, params, ecfg)
+    t0 = time.perf_counter()
+    eng.warmup()
+    log(f"[main] warmup (first prefill chunk + decode step) "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, tokens=rng.integers(
+                0, cfg.vocab_size, (int(rng.integers(64, 257)),)),
+                max_new_tokens=new_tokens) for i in range(n_requests)]
+    outputs = {}
+    orig = eng._finish
+
+    def capture(st, now):
+        outputs[st.req.rid] = list(st.output)
+        orig(st, now)
+    eng._finish = capture
+    torch.cuda.reset_peak_memory_stats()
+    gmm_ops.moe_gmm.launches = 0
+    pa_ops.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_gmm": gmm_ops.moe_gmm.launches,
+                "paged_attention": pa_ops.paged_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = {
+        "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
+        "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
+        "ttft_p50_s": rep["ttft"]["p50"], "ttft_p90_s": rep["ttft"]["p90"],
+        "tpot_p50_s": rep["tpot"]["p50"], "tpot_p90_s": rep["tpot"]["p90"],
+        "throughput_tok_s": rep["throughput_tok_s"], "wall_s": wall,
+        "decode_steps": rep["decode_steps"],
+        "prefill_chunks": rep["prefill_chunks"],
+        "preemptions": rep["preemptions"], "peak_mem_gib": peak,
+        "launches": launches,
+        "attention_dispatch": rep["attention_dispatch"],
+    }
+    log(f"[main] {json.dumps(summary)}")
+    # --- checks -------------------------------------------------------
+    if rep["n_requests"] != n_requests or len(outputs) != n_requests:
+        raise AssertionError(f"only {rep['n_requests']} of {n_requests} "
+                             f"requests finished")
+    for rid, toks in outputs.items():
+        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
+            raise AssertionError(f"request {rid}: bad stream {toks}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"main path")
+    # finite logits of the expected shape on a fresh chunk
+    cache = model.init_cache(1, prefill_chunk)
+    toks = torch.as_tensor(reqs[0].tokens[:prefill_chunk][None],
+                           device="cuda")
+    logits, _, _, _ = model.prefill_chunk(params, toks, cache, 0)
+    if tuple(logits.shape) != (1, cfg.padded_vocab) \
+            or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    return summary
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside the script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+
+    # --- phase 1: environment -------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    secs = build.build_all()
+    log(f"[env] kernels built in {secs:.1f} s into {build.BUILD_DIR}")
+    for name, text in build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+
+    cfg = get_config("qwen15-moe-a27b")
+    shape = dict(max_seq_len=256 + 32, prefill_chunk=32, block_size=16)
+
+    # --- phase 2: kernel parity ------------------------------------------
+    parity = kernel_parity(cfg, **shape)
+
+    # --- phase 3/4: the main path + small reference -----------------------
+    summary = main_path(cfg, n_requests=8, slots=4, new_tokens=32, seed=0,
+                        **shape)
+    small_reference_check()
+
+    kernels = []
+    for name, source in (("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu"),
+                         ("paged_attention",
+                          "src/repro_torch/csrc/paged_attention.cu")):
+        main_case = parity[name][0]               # the decode shapes
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name],
+            "launches": summary["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in parity[name]
+                               if r["dtype"] == "bfloat16"),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "cases": [{k: r.get(k) for k in ("case", "dtype", "max_abs_err",
+                                             "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}
+                      for r in parity[name]],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

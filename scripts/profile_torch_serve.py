@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Where a serve step's time goes on the GPU: the PyTorch port's main path
+(full-width qwen15-moe-a27b, random weights, bf16, paged KV, 4 slots)
+under ``torch.profiler``.
+
+    python3 scripts/profile_torch_serve.py [--decode-steps 4]
+
+Traces the first 32-token prefill chunk of a request, then, with every
+slot decoding, a few pure decode steps.  For each phase it prints one
+JSON line: the wall time per step, the device's busy time (the sum of the
+CUDA kernels' own times) and idle share, the kernels that took the most
+device time, the host-side operators that took the most CPU time, and the
+count of host-device copies and synchronisations.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "..", "src"))
+
+
+def _dev_time(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def summarize(prof, label: str, wall_s: float, n_steps: int):
+    import torch
+    events = prof.key_averages()
+    kernels = [e for e in events if _dev_time(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_dev_time(e) for e in kernels)
+    syncs = sum(e.count for e in events
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaMemcpyAsync", "cudaMemcpy"))
+    rep = {
+        "phase": label, "steps": n_steps,
+        "wall_ms_per_step": wall_s * 1e3 / n_steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+        "host_device_syncs_and_copies_per_step": syncs / n_steps,
+        "top_kernels_ms_per_step": [
+            (e.key[:60], _dev_time(e) / 1e3 / n_steps, e.count // n_steps)
+            for e in sorted(kernels, key=_dev_time, reverse=True)[:12]],
+        "top_host_ops_ms_per_step": [
+            (e.key[:60], e.self_cpu_time_total / 1e3 / n_steps,
+             e.count // n_steps)
+            for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                            reverse=True)[:12]],
+    }
+    print(json.dumps(rep), flush=True)
+    return rep
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--decode-steps", type=int, default=4)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    cfg = get_config("qwen15-moe-a27b")
+    slots, chunk = 4, 32
+    model = build_model(cfg, batch=slots, seq_len=288)
+    params = model.init(0)
+    eng = ServeEngine(model, params, EngineConfig(
+        max_slots=slots, max_seq_len=288, prefill_chunk=chunk,
+        kv_block_size=16))
+    eng.warmup()
+    rng = np.random.default_rng(0)
+    for i in range(slots):
+        eng.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                                      (128,)),
+                           max_new_tokens=64))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # the first prefill chunk, alone (no slot decodes yet)
+    eng._admit(eng.clock.now())
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng._prefill_work(eng.clock.now())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, "prefill_chunk", wall, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._prefill_work(eng.clock.now())
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "prefill_chunk_unprofiled",
+                      "wall_ms_per_step": (time.perf_counter() - t0) * 1e3}),
+          flush=True)
+    while not eng.active.all():      # fill every slot
+        eng.step()
+    # pure decode steps of the 4-slot batch
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.decode_steps):
+            eng._decode_work(eng.clock.now())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summarize(prof, "decode", wall, args.decode_steps)
+    # the same steps without the profiler, for its overhead
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.decode_steps):
+        eng._decode_work(eng.clock.now())
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "decode_unprofiled",
+                      "wall_ms_per_step": (time.perf_counter() - t0) * 1e3
+                      / args.decode_steps}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""Architecture registry of the port: the models it serves so far."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.qwen15_moe_a27b import CONFIG as _qwen
+
+REGISTRY: Dict[str, ModelConfig] = {
+    "qwen15-moe-a27b": _qwen,
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[arch]

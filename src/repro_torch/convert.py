@@ -1,0 +1,39 @@
+"""Carry the JAX package's parameters and caches over to the port.
+
+``to_torch`` maps a pytree of numpy arrays (``jax.device_get`` of params
+or caches) to torch tensors under the same key paths.  The port keeps the
+JAX layouts — stacked per-layer leaves, rank-major expert slot rows
+``[G * epr, d, f]``, ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]`` — so the
+conversion copies leaves and never remaps them.  K/V caches (the JAX
+``AttnCache`` named tuples) become the port's ``AttnCache``.  bfloat16
+leaves (numpy's ``ml_dtypes`` extension type) travel as raw 16-bit words.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.attention import AttnCache
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def to_torch(tree: Any, device="cpu") -> Any:
+    """Pytree of arrays -> the same tree of torch tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        if tuple(tree._fields) == AttnCache._fields:
+            return AttnCache(*(to_torch(v, device) for v in tree))
+        return type(tree)(*(to_torch(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    return _leaf(tree, device)

@@ -1,0 +1,227 @@
+"""Schedule-driven token dispatch / combine (paper Alg. 1 steps 4 & 6).
+
+Port of ``repro/core/dispatch.py``.  Runs once per EP rank; sender and
+receiver derive every buffer layout from the replicated schedule ``S`` and
+static conventions, so only token payloads move.  The collectives go
+through a small communicator (``all_gather``, ``all_to_all``, ``psum``):
+this slice ships the single-rank one, where each is the identity.
+
+Ordering convention (both sides): the units of (source g, expert e) are
+ordered by their within-expert rank r; the first S[g,e,0] go to
+destination 0, the next S[g,e,1] to destination 1, and so on.  Within a
+pair chunk units are ordered by (e, r); within a destination group rows
+are ordered by (source g, r).
+
+Buffers: send/recv ``[G, c_pair, d]`` for off-diagonal pairs only (the
+self-pair bypasses the all-to-all and has no capacity bound), and the
+grouped compute buffer ``[c_total, d]`` whose groups start at multiples of
+``block_m``.  Overflowing units are dropped and counted.  Group order:
+local (epr) | foreign (K).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.topology import EPTopology, local_slot_of
+
+
+class LocalComm:
+    """The single-rank communicator: rank 0 of a group of one, where every
+    collective is the identity (up to the stacked source axis)."""
+    rank = 0
+    size = 1
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x[None]
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class DispatchLayout(NamedTuple):
+    unit_dest: torch.Tensor        # [U] destination rank per unit
+    unit_pair_pos: torch.Tensor    # [U] row within the (me -> dest) pair chunk
+    unit_row_self: torch.Tensor    # [U] grouped-buffer row for self units
+    row_target: torch.Tensor       # [G, c_pair] grouped-buffer row per recv row
+    row_valid: torch.Tensor        # [G, c_pair] bool
+    group_sizes: torch.Tensor      # [n_groups] real rows per group
+    group_offsets: torch.Tensor    # [n_groups] block-aligned start row per group
+    group_expert: torch.Tensor     # [n_groups] expert id per group (-1 = inactive)
+    fids: torch.Tensor             # [K] foreign expert ids on this rank (-1 = none)
+    send_drops: torch.Tensor
+    dest_drops: torch.Tensor
+
+
+def round_up_j(x: torch.Tensor, m: int) -> torch.Tensor:
+    return ((x + m - 1) // m) * m
+
+
+def _excl_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return (torch.cumsum(x, dim=dim) - x).to(x.dtype)
+
+
+def _scatter_drop(n: int, idx: torch.Tensor, vals: torch.Tensor, *,
+                  fill: int, add: bool = False) -> torch.Tensor:
+    """``full(n, fill).at[idx].set|add(vals, mode="drop")``: indices outside
+    [0, n) are dropped."""
+    out = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
+    keep = (idx >= 0) & (idx < n)
+    if add:
+        return out.index_add_(0, idx[keep].long(), vals[keep])
+    out[idx[keep].long()] = vals[keep]
+    return out
+
+
+def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
+                 topo: EPTopology, *, c_pair: int, c_total: int,
+                 num_foreign_slots: int, block_m: int) -> DispatchLayout:
+    """Derive the full dispatch layout from schedule S [G, Ep, G] and the
+    local assignment ``assign`` [T, k] (values in [0, Ep]; the sentinel Ep
+    marks padding units that are never scheduled)."""
+    dev = assign.device
+    i32 = torch.int32
+    G, Ep = topo.num_ranks, topo.padded_experts
+    epr = topo.experts_per_rank
+    K = num_foreign_slots
+    n_groups = epr + K
+    unit_expert = assign.reshape(-1).to(i32)               # [U], token-major
+    ue = unit_expert.long()
+    U = unit_expert.shape[0]
+    is_pad_unit = unit_expert >= Ep
+    S = S.to(i32)
+
+    # ---- sender side (histograms carry an extra row for the sentinel) ----
+    counts_local = torch.bincount(ue, minlength=Ep + 1)[:Ep + 1].to(i32)
+    sort_idx = torch.argsort(unit_expert, stable=True)
+    start_of_expert = _excl_cumsum(counts_local, 0)
+    r_sorted = (torch.arange(U, dtype=i32, device=dev)
+                - start_of_expert[ue[sort_idx]])
+    r = torch.empty(U, dtype=i32, device=dev)
+    r[sort_idx] = r_sorted
+
+    S_me = torch.cat([S[me], torch.zeros((1, G), dtype=i32, device=dev)])
+    dcum = torch.cat([torch.zeros((Ep + 1, 1), dtype=i32, device=dev),
+                      torch.cumsum(S_me, dim=1).to(i32)], dim=1)  # [Ep+1, G+1]
+    dcum_u = dcum[ue]                                       # [U, G+1]
+    unit_dest = (r[:, None] >= dcum_u[:, 1:]).sum(dim=1).to(i32)
+    unit_dest = torch.clamp(unit_dest, max=G - 1)
+    ud = unit_dest.long()
+    scheduled = (r < dcum_u[:, G]) & ~is_pad_unit
+    pair_e_off = _excl_cumsum(S_me, 0)                      # [Ep+1, G]
+    unit_pair_pos = pair_e_off[ue, ud] + r - dcum[ue, ud]
+
+    # ---- receiver-side group structure -----------------------------------
+    recv_counts = S[:, :, me]                               # [G_src, Ep]
+    tok_e = recv_counts.sum(dim=0).to(i32)                  # [Ep]
+    my_local_slot = torch.as_tensor(local_slot_of(topo)[me], device=dev)
+    is_foreign_active = (tok_e > 0) & (my_local_slot < 0)
+    foreign_rank = (torch.cumsum(is_foreign_active.to(i32), 0) - 1).to(i32)
+    ar_e = torch.arange(Ep, dtype=i32, device=dev)
+    scatter_idx = torch.where(is_foreign_active,
+                              torch.clamp(foreign_rank, max=K), K)
+    fids = _scatter_drop(K + 1, scatter_idx, ar_e, fill=-1)[:K]
+    grp_of_e = torch.where(
+        my_local_slot >= 0, my_local_slot,
+        torch.where(is_foreign_active & (foreign_rank < K),
+                    epr + foreign_rank, n_groups)).to(i32)
+    grp_c = torch.clamp(grp_of_e, max=n_groups)
+    group_expert = _scatter_drop(n_groups + 1, grp_c, ar_e, fill=-1)
+    group_expert[:epr] = torch.as_tensor(topo.slot_map[me], device=dev)
+    group_expert = group_expert[:n_groups]
+    group_sizes = _scatter_drop(n_groups + 1, grp_c, tok_e, fill=0,
+                                add=True)[:n_groups]
+    padded = round_up_j(group_sizes, block_m)
+    group_offsets = _excl_cumsum(padded, 0)
+    overflow_rows = torch.minimum(
+        torch.clamp(group_offsets + padded - c_total, min=0), group_sizes)
+    wgo = _excl_cumsum(recv_counts, 0)                      # [G_src, Ep]
+
+    # ---- receiver side: map each recv row (g, c) -> grouped row ----------
+    ecum = torch.cat([torch.zeros((G, 1), dtype=i32, device=dev),
+                      torch.cumsum(recv_counts, dim=1).to(i32)], dim=1)
+    c_idx = torch.arange(c_pair, dtype=i32, device=dev)
+    e_row = torch.searchsorted(ecum[:, 1:].contiguous(),
+                               c_idx.expand(G, c_pair).contiguous(),
+                               right=True).to(i32)
+    e_row = torch.clamp(e_row, max=Ep - 1)
+    el = e_row.long()
+    r_rel = c_idx[None, :] - torch.gather(ecum, 1, el)
+    pair_total = ecum[:, Ep]
+    row_valid = ((c_idx[None, :] < pair_total[:, None])
+                 & (torch.arange(G, device=dev)[:, None] != me))
+    grp_row = grp_of_e[el]                                  # [G, c_pair]
+    row_target = (group_offsets[torch.clamp(grp_row, max=n_groups - 1).long()]
+                  + torch.gather(wgo, 1, el) + r_rel)
+    row_valid = row_valid & (grp_row < n_groups)
+    row_target = torch.where(row_valid, row_target, c_total).to(i32)
+
+    # ---- self units: grouped row computed sender-side ----------------------
+    ue_c = torch.clamp(ue, max=Ep - 1)
+    grp_u = grp_of_e[ue_c]
+    unit_row_self = (group_offsets[torch.clamp(grp_u, max=n_groups - 1).long()]
+                     + wgo[me][ue_c] + (r - dcum[ue, ud]))
+    unit_row_self = torch.where((unit_dest == me) & scheduled
+                                & (grp_u < n_groups),
+                                unit_row_self, c_total).to(i32)
+
+    send_valid = (unit_dest != me) & scheduled & (unit_pair_pos < c_pair)
+    send_drops = ((unit_dest != me) & scheduled
+                  & (unit_pair_pos >= c_pair)).sum()
+    dest_drops = overflow_rows.sum() + (tok_e * (grp_of_e == n_groups)).sum()
+    unit_pair_pos = torch.where(send_valid, unit_pair_pos, c_pair).to(i32)
+    return DispatchLayout(
+        unit_dest=unit_dest, unit_pair_pos=unit_pair_pos,
+        unit_row_self=unit_row_self, row_target=row_target,
+        row_valid=row_valid, group_sizes=group_sizes,
+        group_offsets=group_offsets, group_expert=group_expert, fids=fids,
+        send_drops=send_drops.to(i32), dest_drops=dest_drops.to(i32))
+
+
+def dispatch(x_units: torch.Tensor, layout: DispatchLayout, comm, *,
+             c_pair: int, c_total: int) -> torch.Tensor:
+    """Scatter local units [U, d] to the grouped buffers of their
+    destinations; returns this rank's grouped buffer [c_total, d]."""
+    G = comm.size
+    d = x_units.shape[-1]
+    send = torch.zeros((G, c_pair, d), dtype=x_units.dtype,
+                       device=x_units.device)
+    ok = layout.unit_pair_pos < c_pair
+    send[layout.unit_dest[ok].long(), layout.unit_pair_pos[ok].long()] = \
+        x_units[ok]
+    recv = comm.all_to_all(send).reshape(G * c_pair, d)
+    grouped = torch.zeros((c_total, d), dtype=x_units.dtype,
+                          device=x_units.device)
+    tgt = layout.row_target.reshape(-1)
+    ok = tgt < c_total
+    grouped[tgt[ok].long()] = (recv * layout.row_valid.reshape(-1, 1).to(
+        recv.dtype))[ok]
+    # self units go straight into the grouped buffer (no wire bytes)
+    ok = layout.unit_row_self < c_total
+    grouped[layout.unit_row_self[ok].long()] = x_units[ok]
+    return grouped
+
+
+def combine(out_grouped: torch.Tensor, layout: DispatchLayout, comm, *,
+            c_pair: int, gates: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Return processed rows to their source ranks and gate-combine."""
+    G = comm.size
+    d = out_grouped.shape[-1]
+    c_total = out_grouped.shape[0]
+    padded_out = torch.cat([out_grouped, out_grouped.new_zeros((1, d))])
+    back = padded_out[torch.clamp(layout.row_target, max=c_total).long()]
+    back = back * layout.row_valid[..., None].to(back.dtype)
+    ret = comm.all_to_all(back)                             # [G, c_pair, d]
+    pad_ret = torch.cat([ret, ret.new_zeros((G, 1, d))], dim=1)
+    y_remote = pad_ret[layout.unit_dest.long(),
+                       torch.clamp(layout.unit_pair_pos, max=c_pair).long()]
+    y_self = padded_out[torch.clamp(layout.unit_row_self, max=c_total).long()]
+    is_self = (layout.unit_row_self < c_total)[:, None].to(y_self.dtype)
+    y_units = y_self * is_self + y_remote * (1 - is_self)
+    T = y_units.shape[0] // top_k
+    return (y_units.reshape(T, top_k, d)
+            * gates.reshape(T, top_k, 1).to(y_units.dtype)).sum(dim=1)

@@ -1,0 +1,219 @@
+"""The HarMoEny MoE block — paper Algorithm 1, once per EP rank.
+
+Port of ``repro/core/moe_layer.py`` (``MoEBlockSpec``, ``moe_block`` and
+``_moe_forward_local`` in expert-parallel mode).  Data flow per rank:
+  1. token routing          -> route_topk (router.py)
+  2. metadata exchange      -> all_gather of the [Ep] count histogram
+  3. token scheduling       -> replicated deterministic schedule (scheduler.py)
+  4. scatter tokens         -> static-capacity all_to_all (dispatch.py)
+  5. expert processing      -> grouped FFN (the moe_gmm kernel) + the
+                               foreign-weight fetch (prefetch.py)
+  6. gather tokens          -> reverse all_to_all + gate combine (dispatch.py)
+The body is written against a communicator; this slice runs it on the
+single-rank one (G = 1).  Tensor-parallel MoE (E < G), synthetic router
+skew and replica slots are not ported yet and are rejected.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig, round_up
+from repro_torch.core import dispatch as D
+from repro_torch.core import prefetch
+from repro_torch.core.grouped_ffn import grouped_ffn
+from repro_torch.core.qthreshold import q_threshold
+from repro_torch.core.router import route_topk
+from repro_torch.core.scheduler import schedule
+from repro_torch.core.topology import EPTopology, make_topology
+
+# diagnostic keys every MoE block emits; scalars are [1]-shaped, vectors
+# [1, N] (N = ranks / experts), as in the JAX package
+SCALAR_DIAGS = ("aux_loss", "send_drops", "dest_drops", "sched_iters",
+                "moved_units", "max_load_before", "max_load_after",
+                "mean_load")
+VECTOR_DIAGS = ("rank_load", "expert_load")
+
+
+@dataclass(frozen=True)
+class MoEBlockSpec:
+    """Static plumbing for one MoE block."""
+    moe: MoEConfig
+    d_model: int
+    ep_degree: int = 1
+    tokens_local: int = 1        # tokens per step (per batch group)
+    block_m: int = 128
+    cf_pair: float = 2.0
+    act: str = "silu"            # expert activation; gated experts carry w_gate
+
+    def __post_init__(self):
+        if self.moe.num_experts < self.ep_degree:
+            raise NotImplementedError("tensor-parallel MoE (E < EP degree) "
+                                      "is not ported yet")
+        if self.moe.num_replica_slots:
+            raise NotImplementedError("replica slots are not ported yet")
+        if self.moe.router_skew > 0:
+            raise NotImplementedError("the synthetic skew router is not "
+                                      "ported yet")
+
+    @property
+    def topo(self) -> EPTopology:
+        return make_topology(self.ep_degree, self.moe.num_experts,
+                             placement=self.moe.placement)
+
+    @property
+    def t_pad(self) -> int:
+        return round_up(max(self.tokens_local, self.ep_degree), self.ep_degree)
+
+    @property
+    def t_slice(self) -> int:
+        return self.t_pad // self.ep_degree
+
+    @property
+    def units_per_rank(self) -> int:
+        return self.t_slice * self.moe.num_experts_per_tok
+
+    @property
+    def c_pair(self) -> int:
+        per_dest = -(-self.units_per_rank // self.ep_degree)  # ceil
+        return max(int(self.cf_pair * per_dest), 8)
+
+    @property
+    def n_groups(self) -> int:
+        # compute-buffer group order: local | foreign
+        return self.topo.experts_per_rank + self.moe.num_foreign_slots
+
+    @property
+    def c_total(self) -> int:
+        cap = int(self.moe.capacity_factor * self.units_per_rank)
+        return round_up(max(cap, self.block_m), self.block_m) \
+            + self.n_groups * self.block_m
+
+    @property
+    def q(self) -> int:
+        if self.moe.q_tokens:
+            return self.moe.q_tokens
+        return q_threshold(ep_degree=self.ep_degree, dense_fetch=True)
+
+
+def _expert_row_map(topo: EPTopology) -> np.ndarray:
+    """expert id -> its first global slot row (static)."""
+    rows = np.zeros((topo.padded_experts,), np.int64)
+    for g in range(topo.num_ranks):
+        for j in range(topo.experts_per_rank):
+            rows[topo.slot_map[g, j]] = g * topo.experts_per_rank + j
+    return rows
+
+
+def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
+                       spec: MoEBlockSpec, n_valid: int, comm,
+                       valid_rep: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-rank body. x_rep: [t_pad, d] replicated over the EP group."""
+    topo, moe = spec.topo, spec.moe
+    G, Ep = topo.num_ranks, topo.padded_experts
+    k = moe.num_experts_per_tok
+    K = moe.num_foreign_slots
+    me = comm.rank
+    dev = x_rep.device
+    t_slice = x_rep.shape[0] // G
+    x_slice = x_rep[me * t_slice:(me + 1) * t_slice]
+
+    # --- step 1: routing (dead tokens get the sentinel expert Ep) ---------
+    r_out = route_topk(x_slice, params["router"], top_k=k,
+                       num_real_experts=moe.num_experts)
+    valid_tok = me * t_slice + torch.arange(t_slice, device=dev) < n_valid
+    if valid_rep is not None:
+        valid_tok = valid_tok & valid_rep[me * t_slice:(me + 1) * t_slice]
+    assign = torch.where(valid_tok[:, None], r_out.assign, Ep)
+    counts = torch.bincount(assign.reshape(-1).long(),
+                            minlength=Ep + 1)[:Ep].to(torch.int32)
+
+    # --- step 2: metadata exchange ---------------------------------------
+    m_all = comm.all_gather(counts)                          # [G, Ep]
+
+    # --- step 3: replicated deterministic scheduling ------------------------
+    S, sdiag = schedule(m_all, topo, policy=moe.policy, q=spec.q,
+                        c_pair=spec.c_pair, num_foreign_slots=K)
+
+    # --- step 4: scatter -----------------------------------------------------
+    layout = D.build_layout(S, assign, me, topo, c_pair=spec.c_pair,
+                            c_total=spec.c_total, num_foreign_slots=K,
+                            block_m=spec.block_m)
+    x_units = torch.repeat_interleave(x_slice, k, dim=0)   # token-major
+    grouped = D.dispatch(x_units, layout, comm, c_pair=spec.c_pair,
+                         c_total=spec.c_total)
+
+    # --- step 5: expert processing + foreign-weight fetch --------------------
+    names = ("w_in", "w_out", "w_gate")
+    w_in, w_out, w_gate = (params.get(n) for n in names)
+    foreign = None
+    if moe.policy == "even_split":
+        # full replication: every group row gathers its expert's weights
+        rows = torch.as_tensor(_expert_row_map(topo), device=dev)
+        ge = torch.clamp(layout.group_expert, 0, Ep - 1).long()
+
+        def per_group(w):
+            w_all = comm.all_gather(w).reshape((-1,) + w.shape[1:])
+            return w_all[rows[ge]]
+        w_in, w_out = per_group(w_in), per_group(w_out)
+        w_gate = per_group(w_gate) if w_gate is not None else None
+    elif K > 0:
+        fids_all = prefetch.all_foreign_ids(S, topo, K)
+        foreign = tuple(
+            None if w is None else prefetch.fetch_foreign_weights(
+                w, fids_all, me, topo, comm)
+            for w in (w_in, w_out, w_gate))
+    sizes_padded = D.round_up_j(layout.group_sizes, spec.block_m)
+    out_grouped = grouped_ffn(grouped, w_in, w_out, sizes_padded,
+                              w_gate=w_gate, act=spec.act,
+                              block_m=spec.block_m, foreign=foreign)
+
+    # --- step 6: gather + combine ---------------------------------------------
+    y_slice = D.combine(out_grouped, layout, comm, c_pair=spec.c_pair,
+                        gates=r_out.gates, top_k=k)
+    y_rep = comm.all_gather(y_slice).reshape(-1, y_slice.shape[-1])
+
+    t_g = S.sum(dim=(0, 1)).float()
+    diag = {
+        "aux_loss": r_out.aux_loss[None],
+        "send_drops": comm.psum(layout.send_drops)[None].float(),
+        "dest_drops": comm.psum(layout.dest_drops)[None].float(),
+        "sched_iters": sdiag.iters[None].float(),
+        "moved_units": sdiag.moved[None].float(),
+        "max_load_before": sdiag.max_load_before[None].float(),
+        "max_load_after": sdiag.max_load_after[None].float(),
+        "mean_load": t_g.mean()[None],
+        "rank_load": t_g[None, :],
+        "expert_load": m_all.sum(dim=0).float()[None, :],
+    }
+    return y_rep, diag
+
+
+def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
+              spec: MoEBlockSpec, comm=None,
+              valid_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B, S, d] -> [B, S, d], diagnostics.  ``valid_mask`` [B, S] bool
+    keeps dead tokens (inactive slots, chunk padding) out of routing and
+    capacity; their outputs are garbage the caller discards."""
+    comm = comm if comm is not None else D.LocalComm()
+    if comm.size != spec.ep_degree:
+        raise ValueError(f"communicator of {comm.size} ranks for a spec of "
+                         f"EP degree {spec.ep_degree}")
+    B, S_len, d = x.shape
+    flat = x.reshape(B * S_len, d)
+    n_valid = flat.shape[0]
+    t_pad = round_up(max(n_valid, spec.ep_degree), spec.ep_degree)
+    x_rep = F.pad(flat, (0, 0, 0, t_pad - n_valid))
+    v_rep = None
+    if valid_mask is not None:          # pads are invalid
+        v = valid_mask.reshape(-1).to(torch.bool)
+        v_rep = torch.cat([v, v.new_zeros(t_pad - n_valid)])
+    y, diag = _moe_forward_local(x_rep, params, spec, n_valid, comm,
+                                 valid_rep=v_rep)
+    return y[:n_valid].reshape(B, S_len, d), diag

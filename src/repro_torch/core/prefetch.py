@@ -1,0 +1,51 @@
+"""Foreign-expert weight fetch (paper §4.3).
+
+Port of ``repro/core/prefetch.py`` (``all_foreign_ids``,
+``fetch_foreign_weights``).  Every rank computes every destination's
+foreign-expert ids from the replicated schedule; each source fills, for
+each destination, the K slots it hosts, and one all-to-all delivers them.
+
+The JAX version builds each source's outbox as a mask einsum over ALL of
+its local experts (``prefetch.py:84``).  At G = 1 every expert is local,
+the ids are all -1 and the result is zeros, yet the einsum reads every
+expert's matrices (~1 GB per layer at qwen15-moe-a27b's width).  The port
+computes the same function as an index gather: the hosting slot's row
+divided by ``hosts_per_expert``, zeros for -1 — K rows read, not all.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.topology import EPTopology, local_slot_of
+
+
+def all_foreign_ids(S: torch.Tensor, topo: EPTopology,
+                    num_foreign_slots: int) -> torch.Tensor:
+    """FIDS [G, K]: the k-th foreign expert of each destination (-1 = none),
+    a pure function of the replicated schedule S [G, Ep, G]."""
+    G, Ep = topo.num_ranks, topo.padded_experts
+    K = num_foreign_slots
+    dev = S.device
+    tok_e = S.sum(dim=0)                                     # [Ep, G_dst]
+    lsl = torch.as_tensor(local_slot_of(topo), device=dev)   # [G, Ep]
+    active = (tok_e.T > 0) & (lsl < 0)
+    f_rank = torch.cumsum(active.to(torch.int32), dim=1) - 1
+    scatter = torch.where(active, torch.clamp(f_rank, max=K), K)
+    fids = torch.full((G, K + 1), -1, dtype=torch.int32, device=dev)
+    src = torch.arange(Ep, dtype=torch.int32, device=dev).expand(G, Ep)
+    fids.scatter_(1, scatter.long(), src)     # duplicates only at column K
+    return fids[:, :K]
+
+
+def fetch_foreign_weights(w_local: torch.Tensor, fids_all: torch.Tensor,
+                          me: int, topo: EPTopology, comm) -> torch.Tensor:
+    """w_local [epr, ...] (this rank's expert rows) -> [K, ...] foreign
+    weights for this rank.  fids_all: FIDS [G, K] replicated."""
+    slot_of = torch.as_tensor(local_slot_of(topo)[me], device=w_local.device)
+    slot = torch.where(fids_all >= 0,
+                       slot_of[torch.clamp(fids_all, min=0).long()], -1)
+    hosted = (slot >= 0).to(w_local.dtype) / topo.hosts_per_expert
+    idx = torch.clamp(slot, min=0).long()                    # [G, K]
+    extra = (1,) * (w_local.ndim - 1)
+    out = w_local[idx] * hosted.reshape(hosted.shape + extra)  # [G_dst, K, ...]
+    return comm.all_to_all(out).sum(dim=0)                   # sum over sources

@@ -1,0 +1,170 @@
+"""Grouped expert FFN: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/moe_gmm/`` (``moe_gmm``, ``ops.fused_expert_ffn``,
+``ref.moe_gmm_ref``).  ``moe_gmm`` launches the hand-written kernel in
+``csrc/moe_gmm.cu`` for CUDA tensors and runs ``moe_gmm_plain`` for CPU
+tensors; there is no fallback from one to the other.
+
+Weights come as ``G0`` local groups plus, optionally, ``foreign`` — the
+``K`` fetched foreign groups that follow them in group order — so the
+caller never concatenates the two into one copy.  The kernel takes every
+32-row sub-tile of ``x`` that is all zeros as zero rows (exact zeros out,
+since act(0) = 0): the dispatch buffer's padding rows are zeros by
+construction.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+_ACTS = {"silu": 0, "gelu": 1, "relu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Foreign = Optional[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]]
+
+
+def tile_group_map(group_sizes_padded: torch.Tensor, n_tiles: int,
+                   block_m: int) -> torch.Tensor:
+    """tile index -> group id from block-aligned group extents.  Tiles
+    beyond the last group clamp to the final group (their rows are zeros)."""
+    offsets = torch.cumsum(group_sizes_padded, 0).to(torch.int32)
+    starts = torch.arange(n_tiles, dtype=torch.int32,
+                          device=group_sizes_padded.device) * block_m
+    tg = torch.searchsorted(offsets, starts, right=True).to(torch.int32)
+    return torch.clamp(tg, max=group_sizes_padded.shape[0] - 1)
+
+
+def _act(name: str, h: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":
+        return F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    if name == "relu":
+        return F.relu(h)
+    if name == "silu":
+        return F.silu(h)
+    raise ValueError(name)
+
+
+def _with_foreign(w_in, w_out, w_gate, foreign: Foreign):
+    if foreign is None:
+        return w_in, w_out, w_gate
+    fi, fo, fg = foreign
+    return (torch.cat([w_in, fi]), torch.cat([w_out, fo]),
+            None if w_gate is None else torch.cat([w_gate, fg]))
+
+
+def moe_gmm_plain(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+                  tile_group: torch.Tensor, *,
+                  w_gate: Optional[torch.Tensor] = None, act: str = "silu",
+                  block_m: int = 128, foreign: Foreign = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: per tile, f32 products, the
+    activation in f32, h rounded to x's type before the second product."""
+    w_in, w_out, w_gate = _with_foreign(w_in, w_out, w_gate, foreign)
+    M, d = x.shape
+    tg = tile_group.long()
+    xt = x.reshape(M // block_m, block_m, d).float()
+    h = torch.bmm(xt, w_in[tg].float())
+    if w_gate is not None:
+        h = F.silu(torch.bmm(xt, w_gate[tg].float())) * h
+    else:
+        h = _act(act, h)
+    y = torch.bmm(h.to(x.dtype).float(), w_out[tg].float())
+    return y.reshape(M, d).to(x.dtype)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _lib():
+    lib = build.load("moe_gmm")
+    fn = lib.moe_gmm_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, i, p, p, p, p,
+                       i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m):
+    M, d = x.shape
+    G0, d_w, f = w_in.shape
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"moe_gmm takes float32 or bfloat16, not {x.dtype}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    mats = [w_in, w_out, w_gate] + (list(foreign) if foreign else [])
+    for t in [x, tile_group] + mats:
+        if t is None:
+            continue
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("moe_gmm: every operand must be a contiguous "
+                             "tensor on x's device")
+    for t in mats:
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError("moe_gmm: weights must have x's dtype")
+    if d_w != d or w_out.shape != (G0, f, d) or (
+            w_gate is not None and w_gate.shape != w_in.shape):
+        raise ValueError("moe_gmm: weight shapes disagree with x")
+    if foreign is not None:
+        fi, fo, fg = foreign
+        K = fi.shape[0]
+        if fi.shape != (K, d, f) or fo.shape != (K, f, d) or (
+                (fg is None) != (w_gate is None)
+                or (fg is not None and fg.shape != fi.shape)):
+            raise ValueError("moe_gmm: foreign weight shapes disagree")
+    if tile_group.dtype != torch.int32 or tile_group.shape != (M // block_m,):
+        raise ValueError("moe_gmm: tile_group must be int32 [M // block_m]")
+    if M % block_m or block_m % 32 or d % 64 or f % 64:
+        raise ValueError(f"moe_gmm kernel needs M % block_m == 0, block_m % "
+                         f"32 == 0, d % 64 == 0 and f % 64 == 0; got M={M}, "
+                         f"block_m={block_m}, d={d}, f={f}")
+
+
+def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+            tile_group: torch.Tensor, *, w_gate: Optional[torch.Tensor] = None,
+            act: str = "silu", block_m: int = 128,
+            foreign: Foreign = None) -> torch.Tensor:
+    """x [M, d]; w_in/w_gate [G0, d, f]; w_out [G0, f, d]; ``foreign`` an
+    optional (w_in, w_out, w_gate) of K more groups; tile_group
+    [M // block_m] int32 in [0, G0 + K) -> [M, d] in x's type."""
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, w_in, w_out, tile_group, w_gate=w_gate,
+                             act=act, block_m=block_m, foreign=foreign)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm runs on cuda or cpu, not {x.device}")
+    _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m)
+    M, d = x.shape
+    f = w_in.shape[2]
+    fi, fo, fg = foreign if foreign is not None else (None, None, None)
+    h = torch.empty((M, f), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, d), dtype=x.dtype, device=x.device)
+    live = torch.empty((M // 32,), dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _lib()(_DTYPES[x.dtype], int(w_gate is not None), _ACTS[act],
+                x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
+                _ptr(fi), _ptr(fg), _ptr(fo), w_in.shape[0],
+                tile_group.data_ptr(), live.data_ptr(), h.data_ptr(),
+                y.data_ptr(), M, d, f, block_m, stream)
+    build.check(rc, "moe_gmm")
+    moe_gmm.launches += 1
+    return y
+
+
+moe_gmm.launches = 0     # kernel launches (CUDA tensors only)
+
+
+def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+                     group_sizes_padded: torch.Tensor, *,
+                     w_gate: Optional[torch.Tensor] = None, act: str = "silu",
+                     block_m: int = 128, foreign: Foreign = None
+                     ) -> torch.Tensor:
+    """Entry used by ``core/grouped_ffn.py``: block-aligned group extents
+    -> tile map -> ``moe_gmm``."""
+    tg = tile_group_map(group_sizes_padded, x.shape[0] // block_m, block_m)
+    return moe_gmm(x, w_in, w_out, tg, w_gate=w_gate, act=act,
+                   block_m=block_m, foreign=foreign)

@@ -1,0 +1,225 @@
+"""``build_model``: the model API the serve engine drives.
+
+Port of ``repro/models/model.py`` for decoder-only MoE stacks whose every
+layer is an MoE layer (the qwen15-moe-a27b family; other layer patterns
+are not ported yet).  The returned ``Model`` exposes:
+  init(seed)                                   -> params (random, seeded)
+  prefill_chunk(params, tokens, caches, pos, last_index)
+                                               -> (logits, caches, pos + C, diags)
+  decode_step(params, token, caches, pos, active_mask, block_table, block_size)
+                                               -> (logits, caches, pos + S, diags)
+  init_cache(batch, s_max)                     -> slab K/V caches (prefill scratch)
+  init_paged_cache(num_blocks, block_size)     -> the physical paged K/V pool
+Caches are updated in place.  Everything lives on ``model.device``: CUDA
+unless the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core.moe_layer import MoEBlockSpec
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import norm
+from repro_torch.models.losses import logits_head
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _normal(shape, scale: float, gen: torch.Generator, device,
+            dtype) -> torch.Tensor:
+    """N(0, scale^2) draws in f32, cast to ``dtype`` a slab at a time so the
+    f32 transient stays bounded at full width."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    inner = math.prod(shape[1:])
+    step = max(1, (1 << 28) // max(inner, 1))
+    for i in range(0, shape[0], step):
+        rows = min(step, shape[0] - i)
+        out[i:i + rows] = (torch.randn((rows,) + tuple(shape[1:]),
+                                       generator=gen, device=device)
+                           * scale).to(dtype)
+    return out
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    moe_spec: MoEBlockSpec          # prefill chunks (tokens_local per call)
+    moe_spec_decode: MoEBlockSpec   # decode steps
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.cfg.dtype]
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> Dict[str, Any]:
+        """Random parameters at the JAX init's scales (the two frameworks'
+        generators differ: tests convert JAX weights instead, convert.py)."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d, H, Hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim)
+        Vp = cfg.padded_vocab
+        pattern, n, _ = T.layer_pattern(cfg)
+        s_d = (2.0 / d) ** 0.5
+
+        def nrm(shape, scale, dtype=dt):
+            return _normal(shape, scale, gen, dev, dtype)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def layer():
+            topo = self.moe_spec.topo
+            rows = topo.num_ranks * topo.experts_per_rank
+            f = cfg.moe.d_ff_expert
+            p: Dict[str, Any] = {
+                "norm1": {"scale": zeros((n, d))},
+                "norm2": {"scale": zeros((n, d))},
+                "attn": {"wq": nrm((n, d, H, hd), s_d),
+                         "wk": nrm((n, d, Hkv, hd), s_d),
+                         "wv": nrm((n, d, Hkv, hd), s_d),
+                         "wo": nrm((n, H, hd, d), s_d)},
+                "moe": {"router": nrm((n, d, topo.padded_experts), 0.02,
+                                      torch.float32),
+                        "w_in": nrm((n, rows, d, f), s_d),
+                        "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5),
+                        "w_gate": nrm((n, rows, d, f), s_d)},
+            }
+            if cfg.moe.num_shared_experts:
+                fs = cfg.moe.num_shared_experts * f
+                p["shared_mlp"] = {"w_in": nrm((n, d, fs), s_d),
+                                   "w_out": nrm((n, fs, d), (2.0 / fs) ** 0.5),
+                                   "w_gate": nrm((n, d, fs), s_d)}
+            return p
+
+        params: Dict[str, Any] = {
+            "embed": nrm((Vp, d), 0.02),
+            "final_norm": {"scale": zeros((d,))},
+            "stack": {"blocks": {f"sub{j}": layer()
+                                 for j in range(len(pattern))}},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = nrm((Vp, d), 0.02)
+        return params
+
+    def init_cache(self, b: int, s_max: int) -> Dict[str, Any]:
+        return {"stack": T.init_stack_cache(self.cfg, b, s_max, self.dtype,
+                                            self.device)}
+
+    def init_paged_cache(self, num_blocks: int,
+                         block_size: int) -> Dict[str, Any]:
+        """A batch-1 physical pool of ``num_blocks * block_size`` KV
+        positions per leaf, addressed through block tables."""
+        from repro_torch.serve.paging import make_paged_pool
+        return make_paged_pool(self.init_cache, num_blocks, block_size)
+
+    # ------------------------------------------------------------------
+    def _vocab_w(self, params):
+        return params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
+
+    def _head(self, params, h_last):
+        h_last = norm(h_last, params["final_norm"], self.cfg.norm)
+        return logits_head(h_last, self._vocab_w(params),
+                           real_vocab=self.cfg.vocab_size,
+                           softcap=self.cfg.final_logit_softcap)
+
+    def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos: int,
+                      last_index: Optional[int] = None):
+        """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
+        ``caches`` at position ``pos`` (all rows share it).  Logits at
+        ``last_index`` (default C - 1); pad tokens past it are kept out of
+        MoE routing and capacity."""
+        Bc, C = tokens.shape
+        spec = dataclasses.replace(self.moe_spec, tokens_local=Bc * C)
+        vmask = None
+        if last_index is not None:
+            vmask = (torch.arange(C, device=self.device)[None, :]
+                     <= last_index).expand(Bc, C)
+        h = params["embed"][tokens]
+        h, stack, diags = T.run_stack(
+            h, params["stack"], self.cfg, cache=caches["stack"],
+            cache_len=pos + C, q_offset=pos, moe_spec=spec,
+            continue_prefill=True, valid_mask=vmask)
+        idx = C - 1 if last_index is None else last_index
+        return self._head(params, h[:, idx]), caches, pos + C, diags
+
+    def decode_step(self, params, token: torch.Tensor, caches,
+                    pos: torch.Tensor, *, active_mask=None,
+                    block_table: torch.Tensor, block_size: int):
+        """token [B, S] (S = 1 plain decode) against the paged pool; pos [B]
+        is each row's length BEFORE the window.  Returns logits [B, Vp]
+        at the last position when S == 1, else [B, S, Vp]."""
+        B, S = token.shape
+        new_pos = pos + S
+        vmask = None
+        if active_mask is not None:
+            vmask = active_mask.reshape(-1, 1).expand(B, S)
+        spec = self.moe_spec_decode
+        if S > 1:
+            spec = dataclasses.replace(spec, tokens_local=spec.tokens_local * S)
+        h = params["embed"][token]
+        h, stack, diags = T.run_stack(
+            h, params["stack"], self.cfg, cache=caches["stack"],
+            cache_len=new_pos, q_offset=pos, moe_spec=spec,
+            valid_mask=vmask, block_table=block_table, block_size=block_size)
+        if S == 1:
+            logits = self._head(params, h[:, -1])
+        else:
+            logits = self._head(params, h.reshape(B * S, -1)).reshape(B, S, -1)
+        return logits, caches, new_pos, diags
+
+
+def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
+    """Foreign slots at decode: even_split lands every non-local expert,
+    harmoeny keeps the configured K, the static policies need none."""
+    topo = spec.topo
+    if policy == "even_split":
+        return topo.padded_experts - topo.experts_per_rank
+    if policy == "harmoeny":
+        return spec.moe.num_foreign_slots
+    return 0
+
+
+def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
+                batch: int, seq_len: int, device=None) -> Model:
+    """The port's model for a decoder-only dense/MoE ``cfg`` on one rank.
+    ``device`` defaults to CUDA and raises when no GPU is present."""
+    dev = resolve_device(device)
+    unsupported = [
+        (not cfg.is_moe or cfg.family != "moe", f"family {cfg.family!r}"),
+        (cfg.is_moe and (cfg.moe.moe_layer_period != 1
+                         or cfg.moe.first_dense_layers != 0),
+         "dense layers between MoE layers"),
+        (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
+         "encoder-decoder / prefix-embedding models"),
+        (cfg.rope_theta <= 0, "absolute position embeddings"),
+        (cfg.sliding_window > 0 or cfg.global_attn_every > 0,
+         "sliding-window attention"),
+        (cfg.post_norm, "post-norm layers"),
+        (cfg.name.startswith("gemma"), "gemma embedding scaling"),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(f"{cfg.name}: {what} not ported yet")
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"{cfg.name}: {cfg.act} experts not "
+                                  f"ported yet")
+    moe_spec = MoEBlockSpec(
+        moe=cfg.moe, d_model=cfg.d_model, ep_degree=1,
+        tokens_local=batch * seq_len, act="silu",
+        cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m)
+    # decode: one token per sequence, 128-row tiles, K per policy
+    moe_spec_decode = dataclasses.replace(
+        moe_spec, tokens_local=batch, block_m=128,
+        moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
+            _decode_foreign_slots(moe_spec, cfg.moe.policy))))
+    return Model(cfg=cfg, device=dev, moe_spec=moe_spec,
+                 moe_spec_decode=moe_spec_decode)

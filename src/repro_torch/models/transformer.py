@@ -1,0 +1,90 @@
+"""Decoder stack for the MoE family (port of
+``repro/models/transformer.py``: ``layer_pattern``, ``run_stack``,
+``init_stack_cache``).
+
+Parameters stay stacked per layer exactly as in the JAX package
+(``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
+so converting JAX weights is a reshape-free copy; a Python loop over the
+steps replaces ``lax.scan``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe_layer import MoEBlockSpec, moe_block
+from repro_torch.models import attention as A
+from repro_torch.models.layers import mlp, norm
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
+    """(pattern, n_steps, n_lead_dense): layer kinds within one period of
+    the stack, the number of periods, and leading unscanned dense layers.
+    The port builds only all-MoE stacks (``build_model`` rejects others)."""
+    return ["moe"], cfg.num_layers, 0
+
+
+def layer_slice(tree: Any, i: int) -> Any:
+    """Step ``i`` of a stacked parameter / cache tree."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, A.AttnCache):
+        return A.AttnCache(tree.k[i], tree.v[i])
+    return tree[i]
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
+                     device) -> Dict[str, Any]:
+    """Stacked K/V caches [n_steps, batch, s_max, Hkv, hd] per pattern slot."""
+    pattern, n_steps, _ = layer_pattern(cfg)
+    shape = (n_steps, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"blocks": {
+        f"sub{j}": A.AttnCache(torch.zeros(shape, dtype=dtype, device=device),
+                               torch.zeros(shape, dtype=dtype, device=device))
+        for j in range(len(pattern))}}
+
+
+def _apply_one_layer(x, p, cfg: ModelConfig, *, cache, q_offset,
+                     cache_len, moe_spec: MoEBlockSpec,
+                     continue_prefill: bool, valid_mask, block_table,
+                     block_size: int):
+    """norm -> attention -> residual -> norm -> MoE block (+ shared
+    experts) -> residual.  Returns (x, diagnostics of this layer)."""
+    h, _ = A.attention_block(
+        norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
+        cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
+        block_table=block_table, block_size=block_size)
+    x = x + h
+    h = norm(x, p["norm2"], cfg.norm)
+    y, mdiag = moe_block(h, p["moe"], spec=moe_spec, valid_mask=valid_mask)
+    if "shared_mlp" in p:
+        y = y + mlp(h, p["shared_mlp"])
+    # collapse the leading batch-group axis only
+    return x + y, {k: v.mean(dim=0) for k, v in mdiag.items()}
+
+
+def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
+              cache: Dict[str, Any], cache_len=None, q_offset=0,
+              moe_spec: MoEBlockSpec,
+              continue_prefill: bool = False, valid_mask=None,
+              block_table=None, block_size: int = 0
+              ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Run every layer on x [B, S, d], updating ``cache`` in place.
+    Returns (x, cache, diags averaged over the MoE layers)."""
+    pattern, n_steps, _ = layer_pattern(cfg)
+    per_step: Dict[str, List[torch.Tensor]] = {}
+    for i in range(n_steps):
+        p_step = layer_slice(params["blocks"], i)
+        for j in range(len(pattern)):
+            x, d = _apply_one_layer(
+                x, p_step[f"sub{j}"], cfg,
+                cache=layer_slice(cache["blocks"][f"sub{j}"], i),
+                q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
+                continue_prefill=continue_prefill, valid_mask=valid_mask,
+                block_table=block_table, block_size=block_size)
+            for k, v in d.items():
+                per_step.setdefault(k, []).append(v)
+    diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}
+    return x, cache, diags

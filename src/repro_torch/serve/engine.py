@@ -1,0 +1,431 @@
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``,
+unified role, paged KV pool).
+
+``ServeEngine`` composes three parts, as in the JAX package:
+``AdmissionFront`` (arrival queue, free slots, prefill pipeline, preempted
+recompute queue), ``StepCore`` (the prefill-chunk and decode steps) and
+``KVOwner`` (paged pool, block allocator and table, prefill scratch).
+Newcomers' prompts are consumed chunk by chunk through
+``model.prefill_chunk`` on a ``[1, prefill_chunk]`` scratch, interleaved
+with decode steps of the whole slot batch through ``model.decode_step``
+on the paged pool.  Admission is gated on free blocks, chains grow as
+decode advances, blocks return the moment a request finishes, and when
+the allocator runs dry the youngest block holder is preempted and later
+recomputed (prompt plus committed tokens re-prefilled).  Greedy decoding.
+On the card every step goes through the hand-written kernels: paged
+attention in every layer, the grouped expert FFN in every MoE layer.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import round_up
+from repro_torch.models import attention as attention_dispatch
+from repro_torch.serve.arrivals import WallClock
+from repro_torch.serve.frontend import AdmissionFront
+from repro_torch.serve.kvstore import KVOwner
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.paging import NULL_BLOCK
+from repro_torch.serve.request import Request, RequestState, RequestStatus
+from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.stepcore import StepCore
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Static serving shapes.  The fields after ``num_kv_blocks`` exist in
+    the JAX engine but are not ported yet: setting one raises."""
+    max_slots: int = 4          # decode batch width (concurrent requests)
+    max_seq_len: int = 128      # logical KV length (prompt + generation)
+    prefill_chunk: int = 32     # prompt tokens consumed per prefill call
+    chunks_per_step: int = 1    # prefill chunks interleaved per engine step
+    eos_id: Optional[int] = None
+    kv_block_size: int = 16     # tokens per physical KV block
+    num_kv_blocks: int = 0      # usable blocks (0 = worst case for every slot)
+    # --- not ported yet ---
+    role: str = "unified"
+    paged: bool = True
+    prefix_sharing: bool = False
+    speculative_k: int = 0
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    moe_policy: Optional[str] = None
+    rebalance_interval: int = 0
+    replica_slots: int = 0
+    resident_experts: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> "EngineConfig":
+        if self.max_slots < 1 or self.max_seq_len < 1:
+            raise ValueError("max_slots and max_seq_len must be >= 1")
+        if self.prefill_chunk < 1 or self.chunks_per_step < 1:
+            raise ValueError("prefill_chunk and chunks_per_step must be >= 1")
+        if self.kv_block_size < 1:
+            raise ValueError("kv_block_size must be >= 1")
+        if self.num_kv_blocks < 0:
+            raise ValueError("num_kv_blocks must be >= 0")
+        unported = {
+            "role": self.role != "unified",
+            "paged": not self.paged,
+            "prefix_sharing": self.prefix_sharing,
+            "speculative_k": self.speculative_k != 0,
+            "temperature": self.temperature != 0.0,
+            "top_k": self.top_k != 0,
+            "top_p": self.top_p != 1.0,
+            "moe_policy": self.moe_policy is not None,
+            "rebalance_interval": self.rebalance_interval != 0,
+            "replica_slots": self.replica_slots != 0,
+            "resident_experts": self.resident_experts != 0,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"EngineConfig fields not ported yet: {bad} (the port serves "
+                f"the unified role from a paged pool with greedy decoding)")
+        return self
+
+
+def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
+                      max_new_tokens: int, prefill_chunk: int = 0,
+                      eos_id: Optional[int] = None, kv_block_size: int = 16,
+                      num_kv_blocks: int = 0) -> EngineConfig:
+    """Serving shapes from a workload: the pool covers prompt + generation
+    and the prefill chunk divides the padded prompt."""
+    chunk = prefill_chunk or min(max(prompt_len, 1), 32)
+    pad = round_up(prompt_len, chunk)
+    return EngineConfig(
+        max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
+        prefill_chunk=chunk, eos_id=eos_id, kv_block_size=kv_block_size,
+        num_kv_blocks=num_kv_blocks)
+
+
+class ServeEngine:
+    def __init__(self, model, params, ecfg: EngineConfig, *, clock=None,
+                 device=None):
+        dev = resolve_device(device)
+        if model.device != dev:
+            raise ValueError(f"model lives on {model.device}, engine asked "
+                             f"to run on {dev}")
+        ecfg.validate()
+        cfg = model.cfg
+        self.model = model
+        self.params = params
+        self.ecfg = ecfg
+        self.cfg = cfg
+        self.device = dev
+        self.clock = clock or WallClock()
+        self.metrics = ServeMetrics()
+        self.core = StepCore(model, ecfg)
+        B, C = ecfg.max_slots, ecfg.prefill_chunk
+        # prefill writes whole padded chunks: chains cover the
+        # chunk-rounded logical length
+        self.kv = KVOwner(model, ecfg, s_pad=round_up(ecfg.max_seq_len, C))
+        self.front = AdmissionFront(B)
+        self.pos = np.zeros((B,), np.int32)      # per-slot sequence length
+        self.tok = np.zeros((B,), np.int32)      # per-slot last token
+        self.active = np.zeros((B,), bool)       # slot in the decode batch
+        self._step_idx = 0
+        self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
+        attention_dispatch.reset_dispatch_log()
+
+    # ------------------------------------------------------------------
+    @property
+    def block_table(self) -> np.ndarray:
+        return self.kv.block_table
+
+    @property
+    def _alloc(self):
+        return self.kv.alloc
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _eos_id(self, req: Request) -> Optional[int]:
+        return req.eos_id if req.eos_id is not None else self.ecfg.eos_id
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        L, C = req.prompt_len, self.ecfg.prefill_chunk
+        if round_up(L, C) > self.kv.kv_capacity:
+            raise ValueError(
+                f"request {req.rid}: prompt of {L} (padded to "
+                f"{round_up(L, C)}) exceeds the per-layer KV capacity "
+                f"{self.kv.kv_capacity}")
+        if L + req.max_new_tokens > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {L} + max_new "
+                f"{req.max_new_tokens} exceeds max_seq_len "
+                f"{self.ecfg.max_seq_len}")
+        self.front.queue.push(req)
+
+    def has_work(self) -> bool:
+        return bool(len(self.front.queue) or self._in_flight())
+
+    def _in_flight(self) -> bool:
+        return self.front.in_flight(bool(self.active.any()))
+
+    # ------------------------------------------------------------------
+    # admission (block-aware; preempted requests first)
+    # ------------------------------------------------------------------
+    def _place(self, st: RequestState, n_fresh: int) -> None:
+        front = self.front
+        slot = front.free_slots.popleft()
+        st.slot = slot
+        st.status = RequestStatus.PREFILL
+        st.admit_seq = front.admit_seq
+        front.admit_seq += 1
+        front.state_by_slot[slot] = st
+        front.slot_history.append((st.req.rid, slot))
+        chain = self._alloc.alloc_chain(st.req.rid, n_fresh)
+        assert chain is not None          # gated by can_admit
+        st.prefill_pos = 0
+        # the engine-visible table row stays null until the slot joins the
+        # decode batch: decode writes every row's (garbage, for inactive
+        # rows) K/V through the table, which must not reach mid-prefill
+        # blocks.  Prefill writes go through kv.bt_row instead.
+        front.pf_queue.append(st)
+
+    def _activate(self, st: RequestState, pos: int, tok: int) -> None:
+        """Move a finished prefill into the decode batch."""
+        s = st.slot
+        st.status = RequestStatus.DECODE
+        self.pos[s] = pos
+        self.tok[s] = tok
+        self.active[s] = True
+        self.block_table[s] = self.kv.bt_row(st.req.rid)
+
+    def _admit(self, now: float) -> None:
+        self.front.admit(now, plan_fn=self.kv.plan,
+                         can_admit_fn=self.kv.can_admit,
+                         place_fn=self._place)
+
+    # ------------------------------------------------------------------
+    # preemption by recompute under allocator pressure
+    # ------------------------------------------------------------------
+    def _youngest_holder(self) -> Optional[RequestState]:
+        cands = [st for st in self.front.state_by_slot if st is not None]
+        return max(cands, key=lambda st: st.admit_seq) if cands else None
+
+    def _preempt(self, st: RequestState) -> None:
+        front = self.front
+        s = st.slot
+        self.kv.release(st.req.rid, s)
+        self.active[s] = False
+        self.pos[s] = 0
+        self.tok[s] = 0
+        front.state_by_slot[s] = None
+        front.free_slots.append(s)
+        if front.pf is st:
+            front.pf = None
+        elif st in front.pf_queue:
+            front.pf_queue.remove(st)
+        st.slot = -1
+        st.status = RequestStatus.QUEUED
+        st.prefill_pos = 0
+        st.n_preempted += 1
+        front.resume.append(st)
+        self.metrics.preemptions += 1
+
+    def _grow_chain(self, st: RequestState) -> bool:
+        """Extend ``st``'s chain by one block, preempting the youngest
+        holder while the allocator is dry.  False if ``st`` itself was the
+        youngest and got preempted."""
+        while True:
+            blk = self._alloc.extend(st.req.rid)
+            if blk is not None:
+                n = len(self._alloc.chain(st.req.rid))
+                self.block_table[st.slot, n - 1] = blk
+                return True
+            victim = self._youngest_holder()
+            if victim is None:
+                raise RuntimeError("KV allocator dry with no block holders")
+            self._preempt(victim)
+            if victim is st:
+                return False
+
+    def _ensure_decode_blocks(self) -> None:
+        """Every active slot's chain must cover its write position before a
+        decode step; grow oldest requests first."""
+        bs = self.ecfg.kv_block_size
+        order = sorted(np.nonzero(self.active)[0],
+                       key=lambda s: self.front.state_by_slot[s].admit_seq)
+        for s in order:
+            if not self.active[s]:        # preempted earlier in this pass
+                continue
+            st = self.front.state_by_slot[s]
+            while len(self._alloc.chain(st.req.rid)) * bs <= self.pos[s]:
+                if not self._grow_chain(st):
+                    break
+
+    # ------------------------------------------------------------------
+    def _host_diags(self, diags) -> Dict[str, np.ndarray]:
+        if not self.cfg.is_moe:
+            return {}
+        return {k: v.detach().cpu().numpy() for k, v in diags.items()}
+
+    def _prefill_work(self, now: float) -> bool:
+        front = self.front
+        did = False
+        C = self.ecfg.prefill_chunk
+        for _ in range(self.ecfg.chunks_per_step):
+            if front.pf is None:
+                if not front.pf_queue:
+                    break
+                front.pf = front.pf_queue.popleft()
+            st = front.pf
+            seq = st.prefill_tokens
+            start, L = st.prefill_pos, st.prefill_len
+            n = min(C, L - start)
+            chunk = np.zeros((1, C), np.int32)
+            chunk[0, :n] = seq[start:start + n]
+            logits, diags = self.core.prefill(self.params, chunk,
+                                              self.kv.scratch, start, n - 1)
+            # finished chunk -> straight into the allocated blocks
+            self.kv.write(self.kv.bt_row(st.req.rid), start, start + n)
+            self._sync()
+            st.prefill_pos += n
+            self.metrics.record_step(self._host_diags(diags), 0,
+                                     phase="prefill")
+            did = True
+            if st.prefill_done:
+                if st.resumed:
+                    # recompute finished: the pending last token decodes next
+                    self._activate(st, L, st.output[-1])
+                    front.pf = None
+                    continue
+                first = int(sample_tokens(logits)[0])
+                # stamp after the device sync: TTFT includes the prefill
+                now = self.clock.now()
+                st.first_token_time = now
+                st.output.append(first)
+                eos = self._eos_id(st.req)
+                if (eos is not None and first == eos) \
+                        or st.n_generated >= st.req.max_new_tokens:
+                    self._finish(st, now)
+                else:
+                    self._activate(st, L, first)
+                front.pf = None
+        return did
+
+    def _decode_work(self, now: float) -> bool:
+        if self.active.any():
+            self._ensure_decode_blocks()
+        if not self.active.any():
+            return False
+        nxt, diags = self.core.decode(self.params, self.tok[:, None],
+                                      self.kv.pool, self.pos,
+                                      self.block_table.copy(),
+                                      self.active.copy())
+        now = self.clock.now()       # post-sync: token times include compute
+        n_active = int(self.active.sum())
+        self.metrics.record_step(self._host_diags(diags), n_active,
+                                 phase="decode")
+        self.metrics.record_kv(self._alloc.blocks_in_use,
+                               self._alloc.usable_blocks)
+        for s in np.nonzero(self.active)[0]:
+            st = self.front.state_by_slot[s]
+            self.pos[s] += 1
+            t = int(nxt[s])
+            st.output.append(t)
+            eos = self._eos_id(st.req)
+            if (eos is not None and t == eos) \
+                    or st.n_generated >= st.req.max_new_tokens:
+                self._finish(st, now)
+            else:
+                self.tok[s] = t
+        return True
+
+    def _finish(self, st: RequestState, now: float) -> None:
+        st.finish_time = now
+        st.status = RequestStatus.FINISHED
+        self.metrics.complete(st)
+        s = st.slot
+        self.active[s] = False
+        self.pos[s] = 0
+        self.tok[s] = 0
+        self.front.state_by_slot[s] = None
+        self.front.free_slots.append(s)
+        self.kv.release(st.req.rid, s)     # blocks return to the free list now
+
+    # ------------------------------------------------------------------
+    def warmup(self) -> None:
+        """Run one prefill chunk and one decode step on dummy data (all
+        writes land in the null block), so the first request's TTFT does
+        not include building the kernels or first-call set-up.  The engine
+        must be idle."""
+        if self.has_work() or any(st is not None
+                                  for st in self.front.state_by_slot):
+            raise RuntimeError("warmup() must run on an idle engine")
+        attention_dispatch.reset_dispatch_log()
+        C = self.ecfg.prefill_chunk
+        null_row = np.full((self.kv.blocks_per_slot,), NULL_BLOCK, np.int32)
+        self.core.prefill(self.params, np.zeros((1, C), np.int32),
+                          self.kv.scratch, 0, C - 1)
+        self.kv.write(null_row, 0, C)
+        self.core.decode(self.params, self.tok[:, None], self.kv.pool,
+                         self.pos, np.full_like(self.block_table, NULL_BLOCK),
+                         self.active.copy())
+        self._sync()
+        self._attn_dispatch = attention_dispatch.dispatch_log()
+
+    def step(self) -> bool:
+        """One scheduler tick: admit, prefill chunk(s), decode the batch."""
+        now = self.clock.now()
+        self._admit(now)
+        did = self._prefill_work(now)
+        did = self._decode_work(now) or did
+        self._step_idx += 1
+        if not did:
+            nxt = self.front.queue.next_arrival()
+            if nxt is not None:
+                self.clock.wait(min(max(nxt - now, 0.0), 0.01))
+        return did
+
+    def run(self, requests: Sequence[Request] = (), *,
+            max_steps: int = 1_000_000) -> Dict[str, Any]:
+        """Drive the engine until all work drains.  A fresh measurement
+        window (nothing in flight, no metrics yet) rebases the clock to 0
+        so arrival times count from this call."""
+        if not self._in_flight() and self.metrics.empty:
+            self.clock.reset()
+        for r in requests:
+            self.submit(r)
+        steps = 0
+        while self.has_work():
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(f"serve engine exceeded {max_steps} steps "
+                                   f"with work remaining")
+        return self.report()
+
+    def report(self) -> Dict[str, Any]:
+        rep = self.metrics.report()
+        rep["engine"] = {
+            "max_slots": self.ecfg.max_slots,
+            "max_seq_len": self.ecfg.max_seq_len,
+            "prefill_chunk": self.ecfg.prefill_chunk,
+            "kv_capacity": self.kv.kv_capacity,
+            "steps": self._step_idx,
+            "device": str(self.device),
+            "kv_block_size": self.ecfg.kv_block_size,
+            "num_kv_blocks": self._alloc.usable_blocks,
+            "blocks_per_slot": self.kv.blocks_per_slot,
+        }
+        if self.cfg.is_moe:
+            rep["engine"]["moe_policy"] = self.cfg.moe.policy
+        rep["state_pool"] = self.kv.stats()
+        snap = (self._attn_dispatch if self._attn_dispatch is not None
+                else attention_dispatch.dispatch_log())
+        rep["attention_dispatch"] = {d["branch"]: {"fused": d["fused"]}
+                                     for d in snap}
+        return rep

@@ -1,0 +1,148 @@
+"""Serving metrics (port of the TTFT / TPOT / throughput part of
+``repro/serve/metrics.py``).
+
+Per request: TTFT = first_token_time - arrival_time (queueing + prefill),
+TPOT = mean inter-token time over the decode phase, e2e = finish_time -
+arrival_time.  Per step: active decode slots, paged KV-block occupancy,
+and the MoE block's schedule diagnostics.  ``report()`` is JSON-safe on an
+empty window (percentiles over no requests come back as None).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import numpy as np
+
+from repro_torch.serve.request import RequestState
+
+
+def percentiles(xs, ps=(50, 90, 99)) -> Dict[str, float]:
+    xs = np.asarray(list(xs), np.float64)
+    if xs.size == 0:
+        return {f"p{p}": float("nan") for p in ps} | {"mean": float("nan")}
+    out = {f"p{p}": float(np.percentile(xs, p)) for p in ps}
+    out["mean"] = float(xs.mean())
+    return out
+
+
+def _json_safe(x):
+    if isinstance(x, dict):
+        return {k: _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    if isinstance(x, float) and not np.isfinite(x):
+        return None
+    return x
+
+
+@dataclass
+class RequestRecord:
+    rid: int
+    prompt_len: int
+    n_generated: int
+    arrival_time: float
+    admitted_time: float
+    first_token_time: float
+    finish_time: float
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token_time - self.arrival_time
+
+    @property
+    def tpot(self) -> float:
+        if self.n_generated <= 1:
+            return 0.0
+        return (self.finish_time - self.first_token_time) \
+            / (self.n_generated - 1)
+
+    @property
+    def e2e(self) -> float:
+        return self.finish_time - self.arrival_time
+
+    def asdict(self) -> Dict[str, float]:
+        return {"rid": self.rid, "prompt_len": self.prompt_len,
+                "n_generated": self.n_generated,
+                "arrival_time": self.arrival_time,
+                "queue_delay": self.admitted_time - self.arrival_time,
+                "ttft": self.ttft, "tpot": self.tpot, "e2e": self.e2e}
+
+
+class ServeMetrics:
+    def __init__(self):
+        self.requests: List[RequestRecord] = []
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.occupancy: List[int] = []          # active slots per decode step
+        self.moe_diags: Dict[str, List[float]] = {}
+        self.kv_blocks_in_use: List[int] = []
+        self.kv_blocks_total = 0
+        self.preemptions = 0
+
+    @property
+    def empty(self) -> bool:
+        return not (self.requests or self.decode_steps or self.prefill_chunks)
+
+    def record_step(self, diags: Dict[str, Any], n_active: int,
+                    phase: str = "decode") -> None:
+        """One prefill chunk or decode step; scalar MoE diagnostics (host
+        numbers or arrays) are kept per phase, vector ones are not."""
+        if phase == "decode":
+            self.decode_steps += 1
+            self.occupancy.append(n_active)
+        else:
+            self.prefill_chunks += 1
+        for k, v in (diags or {}).items():
+            arr = np.asarray(v)
+            if arr.ndim == 0:
+                self.moe_diags.setdefault(f"{phase}/{k}", []).append(
+                    float(arr))
+
+    def record_kv(self, blocks_in_use: int, blocks_total: int) -> None:
+        self.kv_blocks_in_use.append(int(blocks_in_use))
+        self.kv_blocks_total = int(blocks_total)
+
+    def complete(self, st: RequestState) -> RequestRecord:
+        rec = RequestRecord(
+            rid=st.req.rid, prompt_len=st.req.prompt_len,
+            n_generated=st.n_generated, arrival_time=st.req.arrival_time,
+            admitted_time=st.admitted_time,
+            first_token_time=st.first_token_time,
+            finish_time=st.finish_time)
+        self.requests.append(rec)
+        return rec
+
+    def report(self) -> Dict[str, Any]:
+        recs = self.requests
+        total_new = sum(r.n_generated for r in recs)
+        span = (max(r.finish_time for r in recs)
+                - min(r.arrival_time for r in recs)) if recs else 0.0
+        rep: Dict[str, Any] = {
+            "n_requests": len(recs),
+            "total_new_tokens": total_new,
+            "ttft": percentiles(r.ttft for r in recs),
+            "tpot": percentiles(r.tpot for r in recs if r.n_generated > 1),
+            "e2e": percentiles(r.e2e for r in recs),
+            "queue_delay": percentiles(
+                r.admitted_time - r.arrival_time for r in recs),
+            "throughput_tok_s": total_new / span if span > 0 else float("nan"),
+            "decode_steps": self.decode_steps,
+            "prefill_chunks": self.prefill_chunks,
+            "mean_occupancy": (float(np.mean(self.occupancy))
+                               if self.occupancy else 0.0),
+            "max_occupancy": (int(max(self.occupancy))
+                              if self.occupancy else 0),
+            "preemptions": self.preemptions,
+            "requests": [r.asdict() for r in recs],
+        }
+        if self.kv_blocks_in_use:
+            used = np.asarray(self.kv_blocks_in_use, np.float64)
+            rep["kv_blocks_in_use"] = {"mean": float(used.mean()),
+                                       "max": int(used.max())}
+            rep["kv_utilization"] = (float(used.mean())
+                                     / max(self.kv_blocks_total, 1))
+        if self.moe_diags:
+            rep["moe"] = {k: float(np.mean(v))
+                          for k, v in self.moe_diags.items()}
+        return _json_safe(rep)

@@ -1,0 +1,42 @@
+"""Step core of the serving engine (port of ``repro/serve/stepcore.py``):
+the prefill-chunk and decode entry points.  It holds no scheduling state: the
+engine passes the batch vectors (tokens, positions, active mask, block
+table) each call, as host numpy arrays, and gets host tokens back from
+decode.  Steps run eagerly; capturing the decode step as a CUDA graph is
+a later change."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.serve.sampling import sample_tokens
+
+
+class StepCore:
+    def __init__(self, model, ecfg):
+        self.model = model
+        self.ecfg = ecfg
+        self.device = model.device
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def prefill(self, params, chunk: np.ndarray, scratch, start: int,
+                last: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One [1, C] prompt chunk at ``start`` into the scratch; returns
+        the logits at ``last`` (on the device) and the MoE diagnostics."""
+        logits, _, _, diags = self.model.prefill_chunk(
+            params, self._t(chunk), scratch, start, last)
+        return logits, diags
+
+    def decode(self, params, tok: np.ndarray, pool, pos: np.ndarray,
+               block_table: np.ndarray, active: np.ndarray
+               ) -> Tuple[np.ndarray, Dict[str, torch.Tensor]]:
+        """One decode step of every slot; greedy next tokens on the host."""
+        logits, _, _, diags = self.model.decode_step(
+            params, self._t(tok), pool, self._t(pos),
+            active_mask=self._t(active), block_table=self._t(block_table),
+            block_size=self.ecfg.kv_block_size)
+        return sample_tokens(logits).cpu().numpy(), diags

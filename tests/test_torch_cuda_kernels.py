@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: on a machine without a GPU (or without nvcc) every test
+skips.  Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    if shutil.which("nvcc") is None and not \
+            os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("needs nvcc to build the kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [True, False])
+def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated):
+    from repro_torch.kernels.moe_gmm import ops
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bm, d, f = 64, 128, 192
+    sizes = torch.tensor([40, 0, 7, 64, 0, 3], dtype=torch.int32, device=cuda)
+    padded = ((sizes + bm - 1) // bm) * bm
+    M = int(padded.sum()) + 2 * bm
+    x = torch.zeros((M, d), device=cuda)
+    off = 0
+    for s, p in zip(sizes.tolist(), padded.tolist()):
+        x[off:off + s] = torch.randn((s, d), generator=g, device=cuda) * 0.5
+        off += p
+    x = x.to(dtype)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=cuda) * 0.1).to(dtype)
+    w_in, w_gate, w_out = w(4, d, f), w(4, d, f), w(4, f, d)
+    foreign = (w(2, d, f), w(2, f, d), w(2, d, f) if gated else None)
+    kw = dict(w_gate=w_gate if gated else None, act="silu" if gated else
+              "gelu", block_m=bm, foreign=foreign)
+    tg = ops.tile_group_map(padded, M // bm, bm)
+    n0 = ops.moe_gmm.launches
+    got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
+    ref = ops.moe_gmm_plain(x, w_in, w_out, tg, **kw)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,rep,bs,softcap", [(1, 1, 16, 0.0), (4, 4, 5, 30.0),
+                                              (32, 1, 96, 0.0)])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, S, rep, bs,
+                                              softcap):
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, Hkv, hd, n_blocks = 3, 2, 128, 4
+    lengths = [S, S + 7, n_blocks * bs]
+    num_phys = 1 + B * n_blocks
+    perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+    table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+    for b, L in enumerate(lengths):           # chains, then null-block holes
+        nb = -(-L // bs)
+        table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(torch.int32)
+    P = num_phys * bs
+    k = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    q = torch.randn((B, S, Hkv * rep, hd), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = ops.paged_attention(q, k, v, table, cl, block_size=bs,
+                              softcap=softcap)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, block_size=bs,
+                                    softcap=softcap)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.moe_gmm import ops as gmm
+    from repro_torch.kernels.paged_attention import ops as pa
+    x = torch.zeros((128, 96), device=cuda)                  # d % 64 != 0
+    w = torch.zeros((1, 96, 64), device=cuda)
+    tg = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="d % 64"):
+        gmm.moe_gmm(x, w, torch.zeros((1, 64, 96), device=cuda), tg)
+    q = torch.zeros((1, 1, 2, 160), device=cuda)             # hd > 128
+    pool = torch.zeros((1, 16, 2, 160), device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        pa.paged_attention(q, pool, pool,
+                           torch.zeros((1, 1), dtype=torch.int32,
+                                       device=cuda), 1, block_size=16)
