@@ -6,18 +6,27 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: the card's name and power limit (nvidia-smi), TF32 off,
      and the hand-written CUDA kernels built from ``src/repro_torch/csrc``;
-  2. kernel parity at the main path's shapes: every kernel against its
+  2. kernel parity at the main paths' shapes: every kernel against its
      plain PyTorch version on the same inputs (bf16, plus f32 at a smaller
      size), with its time, the plain version's time, one PyTorch library
      call's time as a yardstick, and the card's least time for the work;
-  3. the main path: ``ServeEngine`` serving full-width qwen15-moe-a27b
+  3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
      (random weights from a seed, bf16, paged KV, chunked prefill, greedy,
      HarMoEny policy at one rank), with each kernel's launch count over
      that run, which must be > 0;
   4. correctness of what comes out: every request finished with its
      tokens in the vocabulary, finite logits of the expected shape, and,
      on a small configuration, the card's token streams equal to the
-     plain versions' streams on the CPU.
+     plain versions' streams on the CPU;
+  5. the whole-prompt path, once the serve path's memory is freed:
+     full-width, full-depth moonshot-v1-16b-a3b (random bf16 weights from
+     a seed) through ``launch.steps``' ``make_prefill_step`` on 4 prompts
+     of 1024 tokens (attention through the flash kernel in every layer)
+     and 32 greedy ``make_decode_step``s on the slab cache, with the
+     prefill time, the decode step time, peak memory and the kernels'
+     launch counts over that run; tokens in the vocabulary, finite
+     logits, and on the reduced configuration the card's greedy tokens
+     equal to the plain versions' tokens on the CPU.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -25,6 +34,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -39,7 +49,9 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 REPLACES = {
     "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:88",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:126",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
 
 def log(msg: str) -> None:
@@ -211,10 +223,45 @@ def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
     return rec
 
 
-def kernel_parity(cfg, *, max_seq_len, prefill_chunk, block_size):
+def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
+                         seed):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Sk, Hkv, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Sk, Hkv, hd), generator=g, device=dev).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    dname = str(dtype).split(".")[-1]
+    err, tol = compare(f"flash_attention[{label}]", got, ref, dname)
+    rec = {"case": label, "dtype": dname, "B": B, "H": H, "Hkv": Hkv,
+           "Sq": Sq, "Sk": Sk, "hd": hd, "causal": causal,
+           "max_abs_err": err, "tol": tol}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                        10)
+    rec["plain_ms"] = cuda_ms(
+        lambda: ops.flash_attention_plain(q, k, v, causal=causal), 3, 1)
+    rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 10)
+    esz = q.element_size()
+    # (query, key) pairs the mask keeps: the lower triangle when causal
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    bytes_moved = 2 * q.numel() * esz + 2 * k.numel() * esz
+    flops = 4.0 * B * H * hd * pairs
+    rec["bound_ms"], rec["bound_by"] = bound(bytes_moved, flops, dname)
+    return rec
+
+
+def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
+                  flash_batch, flash_len):
     import torch
     from repro_torch.kernels.paged_attention.ops import largest_block_divisor
-    out = {"moe_gmm": [], "paged_attention": []}
+    out = {"moe_gmm": [], "paged_attention": [], "flash_attention": []}
     E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     bf = torch.bfloat16
@@ -256,6 +303,17 @@ def kernel_parity(cfg, *, max_seq_len, prefill_chunk, block_size):
         "f32_gqa_softcap", B=3, S=4, H=8, Hkv=2, hd=64, bs=5,
         lengths=[4, 23, 40], n_blocks=8, softcap=30.0, dtype=torch.float32,
         seed=5, time_it=False))
+    # flash: the whole-prompt prefill's shape, then f32 GQA rep 4 at a
+    # length that is no multiple of the 64-row tiles, causal and full
+    out["flash_attention"].append(flash_attention_case(
+        "prefill", B=flash_batch, H=flash_cfg.num_heads,
+        Hkv=flash_cfg.num_kv_heads, Sq=flash_len, Sk=flash_len,
+        hd=flash_cfg.resolved_head_dim, causal=True, dtype=bf, seed=6))
+    for causal in (True, False):
+        out["flash_attention"].append(flash_attention_case(
+            f"f32_gqa_ragged_{'causal' if causal else 'full'}", B=2, H=8,
+            Hkv=2, Sq=201, Sk=201, hd=128, causal=causal,
+            dtype=torch.float32, seed=7))
     for name, recs in out.items():
         for r in recs:
             log(f"[parity] {name} {json.dumps(r)}")
@@ -308,6 +366,8 @@ def small_reference_check(seed: int = 0) -> None:
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -315,8 +375,6 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
               slots, new_tokens, seed):
     import numpy as np
     import torch
-    from repro_torch.kernels.moe_gmm import ops as gmm_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models.model import build_model
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     t0 = time.perf_counter()
@@ -346,14 +404,12 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
         orig(st, now)
     eng._finish = capture
     torch.cuda.reset_peak_memory_stats()
-    gmm_ops.moe_gmm.launches = 0
-    pa_ops.paged_attention.launches = 0
+    read = _reset_launches()
     t0 = time.perf_counter()
     rep = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"moe_gmm": gmm_ops.moe_gmm.launches,
-                "paged_attention": pa_ops.paged_attention.launches}
+    launches = read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     summary = {
         "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
@@ -376,10 +432,10 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
         if len(toks) != new_tokens or not all(0 <= t < cfg.vocab_size
                                               for t in toks):
             raise AssertionError(f"request {rid}: bad stream {toks}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("moe_gmm", "paged_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+                                 f"serve path")
     # finite logits of the expected shape on a fresh chunk
     cache = model.init_cache(1, prefill_chunk)
     toks = torch.as_tensor(reqs[0].tokens[:prefill_chunk][None],
@@ -395,8 +451,135 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
+
+
+def _reset_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    fns = {"moe_gmm": gmm_ops.moe_gmm,
+           "paged_attention": pa_ops.paged_attention,
+           "flash_attention": fa_ops.flash_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in fns.items()}
+
+
+# ----------------------------------------------------------------------
+# phase 5: whole-prompt prefill + slab decode
+# ----------------------------------------------------------------------
+def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, batch=batch, seq_len=prompt_len)
+    params = model.init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[prefill] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on "
+        f"the card in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), dtype=torch.int32,
+        device="cuda")
+    prefill = make_prefill_step(model, s_max=s_max)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_dispatch_log()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    tok, caches, pos, _ = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = read()
+    out, step_s = [tok], []
+    for _ in range(new_tokens):
+        t0 = time.perf_counter()
+        tok, caches, pos, _ = decode(params, tok, caches, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out.append(tok)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    branches = {}
+    for rec in A.dispatch_log():
+        key = f"{rec['branch']}:{'fused' if rec['fused'] else 'plain'}"
+        branches[key] = branches.get(key, 0) + 1
+    toks = torch.cat(out, dim=1).cpu().numpy()
+    summary = {
+        "batch": batch, "prompt_len": prompt_len, "s_max": s_max,
+        "new_tokens": new_tokens, "prefill_s": prefill_s,
+        "prefill_tok_s": batch * prompt_len / prefill_s,
+        "decode_step_p50_s": float(np.percentile(step_s, 50)),
+        "decode_step_p90_s": float(np.percentile(step_s, 90)),
+        "decode_tok_s": batch * new_tokens / sum(step_s),
+        "peak_mem_gib": peak, "launches": launches,
+        "launches_in_prefill": after_prefill,
+        "attention_dispatch": branches,
+    }
+    log(f"[prefill] {json.dumps(summary)}")
+    # --- checks -------------------------------------------------------
+    if int(pos) != prompt_len + new_tokens:
+        raise AssertionError(f"position {int(pos)} after the run")
+    if toks.shape != (batch, new_tokens + 1) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {toks.shape} "
+                             f"[{toks.min()}, {toks.max()}]")
+    if after_prefill["flash_attention"] != cfg.num_layers \
+            or launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches} times, "
+                             f"not once per layer of the prefill")
+    if launches["moe_gmm"] <= 0:
+        raise AssertionError("moe_gmm was not launched on the prefill path")
+    logits, _, _, _ = model.decode_step(params, tok, caches, pos)
+    if tuple(logits.shape) != (batch, cfg.padded_vocab) \
+            or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    return summary
+
+
+def small_prefill_reference_check(seed: int = 0) -> None:
+    """Reduced moonshot-v1-16b-a3b in f32 through ``launch.steps``: the
+    card's greedy tokens (flash and moe_gmm kernels) equal the CPU's
+    (their plain versions).  The prompt of 100 tokens spans a ragged
+    second q tile of the flash kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import build_model
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    B, S, n = 3, 100, 8
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    params = build_model(cfg, batch=B, seq_len=S, device="cpu").init(seed)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, batch=B, seq_len=S, device=dev)
+        p = _to(params, dev)
+        tok, caches, pos, _ = make_prefill_step(model, s_max=S + n)(
+            p, {"tokens": torch.as_tensor(prompts, device=dev)})
+        out = [tok]
+        decode = make_decode_step(model)
+        for _ in range(n - 1):
+            tok, caches, pos, _ = decode(p, tok, caches, pos)
+            out.append(tok)
+        tokens[dev] = torch.cat(out, dim=1).cpu().numpy()
+    if not np.array_equal(tokens["cpu"], tokens["cuda"]):
+        raise AssertionError(f"small prefill reference: card tokens "
+                             f"{tokens['cuda'].tolist()} != cpu tokens "
+                             f"{tokens['cpu'].tolist()}")
+    log(f"[reference] reduced {cfg.name} f32: {B} x {n} greedy tokens "
+        f"through launch.steps on the card equal the CPU plain-version "
+        f"tokens")
 
 
 def main() -> int:
@@ -435,25 +618,41 @@ def main() -> int:
                 log(f"[ptxas] {name}: {line.strip()}")
 
     cfg = get_config("qwen15-moe-a27b")
+    moon = get_config("moonshot-v1-16b-a3b")
     shape = dict(max_seq_len=256 + 32, prefill_chunk=32, block_size=16)
+    whole = dict(batch=4, prompt_len=1024, s_max=1024 + 64, new_tokens=32)
 
     # --- phase 2: kernel parity ------------------------------------------
-    parity = kernel_parity(cfg, **shape)
+    parity = kernel_parity(cfg, moon, flash_batch=whole["batch"],
+                           flash_len=whole["prompt_len"], **shape)
 
-    # --- phase 3/4: the main path + small reference -----------------------
+    # --- phase 3/4: the serve path + small reference ----------------------
     summary = main_path(cfg, n_requests=8, slots=4, new_tokens=32, seed=0,
                         **shape)
     small_reference_check()
+    gc.collect()                     # the engine holds reference cycles
+    torch.cuda.empty_cache()
+    log(f"[env] serve path freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
+    # --- phase 5: whole-prompt prefill + slab decode ----------------------
+    whole_summary = prefill_decode_path(moon, seed=0, **whole)
+    small_prefill_reference_check()
+
+    # each kernel's launches over the run of the path that carries it
+    path_of = {"moe_gmm": summary, "paged_attention": summary,
+               "flash_attention": whole_summary}
     kernels = []
-    for name, source in (("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu"),
-                         ("paged_attention",
-                          "src/repro_torch/csrc/paged_attention.cu")):
-        main_case = parity[name][0]               # the decode shapes
+    for name in REPLACES:
+        main_case = parity[name][0]     # decode shapes; flash: the prefill
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": summary["launches"][name],
+            "launches": path_of[name]["launches"][name],
+            "launches_by_path": {
+                "serve_qwen15_moe_a27b": summary["launches"][name],
+                "prefill_decode_moonshot_v1_16b_a3b":
+                    whole_summary["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] == "bfloat16"),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

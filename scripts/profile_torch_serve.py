@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Where a serve step's time goes on the GPU: the PyTorch port's main path
-(full-width qwen15-moe-a27b, random weights, bf16, paged KV, 4 slots)
-under ``torch.profiler``.
+"""Where a step's time goes on the GPU, under ``torch.profiler``, on one
+of the PyTorch port's two paths (random weights, bf16):
 
     python3 scripts/profile_torch_serve.py [--decode-steps 4]
+    python3 scripts/profile_torch_serve.py --path prefill [--decode-steps 4]
 
-Traces the first 32-token prefill chunk of a request, then, with every
-slot decoding, a few pure decode steps.  For each phase it prints one
+``serve`` (the default): full-width qwen15-moe-a27b in ``ServeEngine``
+(paged KV, 4 slots); traces the first 32-token prefill chunk of a
+request, then, with every slot decoding, a few pure decode steps.
+``prefill``: full-width, full-depth moonshot-v1-16b-a3b through
+``launch.steps``; after one untraced warm-up prefill, traces one
+whole-prompt prefill step (4 prompts of 1024 tokens, flash attention)
+and then a few slab decode steps.  For each phase it prints one
 JSON line: the wall time per step, the device's busy time (the sum of the
 CUDA kernels' own times) and idle share, the kernels that took the most
 device time, the host-side operators that took the most CPU time, and the
@@ -62,14 +67,81 @@ def summarize(prof, label: str, wall_s: float, n_steps: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--path", choices=("serve", "prefill"), default="serve")
     args = ap.parse_args()
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.path == "prefill":
+        return profile_prefill(args.decode_steps)
+    return profile_serve(args.decode_steps)
+
+
+def _timed(fn, n_steps: int = 1, traced: bool = True):
+    """Run ``fn`` n_steps times, synchronised; returns (profiler or None,
+    wall seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    if not traced:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        return None, time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def profile_prefill(decode_steps: int) -> int:
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import build_model
+    cfg = get_config("moonshot-v1-16b-a3b")
+    B, S = 4, 1024
+    model = build_model(cfg, batch=B, seq_len=S)
+    params = model.init(0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(model, s_max=S + 64)
+    decode = make_decode_step(model)
+    state = {}
+
+    def run_prefill():
+        state["out"] = prefill(params, {"tokens": prompts})
+
+    def run_decode():
+        tok, caches, pos, _ = state["out"]
+        state["out"] = decode(params, tok, caches, pos)
+    _timed(run_prefill, traced=False)                 # warm-up
+    prof, wall = _timed(run_prefill)
+    summarize(prof, "prefill_whole_prompt", wall, 1)
+    _, wall = _timed(run_prefill, traced=False)
+    print(json.dumps({"phase": "prefill_whole_prompt_unprofiled",
+                      "wall_ms_per_step": wall * 1e3}), flush=True)
+    prof, wall = _timed(run_decode, decode_steps)
+    summarize(prof, "decode_slab", wall, decode_steps)
+    _, wall = _timed(run_decode, decode_steps, traced=False)
+    print(json.dumps({"phase": "decode_slab_unprofiled",
+                      "wall_ms_per_step": wall * 1e3 / decode_steps}),
+          flush=True)
+    return 0
+
+
+def profile_serve(decode_steps: int) -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve import EngineConfig, Request, ServeEngine
@@ -108,20 +180,20 @@ def main() -> int:
     # pure decode steps of the 4-slot batch
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.decode_steps):
+        for _ in range(decode_steps):
             eng._decode_work(eng.clock.now())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summarize(prof, "decode", wall, args.decode_steps)
+    summarize(prof, "decode", wall, decode_steps)
     # the same steps without the profiler, for its overhead
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.decode_steps):
+    for _ in range(decode_steps):
         eng._decode_work(eng.clock.now())
     torch.cuda.synchronize()
     print(json.dumps({"phase": "decode_unprofiled",
                       "wall_ms_per_step": (time.perf_counter() - t0) * 1e3
-                      / args.decode_steps}), flush=True)
+                      / decode_steps}), flush=True)
     return 0
 
 

@@ -1,8 +1,8 @@
-"""Attention: MHA/GQA with RoPE through the paged-attention kernel.
+"""Attention: MHA/GQA with RoPE through the hand-written kernels.
 
 Port of ``repro/models/attention.py``: the projections and RoPE, the plain
-``chunked_attention`` (the JAX package's prefill reference), and the two
-``attention_block`` branches the serve engine runs:
+``chunked_attention`` (the JAX package's prefill reference) and
+``decode_attention``, and four ``attention_block`` branches:
 
 * ``continue_prefill``: x is a [B, C] prompt chunk at position
   ``q_offset``; its K/V are written into the slab scratch at
@@ -13,10 +13,17 @@ Port of ``repro/models/attention.py``: the projections and RoPE, the plain
 * paged decode / multi-query window (``block_table`` given): the S new
   positions of every row are written through its block-table row into the
   physical pool, and attention reads through the table.
+* ``prefill_cache`` (S > 1 on a slab cache): a whole prompt attends over
+  itself through the flash kernel, then its K/V fill the cache prefix
+  [0, S).
+* ``decode_slab`` (S = 1 on a slab cache): the new K/V land at
+  ``cache_len - 1`` (a scalar or one position per row) and
+  ``decode_attention`` reads the slab; plain torch, as in the reference,
+  which has no kernel there.
 
-On CUDA tensors both branches launch the kernel; on CPU tensors its plain
-version.  Caches are updated in place (the JAX version returns new
-arrays): the returned cache is the one passed in.
+On CUDA tensors the kernel branches launch their kernel; on CPU tensors
+its plain version.  Caches are updated in place (the JAX version returns
+new arrays): the returned cache is the one passed in.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (largest_block_divisor,
                                                      paged_attention)
 from repro_torch.models.layers import apply_rope
@@ -94,20 +102,45 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q [B, 1, H, hd] over slab caches [B, S_max, Hkv, hd]; cache_len a
+    scalar or per-row [B] (entries < cache_len are valid, the new token's
+    K/V already written at cache_len - 1).  Masked f32 softmax."""
+    B, _, H, hd = q.shape
+    S_max, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    kr, vr = k_cache.float(), v_cache.float()
+    if rep > 1:
+        kr = kr.repeat_interleave(rep, dim=2)
+        vr = vr.repeat_interleave(rep, dim=2)
+    qf = (q.float() * hd ** -0.5)[:, 0]                        # [B, H, hd]
+    s = _softcap(torch.einsum("bhd,bkhd->bhk", qf, kr), softcap)
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1)  # [1 | B]
+    mask = torch.arange(S_max, device=q.device)[None, :] < cl[:, None]
+    s = torch.where(mask[:, None, :], s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, vr)
+    return out[:, None].to(q.dtype)
+
+
 def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     cfg: ModelConfig, *, q_offset, cache: AttnCache,
                     cache_len=None, continue_prefill: bool = False,
                     block_table: Optional[torch.Tensor] = None,
                     block_size: int = 0) -> Tuple[torch.Tensor, AttnCache]:
     """Projections + RoPE + attention + out-projection.  ``q_offset`` is an
-    int (prefill chunk) or a per-row [B] tensor (paged decode)."""
+    int or a 0-d tensor (prefill, slab decode) or a per-row [B] tensor
+    (paged or slab decode)."""
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     ar = torch.arange(S, device=x.device)
-    off = q_offset[:, None] if torch.is_tensor(q_offset) else q_offset
+    off = (q_offset.reshape(-1, 1)
+           if torch.is_tensor(q_offset) and q_offset.ndim else q_offset)
     q = apply_rope(q, off + ar, cfg.rope_theta)
     k = apply_rope(k, off + ar, cfg.rope_theta)
     fused = x.device.type == "cuda"
@@ -139,9 +172,24 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         _record_dispatch("verify" if S > 1 else "decode", fused=fused)
         out = paged_attention(q, cache.k, cache.v, block_table, cl,
                               block_size=block_size, softcap=softcap)
+    elif S > 1:
+        # whole prompt: the flash kernel's guards (causal, no window, no
+        # softcap) hold for every model build_model accepts
+        if softcap:
+            raise NotImplementedError("prefill_cache with a logit softcap "
+                                      "is not ported")
+        _record_dispatch("prefill_cache", fused=fused)
+        out = flash_attention(q, k, v, causal=True)
+        n = min(S, cache.k.shape[1])
+        cache.k[:, :n] = k[:, :n].to(cache.k.dtype)
+        cache.v[:, :n] = v[:, :n].to(cache.v.dtype)
     else:
-        raise NotImplementedError(
-            "only the continue_prefill and paged branches of attention_block "
-            "are ported")
+        cl = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        rows = torch.arange(B, device=x.device)
+        at = (cl.long() - 1).expand(B)
+        cache.k[rows, at] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, at] = v[:, 0].to(cache.v.dtype)
+        _record_dispatch("decode_slab", fused=False)
+        out = decode_attention(q, cache.k, cache.v, cl, softcap=softcap)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache

@@ -1,14 +1,16 @@
-"""``build_model``: the model API the serve engine drives.
+"""``build_model``: the model API the serve engine and ``launch.steps`` drive.
 
-Port of ``repro/models/model.py`` for decoder-only MoE stacks whose every
-layer is an MoE layer (the qwen15-moe-a27b family; other layer patterns
+Port of ``repro/models/model.py`` for decoder-only MoE stacks whose
+layers are MoE layers after optional leading dense layers (the
+qwen15-moe-a27b and moonshot-v1-16b-a3b families; other layer patterns
 are not ported yet).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
+  prefill(params, batch, s_max)                -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index)
                                                -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, active_mask, block_table, block_size)
                                                -> (logits, caches, pos + S, diags)
-  init_cache(batch, s_max)                     -> slab K/V caches (prefill scratch)
+  init_cache(batch, s_max)                     -> slab K/V caches
   init_paged_cache(num_blocks, block_size)     -> the physical paged K/V pool
 Caches are updated in place.  Everything lives on ``model.device``: CUDA
 unless the caller passes ``device="cpu"``.
@@ -67,7 +69,7 @@ class Model:
         d, H, Hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
         Vp = cfg.padded_vocab
-        pattern, n, _ = T.layer_pattern(cfg)
+        pattern, n, lead = T.layer_pattern(cfg)
         s_d = (2.0 / d) ** 0.5
 
         def nrm(shape, scale, dtype=dt):
@@ -76,17 +78,25 @@ class Model:
         def zeros(shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
 
+        def attn_layer(n=()):
+            return {"norm1": {"scale": zeros(n + (d,))},
+                    "norm2": {"scale": zeros(n + (d,))},
+                    "attn": {"wq": nrm(n + (d, H, hd), s_d),
+                             "wk": nrm(n + (d, Hkv, hd), s_d),
+                             "wv": nrm(n + (d, Hkv, hd), s_d),
+                             "wo": nrm(n + (H, hd, d), s_d)}}
+
+        def swiglu(n, f):
+            return {"w_in": nrm(n + (d, f), s_d),
+                    "w_out": nrm(n + (f, d), (2.0 / f) ** 0.5),
+                    "w_gate": nrm(n + (d, f), s_d)}
+
         def layer():
             topo = self.moe_spec.topo
             rows = topo.num_ranks * topo.experts_per_rank
             f = cfg.moe.d_ff_expert
             p: Dict[str, Any] = {
-                "norm1": {"scale": zeros((n, d))},
-                "norm2": {"scale": zeros((n, d))},
-                "attn": {"wq": nrm((n, d, H, hd), s_d),
-                         "wk": nrm((n, d, Hkv, hd), s_d),
-                         "wv": nrm((n, d, Hkv, hd), s_d),
-                         "wo": nrm((n, H, hd, d), s_d)},
+                **attn_layer((n,)),
                 "moe": {"router": nrm((n, d, topo.padded_experts), 0.02,
                                       torch.float32),
                         "w_in": nrm((n, rows, d, f), s_d),
@@ -94,10 +104,7 @@ class Model:
                         "w_gate": nrm((n, rows, d, f), s_d)},
             }
             if cfg.moe.num_shared_experts:
-                fs = cfg.moe.num_shared_experts * f
-                p["shared_mlp"] = {"w_in": nrm((n, d, fs), s_d),
-                                   "w_out": nrm((n, fs, d), (2.0 / fs) ** 0.5),
-                                   "w_gate": nrm((n, d, fs), s_d)}
+                p["shared_mlp"] = swiglu((n,), cfg.moe.num_shared_experts * f)
             return p
 
         params: Dict[str, Any] = {
@@ -106,6 +113,10 @@ class Model:
             "stack": {"blocks": {f"sub{j}": layer()
                                  for j in range(len(pattern))}},
         }
+        if lead:
+            params["stack"]["lead"] = [
+                {**attn_layer(), "mlp": swiglu((), cfg.d_ff)}
+                for _ in range(lead)]
         if not cfg.tie_embeddings:
             params["lm_head"] = nrm((Vp, d), 0.02)
         return params
@@ -131,6 +142,23 @@ class Model:
                            real_vocab=self.cfg.vocab_size,
                            softcap=self.cfg.final_logit_softcap)
 
+    def prefill(self, params, batch: Dict[str, Any],
+                s_max: Optional[int] = None):
+        """A whole prompt ``batch["tokens"]`` [B, S] on a fresh slab cache
+        of ``s_max`` positions (default S + 64): attention through the
+        flash kernel, K/V into the cache prefix [0, S).  Returns (logits
+        [B, Vp] at the last position, caches, pos = S as a 0-d int32
+        tensor, diags).  Runs with the build-time MoE spec."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, S = tokens.shape
+        caches = self.init_cache(B, s_max or S + 64)
+        pos = torch.tensor(S, dtype=torch.int32, device=self.device)
+        h = params["embed"][tokens]
+        h, _, diags = T.run_stack(h, params["stack"], self.cfg,
+                                  cache=caches["stack"], cache_len=pos,
+                                  moe_spec=self.moe_spec)
+        return self._head(params, h[:, -1]), caches, pos, diags
+
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos: int,
                       last_index: Optional[int] = None):
         """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
@@ -151,13 +179,20 @@ class Model:
         idx = C - 1 if last_index is None else last_index
         return self._head(params, h[:, idx]), caches, pos + C, diags
 
-    def decode_step(self, params, token: torch.Tensor, caches,
-                    pos: torch.Tensor, *, active_mask=None,
-                    block_table: torch.Tensor, block_size: int):
-        """token [B, S] (S = 1 plain decode) against the paged pool; pos [B]
-        is each row's length BEFORE the window.  Returns logits [B, Vp]
-        at the last position when S == 1, else [B, S, Vp]."""
+    def decode_step(self, params, token: torch.Tensor, caches, pos, *,
+                    active_mask=None,
+                    block_table: Optional[torch.Tensor] = None,
+                    block_size: int = 0):
+        """token [B, S] against the paged pool (``block_table`` given; S > 1
+        is a multi-query window) or, with S = 1, the slab caches of
+        ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
+        window: [B], or a scalar on the slab.  Returns logits [B, Vp] at
+        the last position when S == 1, else [B, S, Vp]."""
         B, S = token.shape
+        if S > 1 and block_table is None:
+            raise NotImplementedError(
+                "multi-token decode goes through the paged pool: pass "
+                "block_table/block_size")
         new_pos = pos + S
         vmask = None
         if active_mask is not None:
@@ -195,14 +230,14 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     dev = resolve_device(device)
     unsupported = [
         (not cfg.is_moe or cfg.family != "moe", f"family {cfg.family!r}"),
-        (cfg.is_moe and (cfg.moe.moe_layer_period != 1
-                         or cfg.moe.first_dense_layers != 0),
+        (cfg.is_moe and cfg.moe.moe_layer_period != 1,
          "dense layers between MoE layers"),
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
          "encoder-decoder / prefix-embedding models"),
         (cfg.rope_theta <= 0, "absolute position embeddings"),
         (cfg.sliding_window > 0 or cfg.global_attn_every > 0,
          "sliding-window attention"),
+        (cfg.attn_logit_softcap > 0, "attention logit softcap"),
         (cfg.post_norm, "post-norm layers"),
         (cfg.name.startswith("gemma"), "gemma embedding scaling"),
     ]

@@ -5,7 +5,9 @@
 Parameters stay stacked per layer exactly as in the JAX package
 (``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
 so converting JAX weights is a reshape-free copy; a Python loop over the
-steps replaces ``lax.scan``.
+steps replaces ``lax.scan``.  Leading dense layers (moonshot's first
+layer) are unstacked, one dict per layer in ``params["lead"]`` and one
+``AttnCache`` per layer in ``cache["lead"]``, and run before the stack.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from repro_torch.models.layers import mlp, norm
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     """(pattern, n_steps, n_lead_dense): layer kinds within one period of
     the stack, the number of periods, and leading unscanned dense layers.
-    The port builds only all-MoE stacks (``build_model`` rejects others)."""
-    return ["moe"], cfg.num_layers, 0
+    The port builds MoE stacks with every layer after the lead an MoE
+    layer (``build_model`` rejects other patterns)."""
+    lead = cfg.moe.first_dense_layers if cfg.is_moe else 0
+    return ["moe"], cfg.num_layers - lead, lead
 
 
 def layer_slice(tree: Any, i: int) -> Any:
@@ -37,27 +41,37 @@ def layer_slice(tree: Any, i: int) -> Any:
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
                      device) -> Dict[str, Any]:
-    """Stacked K/V caches [n_steps, batch, s_max, Hkv, hd] per pattern slot."""
-    pattern, n_steps, _ = layer_pattern(cfg)
-    shape = (n_steps, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"blocks": {
-        f"sub{j}": A.AttnCache(torch.zeros(shape, dtype=dtype, device=device),
-                               torch.zeros(shape, dtype=dtype, device=device))
-        for j in range(len(pattern))}}
+    """Stacked K/V caches [n_steps, batch, s_max, Hkv, hd] per pattern slot,
+    plus a list of [batch, s_max, Hkv, hd] caches for the lead layers."""
+    pattern, n_steps, lead = layer_pattern(cfg)
+    shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+    def one(lead_shape=()):
+        full = lead_shape + shape
+        return A.AttnCache(torch.zeros(full, dtype=dtype, device=device),
+                           torch.zeros(full, dtype=dtype, device=device))
+    cache: Dict[str, Any] = {"blocks": {f"sub{j}": one((n_steps,))
+                                        for j in range(len(pattern))}}
+    if lead:
+        cache["lead"] = [one() for _ in range(lead)]
+    return cache
 
 
-def _apply_one_layer(x, p, cfg: ModelConfig, *, cache, q_offset,
+def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      cache_len, moe_spec: MoEBlockSpec,
                      continue_prefill: bool, valid_mask, block_table,
                      block_size: int):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
-    experts) -> residual.  Returns (x, diagnostics of this layer)."""
+    experts) or, for a ``"dense"`` layer, the SwiGLU MLP -> residual.
+    Returns (x, diagnostics of this layer; none for a dense layer)."""
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
         block_table=block_table, block_size=block_size)
     x = x + h
     h = norm(x, p["norm2"], cfg.norm)
+    if kind == "dense":
+        return x + mlp(h, p["mlp"]), {}
     y, mdiag = moe_block(h, p["moe"], spec=moe_spec, valid_mask=valid_mask)
     if "shared_mlp" in p:
         y = y + mlp(h, p["shared_mlp"])
@@ -73,17 +87,20 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place.
     Returns (x, cache, diags averaged over the MoE layers)."""
-    pattern, n_steps, _ = layer_pattern(cfg)
+    pattern, n_steps, lead = layer_pattern(cfg)
+    kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
+              continue_prefill=continue_prefill, valid_mask=valid_mask,
+              block_table=block_table, block_size=block_size)
+    for i in range(lead):
+        x, _ = _apply_one_layer(x, params["lead"][i], "dense", cfg,
+                                cache=cache["lead"][i], **kw)
     per_step: Dict[str, List[torch.Tensor]] = {}
     for i in range(n_steps):
         p_step = layer_slice(params["blocks"], i)
         for j in range(len(pattern)):
             x, d = _apply_one_layer(
-                x, p_step[f"sub{j}"], cfg,
-                cache=layer_slice(cache["blocks"][f"sub{j}"], i),
-                q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
-                continue_prefill=continue_prefill, valid_mask=valid_mask,
-                block_table=block_table, block_size=block_size)
+                x, p_step[f"sub{j}"], pattern[j], cfg,
+                cache=layer_slice(cache["blocks"][f"sub{j}"], i), **kw)
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)
     diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}

@@ -26,6 +26,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import round_up
 from repro_torch.models import attention as attention_dispatch
+from repro_torch.models.transformer import layer_pattern
 from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
 from repro_torch.serve.kvstore import KVOwner
@@ -116,6 +117,10 @@ class ServeEngine:
                              f"to run on {dev}")
         ecfg.validate()
         cfg = model.cfg
+        if layer_pattern(cfg)[2]:
+            raise NotImplementedError(
+                f"{cfg.name}: the serve engine does not page the K/V of "
+                f"leading dense layers yet")
         self.model = model
         self.params = params
         self.ecfg = ecfg

@@ -93,6 +93,63 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, S, rep, bs,
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [
+    (1, 4, 4, 64, 128),    # MHA, one whole tile
+    (2, 8, 2, 77, 64),     # GQA rep 4, ragged last tile
+    (1, 8, 1, 130, 32),    # MQA, three tiles
+    (2, 2, 2, 1, 16),      # a single position
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, B, H,
+                                              Hkv, S, hd):
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=g, device=cuda).to(dtype)
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    ref = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """Full attention, Sq != Sk, q/k/v as views of fused projections."""
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((2, 24, 2, 8, 64), generator=g, device=cuda)[:, :, 0]
+    kv = torch.randn((2, 100, 2, 2, 64), generator=g, device=cuda)
+    k, v = kv.unbind(dim=2)
+    got = ops.flash_attention(q, k, v, causal=False)
+    ref = ops.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda):
+    from repro_torch.kernels.flash_attention import ops
+    z = torch.zeros((1, 8, 2, 160), device=cuda)              # hd > 128
+    with pytest.raises(ValueError, match="hd"):
+        ops.flash_attention(z, z, z)
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    k = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q, k, k, causal=True)
+    h = q.half()
+    with pytest.raises(TypeError):
+        ops.flash_attention(h, h, h)
+    t = torch.zeros((1, 8, 64, 2), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(t, t, t)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from repro_torch.kernels.moe_gmm import ops as gmm
     from repro_torch.kernels.paged_attention import ops as pa
