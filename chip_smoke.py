@@ -5,11 +5,14 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: the card's name and power limit (nvidia-smi), TF32 off,
-     and the hand-written CUDA kernels built from ``src/repro_torch/csrc``;
+     the hand-written CUDA kernels built from ``src/repro_torch/csrc``,
+     and the count of tensor-core instructions in each library, which
+     must not be 0 for the bf16 designs of moe_gmm and flash_attention;
   2. kernel parity at the main paths' shapes: every kernel against its
      plain PyTorch version on the same inputs (bf16, plus f32 at a smaller
-     size), with its time, the plain version's time, one PyTorch library
-     call's time as a yardstick, and the card's least time for the work;
+     size; moe_gmm also at the whole-prompt path's dispatch), with its
+     device time, the plain version's, one PyTorch library call's as a
+     yardstick, and the card's least time for the work;
   3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
      (random weights from a seed, bf16, paged KV, chunked prefill, greedy,
      HarMoEny policy at one rank), with each kernel's launch count over
@@ -26,7 +29,10 @@ Phases, each of which must pass (any failure exits non-zero):
      prefill time, the decode step time, peak memory and the kernels'
      launch counts over that run; tokens in the vocabulary, finite
      logits, and on the reduced configuration the card's greedy tokens
-     equal to the plain versions' tokens on the CPU.
+     equal to the plain versions' tokens on the CPU in f32 (the CUDA-core
+     designs), and in bf16 (the tensor-core designs), on the f32 run's
+     expert choices, the card's logits within twice the bf16 noise
+     measured on the CPU, while three planted faults fall outside it.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -34,9 +40,11 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -46,12 +54,14 @@ HBM_BYTES_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
               "float32": 67e12}       # float32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SPIN_HZ = 2.0e9                       # above the H100's top SM clock (1.98 GHz)
 REPLACES = {
     "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:88",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:126",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+TENSOR_CORE = ("moe_gmm", "flash_attention")   # their bf16 designs use wgmma
 
 
 def log(msg: str) -> None:
@@ -59,6 +69,8 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """CUDA-event time per call over back-to-back calls: the device time
+    plus any gap the host leaves between launches."""
     import torch
     for _ in range(warmup):
         fn()
@@ -70,6 +82,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call: each timed call is queued behind a spin
+    kernel that outlasts its enqueueing on the host, so the card runs its
+    kernels back to back and the CUDA events around it see no launch gap
+    (one call at a time: a chain of many launches stays within the
+    launch queue)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin = int(2 * (time.perf_counter() - t0) * SPIN_HZ)
+    total = 0.0
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(spin)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def compare(name, got, ref, dtype_name):
@@ -93,6 +131,20 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_counts(build):
+    """``HGMMA`` (tensor-core) instructions in each built library, from the
+    toolkit's ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found beside nvcc: the tensor-core "
+                           "instructions cannot be counted")
+    return {name: subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                                 capture_output=True, text=True,
+                                 check=True).stdout.count("HGMMA")
+            for name in build.KERNELS}
 
 
 # ----------------------------------------------------------------------
@@ -123,12 +175,17 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
     w_in, w_gate, w_out = w(n_local, d, f, d), w(n_local, d, f, d), w(n_local, f, d, f)
     foreign = (w(K, d, f, d), w(K, f, d, f), w(K, d, f, d)) if K else None
     tg = ops.tile_group_map(padded, M // block_m, block_m)
-    kw = dict(w_gate=w_gate, act="silu", block_m=block_m, foreign=foreign)
+    # as the main path calls it: with the live-row count of the extents
+    kw = dict(w_gate=w_gate, act="silu", block_m=block_m, foreign=foreign,
+              live_rows=ops.live_row_count(padded, M))
     got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
+    every_tile = ops.moe_gmm(x, w_in, w_out, tg, **{**kw, "live_rows": None})
     ref = ops.moe_gmm_plain(x, w_in, w_out, tg, **kw)
     torch.cuda.synchronize()
     dname = str(dtype).split(".")[-1]
     err, tol = compare(f"moe_gmm[{label}]", got, ref, dname)
+    compare(f"moe_gmm[{label}, every tile live]", every_tile, ref, dname)
+    del every_tile
     rec = {"case": label, "dtype": dname, "M": M, "G": G, "d": d, "f": f,
            "max_abs_err": err, "tol": tol}
     if time_it:
@@ -146,14 +203,20 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
                 h = F.silu(xg @ all_gate[gi]) * (xg @ all_in[gi])
                 y[o:o + s] = h @ all_out[gi]
             return y
-        rec["ms"] = cuda_ms(lambda: ops.moe_gmm(x, w_in, w_out, tg, **kw), 10)
-        rec["plain_ms"] = cuda_ms(
+        def kernel():
+            return ops.moe_gmm(x, w_in, w_out, tg, **kw)
+        rec["ms"] = device_ms(kernel, 10)
+        rec["event_ms"] = cuda_ms(kernel, 10)
+        rec["plain_ms"] = device_ms(
             lambda: ops.moe_gmm_plain(x, w_in, w_out, tg, **kw), 3, 1)
-        rec["library_ms"] = cuda_ms(library, 10)
+        rec["library_ms"] = device_ms(library, 10)
+        # x read over the live rows only (the kernel skips the tiles at or
+        # past the live-row count), y written over all M, the live groups'
+        # three weight matrices read once
         esz = x.element_size()
-        n_live = len(live)
-        bytes_moved = (2 * M * d * esz + 3 * n_live * d * f * esz
-                       + tg.numel() * 4)
+        live_rows = min(int(padded.sum()), M)
+        bytes_moved = ((live_rows + M) * d * esz
+                       + 3 * len(live) * d * f * esz + tg.numel() * 4)
         flops = 6.0 * sum(sizes) * d * f
         rec["bound_ms"], rec["bound_by"] = bound(bytes_moved, flops, dname)
     return rec
@@ -203,12 +266,14 @@ def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
         mask = ((log_pos[None, None] <= q_pos[:, :, None])
                 & (log_pos[None, None] < cl[:, None, None]))[:, None]
         qt = q.transpose(1, 2)
-        rec["ms"] = cuda_ms(
-            lambda: ops.paged_attention(q, k_pool, v_pool, table, cl, **kw), 20)
-        rec["plain_ms"] = cuda_ms(
+        def kernel():
+            return ops.paged_attention(q, k_pool, v_pool, table, cl, **kw)
+        rec["ms"] = device_ms(kernel, 20)
+        rec["event_ms"] = cuda_ms(kernel, 20)
+        rec["plain_ms"] = device_ms(
             lambda: ops.paged_attention_plain(q, k_pool, v_pool, table, cl,
                                               **kw), 10)
-        rec["library_ms"] = cuda_ms(
+        rec["library_ms"] = device_ms(
             lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask),
             20)
         esz = q.element_size()
@@ -242,11 +307,13 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
            "Sq": Sq, "Sk": Sk, "hd": hd, "causal": causal,
            "max_abs_err": err, "tol": tol}
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rec["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
-                        10)
-    rec["plain_ms"] = cuda_ms(
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal)
+    rec["ms"] = device_ms(kernel, 10)
+    rec["event_ms"] = cuda_ms(kernel, 10)
+    rec["plain_ms"] = device_ms(
         lambda: ops.flash_attention_plain(q, k, v, causal=causal), 3, 1)
-    rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+    rec["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 10)
     esz = q.element_size()
     # (query, key) pairs the mask keeps: the lower triangle when causal
@@ -259,7 +326,9 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
 
 def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
                   flash_batch, flash_len):
+    import numpy as np
     import torch
+    from repro_torch.core.moe_layer import MoEBlockSpec
     from repro_torch.kernels.paged_attention.ops import largest_block_divisor
     out = {"moe_gmm": [], "paged_attention": [], "flash_attention": []}
     E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
@@ -283,6 +352,20 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
         out["moe_gmm"].append(moe_gmm_case(
             label, sizes, M=M, n_local=E, d=d, f=f, block_m=128, dtype=bf,
             seed=1, time_it=True))
+    # the whole-prompt prefill's dispatch: 4 x 1024 tokens x top-6 units
+    # spread unevenly (a seeded multinomial) over the local experts, the
+    # foreign groups empty as at one rank; M is that step's c_total
+    moon_spec = MoEBlockSpec(moe=flash_cfg.moe, d_model=flash_cfg.d_model,
+                             tokens_local=flash_batch * flash_len)
+    rng = np.random.default_rng(8)
+    E2 = flash_cfg.moe.num_experts
+    whole = rng.multinomial(moon_spec.units_per_rank,
+                            rng.dirichlet(np.full(E2, 4.0))).tolist()
+    whole += [0] * flash_cfg.moe.num_foreign_slots
+    out["moe_gmm"].append(moe_gmm_case(
+        "whole_prompt", whole, M=moon_spec.c_total, n_local=E2,
+        d=flash_cfg.d_model, f=flash_cfg.moe.d_ff_expert, block_m=128,
+        dtype=bf, seed=8, time_it=True))
     out["moe_gmm"].append(moe_gmm_case(
         "f32_small", [40, 0, 7, 128, 0, 3, 1, 0], M=640, n_local=6, d=256,
         f=192, block_m=64, dtype=torch.float32, seed=2, time_it=False))
@@ -363,11 +446,15 @@ def small_reference_check(seed: int = 0) -> None:
         f"streams on the card equal the CPU plain-version streams")
 
 
-def _to(tree, dev):
+def _to(tree, dev, dtype=None):
+    """The tensors of a parameter tree on ``dev``; floating ones cast to
+    ``dtype`` when it is given."""
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return {k: _to(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
+        return [_to(v, dev, dtype) for v in tree]
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(dev, dtype)
     return tree.to(dev)
 
 
@@ -582,6 +669,168 @@ def small_prefill_reference_check(seed: int = 0) -> None:
         f"tokens")
 
 
+# Reduced moonshot in bf16.  The card (tensor-core kernels, cuBLAS) and the
+# CPU (plain versions) both round to bf16 after every operation but sum in
+# other orders.  Left alone, those roundings flip some tokens' top-k
+# experts (eight experts of random weights have close router logits), and a
+# flipped token takes another expert's output: the last-position logits
+# then move by 0.03-0.36 of the largest logit with the seed, however right
+# the kernels are.  So every bf16 run here replays the experts that the f32
+# run chose, layer by layer (its gates still come from its own router
+# logits), and what is left between bf16 and f32 is rounding that compounds
+# over the layers, 0.018-0.051 of the largest logit over eight seeds on the
+# CPU (`scripts/bf16_check_controls.py`).  The CPU's gap in the same run is
+# the scale of that noise: the card must stay within BF16_NOISE_FACTOR of
+# it from the f32 logits, and from the CPU's bf16 logits (two runs each
+# within the noise of f32 are at most twice it apart).  Planted faults
+# (BF16_FAULTS) move the logits by 0.12-1.05 over those seeds; each must
+# fail this limit on the card in every run.
+BF16_NOISE_FACTOR = 2.0
+
+
+@contextlib.contextmanager
+def replayed_routes(record=None, replay=None):
+    """Within the block, the MoE layers' top-k routing appends each layer's
+    chosen experts to ``record``, or, given ``replay``, takes the experts
+    of the recorded run in its place (one entry per MoE layer, in order),
+    with the gates from this run's router logits at those experts."""
+    import torch
+    from repro_torch.core import moe_layer, router
+    layers = iter(replay) if replay is not None else None
+
+    def route(x, w, *, top_k, num_real_experts):
+        out = router.route_topk(x, w, top_k=top_k,
+                                num_real_experts=num_real_experts)
+        if record is not None:
+            record.append(out.assign.cpu())
+        if layers is None:
+            return out
+        assign = next(layers).to(x.device)
+        logits = x.float() @ w.float()
+        gates = torch.softmax(torch.gather(logits, 1, assign.long()), dim=-1)
+        counts = torch.bincount(assign.reshape(-1).long(),
+                                minlength=w.shape[1]).to(torch.int32)
+        return out._replace(assign=assign, gates=gates, counts=counts)
+    moe_layer.route_topk = route
+    try:
+        yield
+    finally:
+        moe_layer.route_topk = router.route_topk
+
+
+@contextlib.contextmanager
+def planted_fault(name):
+    """A fault planted at a kernel's wrapper for the length of the block:
+    flash's scale 10 % too large (q scaled before the kernel), flash
+    without its causal mask, or the output of moe_gmm's last live tile
+    lost (as if the live-row count were one tile short)."""
+    from repro_torch.core import moe_layer
+    from repro_torch.kernels.moe_gmm.ops import live_row_count
+    from repro_torch.models import attention
+    flash, ffn = attention.flash_attention, moe_layer.grouped_ffn
+
+    def flash_scaled(q, k, v, *, causal=True):
+        return flash(q * 1.1, k, v, causal=causal)
+
+    def flash_unmasked(q, k, v, *, causal=True):
+        return flash(q, k, v, causal=False)
+
+    def ffn_tile_lost(x, w_in, w_out, gsp, *, block_m, **kw):
+        y = ffn(x, w_in, w_out, gsp, block_m=block_m, **kw)
+        live = int(live_row_count(gsp, x.shape[0]))
+        y[max(live - block_m, 0):live] = 0
+        return y
+    attention.flash_attention = {"flash_scale": flash_scaled,
+                                 "flash_mask": flash_unmasked}.get(name, flash)
+    moe_layer.grouped_ffn = ffn_tile_lost if name == "moe_gmm_tile" else ffn
+    try:
+        yield
+    finally:
+        attention.flash_attention, moe_layer.grouped_ffn = flash, ffn
+
+
+BF16_FAULTS = ("flash_scale", "flash_mask", "moe_gmm_tile")
+
+
+def bf16_logit_gaps(seed: int = 0, dev: str = "cuda",
+                    replay: bool = True) -> dict:
+    """Reduced moonshot-v1-16b-a3b in bf16 through ``launch.steps``: how
+    far the last-position logits on ``dev`` (the tensor-core flash and
+    moe_gmm kernels on the card) lie from the CPU's (their plain versions)
+    and from the CPU's f32 logits on the same weights, and how far they lie
+    from the f32 logits with each planted fault; every bf16 run on the f32
+    run's expert choices unless ``replay`` is False.  Gaps are shares of
+    the largest f32 logit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import build_model
+    cfg32 = get_config("moonshot-v1-16b-a3b").reduced()
+    cfg = dataclasses.replace(cfg32, dtype="bfloat16")
+    B, S = 3, 100
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    params = build_model(cfg, batch=B, seq_len=S, device="cpu").init(seed)
+    routes = []
+
+    def last_logits(c, d, p, check_step=False):
+        model = build_model(c, batch=B, seq_len=S, device=d)
+        batch = {"tokens": torch.as_tensor(prompts, device=d)}
+        # the f32 run records its experts, the others replay them
+        routing = (dict(record=routes) if c is cfg32
+                   else dict(replay=routes if replay else None))
+        with replayed_routes(**routing):
+            lg, _, _, _ = model.prefill(p, batch, s_max=S + 8)
+        if check_step:
+            with replayed_routes(**routing):
+                tok, _, _, _ = make_prefill_step(model, s_max=S + 8)(p, batch)
+            if not torch.equal(tok[:, 0].long(), lg.argmax(dim=-1)):
+                raise AssertionError(f"{d}: make_prefill_step's token is not "
+                                     f"the argmax of model.prefill's logits")
+        return lg[:, :cfg.vocab_size].float().cpu()
+
+    f32 = last_logits(cfg32, "cpu", _to(params, "cpu", torch.float32))
+    cpu = last_logits(cfg, "cpu", params, check_step=True)
+    p_dev = _to(params, dev)
+    card = last_logits(cfg, dev, p_dev, check_step=True)
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"bf16 prefill: non-finite logits on {dev}")
+    scale = float(f32.abs().max())
+
+    def gap(a, b):
+        return float((a - b).abs().max()) / scale
+    rec = {"card_vs_cpu": gap(card, cpu), "cpu_vs_f32": gap(cpu, f32),
+           "card_vs_f32": gap(card, f32),
+           "argmax_equal": int((card.argmax(-1) == f32.argmax(-1)).sum())}
+    for name in BF16_FAULTS:
+        with planted_fault(name):
+            rec[f"fault_{name}_vs_f32"] = gap(last_logits(cfg, dev, p_dev), f32)
+    return rec
+
+
+def small_prefill_bf16_check(seed: int = 0) -> dict:
+    """The bf16 logits of the card within BF16_NOISE_FACTOR x the CPU's
+    bf16 noise of the f32 logits and of the CPU's bf16 logits, and every
+    planted fault beyond that limit."""
+    rec = bf16_logit_gaps(seed, "cuda")
+    limit = BF16_NOISE_FACTOR * rec["cpu_vs_f32"]
+    log(f"[reference] reduced moonshot-v1-16b-a3b bf16 on the f32 run's "
+        f"experts, last-position logits as a share of the largest f32 logit: "
+        f"card vs f32 {rec['card_vs_f32']:.3e}, card vs CPU "
+        f"{rec['card_vs_cpu']:.3e} (limit {limit:.3e} = {BF16_NOISE_FACTOR} x "
+        f"the CPU's bf16 noise {rec['cpu_vs_f32']:.3e}), argmax equal to "
+        f"f32's in {rec['argmax_equal']} of 3 rows; planted faults: "
+        + ", ".join(f"{n} {rec[f'fault_{n}_vs_f32']:.3e}" for n in BF16_FAULTS))
+    if rec["card_vs_f32"] > limit or rec["card_vs_cpu"] > limit:
+        raise AssertionError(f"bf16 prefill logits beyond bf16 noise: {rec}")
+    missed = [n for n in BF16_FAULTS if rec[f"fault_{n}_vs_f32"] <= limit]
+    if missed:
+        raise AssertionError(f"the bf16 logits check passed planted faults "
+                             f"{missed}: {rec}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -614,8 +863,16 @@ def main() -> int:
     log(f"[env] kernels built in {secs:.1f} s into {build.BUILD_DIR}")
     for name, text in build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "Performance Loss")):
                 log(f"[ptxas] {name}: {line.strip()}")
+    counts = tensor_core_counts(build)
+    log("[sass] " + ", ".join(f"{name}: HGMMA {n}"
+                              for name, n in counts.items()))
+    for name in TENSOR_CORE:
+        if counts[name] == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in its "
+                                 f"library")
 
     cfg = get_config("qwen15-moe-a27b")
     moon = get_config("moonshot-v1-16b-a3b")
@@ -638,6 +895,7 @@ def main() -> int:
     # --- phase 5: whole-prompt prefill + slab decode ----------------------
     whole_summary = prefill_decode_path(moon, seed=0, **whole)
     small_prefill_reference_check()
+    small_prefill_bf16_check()
 
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
@@ -660,8 +918,9 @@ def main() -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "cases": [{k: r.get(k) for k in ("case", "dtype", "max_abs_err",
-                                             "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}
+                                             "ms", "event_ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")}
                       for r in parity[name]],
         })
     print(json.dumps({"kernels": kernels}))

@@ -10,27 +10,48 @@
 // the second product, exactly where the TPU kernel rounds (moe_gmm.py:61).
 // Group g reads its weights from the local rows (g < n_local) or from the
 // separate foreign rows (g - n_local), so the caller never concatenates the
-// two weight sets into one copy.
+// two weight sets into one copy.  The TPU kernel's [block_m, d] f32
+// accumulator (1 MB at d = 2048) does not fit a block's 227 KB of shared
+// memory, so the work is two launches: up/gate into h [M, f] (x's type),
+// then h @ w_out.  Two designs, chosen by dtype (no input reaches both):
 //
-// What bounds it: at decode the live rows are few, so the bytes of the live
-// groups' weights bound it (16 live groups x 3 x 2048 x 1408 x 2 B ~ 277 MB
-// per layer, ~83 us at 3.35 TB/s); most of the buffer is padding.
-// What the design does about it:
-//   * a first pass flags each 32-row tile that holds any non-zero value;
-//     the dispatch invariant makes every other tile zero rows, whose output
-//     is exact zeros (act(0) = 0), so the GEMMs write zeros there and skip
-//     the products.  Within a 128-row group tile only the 32-row sub-tiles
-//     holding real units are computed.
-//   * the TPU kernel's [block_m, d] f32 accumulator (1 MB at d = 2048) does
-//     not fit a block's 227 KB of shared memory, so the work is two
-//     launches: up/gate into h [M, f] (x's type), then h @ w_out.
-//   * f = 1408 is 22 tiles of 64: no ragged edge (the TPU kernel's
-//     block_f = 512 does not divide it).
-// This first version multiplies on the CUDA cores with f32 FMAs from
-// shared-memory tiles; tensor cores (wgmma), TMA and warp specialisation
-// are left for a later change.
+// bf16 (gmm_wgmma), the type of both main paths.  What bounds it: at the
+// whole-prompt shape (moonshot, M 39,424, 24,576 units on 64 experts, d
+// 2048, f 1408) operations and bytes alike: 425 GFLOP (0.43 ms at 989
+// TFLOP/s) and 1.38 GB of live weights, x's live rows and y (0.41 ms at
+// 3.35 TB/s).  At decode (qwen, M 8320, 16 live groups of one row) the live
+// groups' weights: 277 MB of 319 MB moved, 0.095 ms.  Design: a block of
+// one or two consumer warpgroups (64 rows each) computes a 128 (or 64) x
+// 128 output tile on the tensor cores, wgmma m64n128k16 with f32
+// accumulators, A (x or h) K-major and the weights N-major, both from
+// shared memory.  The operands go through a ring of 64-deep stages (4 for
+// the gated up launch, whose stage holds x, w_in and w_gate tiles, 6 for
+// the others; 192 KB) filled by 16-byte cp.async copies in the 128-byte
+// swizzle, the copies for stage k + stages - 2 in flight while the
+// products of stage k and k - 1 run.  The gated up launch keeps two
+// accumulators (up, gate) and applies silu(gate) * up in f32 before
+// rounding h.  An N tail (f % 128 == 64) is zero-filled on load and not
+// stored.  Grid: output column tiles fastest, so the blocks of one row tile
+// run together and share its x tile in L2, and the few row tiles of one
+// group follow each other while that group's weights are in L2; at decode
+// each live group is one row tile, so its weights are read from HBM once.
+// Liveness without a scan: group extents are rounded up to block_m, so
+// every tile below live_rows = min(sum(group_sizes_padded), M) holds a real
+// row and every tile at or above it is zero rows (core/dispatch.py).  The
+// wrapper passes that count as a one-element device tensor; dead tiles
+// skip their products, the up launch leaves their h unwritten (never
+// read) and the down launch writes their y as zeros (act(0) = 0).
+// Without the count every tile is live, which is still exact.
+//
+// f32 (gmm_up / gmm_down), for the f32 parity checks: the CUDA-core
+// kernels of the first port, their arithmetic unchanged.  A first pass
+// flags each 32-row tile of x that holds a non-zero value; 32 x 64 output
+// tiles multiply with f32 FMAs from shared-memory tiles 32 deep, skipping
+// unflagged tiles.  wgmma has no f32 x f32 form (its f32 route is TF32).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -38,14 +59,6 @@ constexpr int BM = 32;   // rows per block (a sub-tile of block_m)
 constexpr int BN = 64;   // output columns per block
 constexpr int BK = 32;   // reduction depth per shared-memory stage
 constexpr int NT = 256;  // threads: 16 column lanes x 16 row lanes
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // act codes: 0 silu, 1 gelu (tanh approximation, jax.nn.gelu's default), 2 relu
 __device__ __forceinline__ float act_fn(int act, float h) {
@@ -57,11 +70,10 @@ __device__ __forceinline__ float act_fn(int act, float h) {
   return fmaxf(h, 0.f);
 }
 
-template <typename T>
-__global__ void tile_live(const T* __restrict__ x, int* __restrict__ live, int d) {
-  const T* base = x + (size_t)blockIdx.x * BM * d;
+__global__ void tile_live(const float* __restrict__ x, int* __restrict__ live, int d) {
+  const float* base = x + (size_t)blockIdx.x * BM * d;
   int any = 0;
-  for (int i = threadIdx.x; i < BM * d; i += blockDim.x) any |= (to_f(base[i]) != 0.f);
+  for (int i = threadIdx.x; i < BM * d; i += blockDim.x) any |= (base[i] != 0.f);
   any = __syncthreads_or(any);
   if (threadIdx.x == 0) live[blockIdx.x] = any;
 }
@@ -73,34 +85,35 @@ __device__ __forceinline__ const T* group_rows(const T* local, const T* extra,
 }
 
 // h[m, n] = act-combine(x @ w_in[g], x @ w_gate[g]) for a BM x BN tile.
-template <typename T, bool GATED>
+template <bool GATED>
 __global__ void __launch_bounds__(NT)
-gmm_up(const T* __restrict__ x, const T* __restrict__ w_in, const T* __restrict__ w_gate,
-       const T* __restrict__ w_in_x, const T* __restrict__ w_gate_x, int n_local,
-       const int* __restrict__ tile_group, const int* __restrict__ live,
-       T* __restrict__ h, int d, int f, int block_m, int act) {
+gmm_up(const float* __restrict__ x, const float* __restrict__ w_in,
+       const float* __restrict__ w_gate, const float* __restrict__ w_in_x,
+       const float* __restrict__ w_gate_x, int n_local, const int* __restrict__ tile_group,
+       const int* __restrict__ live, float* __restrict__ h, int d, int f, int block_m,
+       int act) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   if (!live[blockIdx.y]) {
     for (int i = tid; i < BM * BN; i += NT)
-      h[(size_t)(m0 + i / BN) * f + n0 + i % BN] = from_f<T>(0.f);
+      h[(size_t)(m0 + i / BN) * f + n0 + i % BN] = 0.f;
     return;
   }
   const int g = tile_group[m0 / block_m];
   const size_t stride = (size_t)d * f;
-  const T* wi = group_rows(w_in, w_in_x, n_local, g, stride);
-  const T* wg = GATED ? group_rows(w_gate, w_gate_x, n_local, g, stride) : nullptr;
+  const float* wi = group_rows(w_in, w_in_x, n_local, g, stride);
+  const float* wg = GATED ? group_rows(w_gate, w_gate_x, n_local, g, stride) : nullptr;
   __shared__ float xs[BM][BK + 1];
   __shared__ float wis[BK][BN];
   __shared__ float wgs[GATED ? BK : 1][BN];
   float au[2][4] = {}, ag[2][4] = {};
   for (int k0 = 0; k0 < d; k0 += BK) {
     for (int i = tid; i < BM * BK; i += NT)
-      xs[i / BK][i % BK] = to_f(x[(size_t)(m0 + i / BK) * d + k0 + i % BK]);
+      xs[i / BK][i % BK] = x[(size_t)(m0 + i / BK) * d + k0 + i % BK];
     for (int i = tid; i < BK * BN; i += NT) {
       const size_t o = (size_t)(k0 + i / BN) * f + n0 + i % BN;
-      wis[i / BN][i % BN] = to_f(wi[o]);
-      if constexpr (GATED) wgs[i / BN][i % BN] = to_f(wg[o]);
+      wis[i / BN][i % BN] = wi[o];
+      if constexpr (GATED) wgs[i / BN][i % BN] = wg[o];
     }
     __syncthreads();
 #pragma unroll 8
@@ -125,33 +138,32 @@ gmm_up(const T* __restrict__ x, const T* __restrict__ w_in, const T* __restrict_
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float v = GATED ? act_fn(0, ag[i][j]) * au[i][j] : act_fn(act, au[i][j]);
-      h[(size_t)(m0 + ty + 16 * i) * f + n0 + tx + 16 * j] = from_f<T>(v);
+      h[(size_t)(m0 + ty + 16 * i) * f + n0 + tx + 16 * j] = v;
     }
 }
 
 // y[m, n] = h @ w_out[g] for a BM x BN tile (reduction over f).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-gmm_down(const T* __restrict__ h, const T* __restrict__ w_out, const T* __restrict__ w_out_x,
-         int n_local, const int* __restrict__ tile_group, const int* __restrict__ live,
-         T* __restrict__ y, int d, int f, int block_m) {
+gmm_down(const float* __restrict__ h, const float* __restrict__ w_out,
+         const float* __restrict__ w_out_x, int n_local, const int* __restrict__ tile_group,
+         const int* __restrict__ live, float* __restrict__ y, int d, int f, int block_m) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   if (!live[blockIdx.y]) {
     for (int i = tid; i < BM * BN; i += NT)
-      y[(size_t)(m0 + i / BN) * d + n0 + i % BN] = from_f<T>(0.f);
+      y[(size_t)(m0 + i / BN) * d + n0 + i % BN] = 0.f;
     return;
   }
   const int g = tile_group[m0 / block_m];
-  const T* wo = group_rows(w_out, w_out_x, n_local, g, (size_t)f * d);
+  const float* wo = group_rows(w_out, w_out_x, n_local, g, (size_t)f * d);
   __shared__ float hs[BM][BK + 1];
   __shared__ float ws[BK][BN];
   float acc[2][4] = {};
   for (int k0 = 0; k0 < f; k0 += BK) {
     for (int i = tid; i < BM * BK; i += NT)
-      hs[i / BK][i % BK] = to_f(h[(size_t)(m0 + i / BK) * f + k0 + i % BK]);
+      hs[i / BK][i % BK] = h[(size_t)(m0 + i / BK) * f + k0 + i % BK];
     for (int i = tid; i < BK * BN; i += NT)
-      ws[i / BN][i % BN] = to_f(wo[(size_t)(k0 + i / BN) * d + n0 + i % BN]);
+      ws[i / BN][i % BN] = wo[(size_t)(k0 + i / BN) * d + n0 + i % BN];
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
@@ -169,43 +181,200 @@ gmm_down(const T* __restrict__ h, const T* __restrict__ w_out, const T* __restri
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      y[(size_t)(m0 + ty + 16 * i) * d + n0 + tx + 16 * j] = from_f<T>(acc[i][j]);
+      y[(size_t)(m0 + ty + 16 * i) * d + n0 + tx + 16 * j] = acc[i][j];
 }
 
-template <typename T>
-int launch(int gated, int act, const void* x, const void* w_in, const void* w_gate,
-           const void* w_out, const void* w_in_x, const void* w_gate_x, const void* w_out_x,
-           int n_local, const int* tile_group, int* live, void* h, void* y, int M, int d,
-           int f, int block_m, cudaStream_t s) {
+int launch_f32(int gated, int act, const float* x, const float* w_in, const float* w_gate,
+               const float* w_out, const float* w_in_x, const float* w_gate_x,
+               const float* w_out_x, int n_local, const int* tile_group, int* live, float* h,
+               float* y, int M, int d, int f, int block_m, cudaStream_t s) {
   const int n_tiles = M / BM;
-  tile_live<T><<<n_tiles, 256, 0, s>>>((const T*)x, live, d);
+  tile_live<<<n_tiles, 256, 0, s>>>(x, live, d);
   const dim3 grid_up(f / BN, n_tiles), grid_down(d / BN, n_tiles);
   if (gated)
-    gmm_up<T, true><<<grid_up, NT, 0, s>>>((const T*)x, (const T*)w_in, (const T*)w_gate,
-                                           (const T*)w_in_x, (const T*)w_gate_x, n_local,
-                                           tile_group, live, (T*)h, d, f, block_m, act);
+    gmm_up<true><<<grid_up, NT, 0, s>>>(x, w_in, w_gate, w_in_x, w_gate_x, n_local,
+                                        tile_group, live, h, d, f, block_m, act);
   else
-    gmm_up<T, false><<<grid_up, NT, 0, s>>>((const T*)x, (const T*)w_in, nullptr,
-                                            (const T*)w_in_x, nullptr, n_local, tile_group,
-                                            live, (T*)h, d, f, block_m, act);
-  gmm_down<T><<<grid_down, NT, 0, s>>>((const T*)h, (const T*)w_out, (const T*)w_out_x,
-                                       n_local, tile_group, live, (T*)y, d, f, block_m);
+    gmm_up<false><<<grid_up, NT, 0, s>>>(x, w_in, nullptr, w_in_x, nullptr, n_local,
+                                         tile_group, live, h, d, f, block_m, act);
+  gmm_down<<<grid_down, NT, 0, s>>>(h, w_out, w_out_x, n_local, tile_group, live, y, d, f,
+                                    block_m);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int TN = 128;  // output columns per block
+constexpr int TK = 64;   // reduction depth per stage
+
+template <int MT, int NB>  // MT rows per block (64 per warpgroup); NB weight operands
+struct Gmm {
+  static constexpr int THREADS = MT / 64 * 128;
+  static constexpr int A_BYTES = MT * TK * 2;
+  static constexpr int B_BYTES = TK * TN * 2;
+  static constexpr int STAGE = A_BYTES + NB * B_BYTES;
+  static constexpr int STAGES = NB == 2 ? 4 : 6;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+};
+
+// c[m0:m0+MT, n0:n0+TN] of a @ b0[g] (and a @ b1[g]); a [M, K], b [G, K, N],
+// c [M, N].  EPI 0: c = acc (down); 1: c = act(acc) (plain up); 2: c =
+// silu(acc of b1) * acc of b0 (gated up, b0 = w_in, b1 = w_gate).
+template <int MT, int NB, int EPI>
+__global__ void __launch_bounds__(Gmm<MT, NB>::THREADS, 1)
+gmm_wgmma(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b0,
+          const __nv_bfloat16* __restrict__ b0_x, const __nv_bfloat16* __restrict__ b1,
+          const __nv_bfloat16* __restrict__ b1_x, int n_local,
+          const int* __restrict__ tile_group, const int* __restrict__ live_rows,
+          __nv_bfloat16* __restrict__ c, int K, int N, int block_m, int act) {
+  using namespace hopper;
+  using C = Gmm<MT, NB>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * MT;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  if (live_rows != nullptr && m0 >= *live_rows) {  // zero rows only
+    if (EPI == 0)
+      for (int i = tid; i < MT * TN / 8; i += C::THREADS) {
+        const int r = i / (TN / 8), col = n0 + (i % (TN / 8)) * 8;
+        if (col < N)
+          *reinterpret_cast<uint4*>(c + (size_t)(m0 + r) * N + col) = make_uint4(0, 0, 0, 0);
+      }
+    return;
+  }
+  const int g = tile_group[m0 / block_m];
+  const __nv_bfloat16* w0 = group_rows(b0, b0_x, n_local, g, (size_t)K * N);
+  const __nv_bfloat16* w1 = NB == 2 ? group_rows(b1, b1_x, n_local, g, (size_t)K * N) : w0;
+  const __nv_bfloat16* a_tile = a + (size_t)m0 * K;
+
+  auto load = [&](int kt) {
+    const uint32_t st = s0 + (kt % C::STAGES) * C::STAGE;
+    const int k0 = kt * TK;
+    for (int i = tid; i < MT * TK / 8; i += C::THREADS) {  // A: MT rows x 64, K-major
+      const int r = i / (TK / 8), cc = (i % (TK / 8)) * 8;
+      cp_async16(st + sw128(r, cc, MT), a_tile + (size_t)r * K + k0 + cc, true);
+    }
+    for (int i = tid; i < TK * TN / 8; i += C::THREADS) {  // B: 64 K rows x 128, N-major
+      const int r = i / (TN / 8), cc = (i % (TN / 8)) * 8, col = n0 + cc;
+      const bool ok = col < N;                              // the N tail reads zeros
+      const size_t o = (size_t)(k0 + r) * N + col;
+      const uint32_t dst = st + C::A_BYTES + sw128(r, cc, TK);
+      cp_async16(dst, ok ? w0 + o : w0, ok);
+      if constexpr (NB == 2) cp_async16(dst + C::B_BYTES, ok ? w1 + o : w1, ok);
+    }
+  };
+
+  constexpr int AHEAD = C::STAGES - 2;  // stages in flight ahead of the products
+  const int nk = K / TK;
+  for (int kt = 0; kt < AHEAD; ++kt) {
+    if (kt < nk) load(kt);
+    cp_async_commit();
+  }
+  float acc0[64], acc1[NB == 2 ? 64 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (NB == 2 ? 64 : 1); ++i) acc1[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<AHEAD - 1>();  // stage kt has landed
+    fence_proxy_async();
+    __syncthreads();             // ... for every thread; products of kt - 2 are done
+    if (kt + AHEAD < nk) load(kt + AHEAD);
+    cp_async_commit();
+    const uint32_t st = s0 + (kt % C::STAGES) * C::STAGE;
+    reg_fence(acc0);
+    if constexpr (NB == 2) reg_fence(acc1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint64_t da = desc(st + wg * (64 * 128) + kk * 32, 16, 1024);
+      const uint32_t bb = st + C::A_BYTES + kk * (16 * 128);
+      wgmma_ss_n128<1>(acc0, da, desc(bb, TK * 128, 1024), 1);
+      if constexpr (NB == 2) wgmma_ss_n128<1>(acc1, da, desc(bb + C::B_BYTES, TK * 128, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();             // the products of kt - 1 are done
+    reg_fence(acc0);
+    if constexpr (NB == 2) reg_fence(acc1);
+  }
+  wgmma_wait<0>();
+  reg_fence(acc0);
+  if constexpr (NB == 2) reg_fence(acc1);
+
+  const int r0 = m0 + wg * 64;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int row = r0 + frag_row(wt, i), col = n0 + frag_col(wt, i);
+    if (col >= N) continue;
+    float v0 = acc0[i], v1 = acc0[i + 1];
+    if constexpr (EPI == 1) {
+      v0 = act_fn(act, v0);
+      v1 = act_fn(act, v1);
+    } else if constexpr (EPI == 2) {
+      v0 = act_fn(0, acc1[i]) * v0;
+      v1 = act_fn(0, acc1[i + 1]) * v1;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(c + (size_t)row * N + col) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+template <int MT, int NB, int EPI>
+cudaError_t launch_gmm(dim3 grid, cudaStream_t s, const void* a, const void* b0,
+                       const void* b0_x, const void* b1, const void* b1_x, int n_local,
+                       const int* tile_group, const int* live_rows, void* c, int K, int N,
+                       int block_m, int act) {
+  using C = Gmm<MT, NB>;
+  cudaError_t e = cudaFuncSetAttribute(gmm_wgmma<MT, NB, EPI>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  using T = __nv_bfloat16;
+  gmm_wgmma<MT, NB, EPI><<<grid, C::THREADS, C::SMEM, s>>>(
+      (const T*)a, (const T*)b0, (const T*)b0_x, (const T*)b1, (const T*)b1_x, n_local,
+      tile_group, live_rows, (T*)c, K, N, block_m, act);
+  return cudaGetLastError();
+}
+
+template <int MT>
+int launch_bf16(int gated, int act, const void* x, const void* w_in, const void* w_gate,
+                const void* w_out, const void* w_in_x, const void* w_gate_x,
+                const void* w_out_x, int n_local, const int* tile_group, const int* live_rows,
+                void* h, void* y, int M, int d, int f, int block_m, cudaStream_t s) {
+  const dim3 grid_up((f + TN - 1) / TN, M / MT), grid_down((d + TN - 1) / TN, M / MT);
+  cudaError_t e =
+      gated ? launch_gmm<MT, 2, 2>(grid_up, s, x, w_in, w_in_x, w_gate, w_gate_x, n_local,
+                                   tile_group, live_rows, h, d, f, block_m, act)
+            : launch_gmm<MT, 1, 1>(grid_up, s, x, w_in, w_in_x, nullptr, nullptr, n_local,
+                                   tile_group, live_rows, h, d, f, block_m, act);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_gmm<MT, 1, 0>(grid_down, s, h, w_out, w_out_x, nullptr, nullptr, n_local,
+                                   tile_group, live_rows, y, f, d, block_m, act);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Shapes are checked by the Python wrapper:
-// M % block_m == 0, block_m % 32 == 0, d % 64 == 0, f % 64 == 0.
+// dtype: 0 float32 (CUDA cores, `live` scratch of M / 32 ints for the
+// flag pass), 1 bfloat16 (tensor cores; `live_rows` a device int, or null
+// for every tile live).  Shapes are checked by the Python wrapper: M %
+// block_m == 0, d % 64 == 0, f % 64 == 0, block_m % 32 == 0 (f32) or %
+// 64 == 0 (bf16).
 extern "C" int moe_gmm_launch(int dtype, int gated, int act, const void* x,
                               const void* w_in, const void* w_gate, const void* w_out,
                               const void* w_in_x, const void* w_gate_x, const void* w_out_x,
-                              int n_local, const int* tile_group, int* live, void* h,
-                              void* y, int M, int d, int f, int block_m, void* stream) {
+                              int n_local, const int* tile_group, int* live,
+                              const int* live_rows, void* h, void* y, int M, int d, int f,
+                              int block_m, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x, w_out_x,
-                         n_local, tile_group, live, h, y, M, d, f, block_m, s);
-  return launch<__nv_bfloat16>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x,
-                               w_out_x, n_local, tile_group, live, h, y, M, d, f, block_m, s);
+    return launch_f32(gated, act, (const float*)x, (const float*)w_in, (const float*)w_gate,
+                      (const float*)w_out, (const float*)w_in_x, (const float*)w_gate_x,
+                      (const float*)w_out_x, n_local, tile_group, live, (float*)h, (float*)y,
+                      M, d, f, block_m, s);
+  if (block_m % 128 == 0)
+    return launch_bf16<128>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x, w_out_x,
+                            n_local, tile_group, live_rows, h, y, M, d, f, block_m, s);
+  return launch_bf16<64>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x, w_out_x,
+                         n_local, tile_group, live_rows, h, y, M, d, f, block_m, s);
 }

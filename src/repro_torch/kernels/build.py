@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launch function and is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``).  A
-library's file name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
+library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built when a
 module is imported: the first launch builds, or ``build_all()`` compiles
 every kernel at once with one ``nvcc`` process per source, all started
 together.
@@ -40,9 +41,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library's path, tagged with a hash of its source, of every
+    shared header in ``csrc/`` and of the compiler flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:

@@ -5,7 +5,11 @@ Port of ``repro/kernels/flash_attention/`` (``flash_attention_kernel``,
 attention of a whole prompt over itself, forward only.  ``flash_attention``
 launches ``csrc/flash_attention.cu`` for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; there is no fallback from one
-to the other.
+to the other.  The kernel's design is chosen by ``q.dtype``, explicitly
+(no input can reach both): bfloat16, the prefill path's type, runs on the
+tensor cores (``wgmma``) and needs every row of q, k and v to start on 16
+bytes; float32 runs on the CUDA cores, since ``wgmma``'s only f32 route
+is TF32.
 """
 from __future__ import annotations
 
@@ -87,6 +91,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError("flash_attention: the last axis (hd) of q, k "
                              "and v must be contiguous")
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))):
+            raise ValueError("flash_attention: the bf16 kernel copies 16-byte "
+                             "chunks, so every row of q, k and v must start "
+                             "on 16 bytes (strides multiples of 8)")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))

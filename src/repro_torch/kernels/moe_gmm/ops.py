@@ -7,10 +7,17 @@ tensors; there is no fallback from one to the other.
 
 Weights come as ``G0`` local groups plus, optionally, ``foreign`` — the
 ``K`` fetched foreign groups that follow them in group order — so the
-caller never concatenates the two into one copy.  The kernel takes every
-32-row sub-tile of ``x`` that is all zeros as zero rows (exact zeros out,
-since act(0) = 0): the dispatch buffer's padding rows are zeros by
-construction.
+caller never concatenates the two into one copy.
+
+The kernel's design is chosen by ``x.dtype``, explicitly (no input can
+reach both): bfloat16, the main paths' type, runs on the tensor cores
+(``wgmma``) and needs ``block_m % 64 == 0``; float32 runs on the CUDA
+cores, since ``wgmma``'s only f32 route is TF32.  Tiles of zero rows give
+exact zeros (act(0) = 0), and the dispatch buffer's padding rows are zeros
+by construction.  The bf16 kernel learns which tiles are live from
+``live_rows`` (``live_row_count``: every tile at or past it is zero rows)
+and skips the rest; without it every tile is live.  The f32 kernel finds
+the non-zero 32-row sub-tiles with a flag pass over ``x``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,16 @@ def tile_group_map(group_sizes_padded: torch.Tensor, n_tiles: int,
     return torch.clamp(tg, max=group_sizes_padded.shape[0] - 1)
 
 
+def live_row_count(group_sizes_padded: torch.Tensor, M: int) -> torch.Tensor:
+    """min(sum(group_sizes_padded), M) as a one-element int32 tensor on the
+    extents' device, without a host sync.  Extents are rounded up to
+    block_m, so every tile below the count holds a real row, and every row
+    at or past it is zero (rows past ``c_total`` were dropped, though
+    ``group_sizes`` still counts them: hence the ``min``)."""
+    return torch.clamp(group_sizes_padded.sum(), max=M).to(
+        torch.int32).reshape(1)
+
+
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
     if name == "gelu":
         return F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
@@ -59,9 +76,12 @@ def _with_foreign(w_in, w_out, w_gate, foreign: Foreign):
 def moe_gmm_plain(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                   tile_group: torch.Tensor, *,
                   w_gate: Optional[torch.Tensor] = None, act: str = "silu",
-                  block_m: int = 128, foreign: Foreign = None) -> torch.Tensor:
+                  block_m: int = 128, foreign: Foreign = None,
+                  live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: per tile, f32 products, the
-    activation in f32, h rounded to x's type before the second product."""
+    activation in f32, h rounded to x's type before the second product.
+    Every tile is computed: ``live_rows`` only promises that the rows at
+    or past it are zero, whose output is zero either way."""
     w_in, w_out, w_gate = _with_foreign(w_in, w_out, w_gate, foreign)
     M, d = x.shape
     tg = tile_group.long()
@@ -84,13 +104,14 @@ def _lib():
     fn = lib.moe_gmm_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, i, p, p, p, p,
+        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, i, p, p, p, p, p,
                        i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m):
+def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
+           live_rows=None):
     M, d = x.shape
     G0, d_w, f = w_in.shape
     if x.dtype not in _DTYPES:
@@ -98,7 +119,7 @@ def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m):
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     mats = [w_in, w_out, w_gate] + (list(foreign) if foreign else [])
-    for t in [x, tile_group] + mats:
+    for t in [x, tile_group, live_rows] + mats:
         if t is None:
             continue
         if t.device != x.device or not t.is_contiguous():
@@ -119,37 +140,49 @@ def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m):
             raise ValueError("moe_gmm: foreign weight shapes disagree")
     if tile_group.dtype != torch.int32 or tile_group.shape != (M // block_m,):
         raise ValueError("moe_gmm: tile_group must be int32 [M // block_m]")
+    if live_rows is not None and (live_rows.dtype != torch.int32
+                                  or live_rows.shape != (1,)):
+        raise ValueError("moe_gmm: live_rows must be int32 [1]")
     if M % block_m or block_m % 32 or d % 64 or f % 64:
         raise ValueError(f"moe_gmm kernel needs M % block_m == 0, block_m % "
                          f"32 == 0, d % 64 == 0 and f % 64 == 0; got M={M}, "
                          f"block_m={block_m}, d={d}, f={f}")
+    if x.dtype == torch.bfloat16 and block_m % 64:
+        raise ValueError(f"moe_gmm's bf16 kernel needs block_m % 64 == 0 "
+                         f"(64-row warpgroup tiles); got block_m={block_m}")
 
 
 def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
             tile_group: torch.Tensor, *, w_gate: Optional[torch.Tensor] = None,
-            act: str = "silu", block_m: int = 128,
-            foreign: Foreign = None) -> torch.Tensor:
+            act: str = "silu", block_m: int = 128, foreign: Foreign = None,
+            live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [M, d]; w_in/w_gate [G0, d, f]; w_out [G0, f, d]; ``foreign`` an
     optional (w_in, w_out, w_gate) of K more groups; tile_group
-    [M // block_m] int32 in [0, G0 + K) -> [M, d] in x's type."""
+    [M // block_m] int32 in [0, G0 + K); ``live_rows`` an optional int32
+    [1] on x's device, a multiple of block_m, past which every row of x is
+    zero -> [M, d] in x's type."""
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w_in, w_out, tile_group, w_gate=w_gate,
-                             act=act, block_m=block_m, foreign=foreign)
+                             act=act, block_m=block_m, foreign=foreign,
+                             live_rows=live_rows)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on cuda or cpu, not {x.device}")
-    _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m)
+    _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
+           live_rows)
     M, d = x.shape
     f = w_in.shape[2]
     fi, fo, fg = foreign if foreign is not None else (None, None, None)
     h = torch.empty((M, f), dtype=x.dtype, device=x.device)
     y = torch.empty((M, d), dtype=x.dtype, device=x.device)
-    live = torch.empty((M // 32,), dtype=torch.int32, device=x.device)
+    # the f32 kernel's flag pass writes one int per 32-row sub-tile
+    live = (torch.empty((M // 32,), dtype=torch.int32, device=x.device)
+            if x.dtype == torch.float32 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib()(_DTYPES[x.dtype], int(w_gate is not None), _ACTS[act],
                 x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
                 _ptr(fi), _ptr(fg), _ptr(fo), w_in.shape[0],
-                tile_group.data_ptr(), live.data_ptr(), h.data_ptr(),
-                y.data_ptr(), M, d, f, block_m, stream)
+                tile_group.data_ptr(), _ptr(live), _ptr(live_rows),
+                h.data_ptr(), y.data_ptr(), M, d, f, block_m, stream)
     build.check(rc, "moe_gmm")
     moe_gmm.launches += 1
     return y
@@ -164,7 +197,9 @@ def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                      block_m: int = 128, foreign: Foreign = None
                      ) -> torch.Tensor:
     """Entry used by ``core/grouped_ffn.py``: block-aligned group extents
-    -> tile map -> ``moe_gmm``."""
-    tg = tile_group_map(group_sizes_padded, x.shape[0] // block_m, block_m)
+    -> tile map and live-row count -> ``moe_gmm``."""
+    M = x.shape[0]
+    tg = tile_group_map(group_sizes_padded, M // block_m, block_m)
     return moe_gmm(x, w_in, w_out, tg, w_gate=w_gate, act=act,
-                   block_m=block_m, foreign=foreign)
+                   block_m=block_m, foreign=foreign,
+                   live_rows=live_row_count(group_sizes_padded, M))

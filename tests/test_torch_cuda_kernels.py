@@ -32,11 +32,19 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gated", [True, False])
-def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated):
+@pytest.mark.parametrize("sizes", [
+    [40, 0, 7, 64, 0, 3],         # empty groups, a foreign group with rows
+    [1, 63, 64, 65, 0, 128],      # groups across the 64-row warpgroup tiles
+])
+@pytest.mark.parametrize("f", [192, 1408])       # 192: a 64-wide N tail
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("live", [False, True])  # with the live-row count
+def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated, sizes, f, bm,
+                                      live):
     from repro_torch.kernels.moe_gmm import ops
     g = torch.Generator(device=cuda).manual_seed(0)
-    bm, d, f = 64, 128, 192
-    sizes = torch.tensor([40, 0, 7, 64, 0, 3], dtype=torch.int32, device=cuda)
+    d = 128
+    sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
     padded = ((sizes + bm - 1) // bm) * bm
     M = int(padded.sum()) + 2 * bm
     x = torch.zeros((M, d), device=cuda)
@@ -51,7 +59,8 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated):
     w_in, w_gate, w_out = w(4, d, f), w(4, d, f), w(4, f, d)
     foreign = (w(2, d, f), w(2, f, d), w(2, d, f) if gated else None)
     kw = dict(w_gate=w_gate if gated else None, act="silu" if gated else
-              "gelu", block_m=bm, foreign=foreign)
+              "gelu", block_m=bm, foreign=foreign,
+              live_rows=ops.live_row_count(padded, M) if live else None)
     tg = ops.tile_group_map(padded, M // bm, bm)
     n0 = ops.moe_gmm.launches
     got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
@@ -100,6 +109,9 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, S, rep, bs,
     (2, 8, 2, 77, 64),     # GQA rep 4, ragged last tile
     (1, 8, 1, 130, 32),    # MQA, three tiles
     (2, 2, 2, 1, 16),      # a single position
+] + [  # around the bf16 kernel's 128-row q and 64-position kv tiles
+    (B, H, Hkv, S, hd) for S in (1, 63, 64, 65, 127, 128, 129, 1024)
+    for hd in (64, 128) for B, H, Hkv in ((1, 2, 2), (2, 4, 1))
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, B, H,
                                               Hkv, S, hd):
@@ -118,18 +130,23 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, causal, B, H,
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
-def test_flash_attention_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
     """Full attention, Sq != Sk, q/k/v as views of fused projections."""
     from repro_torch.kernels.flash_attention import ops
     g = torch.Generator(device=cuda).manual_seed(3)
-    q = torch.randn((2, 24, 2, 8, 64), generator=g, device=cuda)[:, :, 0]
-    kv = torch.randn((2, 100, 2, 2, 64), generator=g, device=cuda)
+    q = torch.randn((2, 24, 2, 8, 64), generator=g,
+                    device=cuda).to(dtype)[:, :, 0]
+    kv = torch.randn((2, 100, 2, 2, 64), generator=g, device=cuda).to(dtype)
     k, v = kv.unbind(dim=2)
+    n0 = ops.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=False)
     ref = ops.flash_attention_plain(q, k, v, causal=False)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               atol=2e-5, rtol=2e-5)
+    assert ops.flash_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
 
 
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
@@ -148,6 +165,10 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
     t = torch.zeros((1, 8, 64, 2), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(t, t, t)
+    b = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16,
+                    device=cuda)[..., :64]               # rows on 8 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(b, b, b, causal=False)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -110,3 +110,123 @@ def test_moe_gmm_foreign_groups_equal_concatenated_weights():
                       foreign=(t[0][4:], t[1][4:], t[2][4:]))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
                                rtol=2e-5)
+
+
+class _RecvComm:
+    """Rank ``me`` of ``G``: the all-to-all hands back ``recv`` as the rows
+    the other ranks sent, random values in every slot (valid or not)."""
+
+    def __init__(self, G, me, recv):
+        self.size, self.rank, self._recv = G, me, recv
+
+    def all_to_all(self, x):
+        return self._recv
+
+
+def _dispatch_buffer(arch, case):
+    """A grouped buffer built by the port's schedule and dispatch for a
+    reduced config, and its block-aligned group extents."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.moe_layer import MoEBlockSpec
+    from repro_torch.core.scheduler import schedule
+    cfg = get_config(arch).reduced()
+    G, me, cf = (4, 0, 1.25) if case == "foreign" else (1, 0, 1.25)
+    if case == "overflow":
+        cf = 0.25                        # capacity far below the load
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cf)
+    bm, T = 16, 128 if case == "overflow" else 48
+    spec = MoEBlockSpec(moe=moe, d_model=cfg.d_model, ep_degree=G,
+                        tokens_local=T * G, block_m=bm)
+    E, k, K = moe.num_experts, moe.num_experts_per_tok, moe.num_foreign_slots
+    topo = spec.topo
+    rng = np.random.default_rng(len(case))
+    experts = {"empty_groups": [1, 4], "one_group": [6], "overflow": [5, 6, 7],
+               "foreign": [1, 1, 1, 2], "tail": list(range(E))}[case]
+    assign = rng.choice(experts, size=(T, k)).astype(np.int32)
+    if case == "one_group":
+        assign[:, 1] = E                 # the sentinel: padding units
+    counts = np.zeros((G, topo.padded_experts), np.int32)
+    for g in range(G):                   # every rank is as hot on expert 1
+        counts[g] = np.bincount(assign.reshape(-1), minlength=E + 1)[:E]
+    S, _ = schedule(torch.from_numpy(counts), topo, policy="harmoeny", q=1,
+                    c_pair=spec.c_pair, num_foreign_slots=K)
+    layout = D.build_layout(S, torch.from_numpy(assign), me, topo,
+                            c_pair=spec.c_pair, c_total=spec.c_total,
+                            num_foreign_slots=K, block_m=bm)
+    x = torch.from_numpy(rng.normal(size=(T, cfg.d_model)).astype(np.float32))
+    recv = torch.from_numpy(rng.normal(
+        size=(G, spec.c_pair, cfg.d_model)).astype(np.float32))
+    grouped = D.dispatch(torch.repeat_interleave(x, k, dim=0), layout,
+                         _RecvComm(G, me, recv), c_pair=spec.c_pair,
+                         c_total=spec.c_total)
+    sizes = layout.group_sizes
+    return cfg, spec, grouped, D.round_up_j(sizes, bm), sizes, layout
+
+
+@pytest.mark.parametrize("arch", ["qwen15-moe-a27b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("case", ["empty_groups", "one_group", "foreign",
+                                  "overflow", "tail"])
+def test_live_row_count_bounds_the_nonzero_rows(arch, case):
+    """The count ``fused_expert_ffn`` hands the bf16 kernel: every tile that
+    holds a non-zero row lies below it, every tile at or past it is zero
+    rows (the kernel writes zeros there without its products), and the
+    plain version's output is zero there too."""
+    from repro_torch.kernels.moe_gmm.ops import live_row_count, moe_gmm_plain
+    cfg, spec, grouped, padded, sizes, layout = _dispatch_buffer(arch, case)
+    bm, M = spec.block_m, spec.c_total
+    live = live_row_count(padded, M)
+    assert live.dtype == torch.int32 and live.shape == (1,)
+    n_live = int(live)
+    assert n_live % bm == 0 and n_live == min(int(padded.sum()), M)
+    nonzero_tiles = (grouped.reshape(M // bm, bm, -1) != 0).any(
+        dim=2).any(dim=1)
+    assert not nonzero_tiles[n_live // bm:].any()
+    if int(layout.send_drops) == 0:      # every live tile holds a real row
+        assert nonzero_tiles[:n_live // bm].all()
+    epr = spec.topo.experts_per_rank
+    if case == "foreign":
+        assert int(sizes[epr:].sum()) > 0          # foreign groups hold load
+    if case == "empty_groups" or case == "one_group":
+        assert int((sizes[:epr] == 0).sum()) >= epr - 2
+    if case == "overflow":
+        assert int(padded.sum()) > M and int(layout.dest_drops) > 0
+        assert n_live == M
+    else:
+        assert n_live < M                          # a zero tail up to c_total
+    rng = np.random.default_rng(3)
+    d, f, K = cfg.d_model, cfg.moe.d_ff_expert, spec.moe.num_foreign_slots
+
+    def w(n, a, b):
+        return torch.from_numpy(rng.normal(size=(n, a, b)).astype(
+            np.float32) * 0.1)
+    tg = tile_group_map(padded, M // bm, bm)
+    y = moe_gmm_plain(grouped, w(epr, d, f), w(epr, f, d), tg,
+                      w_gate=w(epr, d, f), block_m=bm,
+                      foreign=(w(K, d, f), w(K, f, d), w(K, d, f)))
+    assert torch.equal(y[n_live:], torch.zeros_like(y[n_live:]))
+    assert (y[:n_live] != 0).any()
+
+
+def test_bf16_kernel_check_names_its_block_m_rule():
+    """The bf16 kernel tiles rows by 64-row warpgroups: the wrapper's check
+    refuses other block_m in bf16 with a message naming the rule, and
+    keeps the f32 kernel's 32-row rule."""
+    from repro_torch.kernels.moe_gmm.ops import _check
+    d, f, G = 64, 64, 2
+
+    def args(dtype, bm, M=192):
+        x = torch.zeros((M, d), dtype=dtype)
+        w_in = torch.zeros((G, d, f), dtype=dtype)
+        w_out = torch.zeros((G, f, d), dtype=dtype)
+        tg = torch.zeros((M // bm,), dtype=torch.int32)
+        return x, w_in, w_out, None, None, tg, "silu", bm
+    with pytest.raises(ValueError, match="bf16 kernel needs block_m % 64"):
+        _check(*args(torch.bfloat16, 32))
+    with pytest.raises(ValueError, match="block_m % 32 == 0"):
+        _check(*args(torch.float32, 48))
+    _check(*args(torch.float32, 32))
+    _check(*args(torch.bfloat16, 64))
+    with pytest.raises(ValueError, match="live_rows must be int32"):
+        _check(*args(torch.bfloat16, 64), torch.zeros((2,), dtype=torch.int32))
