@@ -6,12 +6,14 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: the card's name and power limit (nvidia-smi), TF32 off,
      the hand-written CUDA kernels built from ``src/repro_torch/csrc``,
-     and the count of tensor-core instructions in each library, which
-     must not be 0 for the bf16 designs of moe_gmm and flash_attention;
+     and the count of tensor-core instructions (HGMMA and HMMA) in each
+     library, which must not be 0 for any kernel: bf16 moe_gmm and
+     flash_attention run on wgmma, bf16 paged_attention q tiles of 16
+     rows on mma.sync;
   2. kernel parity at the main paths' shapes: every kernel against its
      plain PyTorch version on the same inputs (bf16, plus f32 at a smaller
-     size; moe_gmm also at the whole-prompt path's dispatch), with its
-     device time, the plain version's, one PyTorch library call's as a
+     size; moe_gmm also at the whole-prompt path's dispatch,
+     paged_attention also on long decode chains), with its device time, the plain version's, one PyTorch library call's as a
      yardstick, and the card's least time for the work;
   3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
      (random weights from a seed, bf16, paged KV, chunked prefill, greedy,
@@ -61,7 +63,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
-TENSOR_CORE = ("moe_gmm", "flash_attention")   # their bf16 designs use wgmma
+# every kernel's bf16 design runs on the tensor cores: wgmma (HGMMA) in
+# moe_gmm and flash_attention, mma.sync (HMMA) in paged_attention
+TENSOR_CORE = ("moe_gmm", "flash_attention", "paged_attention")
 
 
 def log(msg: str) -> None:
@@ -133,18 +137,29 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def tensor_core_counts(build):
-    """``HGMMA`` (tensor-core) instructions in each built library, from the
-    toolkit's ``cuobjdump -sass``."""
+    """Tensor-core instructions in each built library, ``HGMMA`` (wgmma)
+    and ``HMMA`` (mma.sync) apart, from the toolkit's ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         raise RuntimeError("cuobjdump not found beside nvcc: the tensor-core "
                            "instructions cannot be counted")
-    return {name: subprocess.run([tool, "-sass", str(build._lib_path(name))],
-                                 capture_output=True, text=True,
-                                 check=True).stdout.count("HGMMA")
-            for name in build.KERNELS}
+    counts = {}
+    for name in build.KERNELS:
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = {op: sass.count(op) for op in ("HGMMA", "HMMA")}
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -222,12 +237,10 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
     return rec
 
 
-def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
-                         softcap, dtype, seed, time_it, slab=False):
+def paged_attention_inputs(*, B, S, H, Hkv, hd, bs, lengths, n_blocks,
+                           dtype, seed, slab=False, dev="cuda"):
+    """q, the pools, the block table and the lengths of one case."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import ops
-    dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     if slab:                   # the slab-as-pool view: identity tables
         num_phys = B * n_blocks
@@ -245,14 +258,30 @@ def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
     v_pool = torch.randn((1, P, Hkv, hd), generator=g, device=dev).to(dtype)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
     cl = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, table, cl
+
+
+def paged_attention_case(label, *, B, S, H, Hkv, hd, bs, lengths, n_blocks,
+                         softcap, dtype, seed, time_it, slab=False):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    dev = "cuda"
+    q, k_pool, v_pool, table, cl = paged_attention_inputs(
+        B=B, S=S, H=H, Hkv=Hkv, hd=hd, bs=bs, lengths=lengths,
+        n_blocks=n_blocks, dtype=dtype, seed=seed, slab=slab, dev=dev)
     kw = dict(block_size=bs, softcap=softcap)
     got = ops.paged_attention(q, k_pool, v_pool, table, cl, **kw)
     ref = ops.paged_attention_plain(q, k_pool, v_pool, table, cl, **kw)
     torch.cuda.synchronize()
     dname = str(dtype).split(".")[-1]
     err, tol = compare(f"paged_attention[{label}]", got, ref, dname)
+    plan = ops.launch_plan(B, S, H, Hkv, hd, dtype, n_blocks, bs,
+                           ops._sm_count(q.device))
     rec = {"case": label, "dtype": dname, "B": B, "S": S, "H": H, "Hkv": Hkv,
            "hd": hd, "block_size": bs, "lengths": list(lengths),
+           "route": "tensor cores" if plan.tensor_cores else "CUDA cores",
+           "splits": plan.n_splits, "span": plan.span, "ctas": plan.ctas,
            "max_abs_err": err, "tol": tol}
     if time_it:
         # the library call attends over K/V already gathered to [B, H, L, hd]
@@ -382,6 +411,11 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
         "prefill_chunk", B=1, S=prefill_chunk, H=H, Hkv=Hkv, hd=hd,
         bs=bs_slab, lengths=[160 + prefill_chunk], n_blocks=s_pad // bs_slab,
         softcap=0.0, dtype=bf, seed=4, time_it=True, slab=True))
+    # long chains, where the kernel is held to the HBM rate: 83.9 MB of K/V
+    out["paged_attention"].append(paged_attention_case(
+        "long_decode", B=4, S=1, H=H, Hkv=Hkv, hd=hd, bs=block_size,
+        lengths=[1024, 2048, 3072, 4096], n_blocks=4096 // block_size,
+        softcap=0.0, dtype=bf, seed=9, time_it=True))
     out["paged_attention"].append(paged_attention_case(
         "f32_gqa_softcap", B=3, S=4, H=8, Hkv=2, hd=64, bs=5,
         lengths=[4, 23, 40], n_blocks=8, softcap=30.0, dtype=torch.float32,
@@ -850,11 +884,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     # --- phase 1: environment -------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(smi_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -867,10 +897,10 @@ def main() -> int:
                                        "Performance Loss")):
                 log(f"[ptxas] {name}: {line.strip()}")
     counts = tensor_core_counts(build)
-    log("[sass] " + ", ".join(f"{name}: HGMMA {n}"
+    log("[sass] " + ", ".join(f"{name}: HGMMA {n['HGMMA']} HMMA {n['HMMA']}"
                               for name, n in counts.items()))
     for name in TENSOR_CORE:
-        if counts[name] == 0:
+        if sum(counts[name].values()) == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its "
                                  f"library")
 
@@ -920,7 +950,7 @@ def main() -> int:
             "cases": [{k: r.get(k) for k in ("case", "dtype", "max_abs_err",
                                              "ms", "event_ms", "plain_ms",
                                              "bound_ms", "bound_by",
-                                             "library_ms")}
+                                             "library_ms", "splits", "ctas")}
                       for r in parity[name]],
         })
     print(json.dumps({"kernels": kernels}))

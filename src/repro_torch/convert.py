@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models.attention import AttnCache
 
 
@@ -26,14 +27,19 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def to_torch(tree: Any, device="cpu") -> Any:
-    """Pytree of arrays -> the same tree of torch tensors on ``device``."""
+def to_torch(tree: Any, device=None) -> Any:
+    """Pytree of arrays -> the same tree of torch tensors on ``device``
+    (the CUDA device unless the caller asks for another)."""
+    return _convert(tree, resolve_device(device))
+
+
+def _convert(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         if tuple(tree._fields) == AttnCache._fields:
-            return AttnCache(*(to_torch(v, device) for v in tree))
-        return type(tree)(*(to_torch(v, device) for v in tree))
+            return AttnCache(*(_convert(v, device) for v in tree))
+        return type(tree)(*(_convert(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
+        return type(tree)(_convert(v, device) for v in tree)
     return _leaf(tree, device)

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu and moe_gmm.cu, as inline PTX (no CUTLASS / CuTe):
+// flash_attention.cu, moe_gmm.cu and paged_attention.cu, as inline PTX (no
+// CUTLASS / CuTe):
 //   * 16-byte cp.async copies global -> shared with commit / wait groups
 //     (a copy with `valid` false writes 16 zero bytes and reads nothing);
 //   * the 128-byte swizzled tile layout that those copies write and that
 //     the wgmma shared-memory descriptors read;
 //   * wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators) with A from
-//     shared memory or from registers, and its fence / commit / wait.
+//     shared memory or from registers, and its fence / commit / wait;
+//   * the warp-level mma.sync m16n8k16 (bf16 in, f32 accumulators) and the
+//     ldmatrix loads that feed it from shared memory, for tiles of 16 rows.
 //
 // Tile layout: a [R][C] bf16 tile (C % 64 == 0) is stored as C / 64
 // column blocks, each [R][64] with 128 bytes a row; within each 1024-byte
@@ -178,6 +181,38 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ldmatrix: four 8x8 bf16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8, and register i receives matrix i.
+// Without .trans lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
+// of each matrix; with .trans the same elements of the transposed matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 in, f32 accumulators.  With
+// g = lane / 4 and c = lane % 4: a[0] holds A row g, columns 2c and 2c + 1,
+// a[1] row g + 8, a[2] row g columns + 8, a[3] row g + 8 columns + 8; b[0]
+// holds B rows 2c, 2c + 1 of column g, b[1] rows + 8; d[0..1] hold D row g,
+// columns 2c, 2c + 1 and d[2..3] row g + 8.  So the accumulators of two
+// neighbouring n8 tiles are, packed to bf16, the A operand of one k16 step.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

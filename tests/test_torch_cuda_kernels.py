@@ -73,14 +73,38 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated, sizes, f, bm,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,rep,bs,softcap", [(1, 1, 16, 0.0), (4, 4, 5, 30.0),
-                                              (32, 1, 96, 0.0)])
-def test_paged_attention_kernel_matches_plain(cuda, dtype, S, rep, bs,
-                                              softcap):
+@pytest.mark.parametrize("S,rep,bs,softcap,hd", [
+    (1, 1, 16, 0.0, 128),     # decode
+    (4, 4, 5, 30.0, 128),     # 16 rows: the bf16 tensor-core route
+    (32, 1, 96, 0.0, 128),    # the serve chunk over the slab view
+    (1, 8, 16, 0.0, 128),     # GQA decode, an 8-row CUDA-core tile
+    (1, 1, 1, 0.0, 64),       # block size 1
+    (32, 1, 96, 30.0, 64),
+    (2, 8, 7, 0.0, 128),      # 16 rows from two queries
+    (3, 2, 3, 30.0, 32),      # a ragged 6-row tile
+])
+@pytest.mark.parametrize("splits", ["one", "two", "many"])
+def test_paged_attention_kernel_matches_plain(cuda, monkeypatch, dtype, S,
+                                              rep, bs, softcap, hd, splits):
+    """Shuffled chains with null-block tails; row 0 only S long, so every
+    span after its first is dead; spans ending mid-block.  The card's SM
+    count is replaced so that the planner picks one, two or as many spans
+    as the chains have stages.  Two calls in a row: the merge's tickets
+    are back at zero after each."""
     from repro_torch.kernels.paged_attention import ops
     g = torch.Generator(device=cuda).manual_seed(1)
-    B, Hkv, hd, n_blocks = 3, 2, 128, 4
-    lengths = [S, S + 7, n_blocks * bs]
+    B, Hkv = 3, 2
+    n_blocks = -(-800 // bs)
+    lengths = [S, S + 37, n_blocks * bs]
+    groups = B * Hkv * ops.launch_plan(B, S, Hkv * rep, Hkv, hd, dtype,
+                                       n_blocks, bs).n_tiles
+    # the planner wants WAVES x sms blocks: 2 x groups of them gives two
+    sms = {"one": 1, "two": 2 * groups // ops.WAVES, "many": 10 ** 6}[splits]
+    monkeypatch.setattr(ops, "_sm_count", lambda device: sms)
+    plan = ops.launch_plan(B, S, Hkv * rep, Hkv, hd, dtype, n_blocks, bs,
+                           sms)
+    assert plan.n_splits == {"one": 1, "two": 2}.get(splits, plan.n_splits)
+    assert splits != "many" or plan.n_splits > 2
     num_phys = 1 + B * n_blocks
     perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
     table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
@@ -92,14 +116,17 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, S, rep, bs,
     v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
     q = torch.randn((B, S, Hkv * rep, hd), generator=g, device=cuda).to(dtype)
     cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    got = ops.paged_attention(q, k, v, table, cl, block_size=bs,
-                              softcap=softcap)
     ref = ops.paged_attention_plain(q, k, v, table, cl, block_size=bs,
                                     softcap=softcap)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               ref.float().cpu().numpy(),
-                               atol=_tol(dtype), rtol=_tol(dtype))
+    for _ in range(2):
+        n0 = ops.paged_attention.launches
+        got = ops.paged_attention(q, k, v, table, cl, block_size=bs,
+                                  softcap=softcap)
+        torch.cuda.synchronize()
+        assert ops.paged_attention.launches == n0 + 1
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -50,7 +50,7 @@ def weights():
                    seq_len=L, mesh_shape=ms, mesh=mesh)
     with mesh:
         jp = jm.init(jax.random.PRNGKey(0))
-    return mesh, jm, jp, to_torch(jax.device_get(jp))
+    return mesh, jm, jp, to_torch(jax.device_get(jp), device="cpu")
 
 
 @pytest.mark.parametrize("num_kv_blocks", [0, 7])   # 7 forces preemption
@@ -109,6 +109,8 @@ def test_entry_points_default_to_cuda():
     model = build_model(cfg, batch=1, seq_len=8, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(model, {}, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_torch({"w": np.zeros((2, 2), np.float32)})
 
 
 @pytest.mark.parametrize("field,value", [

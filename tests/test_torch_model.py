@@ -31,7 +31,7 @@ def models():
     with mesh:
         jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tc, batch=B, seq_len=L, device="cpu")
-    return mesh, jm, jp, tm, to_torch(jax.device_get(jp))
+    return mesh, jm, jp, tm, to_torch(jax.device_get(jp), device="cpu")
 
 
 def test_converted_params_keep_jax_layout(models):

@@ -49,7 +49,7 @@ def models():
                      seq_len=S, device="cpu")
     toks = np.random.default_rng(0).integers(
         0, jc.vocab_size, (B, S)).astype(np.int32)
-    return mesh, jms, jp, tm, to_torch(jax.device_get(jp)), toks
+    return mesh, jms, jp, tm, to_torch(jax.device_get(jp), device="cpu"), toks
 
 
 def _leaves(tree):
