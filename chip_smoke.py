@@ -12,7 +12,8 @@ Phases, each of which must pass (any failure exits non-zero):
      rows on mma.sync;
   2. kernel parity at the main paths' shapes: every kernel against its
      plain PyTorch version on the same inputs (bf16, plus f32 at a smaller
-     size; moe_gmm also at the whole-prompt path's dispatch,
+     size; moe_gmm also at the whole-prompt path's dispatch and at one EP
+     rank's decode dispatch with foreign groups carrying rows,
      paged_attention also on long decode chains), with its device time, the plain version's, one PyTorch library call's as a
      yardstick, and the card's least time for the work;
   3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
@@ -23,6 +24,27 @@ Phases, each of which must pass (any failure exits non-zero):
      tokens in the vocabulary, finite logits of the expected shape, and,
      on a small configuration, the card's token streams equal to the
      plain versions' streams on the CPU;
+  4b. HarMoEny across expert-parallel ranks, once the serve path's memory
+     is freed: ``ServeEngine`` on full-width, full-depth qwen15-moe-a27b
+     at EP degree 4 on virtual ranks (``VirtualGroup``: four ranks of 15
+     experts each, run in lockstep on the one card; 4 foreign slots),
+     under the paper's synthetic skew (0.9 of the routing mass on one
+     expert, q = 1 so that decode-scale loads clear the movement
+     granularity), 4 requests of 64-128 prompt tokens and 8 new tokens,
+     once with the harmoeny policy and once with round_robin.  An ``[ep]``
+     line per policy gives TTFT and TPOT p50, throughput, peak memory,
+     moved units per MoE layer and decode step, the decode and prefill
+     max/mean rank-load ratio and straggler wait (units), drop totals,
+     ``moe_gmm`` launches and the foreign-group rows through them, and
+     ``paged_attention`` launches.  Gates: harmoeny drops nothing, moves
+     units at decode and sends rows through ``moe_gmm``'s foreign groups;
+     its decode max/mean ratio is below round_robin's; every request
+     finishes with tokens in the vocabulary and finite logits; and a
+     reduced qwen15-moe-a27b in f32 with learned routing at EP degree 4
+     gives the same greedy streams on the card as on the CPU (whose ranks
+     are virtual too).  Virtual ranks run one after another, so this
+     phase measures balance in units, not the latency gain the paper
+     measures across GPUs;
   5. the whole-prompt path, once the serve path's memory is freed:
      full-width, full-depth moonshot-v1-16b-a3b (random bf16 weights from
      a seed) through ``launch.steps``' ``make_prefill_step`` on 4 prompts
@@ -353,6 +375,57 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
     return rec
 
 
+EP_DEGREE = 4
+
+
+def ep_moe_config(cfg, policy="harmoeny"):
+    """The EP phase's model: ``cfg`` under the paper's synthetic skew (0.9
+    of the routing mass on one expert) with q = 1."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, policy=policy, router_skew=0.9, router_skew_experts=1,
+        q_tokens=1))
+
+
+def ep_decode_dispatch(cfg):
+    """One rank's grouped-buffer extents at the EP phase's decode step (4
+    slots, EP degree 4, harmoeny, one skewed draw): the rank whose foreign
+    groups carry the most rows.  Returns (group sizes, M = c_total, local
+    groups)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.moe_layer import MoEBlockSpec
+    from repro_torch.core.router import SkewKey, route_skewed
+    from repro_torch.core.scheduler import schedule
+    moe = ep_moe_config(cfg).moe
+    spec = MoEBlockSpec(moe=moe, d_model=cfg.d_model, ep_degree=EP_DEGREE,
+                        tokens_local=4, block_m=128)
+    topo, K = spec.topo, moe.num_foreign_slots
+    assigns = [route_skewed(
+        SkewKey((0, 1, g)).generator("cpu"), spec.t_slice,
+        top_k=moe.num_experts_per_tok, num_experts=moe.num_experts,
+        padded_experts=topo.padded_experts, alpha=moe.router_skew).assign
+        for g in range(EP_DEGREE)]
+    counts = torch.stack([torch.bincount(a.reshape(-1).long(),
+                                         minlength=topo.padded_experts)
+                          for a in assigns]).to(torch.int32)
+    S, _ = schedule(counts, topo, policy="harmoeny", q=spec.q,
+                    c_pair=spec.c_pair, num_foreign_slots=K)
+    epr = topo.experts_per_rank
+    best = None
+    for g in range(EP_DEGREE):
+        lay = D.build_layout(S, assigns[g], g, topo, c_pair=spec.c_pair,
+                             c_total=spec.c_total, num_foreign_slots=K,
+                             block_m=spec.block_m)
+        sizes = [int(v) for v in lay.group_sizes]
+        if best is None or sum(sizes[epr:]) > sum(best[epr:]):
+            best = sizes
+    if sum(best[epr:]) == 0:
+        raise AssertionError("ep_decode: no rank's foreign groups hold rows")
+    return best, spec.c_total, epr
+
+
 def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
                   flash_batch, flash_len):
     import numpy as np
@@ -395,6 +468,10 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
         "whole_prompt", whole, M=moon_spec.c_total, n_local=E2,
         d=flash_cfg.d_model, f=flash_cfg.moe.d_ff_expert, block_m=128,
         dtype=bf, seed=8, time_it=True))
+    sizes, M, n_local = ep_decode_dispatch(cfg)
+    out["moe_gmm"].append(moe_gmm_case(
+        "ep_decode", sizes, M=M, n_local=n_local, d=d, f=f, block_m=128,
+        dtype=bf, seed=10, time_it=True))
     out["moe_gmm"].append(moe_gmm_case(
         "f32_small", [40, 0, 7, 128, 0, 3, 1, 0], M=640, n_local=6, d=256,
         f=192, block_m=64, dtype=torch.float32, seed=2, time_it=False))
@@ -588,7 +665,185 @@ def _reset_launches():
            "flash_attention": fa_ops.flash_attention}
     for fn in fns.values():
         fn.launches = 0
+    gmm_ops.moe_gmm.foreign_rows = 0
     return lambda: {name: fn.launches for name, fn in fns.items()}
+
+
+def _foreign_rows() -> int:
+    """Foreign-group rows through ``moe_gmm`` since ``_reset_launches``."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    return int(gmm_ops.moe_gmm.foreign_rows)
+
+
+# ----------------------------------------------------------------------
+# phase 4b: HarMoEny across expert-parallel ranks
+# ----------------------------------------------------------------------
+def ep_serve(cfg, params, policy, *, slots, n_requests, max_seq_len,
+             prefill_chunk, block_size, new_tokens, seed):
+    """Serve ``n_requests`` on ``cfg`` at EP degree 4 under ``policy``;
+    returns the ``[ep]`` summary (and its gates' inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    ep_cfg = ep_moe_config(cfg, policy)
+    model = build_model(ep_cfg, batch=slots, seq_len=max_seq_len,
+                        ep_degree=EP_DEGREE)
+    ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
+                        prefill_chunk=prefill_chunk, kv_block_size=block_size,
+                        moe_policy=policy, skew_seed=seed)
+    eng = ServeEngine(model, params, ecfg)
+    eng.warmup()
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, tokens=rng.integers(
+                0, cfg.vocab_size, (int(rng.integers(64, 129)),)),
+                max_new_tokens=new_tokens) for i in range(n_requests)]
+    outputs = {}
+    orig = eng._finish
+
+    def capture(st, now):
+        outputs[st.req.rid] = list(st.output)
+        orig(st, now)
+    eng._finish = capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    lb = rep["load_balance"]
+    summary = {
+        "policy": policy, "ep_degree": EP_DEGREE,
+        "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
+        "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
+        "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+        "throughput_tok_s": rep["throughput_tok_s"], "wall_s": wall,
+        "decode_steps": rep["decode_steps"],
+        "prefill_chunks": rep["prefill_chunks"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "moved_units_per_layer_decode": rep["moe"]["decode/moved_units"],
+        "moved_units_per_layer_prefill": rep["moe"]["prefill/moved_units"],
+        "decode_max_mean_ratio": lb["decode"]["max_mean_ratio"],
+        "decode_straggler_wait_units": lb["decode"]["straggler_wait_units"],
+        "prefill_max_mean_ratio": lb["prefill"]["max_mean_ratio"],
+        "prefill_straggler_wait_units": lb["prefill"]["straggler_wait_units"],
+        "decode_rank_load_mean": lb["decode"]["rank_load_mean"],
+        "drops": {ph: [lb[ph]["send_drops_total"], lb[ph]["dest_drops_total"]]
+                  for ph in ("decode", "prefill")},
+        "launches": launches, "moe_gmm_foreign_rows": _foreign_rows(),
+    }
+    # --- checks of what comes out --------------------------------------
+    if rep["n_requests"] != n_requests or len(outputs) != n_requests:
+        raise AssertionError(f"[ep] {policy}: only {rep['n_requests']} of "
+                             f"{n_requests} requests finished")
+    for rid, toks in outputs.items():
+        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
+            raise AssertionError(f"[ep] {policy}: request {rid}: bad stream "
+                                 f"{toks}")
+    cache = model.init_cache(1, prefill_chunk)
+    toks = torch.as_tensor(reqs[0].tokens[:prefill_chunk][None],
+                           device="cuda")
+    logits, _, _, _ = model.prefill_chunk(
+        params, toks, cache, 0, skew_key=eng.core.next_key(eng.core.pf_key, 0))
+    if tuple(logits.shape) != (1, cfg.padded_vocab) \
+            or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+        raise AssertionError(f"[ep] {policy}: bad logits "
+                             f"{tuple(logits.shape)}")
+    return summary
+
+
+def ep_path(cfg, *, seed, **shape):
+    """Phase 4b: harmoeny and round_robin on the same random weights, each
+    ``[ep]`` line printed, and the gates held."""
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    params = build_model(ep_moe_config(cfg), batch=shape["slots"],
+                         seq_len=shape["max_seq_len"],
+                         ep_degree=EP_DEGREE).init(seed)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[ep] {cfg.name} at EP degree {EP_DEGREE} on virtual ranks: "
+        f"{n_params / 1e9:.2f} B parameters drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for policy in ("harmoeny", "round_robin"):
+        out[policy] = ep_serve(cfg, params, policy, seed=seed, **shape)
+        log(f"[ep] {json.dumps(out[policy])}")
+    h, rr = out["harmoeny"], out["round_robin"]
+    for name, rec in out.items():
+        for kernel in ("moe_gmm", "paged_attention"):
+            if rec["launches"][kernel] <= 0:
+                raise AssertionError(f"[ep] {name}: {kernel} was not "
+                                     f"launched")
+    if any(v != 0 for ph in h["drops"].values() for v in ph):
+        raise AssertionError(f"[ep] harmoeny dropped units: {h['drops']}")
+    if h["moved_units_per_layer_decode"] <= 0:
+        raise AssertionError("[ep] harmoeny moved no unit at decode")
+    if h["moe_gmm_foreign_rows"] <= 0:
+        raise AssertionError("[ep] no foreign-group row went through moe_gmm "
+                             "under harmoeny")
+    if not h["decode_max_mean_ratio"] < rr["decode_max_mean_ratio"]:
+        raise AssertionError(
+            f"[ep] harmoeny's decode max/mean rank load "
+            f"{h['decode_max_mean_ratio']:.3f} is not below round_robin's "
+            f"{rr['decode_max_mean_ratio']:.3f}")
+    log(f"[ep] gates held: harmoeny decode max/mean "
+        f"{h['decode_max_mean_ratio']:.3f} < round_robin "
+        f"{rr['decode_max_mean_ratio']:.3f}; harmoeny drops 0, moved "
+        f"{h['moved_units_per_layer_decode']:.3f} units per layer and decode "
+        f"step, {h['moe_gmm_foreign_rows']} foreign rows through moe_gmm")
+    return out
+
+
+def small_ep_reference_check(seed: int = 0) -> None:
+    """A reduced qwen15-moe-a27b in f32 with learned routing at EP degree
+    4 and q = 1: the card's greedy streams (moe_gmm with foreign groups)
+    equal the CPU's, whose four ranks are virtual too."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, ServeEngine, VirtualClock, \
+        engine_config_for
+    cfg = get_config("qwen15-moe-a27b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           q_tokens=1))
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(5, 40)),))
+               for _ in range(5)]
+    params = build_model(cfg, batch=4, seq_len=40, device="cpu",
+                         ep_degree=EP_DEGREE).init(seed)
+    streams, moved = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, batch=4, seq_len=40, device=dev,
+                            ep_degree=EP_DEGREE)
+        ecfg = engine_config_for(cfg, max_slots=4, prompt_len=40,
+                                 max_new_tokens=8, prefill_chunk=16,
+                                 kv_block_size=8)
+        eng = ServeEngine(model, _to(params, dev), ecfg,
+                          clock=VirtualClock(0.1), device=dev)
+        out = {}
+        orig = eng._finish
+
+        def capture(st, now, out=out, orig=orig):
+            out[st.req.rid] = list(st.output)
+            orig(st, now)
+        eng._finish = capture
+        rep = eng.run([Request(rid=i, tokens=p, max_new_tokens=8)
+                       for i, p in enumerate(prompts)])
+        streams[dev], moved[dev] = out, rep["moe"]["decode/moved_units"]
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(f"small EP reference: card streams "
+                             f"{streams['cuda']} != cpu streams "
+                             f"{streams['cpu']}")
+    if moved["cuda"] <= 0:
+        raise AssertionError("small EP reference: no unit moved at decode")
+    log(f"[reference] reduced qwen15-moe-a27b f32 at EP degree {EP_DEGREE}: "
+        f"{len(prompts)} greedy streams on the card equal the CPU "
+        f"plain-version streams (moved units per layer and decode step: "
+        f"card {moved['cuda']:.3f}, cpu {moved['cpu']:.3f})")
 
 
 # ----------------------------------------------------------------------
@@ -922,6 +1177,14 @@ def main() -> int:
     log(f"[env] serve path freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
+    # --- phase 4b: HarMoEny across 4 virtual EP ranks ----------------------
+    ep = ep_path(cfg, seed=0, slots=4, n_requests=4, new_tokens=8, **shape)
+    small_ep_reference_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[env] EP path freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+
     # --- phase 5: whole-prompt prefill + slab decode ----------------------
     whole_summary = prefill_decode_path(moon, seed=0, **whole)
     small_prefill_reference_check()
@@ -939,6 +1202,8 @@ def main() -> int:
             "launches": path_of[name]["launches"][name],
             "launches_by_path": {
                 "serve_qwen15_moe_a27b": summary["launches"][name],
+                **{f"serve_qwen15_moe_a27b_ep{EP_DEGREE}_{p}":
+                   rec["launches"][name] for p, rec in ep.items()},
                 "prefill_decode_moonshot_v1_16b_a3b":
                     whole_summary["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]

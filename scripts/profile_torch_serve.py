@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where a step's time goes on the GPU, under ``torch.profiler``, on one
-of the PyTorch port's two paths (random weights, bf16):
+of the PyTorch port's paths (random weights, bf16):
 
     python3 scripts/profile_torch_serve.py [--decode-steps 4]
+    python3 scripts/profile_torch_serve.py --path ep [--decode-steps 4]
     python3 scripts/profile_torch_serve.py --path prefill [--decode-steps 4]
 
 ``serve`` (the default): full-width qwen15-moe-a27b in ``ServeEngine``
 (paged KV, 4 slots); traces the first 32-token prefill chunk of a
 request, then, with every slot decoding, a few pure decode steps.
+``ep``: the same at expert-parallel degree 4 on virtual ranks under the
+synthetic skew of ``chip_smoke.py``'s phase 4b (0.9 on one expert,
+q = 1), once with the harmoeny schedule and once with round_robin.
 ``prefill``: full-width, full-depth moonshot-v1-16b-a3b through
 ``launch.steps``; after one untraced warm-up prefill, traces one
 whole-prompt prefill step (4 prompts of 1024 tokens, flash attention)
@@ -20,6 +24,7 @@ count of host-device copies and synchronisations.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -67,7 +72,8 @@ def summarize(prof, label: str, wall_s: float, n_steps: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--decode-steps", type=int, default=4)
-    ap.add_argument("--path", choices=("serve", "prefill"), default="serve")
+    ap.add_argument("--path", choices=("serve", "ep", "prefill"),
+                    default="serve")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -76,6 +82,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.path == "prefill":
         return profile_prefill(args.decode_steps)
+    if args.path == "ep":
+        for policy in ("harmoeny", "round_robin"):
+            profile_serve(args.decode_steps, ep_degree=4, policy=policy)
+            gc.collect()                   # the engine holds cycles
+            torch.cuda.empty_cache()
+        return 0
     return profile_serve(args.decode_steps)
 
 
@@ -138,7 +150,9 @@ def profile_prefill(decode_steps: int) -> int:
     return 0
 
 
-def profile_serve(decode_steps: int) -> int:
+def profile_serve(decode_steps: int, ep_degree: int = 1,
+                  policy: str = "harmoeny") -> int:
+    import dataclasses
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -146,12 +160,16 @@ def profile_serve(decode_steps: int) -> int:
     from repro_torch.models.model import build_model
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     cfg = get_config("qwen15-moe-a27b")
+    if ep_degree > 1:             # chip_smoke.py phase 4b's skewed routing
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, policy=policy, router_skew=0.9, q_tokens=1))
     slots, chunk = 4, 32
-    model = build_model(cfg, batch=slots, seq_len=288)
+    model = build_model(cfg, batch=slots, seq_len=288, ep_degree=ep_degree)
     params = model.init(0)
     eng = ServeEngine(model, params, EngineConfig(
         max_slots=slots, max_seq_len=288, prefill_chunk=chunk,
         kv_block_size=16))
+    tag = "" if ep_degree == 1 else f"_ep{ep_degree}_{policy}"
     eng.warmup()
     rng = np.random.default_rng(0)
     for i in range(slots):
@@ -167,12 +185,12 @@ def profile_serve(decode_steps: int) -> int:
         eng._prefill_work(eng.clock.now())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summarize(prof, "prefill_chunk", wall, 1)
+    summarize(prof, "prefill_chunk" + tag, wall, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng._prefill_work(eng.clock.now())
     torch.cuda.synchronize()
-    print(json.dumps({"phase": "prefill_chunk_unprofiled",
+    print(json.dumps({"phase": "prefill_chunk_unprofiled" + tag,
                       "wall_ms_per_step": (time.perf_counter() - t0) * 1e3}),
           flush=True)
     while not eng.active.all():      # fill every slot
@@ -184,14 +202,14 @@ def profile_serve(decode_steps: int) -> int:
             eng._decode_work(eng.clock.now())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    summarize(prof, "decode", wall, decode_steps)
+    summarize(prof, "decode" + tag, wall, decode_steps)
     # the same steps without the profiler, for its overhead
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(decode_steps):
         eng._decode_work(eng.clock.now())
     torch.cuda.synchronize()
-    print(json.dumps({"phase": "decode_unprofiled",
+    print(json.dumps({"phase": "decode_unprofiled" + tag,
                       "wall_ms_per_step": (time.perf_counter() - t0) * 1e3
                       / decode_steps}), flush=True)
     return 0

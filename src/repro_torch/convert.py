@@ -7,10 +7,13 @@ JAX layouts — stacked per-layer leaves, rank-major expert slot rows
 conversion copies leaves and never remaps them.  K/V caches (the JAX
 ``AttnCache`` named tuples) become the port's ``AttnCache``.  bfloat16
 leaves (numpy's ``ml_dtypes`` extension type) travel as raw 16-bit words.
+At expert-parallel degree G the expert leaves stay rank-major, padded
+experts included (``VirtualGroup`` runs on them as they are);
+``expert_shard`` cuts one rank's rows out for ``DistComm``.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -43,3 +46,22 @@ def _convert(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
     return _leaf(tree, device)
+
+
+def expert_shard(moe_params: Dict[str, Any], rank: int,
+                 ep_degree: int) -> Dict[str, Any]:
+    """One MoE layer's parameters as rank ``rank`` of ``ep_degree`` holds
+    them under ``DistComm``: its own rows ``[epr, ...]`` of each rank-major
+    expert leaf (row ``g * epr + j`` is slot j of rank g, as
+    ``init_moe_params`` lays them out) and the replicated router."""
+    out = {}
+    for name, w in moe_params.items():
+        if name == "router":
+            out[name] = w
+            continue
+        if w.shape[0] % ep_degree:
+            raise ValueError(f"{name}: {w.shape[0]} rows do not split over "
+                             f"{ep_degree} ranks")
+        epr = w.shape[0] // ep_degree
+        out[name] = w[rank * epr:(rank + 1) * epr]
+    return out

@@ -1,10 +1,9 @@
-"""Schedule-driven token dispatch / combine (paper Alg. 1 steps 4 & 6).
+"""Schedule-driven token dispatch / combine (paper Alg. 1 steps 4 & 6)
+and the communicators the per-rank body runs against.
 
 Port of ``repro/core/dispatch.py``.  Runs once per EP rank; sender and
 receiver derive every buffer layout from the replicated schedule ``S`` and
-static conventions, so only token payloads move.  The collectives go
-through a small communicator (``all_gather``, ``all_to_all``, ``psum``):
-this slice ships the single-rank one, where each is the identity.
+static conventions, so only token payloads move.
 
 Ordering convention (both sides): the units of (source g, expert e) are
 ordered by their within-expert rank r; the first S[g,e,0] go to
@@ -17,14 +16,62 @@ self-pair bypasses the all-to-all and has no capacity bound), and the
 grouped compute buffer ``[c_total, d]`` whose groups start at multiples of
 ``block_m``.  Overflowing units are dropped and counted.  Group order:
 local (epr) | foreign (K).
+
+Collectives.  The per-rank body (``moe_layer._moe_forward_local``) is a
+generator: each collective is a ``yield`` of a ``Collective`` request
+(``yield from all_gather(x)``, ``all_to_all``, ``psum``), and the
+communicator answers it.  Three communicators run the same body:
+``LocalComm`` (one rank: every collective is the identity), ``DistComm``
+(one rank per process over ``torch.distributed``) and ``VirtualGroup``
+(G ranks in one process on one device, advanced in lockstep: every rank
+runs up to its next collective, the group checks that all asked for the
+same one and answers it from all their tensors).  Lockstep keeps the
+order of kernel launches fixed, so results and launch counts are the
+same on every run.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, Generator, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.topology import EPTopology, local_slot_of
+
+
+class Collective(NamedTuple):
+    op: str               # "all_gather" | "all_to_all" | "psum"
+    x: torch.Tensor
+
+
+Body = Generator[Collective, torch.Tensor, object]
+
+
+def all_gather(x: torch.Tensor):
+    """Every rank's ``x`` stacked in rank order: [G, ...]."""
+    return (yield Collective("all_gather", x))
+
+
+def all_to_all(x: torch.Tensor):
+    """``x`` [G_dst, ...] -> [G_src, ...]: out[src] = x_of_src[me]."""
+    return (yield Collective("all_to_all", x))
+
+
+def psum(x: torch.Tensor):
+    """The sum of every rank's ``x``."""
+    return (yield Collective("psum", x))
+
+
+def run(comm, body: Body):
+    """Drive one rank's body against a communicator that answers each
+    collective at once (``LocalComm``, ``DistComm``, or a test's stand-in
+    with ``all_gather`` / ``all_to_all`` / ``psum`` methods)."""
+    try:
+        req = next(body)
+        while True:
+            req = body.send(getattr(comm, req.op)(req.x))
+    except StopIteration as stop:
+        return stop.value
 
 
 class LocalComm:
@@ -41,6 +88,136 @@ class LocalComm:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
+        return w
+
+    def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
+        return [run(self, make_body(0))]
+
+
+class DistComm:
+    """One expert-parallel rank per process over ``torch.distributed``
+    (gloo on CPU tensors, NCCL on CUDA ones).  Expert weights come as this
+    rank's own rows ``[epr, ...]`` (``convert.expert_shard``)."""
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("DistComm needs an initialized "
+                               "torch.distributed process group")
+        self._dist = dist
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        shape = tuple(x.shape)
+        flat = x.contiguous().reshape(-1)
+        out = flat.new_empty((self.size * flat.numel(),))
+        self._dist.all_gather_into_tensor(out, flat, group=self.group)
+        return out.reshape((self.size,) + shape)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        self._dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        self._dist.all_reduce(out, group=self.group)
+        return out
+
+    def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
+        if w.shape[0] != epr:
+            raise ValueError(f"DistComm takes each rank's own {epr} expert "
+                             f"rows, got {w.shape[0]}")
+        return w
+
+    def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
+        return [run(self, make_body(self.rank))]
+
+
+def _adjacent_view(xs: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[G, ...] as a view when the G tensors are back-to-back slices of
+    one storage (each rank's expert rows of a rank-major weight), else
+    None."""
+    x0 = xs[0]
+    n = x0.numel()
+    for g, x in enumerate(xs):
+        if (x.untyped_storage().data_ptr()
+                != x0.untyped_storage().data_ptr()
+                or x.shape != x0.shape or x.dtype != x0.dtype
+                or not x.is_contiguous()
+                or x.storage_offset() != x0.storage_offset() + g * n):
+            return None
+    return x0.as_strided((len(xs),) + tuple(x0.shape),
+                         (n,) + tuple(x0.stride()), x0.storage_offset())
+
+
+class VirtualGroup:
+    """G expert-parallel ranks in one process, on one device, run in
+    lockstep (module docstring).  Expert weights come as the rank-major
+    tensors ``[G * epr, ...]``; each rank's rows are a view of them, and
+    gathering them back is that tensor again, not a copy."""
+
+    def __init__(self, size: int, device=None):
+        if size < 1:
+            raise ValueError("a VirtualGroup needs at least one rank")
+        self.size = size
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+
+    def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
+        if w.shape[0] != self.size * epr:
+            raise ValueError(f"VirtualGroup takes the rank-major rows of all "
+                             f"{self.size} ranks, got {w.shape[0]}")
+        return w[rank * epr:(rank + 1) * epr]
+
+    def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
+        bodies = [make_body(g) for g in range(self.size)]
+        answers: List[Optional[torch.Tensor]] = [None] * self.size
+        while True:
+            reqs, done = [], []
+            for body, ans in zip(bodies, answers):
+                try:
+                    reqs.append(body.send(ans))
+                except StopIteration as stop:
+                    done.append(stop.value)
+            if done:
+                if len(done) != self.size:
+                    raise RuntimeError("ranks of a VirtualGroup left the "
+                                       "lockstep at different collectives")
+                return done
+            ops = {r.op for r in reqs}
+            if len(ops) != 1:
+                raise RuntimeError(f"ranks of a VirtualGroup asked for "
+                                   f"different collectives: {sorted(ops)}")
+            xs = [r.x for r in reqs]
+            for x in xs:
+                if x.device != self.device:
+                    raise ValueError(f"VirtualGroup on {self.device} got a "
+                                     f"tensor on {x.device}")
+            answers = getattr(self, "_" + reqs[0].op)(xs)
+
+    def _all_gather(self, xs):
+        out = _adjacent_view(xs)
+        if out is None:
+            out = torch.stack(xs)
+        return [out] * self.size
+
+    def _all_to_all(self, xs):
+        st = torch.stack(xs)                        # [G_src, G_dst, ...]
+        return [st[:, dst] for dst in range(self.size)]
+
+    def _psum(self, xs):
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x                       # rank order
+        return [total] * self.size
 
 
 class DispatchLayout(NamedTuple):
@@ -182,18 +359,19 @@ def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
         send_drops=send_drops.to(i32), dest_drops=dest_drops.to(i32))
 
 
-def dispatch(x_units: torch.Tensor, layout: DispatchLayout, comm, *,
-             c_pair: int, c_total: int) -> torch.Tensor:
+def dispatch(x_units: torch.Tensor, layout: DispatchLayout, *,
+             num_ranks: int, c_pair: int, c_total: int):
     """Scatter local units [U, d] to the grouped buffers of their
-    destinations; returns this rank's grouped buffer [c_total, d]."""
-    G = comm.size
+    destinations; returns (a body generator's result) this rank's grouped
+    buffer [c_total, d]."""
+    G = num_ranks
     d = x_units.shape[-1]
     send = torch.zeros((G, c_pair, d), dtype=x_units.dtype,
                        device=x_units.device)
     ok = layout.unit_pair_pos < c_pair
     send[layout.unit_dest[ok].long(), layout.unit_pair_pos[ok].long()] = \
         x_units[ok]
-    recv = comm.all_to_all(send).reshape(G * c_pair, d)
+    recv = (yield from all_to_all(send)).reshape(G * c_pair, d)
     grouped = torch.zeros((c_total, d), dtype=x_units.dtype,
                           device=x_units.device)
     tgt = layout.row_target.reshape(-1)
@@ -206,16 +384,17 @@ def dispatch(x_units: torch.Tensor, layout: DispatchLayout, comm, *,
     return grouped
 
 
-def combine(out_grouped: torch.Tensor, layout: DispatchLayout, comm, *,
-            c_pair: int, gates: torch.Tensor, top_k: int) -> torch.Tensor:
-    """Return processed rows to their source ranks and gate-combine."""
-    G = comm.size
+def combine(out_grouped: torch.Tensor, layout: DispatchLayout, *,
+            num_ranks: int, c_pair: int, gates: torch.Tensor, top_k: int):
+    """Return processed rows to their source ranks and gate-combine
+    (a body generator; its result is [T, d])."""
+    G = num_ranks
     d = out_grouped.shape[-1]
     c_total = out_grouped.shape[0]
     padded_out = torch.cat([out_grouped, out_grouped.new_zeros((1, d))])
     back = padded_out[torch.clamp(layout.row_target, max=c_total).long()]
     back = back * layout.row_valid[..., None].to(back.dtype)
-    ret = comm.all_to_all(back)                             # [G, c_pair, d]
+    ret = yield from all_to_all(back)                       # [G, c_pair, d]
     pad_ret = torch.cat([ret, ret.new_zeros((G, 1, d))], dim=1)
     y_remote = pad_ret[layout.unit_dest.long(),
                        torch.clamp(layout.unit_pair_pos, max=c_pair).long()]

@@ -9,9 +9,14 @@ Port of ``repro/core/moe_layer.py`` (``MoEBlockSpec``, ``moe_block`` and
   5. expert processing      -> grouped FFN (the moe_gmm kernel) + the
                                foreign-weight fetch (prefetch.py)
   6. gather tokens          -> reverse all_to_all + gate combine (dispatch.py)
-The body is written against a communicator; this slice runs it on the
-single-rank one (G = 1).  Tensor-parallel MoE (E < G), synthetic router
-skew and replica slots are not ported yet and are rejected.
+The body is a generator that yields its collectives, so one body runs on
+every communicator of ``dispatch.py``: one rank (``LocalComm``), G ranks
+in one process (``VirtualGroup``) or one rank per process (``DistComm``).
+x comes replicated over the EP group and each rank routes its contiguous
+token slice.  With a ``SkewKey`` the router is the paper's synthetic skew
+(``route_skewed``), each rank drawing on the key folded with its rank, as
+the JAX block folds its key.  Tensor-parallel MoE (E < G) and replica
+slots are not ported yet and are rejected.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from repro_torch.core import dispatch as D
 from repro_torch.core import prefetch
 from repro_torch.core.grouped_ffn import grouped_ffn
 from repro_torch.core.qthreshold import q_threshold
-from repro_torch.core.router import route_topk
+from repro_torch.core.router import SkewKey, route_skewed, route_topk
 from repro_torch.core.scheduler import schedule
 from repro_torch.core.topology import EPTopology, make_topology
 
@@ -56,9 +61,6 @@ class MoEBlockSpec:
                                       "is not ported yet")
         if self.moe.num_replica_slots:
             raise NotImplementedError("replica slots are not ported yet")
-        if self.moe.router_skew > 0:
-            raise NotImplementedError("the synthetic skew router is not "
-                                      "ported yet")
 
     @property
     def topo(self) -> EPTopology:
@@ -110,22 +112,31 @@ def _expert_row_map(topo: EPTopology) -> np.ndarray:
 
 
 def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
-                       spec: MoEBlockSpec, n_valid: int, comm,
-                       valid_rep: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Per-rank body. x_rep: [t_pad, d] replicated over the EP group."""
+                       spec: MoEBlockSpec, n_valid: int, me: int,
+                       skew_key: Optional[SkewKey] = None,
+                       valid_rep: Optional[torch.Tensor] = None):
+    """Per-rank body of rank ``me``, a generator that yields its
+    collectives (dispatch.py) and returns (y_rep, diagnostics).
+    x_rep: [t_pad, d] replicated over the EP group; ``params`` hold this
+    rank's expert rows [epr, ...] and the replicated router."""
     topo, moe = spec.topo, spec.moe
     G, Ep = topo.num_ranks, topo.padded_experts
+    epr = topo.experts_per_rank
     k = moe.num_experts_per_tok
     K = moe.num_foreign_slots
-    me = comm.rank
     dev = x_rep.device
     t_slice = x_rep.shape[0] // G
     x_slice = x_rep[me * t_slice:(me + 1) * t_slice]
 
     # --- step 1: routing (dead tokens get the sentinel expert Ep) ---------
-    r_out = route_topk(x_slice, params["router"], top_k=k,
-                       num_real_experts=moe.num_experts)
+    if skew_key is not None and moe.router_skew > 0:
+        r_out = route_skewed(skew_key.fold_in(me).generator(dev), t_slice,
+                             top_k=k, num_experts=moe.num_experts,
+                             padded_experts=Ep, alpha=moe.router_skew,
+                             n_hot=moe.router_skew_experts)
+    else:
+        r_out = route_topk(x_slice, params["router"], top_k=k,
+                           num_real_experts=moe.num_experts)
     valid_tok = me * t_slice + torch.arange(t_slice, device=dev) < n_valid
     if valid_rep is not None:
         valid_tok = valid_tok & valid_rep[me * t_slice:(me + 1) * t_slice]
@@ -134,7 +145,7 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                             minlength=Ep + 1)[:Ep].to(torch.int32)
 
     # --- step 2: metadata exchange ---------------------------------------
-    m_all = comm.all_gather(counts)                          # [G, Ep]
+    m_all = yield from D.all_gather(counts)                  # [G, Ep]
 
     # --- step 3: replicated deterministic scheduling ------------------------
     S, sdiag = schedule(m_all, topo, policy=moe.policy, q=spec.q,
@@ -145,44 +156,53 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                             c_total=spec.c_total, num_foreign_slots=K,
                             block_m=spec.block_m)
     x_units = torch.repeat_interleave(x_slice, k, dim=0)   # token-major
-    grouped = D.dispatch(x_units, layout, comm, c_pair=spec.c_pair,
-                         c_total=spec.c_total)
+    grouped = yield from D.dispatch(x_units, layout, num_ranks=G,
+                                    c_pair=spec.c_pair, c_total=spec.c_total)
 
     # --- step 5: expert processing + foreign-weight fetch --------------------
     names = ("w_in", "w_out", "w_gate")
     w_in, w_out, w_gate = (params.get(n) for n in names)
-    foreign = None
+    foreign = foreign_rows = None
     if moe.policy == "even_split":
         # full replication: every group row gathers its expert's weights
         rows = torch.as_tensor(_expert_row_map(topo), device=dev)
         ge = torch.clamp(layout.group_expert, 0, Ep - 1).long()
-
-        def per_group(w):
-            w_all = comm.all_gather(w).reshape((-1,) + w.shape[1:])
-            return w_all[rows[ge]]
-        w_in, w_out = per_group(w_in), per_group(w_out)
-        w_gate = per_group(w_gate) if w_gate is not None else None
+        full = []
+        for w in (w_in, w_out, w_gate):
+            if w is None:
+                full.append(None)
+                continue
+            w_all = yield from prefetch.gather_all_experts(w)
+            full.append(w_all[rows[ge]])
+        w_in, w_out, w_gate = full
     elif K > 0:
         fids_all = prefetch.all_foreign_ids(S, topo, K)
-        foreign = tuple(
-            None if w is None else prefetch.fetch_foreign_weights(
-                w, fids_all, me, topo, comm)
-            for w in (w_in, w_out, w_gate))
+        fetched = []
+        for w in (w_in, w_out, w_gate):
+            fetched.append(None if w is None else (
+                yield from prefetch.fetch_foreign_weights(w, fids_all, me,
+                                                          topo)))
+        foreign = tuple(fetched)
+        foreign_rows = layout.group_sizes[epr:].sum()
     sizes_padded = D.round_up_j(layout.group_sizes, spec.block_m)
     out_grouped = grouped_ffn(grouped, w_in, w_out, sizes_padded,
                               w_gate=w_gate, act=spec.act,
-                              block_m=spec.block_m, foreign=foreign)
+                              block_m=spec.block_m, foreign=foreign,
+                              foreign_rows=foreign_rows)
 
     # --- step 6: gather + combine ---------------------------------------------
-    y_slice = D.combine(out_grouped, layout, comm, c_pair=spec.c_pair,
-                        gates=r_out.gates, top_k=k)
-    y_rep = comm.all_gather(y_slice).reshape(-1, y_slice.shape[-1])
+    y_slice = yield from D.combine(out_grouped, layout, num_ranks=G,
+                                   c_pair=spec.c_pair, gates=r_out.gates,
+                                   top_k=k)
+    y_rep = (yield from D.all_gather(y_slice)).reshape(-1, y_slice.shape[-1])
 
     t_g = S.sum(dim=(0, 1)).float()
+    send_drops = yield from D.psum(layout.send_drops)
+    dest_drops = yield from D.psum(layout.dest_drops)
     diag = {
         "aux_loss": r_out.aux_loss[None],
-        "send_drops": comm.psum(layout.send_drops)[None].float(),
-        "dest_drops": comm.psum(layout.dest_drops)[None].float(),
+        "send_drops": send_drops[None].float(),
+        "dest_drops": dest_drops[None].float(),
         "sched_iters": sdiag.iters[None].float(),
         "moved_units": sdiag.moved[None].float(),
         "max_load_before": sdiag.max_load_before[None].float(),
@@ -196,11 +216,19 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
 
 def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               spec: MoEBlockSpec, comm=None,
+              skew_key: Optional[SkewKey] = None,
               valid_mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, S, d] -> [B, S, d], diagnostics.  ``valid_mask`` [B, S] bool
-    keeps dead tokens (inactive slots, chunk padding) out of routing and
-    capacity; their outputs are garbage the caller discards."""
+    """x: [B, S, d] -> [B, S, d], diagnostics, over the EP group of
+    ``comm`` (default: one rank).  ``params``' expert rows are rank-major
+    ``[G * epr, ...]`` for ``LocalComm`` / ``VirtualGroup`` and this rank's
+    own ``[epr, ...]`` for ``DistComm``.  ``skew_key`` switches routing to
+    the synthetic skew when ``spec.moe.router_skew > 0``.  ``valid_mask``
+    [B, S] bool keeps dead tokens (inactive slots, chunk padding) out of
+    routing and capacity; their outputs are garbage the caller discards.
+    y is replicated; the diagnostics are those of the first rank that this
+    process runs (rank 0 unless ``DistComm``), as the JAX block reports
+    rank 0's."""
     comm = comm if comm is not None else D.LocalComm()
     if comm.size != spec.ep_degree:
         raise ValueError(f"communicator of {comm.size} ranks for a spec of "
@@ -214,6 +242,12 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     if valid_mask is not None:          # pads are invalid
         v = valid_mask.reshape(-1).to(torch.bool)
         v_rep = torch.cat([v, v.new_zeros(t_pad - n_valid)])
-    y, diag = _moe_forward_local(x_rep, params, spec, n_valid, comm,
-                                 valid_rep=v_rep)
+    epr = spec.topo.experts_per_rank
+
+    def body(me: int):
+        prm = {n: (w if n == "router" else comm.expert_rows(w, me, epr))
+               for n, w in params.items()}
+        return _moe_forward_local(x_rep, prm, spec, n_valid, me,
+                                  skew_key=skew_key, valid_rep=v_rep)
+    y, diag = comm.run_ranks(body)[0]
     return y[:n_valid].reshape(B, S_len, d), diag

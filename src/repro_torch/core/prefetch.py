@@ -1,9 +1,11 @@
 """Foreign-expert weight fetch (paper §4.3).
 
 Port of ``repro/core/prefetch.py`` (``all_foreign_ids``,
-``fetch_foreign_weights``).  Every rank computes every destination's
-foreign-expert ids from the replicated schedule; each source fills, for
-each destination, the K slots it hosts, and one all-to-all delivers them.
+``fetch_foreign_weights``, ``gather_all_experts``).  Every rank computes
+every destination's foreign-expert ids from the replicated schedule; each
+source fills, for each destination, the K slots it hosts, and one
+all-to-all delivers them.  The fetch and the gather are body generators
+(``dispatch.py``: collectives are yielded to the communicator).
 
 The JAX version builds each source's outbox as a mask einsum over ALL of
 its local experts (``prefetch.py:84``).  At G = 1 every expert is local,
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.dispatch import all_gather, all_to_all
 from repro_torch.core.topology import EPTopology, local_slot_of
 
 
@@ -38,7 +41,7 @@ def all_foreign_ids(S: torch.Tensor, topo: EPTopology,
 
 
 def fetch_foreign_weights(w_local: torch.Tensor, fids_all: torch.Tensor,
-                          me: int, topo: EPTopology, comm) -> torch.Tensor:
+                          me: int, topo: EPTopology):
     """w_local [epr, ...] (this rank's expert rows) -> [K, ...] foreign
     weights for this rank.  fids_all: FIDS [G, K] replicated."""
     slot_of = torch.as_tensor(local_slot_of(topo)[me], device=w_local.device)
@@ -48,4 +51,13 @@ def fetch_foreign_weights(w_local: torch.Tensor, fids_all: torch.Tensor,
     idx = torch.clamp(slot, min=0).long()                    # [G, K]
     extra = (1,) * (w_local.ndim - 1)
     out = w_local[idx] * hosted.reshape(hosted.shape + extra)  # [G_dst, K, ...]
-    return comm.all_to_all(out).sum(dim=0)                   # sum over sources
+    ret = yield from all_to_all(out)                         # [G_src, K, ...]
+    return ret.sum(dim=0)                                    # sum over sources
+
+
+def gather_all_experts(w_local: torch.Tensor):
+    """Even-Split support (paper §5.3.2): every rank's expert rows, in
+    rank-major order [G * epr, ...].  On a ``VirtualGroup`` this is a view
+    of the rank-major weight, not a copy."""
+    w_all = yield from all_gather(w_local)
+    return w_all.reshape((-1,) + tuple(w_local.shape[1:]))

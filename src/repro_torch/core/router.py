@@ -1,8 +1,20 @@
-"""Top-k MoE router (port of ``repro/core/router.py::route_topk``)."""
+"""Top-k MoE router and the paper's synthetic expert-popularity skew
+(port of ``repro/core/router.py``: ``route_topk``, ``route_skewed``).
+
+Synthetic skew (paper §5.1.2): the ``n_hot`` hot experts share probability
+mass ``alpha``, the other real experts share ``1 - alpha`` evenly, padded
+experts get none, and every unit draws its expert from that multinomial.
+``jax.random.categorical``'s stream cannot be reproduced in torch, so the
+draws come from a ``torch.Generator`` that the caller derives from a
+``SkewKey``: the same key path gives the same assignment wherever the rank
+runs (a virtual rank or a process of its own) on one device type.
+"""
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -36,3 +48,43 @@ def route_topk(x: torch.Tensor, w_router: torch.Tensor, *, top_k: int,
     p = probs.mean(dim=0)
     aux = num_real_experts * torch.sum(f * p)
     return RouterOutput(assign, gates, counts, aux)
+
+
+@dataclass(frozen=True)
+class SkewKey:
+    """A path of ints standing in for a ``jax.random`` key:
+    ``fold_in`` appends to the path, and ``generator`` seeds a
+    ``torch.Generator`` from a hash of the whole path (numpy's
+    ``SeedSequence``), so sibling paths draw independent streams."""
+    path: Tuple[int, ...]
+
+    def fold_in(self, i: int) -> "SkewKey":
+        return SkewKey(self.path + (int(i),))
+
+    def generator(self, device) -> torch.Generator:
+        seed = np.random.SeedSequence(
+            [p % 2 ** 64 for p in self.path]).generate_state(2, np.uint32)
+        return torch.Generator(device=device).manual_seed(
+            (int(seed[0]) << 31) ^ int(seed[1]))
+
+
+def route_skewed(gen: torch.Generator, T: int, *, top_k: int,
+                 num_experts: int, padded_experts: int, alpha: float,
+                 n_hot: int = 1) -> RouterOutput:
+    """Paper §5.1.2 synthetic skew router: T tokens x top_k draws (with
+    replacement, as ``jax.random.categorical``) on ``gen``'s device; gates
+    are 1/top_k and the aux loss is 0."""
+    e = torch.arange(padded_experts, device=gen.device)
+    p_hot = alpha / n_hot
+    p_cold = (1.0 - alpha) / max(num_experts - n_hot, 1)
+    probs = torch.where(e < n_hot, p_hot,
+                        torch.where(e < num_experts, p_cold, 0.0)).float()
+    assign = torch.multinomial(probs, T * top_k, replacement=True,
+                               generator=gen).reshape(T, top_k).to(torch.int32)
+    gates = torch.full((T, top_k), 1.0 / top_k, dtype=torch.float32,
+                       device=gen.device)
+    counts = torch.bincount(assign.reshape(-1).long(),
+                            minlength=padded_experts)[:padded_experts].to(
+                                torch.int32)
+    return RouterOutput(assign, gates, counts,
+                        torch.zeros((), dtype=torch.float32, device=gen.device))

@@ -1,6 +1,7 @@
 """Expert-parallel topology: static expert placement and slot maps.
 
-Port of ``repro/core/topology.py`` (``make_topology``, ``local_slot_of``).
+Port of ``repro/core/topology.py`` (``make_topology``, ``local_slot_of``,
+``static_opt_placement``).
 Ranks are positions in the expert-parallel group.  Experts are padded to a
 multiple of the EP degree so every rank owns the same number of local
 slots; padded (dummy) experts are never routed to.
@@ -63,3 +64,32 @@ def local_slot_of(topo: EPTopology) -> np.ndarray:
         for j in range(topo.experts_per_rank):
             out[g, topo.slot_map[g, j]] = j
     return out
+
+
+def static_opt_placement(profile_counts: np.ndarray,
+                         num_ranks: int) -> np.ndarray:
+    """ExFlow-like offline placement (the ``static_opt`` baseline): experts
+    sorted by their profiled popularity ``profile_counts`` [E] are dealt
+    into the G rank bins, each to the least-loaded bin with room (first
+    index on ties).  Returns the permutation [Ep] with ``perm[j * G + g]``
+    the expert in slot j of rank g, as ``make_topology``'s ``placement``."""
+    E = profile_counts.shape[0]
+    Ep = round_up(E, num_ranks)
+    counts = np.zeros(Ep)
+    counts[:E] = profile_counts
+    order = np.argsort(-counts)                 # most popular first
+    epr = Ep // num_ranks
+    bins: list[list[int]] = [[] for _ in range(num_ranks)]
+    loads = np.zeros(num_ranks)
+    for e in order:
+        g = int(np.argmin(loads))
+        if len(bins[g]) >= epr:                 # full: least-loaded with room
+            cand = [i for i in range(num_ranks) if len(bins[i]) < epr]
+            g = cand[int(np.argmin(loads[cand]))]
+        bins[g].append(int(e))
+        loads[g] += counts[e]
+    perm = np.zeros(Ep, np.int64)
+    for g in range(num_ranks):
+        for j in range(epr):
+            perm[j * num_ranks + g] = bins[g][j]
+    return perm

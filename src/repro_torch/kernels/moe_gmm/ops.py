@@ -18,6 +18,11 @@ by construction.  The bf16 kernel learns which tiles are live from
 ``live_rows`` (``live_row_count``: every tile at or past it is zero rows)
 and skips the rest; without it every tile is live.  The f32 kernel finds
 the non-zero 32-row sub-tiles with a flag pass over ``x``.
+
+Counters, advanced only where the kernel launches: ``moe_gmm.launches``
+and ``moe_gmm.foreign_rows``, the real rows of the foreign groups that
+went through the kernel (the caller's ``foreign_rows``; a device tensor
+once the first launch adds to it, so counting never waits on the card).
 """
 from __future__ import annotations
 
@@ -155,12 +160,14 @@ def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
 def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
             tile_group: torch.Tensor, *, w_gate: Optional[torch.Tensor] = None,
             act: str = "silu", block_m: int = 128, foreign: Foreign = None,
-            live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+            live_rows: Optional[torch.Tensor] = None,
+            foreign_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [M, d]; w_in/w_gate [G0, d, f]; w_out [G0, f, d]; ``foreign`` an
     optional (w_in, w_out, w_gate) of K more groups; tile_group
     [M // block_m] int32 in [0, G0 + K); ``live_rows`` an optional int32
     [1] on x's device, a multiple of block_m, past which every row of x is
-    zero -> [M, d] in x's type."""
+    zero; ``foreign_rows`` the foreign groups' real row count, for the
+    counter -> [M, d] in x's type."""
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w_in, w_out, tile_group, w_gate=w_gate,
                              act=act, block_m=block_m, foreign=foreign,
@@ -185,16 +192,20 @@ def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                 h.data_ptr(), y.data_ptr(), M, d, f, block_m, stream)
     build.check(rc, "moe_gmm")
     moe_gmm.launches += 1
+    if foreign is not None and foreign_rows is not None:
+        moe_gmm.foreign_rows = moe_gmm.foreign_rows + foreign_rows
     return y
 
 
 moe_gmm.launches = 0     # kernel launches (CUDA tensors only)
+moe_gmm.foreign_rows = 0  # foreign-group rows through those launches
 
 
 def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                      group_sizes_padded: torch.Tensor, *,
                      w_gate: Optional[torch.Tensor] = None, act: str = "silu",
-                     block_m: int = 128, foreign: Foreign = None
+                     block_m: int = 128, foreign: Foreign = None,
+                     foreign_rows: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Entry used by ``core/grouped_ffn.py``: block-aligned group extents
     -> tile map and live-row count -> ``moe_gmm``."""
@@ -202,4 +213,5 @@ def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     tg = tile_group_map(group_sizes_padded, M // block_m, block_m)
     return moe_gmm(x, w_in, w_out, tg, w_gate=w_gate, act=act,
                    block_m=block_m, foreign=foreign,
-                   live_rows=live_row_count(group_sizes_padded, M))
+                   live_rows=live_row_count(group_sizes_padded, M),
+                   foreign_rows=foreign_rows)

@@ -5,15 +5,18 @@ layers are MoE layers after optional leading dense layers (the
 qwen15-moe-a27b and moonshot-v1-16b-a3b families; other layer patterns
 are not ported yet).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
-  prefill(params, batch, s_max)                -> (logits, caches, S, diags)
-  prefill_chunk(params, tokens, caches, pos, last_index)
+  prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
+  prefill_chunk(params, tokens, caches, pos, last_index, skew_key)
                                                -> (logits, caches, pos + C, diags)
-  decode_step(params, token, caches, pos, active_mask, block_table, block_size)
-                                               -> (logits, caches, pos + S, diags)
+  decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
+              block_size, moe_policy)          -> (logits, caches, pos + S, diags)
   init_cache(batch, s_max)                     -> slab K/V caches
   init_paged_cache(num_blocks, block_size)     -> the physical paged K/V pool
 Caches are updated in place.  Everything lives on ``model.device``: CUDA
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``.  At expert-parallel degree
+G > 1 the MoE blocks run G ranks in lockstep on that one device
+(``dispatch.VirtualGroup``); expert weights stay rank-major
+``[G * epr, ...]``, as the JAX package lays them out.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core.dispatch import LocalComm, VirtualGroup
 from repro_torch.core.moe_layer import MoEBlockSpec
+from repro_torch.core.router import SkewKey
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import norm
 from repro_torch.models.losses import logits_head
@@ -55,6 +60,7 @@ class Model:
     device: torch.device
     moe_spec: MoEBlockSpec          # prefill chunks (tokens_local per call)
     moe_spec_decode: MoEBlockSpec   # decode steps
+    comm: Any = None                # the MoE blocks' EP group
 
     @property
     def dtype(self) -> torch.dtype:
@@ -143,7 +149,8 @@ class Model:
                            softcap=self.cfg.final_logit_softcap)
 
     def prefill(self, params, batch: Dict[str, Any],
-                s_max: Optional[int] = None):
+                s_max: Optional[int] = None,
+                skew_key: Optional[SkewKey] = None):
         """A whole prompt ``batch["tokens"]`` [B, S] on a fresh slab cache
         of ``s_max`` positions (default S + 64): attention through the
         flash kernel, K/V into the cache prefix [0, S).  Returns (logits
@@ -156,11 +163,13 @@ class Model:
         h = params["embed"][tokens]
         h, _, diags = T.run_stack(h, params["stack"], self.cfg,
                                   cache=caches["stack"], cache_len=pos,
-                                  moe_spec=self.moe_spec)
+                                  moe_spec=self.moe_spec, comm=self.comm,
+                                  skew_key=skew_key)
         return self._head(params, h[:, -1]), caches, pos, diags
 
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos: int,
-                      last_index: Optional[int] = None):
+                      last_index: Optional[int] = None,
+                      skew_key: Optional[SkewKey] = None):
         """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
         ``caches`` at position ``pos`` (all rows share it).  Logits at
         ``last_index`` (default C - 1); pad tokens past it are kept out of
@@ -174,20 +183,22 @@ class Model:
         h = params["embed"][tokens]
         h, stack, diags = T.run_stack(
             h, params["stack"], self.cfg, cache=caches["stack"],
-            cache_len=pos + C, q_offset=pos, moe_spec=spec,
-            continue_prefill=True, valid_mask=vmask)
+            cache_len=pos + C, q_offset=pos, moe_spec=spec, comm=self.comm,
+            skew_key=skew_key, continue_prefill=True, valid_mask=vmask)
         idx = C - 1 if last_index is None else last_index
         return self._head(params, h[:, idx]), caches, pos + C, diags
 
     def decode_step(self, params, token: torch.Tensor, caches, pos, *,
-                    active_mask=None,
+                    skew_key: Optional[SkewKey] = None, active_mask=None,
                     block_table: Optional[torch.Tensor] = None,
-                    block_size: int = 0):
+                    block_size: int = 0, moe_policy: Optional[str] = None):
         """token [B, S] against the paged pool (``block_table`` given; S > 1
         is a multi-query window) or, with S = 1, the slab caches of
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
-        window: [B], or a scalar on the slab.  Returns logits [B, Vp] at
-        the last position when S == 1, else [B, S, Vp]."""
+        window: [B], or a scalar on the slab.  ``moe_policy`` overrides the
+        decode spec's scheduling policy (and its foreign slots) for this
+        step.  Returns logits [B, Vp] at the last position when S == 1,
+        else [B, S, Vp]."""
         B, S = token.shape
         if S > 1 and block_table is None:
             raise NotImplementedError(
@@ -198,13 +209,18 @@ class Model:
         if active_mask is not None:
             vmask = active_mask.reshape(-1, 1).expand(B, S)
         spec = self.moe_spec_decode
+        if moe_policy is not None and moe_policy != spec.moe.policy:
+            spec = dataclasses.replace(spec, moe=dataclasses.replace(
+                spec.moe, policy=moe_policy,
+                num_foreign_slots=_decode_foreign_slots(spec, moe_policy)))
         if S > 1:
             spec = dataclasses.replace(spec, tokens_local=spec.tokens_local * S)
         h = params["embed"][token]
         h, stack, diags = T.run_stack(
             h, params["stack"], self.cfg, cache=caches["stack"],
-            cache_len=new_pos, q_offset=pos, moe_spec=spec,
-            valid_mask=vmask, block_table=block_table, block_size=block_size)
+            cache_len=new_pos, q_offset=pos, moe_spec=spec, comm=self.comm,
+            skew_key=skew_key, valid_mask=vmask, block_table=block_table,
+            block_size=block_size)
         if S == 1:
             logits = self._head(params, h[:, -1])
         else:
@@ -224,8 +240,10 @@ def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
 
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
-                batch: int, seq_len: int, device=None) -> Model:
-    """The port's model for a decoder-only dense/MoE ``cfg`` on one rank.
+                batch: int, seq_len: int, device=None,
+                ep_degree: int = 1) -> Model:
+    """The port's model for a decoder-only dense/MoE ``cfg`` at expert-
+    parallel degree ``ep_degree`` (G ranks on the one device when G > 1).
     ``device`` defaults to CUDA and raises when no GPU is present."""
     dev = resolve_device(device)
     unsupported = [
@@ -248,7 +266,7 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         raise NotImplementedError(f"{cfg.name}: {cfg.act} experts not "
                                   f"ported yet")
     moe_spec = MoEBlockSpec(
-        moe=cfg.moe, d_model=cfg.d_model, ep_degree=1,
+        moe=cfg.moe, d_model=cfg.d_model, ep_degree=ep_degree,
         tokens_local=batch * seq_len, act="silu",
         cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m)
     # decode: one token per sequence, 128-row tiles, K per policy
@@ -256,5 +274,6 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         moe_spec, tokens_local=batch, block_m=128,
         moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
             _decode_foreign_slots(moe_spec, cfg.moe.policy))))
+    comm = LocalComm() if ep_degree == 1 else VirtualGroup(ep_degree, dev)
     return Model(cfg=cfg, device=dev, moe_spec=moe_spec,
-                 moe_spec_decode=moe_spec_decode)
+                 moe_spec_decode=moe_spec_decode, comm=comm)

@@ -11,12 +11,13 @@ layer) are unstacked, one dict per layer in ``params["lead"]`` and one
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import MoEBlockSpec, moe_block
+from repro_torch.core.router import SkewKey
 from repro_torch.models import attention as A
 from repro_torch.models.layers import mlp, norm
 
@@ -58,7 +59,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 
 
 def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
-                     cache_len, moe_spec: MoEBlockSpec,
+                     cache_len, moe_spec: MoEBlockSpec, comm, skew_key,
                      continue_prefill: bool, valid_mask, block_table,
                      block_size: int):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
@@ -72,7 +73,8 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
     h = norm(x, p["norm2"], cfg.norm)
     if kind == "dense":
         return x + mlp(h, p["mlp"]), {}
-    y, mdiag = moe_block(h, p["moe"], spec=moe_spec, valid_mask=valid_mask)
+    y, mdiag = moe_block(h, p["moe"], spec=moe_spec, comm=comm,
+                         skew_key=skew_key, valid_mask=valid_mask)
     if "shared_mlp" in p:
         y = y + mlp(h, p["shared_mlp"])
     # collapse the leading batch-group axis only
@@ -81,26 +83,33 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
 
 def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               cache: Dict[str, Any], cache_len=None, q_offset=0,
-              moe_spec: MoEBlockSpec,
+              moe_spec: MoEBlockSpec, comm=None,
+              skew_key: Optional[SkewKey] = None,
               continue_prefill: bool = False, valid_mask=None,
               block_table=None, block_size: int = 0
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """Run every layer on x [B, S, d], updating ``cache`` in place.
-    Returns (x, cache, diags averaged over the MoE layers)."""
+    """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
+    blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
+    skew) is folded with each MoE layer's index.  Returns (x, cache,
+    diags averaged over the MoE layers)."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
-              continue_prefill=continue_prefill, valid_mask=valid_mask,
-              block_table=block_table, block_size=block_size)
+              comm=comm, continue_prefill=continue_prefill,
+              valid_mask=valid_mask, block_table=block_table,
+              block_size=block_size)
     for i in range(lead):
         x, _ = _apply_one_layer(x, params["lead"][i], "dense", cfg,
-                                cache=cache["lead"][i], **kw)
+                                cache=cache["lead"][i], skew_key=None, **kw)
     per_step: Dict[str, List[torch.Tensor]] = {}
     for i in range(n_steps):
         p_step = layer_slice(params["blocks"], i)
         for j in range(len(pattern)):
+            layer_key = (None if skew_key is None
+                         else skew_key.fold_in(i * len(pattern) + j))
             x, d = _apply_one_layer(
                 x, p_step[f"sub{j}"], pattern[j], cfg,
-                cache=layer_slice(cache["blocks"][f"sub{j}"], i), **kw)
+                cache=layer_slice(cache["blocks"][f"sub{j}"], i),
+                skew_key=layer_key, **kw)
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)
     diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}

@@ -14,6 +14,11 @@ the allocator runs dry the youngest block holder is preempted and later
 recomputed (prompt plus committed tokens re-prefilled).  Greedy decoding.
 On the card every step goes through the hand-written kernels: paged
 attention in every layer, the grouped expert FFN in every MoE layer.
+A model built at expert-parallel degree G > 1 runs its MoE blocks over G
+ranks (``VirtualGroup``); ``EngineConfig.moe_policy`` overrides the decode
+steps' scheduling policy, and a model with synthetic router skew draws
+its routing from the ``skew_seed`` key streams (``StepCore``).
+``report()["load_balance"]`` holds the per-rank and per-expert loads.
 """
 from __future__ import annotations
 
@@ -46,8 +51,12 @@ class EngineConfig:
     prefill_chunk: int = 32     # prompt tokens consumed per prefill call
     chunks_per_step: int = 1    # prefill chunks interleaved per engine step
     eos_id: Optional[int] = None
+    skew_seed: int = 0          # synthetic router-skew key stream
     kv_block_size: int = 16     # tokens per physical KV block
     num_kv_blocks: int = 0      # usable blocks (0 = worst case for every slot)
+    # decode scheduling policy override (None = the model config's policy):
+    # harmoeny / round_robin / even_split / static_opt (core/scheduler.py)
+    moe_policy: Optional[str] = None
     # --- not ported yet ---
     role: str = "unified"
     paged: bool = True
@@ -56,7 +65,6 @@ class EngineConfig:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
-    moe_policy: Optional[str] = None
     rebalance_interval: int = 0
     replica_slots: int = 0
     resident_experts: int = 0
@@ -73,6 +81,10 @@ class EngineConfig:
             raise ValueError("kv_block_size must be >= 1")
         if self.num_kv_blocks < 0:
             raise ValueError("num_kv_blocks must be >= 0")
+        known = ("harmoeny", "round_robin", "even_split", "static_opt")
+        if self.moe_policy is not None and self.moe_policy not in known:
+            raise ValueError(f"unknown moe_policy {self.moe_policy!r}; "
+                             f"choose one of {known}")
         unported = {
             "role": self.role != "unified",
             "paged": not self.paged,
@@ -81,7 +93,6 @@ class EngineConfig:
             "temperature": self.temperature != 0.0,
             "top_k": self.top_k != 0,
             "top_p": self.top_p != 1.0,
-            "moe_policy": self.moe_policy is not None,
             "rebalance_interval": self.rebalance_interval != 0,
             "replica_slots": self.replica_slots != 0,
             "resident_experts": self.resident_experts != 0,
@@ -96,16 +107,18 @@ class EngineConfig:
 
 def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       max_new_tokens: int, prefill_chunk: int = 0,
-                      eos_id: Optional[int] = None, kv_block_size: int = 16,
-                      num_kv_blocks: int = 0) -> EngineConfig:
+                      eos_id: Optional[int] = None, skew_seed: int = 0,
+                      kv_block_size: int = 16, num_kv_blocks: int = 0,
+                      moe_policy: Optional[str] = None) -> EngineConfig:
     """Serving shapes from a workload: the pool covers prompt + generation
     and the prefill chunk divides the padded prompt."""
     chunk = prefill_chunk or min(max(prompt_len, 1), 32)
     pad = round_up(prompt_len, chunk)
     return EngineConfig(
         max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
-        prefill_chunk=chunk, eos_id=eos_id, kv_block_size=kv_block_size,
-        num_kv_blocks=num_kv_blocks)
+        prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed,
+        kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
+        moe_policy=moe_policy)
 
 
 class ServeEngine:
@@ -121,6 +134,8 @@ class ServeEngine:
             raise NotImplementedError(
                 f"{cfg.name}: the serve engine does not page the K/V of "
                 f"leading dense layers yet")
+        if ecfg.moe_policy is not None and not cfg.is_moe:
+            raise ValueError("moe_policy needs an MoE model")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -138,6 +153,7 @@ class ServeEngine:
         self.tok = np.zeros((B,), np.int32)      # per-slot last token
         self.active = np.zeros((B,), bool)       # slot in the decode batch
         self._step_idx = 0
+        self._chunk_idx = 0
         self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
         attention_dispatch.reset_dispatch_log()
 
@@ -293,7 +309,9 @@ class ServeEngine:
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :n] = seq[start:start + n]
             logits, diags = self.core.prefill(self.params, chunk,
-                                              self.kv.scratch, start, n - 1)
+                                              self.kv.scratch, start, n - 1,
+                                              self._chunk_idx)
+            self._chunk_idx += 1
             # finished chunk -> straight into the allocated blocks
             self.kv.write(self.kv.bt_row(st.req.rid), start, start + n)
             self._sync()
@@ -329,7 +347,7 @@ class ServeEngine:
         nxt, diags = self.core.decode(self.params, self.tok[:, None],
                                       self.kv.pool, self.pos,
                                       self.block_table.copy(),
-                                      self.active.copy())
+                                      self.active.copy(), self._step_idx)
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
         self.metrics.record_step(self._host_diags(diags), n_active,
@@ -374,11 +392,11 @@ class ServeEngine:
         C = self.ecfg.prefill_chunk
         null_row = np.full((self.kv.blocks_per_slot,), NULL_BLOCK, np.int32)
         self.core.prefill(self.params, np.zeros((1, C), np.int32),
-                          self.kv.scratch, 0, C - 1)
+                          self.kv.scratch, 0, C - 1, 2 ** 31 - 1)
         self.kv.write(null_row, 0, C)
         self.core.decode(self.params, self.tok[:, None], self.kv.pool,
                          self.pos, np.full_like(self.block_table, NULL_BLOCK),
-                         self.active.copy())
+                         self.active.copy(), 2 ** 31 - 1)
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
 
@@ -427,7 +445,8 @@ class ServeEngine:
             "blocks_per_slot": self.kv.blocks_per_slot,
         }
         if self.cfg.is_moe:
-            rep["engine"]["moe_policy"] = self.cfg.moe.policy
+            rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
+                                           or self.cfg.moe.policy)
         rep["state_pool"] = self.kv.stats()
         snap = (self._attn_dispatch if self._attn_dispatch is not None
                 else attention_dispatch.dispatch_log())

@@ -1,11 +1,13 @@
-"""Serving metrics (port of the TTFT / TPOT / throughput part of
-``repro/serve/metrics.py``).
+"""Serving metrics (port of the TTFT / TPOT / throughput and
+``load_balance`` parts of ``repro/serve/metrics.py``).
 
 Per request: TTFT = first_token_time - arrival_time (queueing + prefill),
 TPOT = mean inter-token time over the decode phase, e2e = finish_time -
 arrival_time.  Per step: active decode slots, paged KV-block occupancy,
-and the MoE block's schedule diagnostics.  ``report()`` is JSON-safe on an
-empty window (percentiles over no requests come back as None).
+the MoE block's scalar schedule diagnostics and its vector ones (per-rank
+and per-expert loads), from which ``report()["load_balance"]`` is
+derived.  ``report()`` is JSON-safe on an empty window (percentiles over
+no requests come back as None).
 """
 from __future__ import annotations
 
@@ -76,6 +78,8 @@ class ServeMetrics:
         self.prefill_chunks = 0
         self.occupancy: List[int] = []          # active slots per decode step
         self.moe_diags: Dict[str, List[float]] = {}
+        # per-step vector MoE diagnostics (rank_load [G], expert_load [Ep])
+        self.load_vectors: Dict[str, List[np.ndarray]] = {}
         self.kv_blocks_in_use: List[int] = []
         self.kv_blocks_total = 0
         self.preemptions = 0
@@ -86,8 +90,8 @@ class ServeMetrics:
 
     def record_step(self, diags: Dict[str, Any], n_active: int,
                     phase: str = "decode") -> None:
-        """One prefill chunk or decode step; scalar MoE diagnostics (host
-        numbers or arrays) are kept per phase, vector ones are not."""
+        """One prefill chunk or decode step; MoE diagnostics (host numbers
+        or arrays) are kept per phase, scalars and vectors apart."""
         if phase == "decode":
             self.decode_steps += 1
             self.occupancy.append(n_active)
@@ -95,7 +99,10 @@ class ServeMetrics:
             self.prefill_chunks += 1
         for k, v in (diags or {}).items():
             arr = np.asarray(v)
-            if arr.ndim == 0:
+            if arr.ndim:
+                self.load_vectors.setdefault(f"{phase}/{k}", []).append(
+                    arr.reshape(-1).astype(np.float64))
+            else:
                 self.moe_diags.setdefault(f"{phase}/{k}", []).append(
                     float(arr))
 
@@ -145,4 +152,40 @@ class ServeMetrics:
         if self.moe_diags:
             rep["moe"] = {k: float(np.mean(v))
                           for k, v in self.moe_diags.items()}
+        lb = self._load_balance()
+        if lb:
+            rep["load_balance"] = lb
         return _json_safe(rep)
+
+    def _load_balance(self) -> Dict[str, Any]:
+        """Paper §5 load metrics per phase, from the per-step vector
+        diagnostics: mean per-rank and per-expert load profiles, the
+        max/mean rank-load ratio (1.0 = perfect balance), the straggler-wait
+        proxy (mean of max - mean scheduled units per step: the units the
+        average rank waits while the most loaded one finishes), and total
+        drop counts."""
+        out: Dict[str, Any] = {}
+        for phase in ("decode", "prefill"):
+            rl = self.load_vectors.get(f"{phase}/rank_load")
+            el = self.load_vectors.get(f"{phase}/expert_load")
+            if rl is None and el is None:
+                continue
+            sec: Dict[str, Any] = {}
+            if rl:
+                m = np.stack(rl)                      # [steps, G]
+                mx, mn = m.max(axis=1), m.mean(axis=1)
+                sec["rank_load_mean"] = m.mean(axis=0).tolist()
+                sec["max_load_mean"] = float(mx.mean())
+                sec["mean_load_mean"] = float(mn.mean())
+                sec["max_mean_ratio"] = float(np.mean(
+                    np.where(mn > 0, mx / np.maximum(mn, 1e-9), 1.0)))
+                sec["straggler_wait_units"] = float(np.mean(mx - mn))
+            if el:
+                e = np.stack(el)                      # [steps, Ep]
+                sec["expert_load_mean"] = e.mean(axis=0).tolist()
+            for drop in ("send_drops", "dest_drops"):
+                vals = self.moe_diags.get(f"{phase}/{drop}")
+                if vals is not None:
+                    sec[f"{drop}_total"] = float(np.sum(vals))
+            out[phase] = sec
+        return out

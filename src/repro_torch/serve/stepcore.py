@@ -6,11 +6,12 @@ decode.  Steps run eagerly; capturing the decode step as a CUDA graph is
 a later change."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.router import SkewKey
 from repro_torch.serve.sampling import sample_tokens
 
 
@@ -19,24 +20,37 @@ class StepCore:
         self.model = model
         self.ecfg = ecfg
         self.device = model.device
+        cfg = model.cfg
+        self.skew = bool(cfg.is_moe and cfg.moe.router_skew > 0)
+        base = SkewKey((ecfg.skew_seed,))
+        self.pf_key, self.dec_key = base.fold_in(0), base.fold_in(1)
+
+    def next_key(self, stream: SkewKey, idx: int) -> Optional[SkewKey]:
+        return stream.fold_in(idx) if self.skew else None
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
     def prefill(self, params, chunk: np.ndarray, scratch, start: int,
-                last: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One [1, C] prompt chunk at ``start`` into the scratch; returns
-        the logits at ``last`` (on the device) and the MoE diagnostics."""
+                last: int, chunk_idx: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One [1, C] prompt chunk at ``start`` into the scratch (the
+        engine's ``chunk_idx``-th); returns the logits at ``last`` (on the
+        device) and the MoE diagnostics."""
         logits, _, _, diags = self.model.prefill_chunk(
-            params, self._t(chunk), scratch, start, last)
+            params, self._t(chunk), scratch, start, last,
+            skew_key=self.next_key(self.pf_key, chunk_idx))
         return logits, diags
 
     def decode(self, params, tok: np.ndarray, pool, pos: np.ndarray,
-               block_table: np.ndarray, active: np.ndarray
+               block_table: np.ndarray, active: np.ndarray, step_idx: int
                ) -> Tuple[np.ndarray, Dict[str, torch.Tensor]]:
-        """One decode step of every slot; greedy next tokens on the host."""
+        """One decode step of every slot (the engine's ``step_idx``-th
+        step); greedy next tokens on the host."""
         logits, _, _, diags = self.model.decode_step(
             params, self._t(tok), pool, self._t(pos),
+            skew_key=self.next_key(self.dec_key, step_idx),
             active_mask=self._t(active), block_table=self._t(block_table),
-            block_size=self.ecfg.kv_block_size)
+            block_size=self.ecfg.kv_block_size,
+            moe_policy=self.ecfg.moe_policy)
         return sample_tokens(logits).cpu().numpy(), diags

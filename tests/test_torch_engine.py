@@ -111,11 +111,24 @@ def test_entry_points_default_to_cuda():
         ServeEngine(model, {}, EngineConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         to_torch({"w": np.zeros((2, 2), np.float32)})
+    from repro_torch.core.dispatch import VirtualGroup
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VirtualGroup(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, batch=1, seq_len=8, ep_degree=4)
 
 
 @pytest.mark.parametrize("field,value", [
     ("role", "prefill"), ("paged", False), ("prefix_sharing", True),
-    ("speculative_k", 2), ("temperature", 0.7), ("replica_slots", 1)])
+    ("speculative_k", 2), ("temperature", 0.7), ("replica_slots", 1),
+    ("rebalance_interval", 2), ("resident_experts", 4),
+    ("moe_policy", "fastest")])
 def test_unported_engine_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
+    """Fields not ported yet raise NotImplementedError; ``moe_policy`` is
+    ported and, as in the JAX engine, an unknown policy is a ValueError."""
+    exc = ValueError if field == "moe_policy" else NotImplementedError
+    with pytest.raises(exc, match=field):
         EngineConfig(**{field: value})
+    if field == "moe_policy":
+        for policy in ("harmoeny", "round_robin", "even_split", "static_opt"):
+            assert EngineConfig(moe_policy=policy).moe_policy == policy

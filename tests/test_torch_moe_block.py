@@ -171,9 +171,8 @@ def test_fetch_foreign_weights_g1_matches_jax(dtype):
         mesh=mesh, in_specs=(P("model"), P()), out_specs=P(),
         check_vma=False)
     ref = fn(jnp.asarray(w).astype(jd), jnp.asarray(fids))
-    out = TP.fetch_foreign_weights(torch.from_numpy(w).to(td),
-                                   torch.from_numpy(fids), 0, tt,
-                                   TD.LocalComm())
+    out = TD.run(TD.LocalComm(), TP.fetch_foreign_weights(
+        torch.from_numpy(w).to(td), torch.from_numpy(fids), 0, tt))
     np.testing.assert_array_equal(out.float().numpy(),
                                   np.asarray(ref, np.float32))
     assert not out[1].any()
@@ -206,8 +205,8 @@ def test_fetch_foreign_weights_multirank_oracle(G, E):
     outboxes = []
     for g in range(G):
         w_local = torch.from_numpy(w_global[tt.slot_map[g]])
-        outboxes.append(TP.fetch_foreign_weights(
-            w_local, fids_t, g, tt, _CaptureComm(g, G)))   # [G_dst, K, d, f]
+        outboxes.append(TD.run(_CaptureComm(g, G), TP.fetch_foreign_weights(
+            w_local, fids_t, g, tt)))                     # [G_dst, K, d, f]
     for me in range(G):
         got = sum(ob[me] for ob in outboxes).numpy()
         for kk in range(K):

@@ -158,9 +158,9 @@ def _dispatch_buffer(arch, case):
     x = torch.from_numpy(rng.normal(size=(T, cfg.d_model)).astype(np.float32))
     recv = torch.from_numpy(rng.normal(
         size=(G, spec.c_pair, cfg.d_model)).astype(np.float32))
-    grouped = D.dispatch(torch.repeat_interleave(x, k, dim=0), layout,
-                         _RecvComm(G, me, recv), c_pair=spec.c_pair,
-                         c_total=spec.c_total)
+    grouped = D.run(_RecvComm(G, me, recv), D.dispatch(
+        torch.repeat_interleave(x, k, dim=0), layout, num_ranks=G,
+        c_pair=spec.c_pair, c_total=spec.c_total))
     sizes = layout.group_sizes
     return cfg, spec, grouped, D.round_up_j(sizes, bm), sizes, layout
 
