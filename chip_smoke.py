@@ -17,7 +17,8 @@ Phases, each of which must pass (any failure exits non-zero):
      paged_attention also on long decode chains), with its device time, the plain version's, one PyTorch library call's as a
      yardstick, and the card's least time for the work;
   3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
-     (random weights from a seed, bf16, paged KV, chunked prefill, greedy,
+     (random weights from a seed, bf16, paged KV (asked for: the engine's
+     default is the slab), chunked prefill, greedy,
      HarMoEny policy at one rank), with each kernel's launch count over
      that run, which must be > 0;
   4. correctness of what comes out: every request finished with its
@@ -56,7 +57,25 @@ Phases, each of which must pass (any failure exits non-zero):
      equal to the plain versions' tokens on the CPU in f32 (the CUDA-core
      designs), and in bf16 (the tensor-core designs), on the f32 run's
      expert choices, the card's logits within twice the bf16 noise
-     measured on the CPU, while three planted faults fall outside it.
+     measured on the CPU, while three planted faults fall outside it;
+  6. the engine across layer patterns, at full width and depth in bf16:
+     ``ServeEngine`` on the slab pool (the engine's default) serving
+     moonshot-v1-16b-a3b on phase 5's weights (its dense lead layer's
+     K/V in the slot rows beside the stacked layers'; 4 slots, 4 requests
+     of 64-128 prompt tokens, 8 new tokens), then switch128 (dense/MoE
+     periods, GELU experts: ``moe_gmm``'s plain form in its 6 MoE layers,
+     12 x 64 heads in ``paged_attention``) on the slab and paged (8
+     requests of 64-256 prompt tokens, 32 new tokens).  A ``[serve-slab]``
+     or ``[serve-switch]`` line each: TTFT/TPOT p50/p90, throughput, peak
+     memory, launches.  Gates: every request finishes with its budget;
+     ``moe_gmm`` launched once per MoE layer and step, ``paged_attention``
+     once per layer and prefill chunk (and decode step, paged); the
+     dispatch shows ``prefill_continue`` fused and, on the slab,
+     ``decode_slab``; and reduced moonshot and switch128 in f32, on the
+     slab and paged, give the same greedy streams on the card as on the
+     CPU.  Phase 2 also holds ``moe_gmm``'s plain form at switch128's
+     decode and prefill-chunk dispatches and ``paged_attention`` at its
+     head shape against their plain versions.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -188,7 +207,9 @@ def tensor_core_counts(build):
 # phase 2: kernel parity
 # ----------------------------------------------------------------------
 def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
-                 time_it):
+                 time_it, gated=True):
+    """``gated``: SwiGLU experts (the gated form); else GELU experts with no
+    gate matrix (the plain form, switch128's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.moe_gmm import ops
@@ -209,11 +230,14 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
         return (torch.randn((n, a, b), generator=g, device=dev)
                 * (2.0 / fan_in) ** 0.5).to(dtype)
     K = G - n_local
-    w_in, w_gate, w_out = w(n_local, d, f, d), w(n_local, d, f, d), w(n_local, f, d, f)
-    foreign = (w(K, d, f, d), w(K, f, d, f), w(K, d, f, d)) if K else None
+    w_in, w_out = w(n_local, d, f, d), w(n_local, f, d, f)
+    w_gate = w(n_local, d, f, d) if gated else None
+    foreign = ((w(K, d, f, d), w(K, f, d, f),
+                w(K, d, f, d) if gated else None) if K else None)
     tg = ops.tile_group_map(padded, M // block_m, block_m)
     # as the main path calls it: with the live-row count of the extents
-    kw = dict(w_gate=w_gate, act="silu", block_m=block_m, foreign=foreign,
+    kw = dict(w_gate=w_gate, act="silu" if gated else "gelu",
+              block_m=block_m, foreign=foreign,
               live_rows=ops.live_row_count(padded, M))
     got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
     every_tile = ops.moe_gmm(x, w_in, w_out, tg, **{**kw, "live_rows": None})
@@ -223,12 +247,14 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
     err, tol = compare(f"moe_gmm[{label}]", got, ref, dname)
     compare(f"moe_gmm[{label}, every tile live]", every_tile, ref, dname)
     del every_tile
-    rec = {"case": label, "dtype": dname, "M": M, "G": G, "d": d, "f": f,
-           "max_abs_err": err, "tol": tol}
+    rec = {"case": label, "dtype": dname, "form": "gated" if gated else
+           "plain", "M": M, "G": G, "d": d, "f": f, "max_abs_err": err,
+           "tol": tol}
     if time_it:
         fi, fo, fg = foreign if foreign else (None, None, None)
         all_in = torch.cat([w_in, fi]) if K else w_in
-        all_gate = torch.cat([w_gate, fg]) if K else w_gate
+        all_gate = (torch.cat([w_gate, fg]) if K else w_gate) if gated \
+            else None
         all_out = torch.cat([w_out, fo]) if K else w_out
         offs = [0] + torch.cumsum(padded, 0).tolist()
         live = [(gi, offs[gi], s) for gi, s in enumerate(sizes) if s]
@@ -237,7 +263,9 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
             y = torch.zeros_like(x)
             for gi, o, s in live:
                 xg = x[o:o + s]
-                h = F.silu(xg @ all_gate[gi]) * (xg @ all_in[gi])
+                h = xg @ all_in[gi]
+                h = (F.silu(xg @ all_gate[gi]) * h if gated
+                     else F.gelu(h, approximate="tanh"))
                 y[o:o + s] = h @ all_out[gi]
             return y
         def kernel():
@@ -249,12 +277,13 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
         rec["library_ms"] = device_ms(library, 10)
         # x read over the live rows only (the kernel skips the tiles at or
         # past the live-row count), y written over all M, the live groups'
-        # three weight matrices read once
+        # weight matrices (three gated, two plain) read once
         esz = x.element_size()
         live_rows = min(int(padded.sum()), M)
+        n_mats = 3 if gated else 2
         bytes_moved = ((live_rows + M) * d * esz
-                       + 3 * len(live) * d * f * esz + tg.numel() * 4)
-        flops = 6.0 * sum(sizes) * d * f
+                       + n_mats * len(live) * d * f * esz + tg.numel() * 4)
+        flops = 2.0 * n_mats * sum(sizes) * d * f
         rec["bound_ms"], rec["bound_by"] = bound(bytes_moved, flops, dname)
     return rec
 
@@ -426,8 +455,8 @@ def ep_decode_dispatch(cfg):
     return best, spec.c_total, epr
 
 
-def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
-                  flash_batch, flash_len):
+def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
+                  block_size, flash_batch, flash_len):
     import numpy as np
     import torch
     from repro_torch.core.moe_layer import MoEBlockSpec
@@ -472,6 +501,23 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
     out["moe_gmm"].append(moe_gmm_case(
         "ep_decode", sizes, M=M, n_local=n_local, d=d, f=f, block_m=128,
         dtype=bf, seed=10, time_it=True))
+    # switch128's plain form (GELU experts, no gate) at its decode
+    # dispatch (4 slots, top-1: 4 rows) and its prefill chunk's (32 rows),
+    # each a seeded draw over the 128 experts; M is each step's c_total
+    sw = switch_cfg
+    Es = sw.moe.num_experts
+    draw = np.random.default_rng(11)
+    for label, tokens in (("switch_decode", 4),
+                          ("switch_prefill_chunk", prefill_chunk)):
+        spec = MoEBlockSpec(moe=sw.moe, d_model=sw.d_model,
+                            tokens_local=tokens, block_m=128)
+        units = draw.integers(0, Es, tokens * sw.moe.num_experts_per_tok)
+        sizes = (np.bincount(units, minlength=Es).tolist()
+                 + [0] * sw.moe.num_foreign_slots)
+        out["moe_gmm"].append(moe_gmm_case(
+            label, sizes, M=spec.c_total, n_local=Es, d=sw.d_model,
+            f=sw.moe.d_ff_expert, block_m=128, dtype=bf, seed=12,
+            time_it=True, gated=False))
     out["moe_gmm"].append(moe_gmm_case(
         "f32_small", [40, 0, 7, 128, 0, 3, 1, 0], M=640, n_local=6, d=256,
         f=192, block_m=64, dtype=torch.float32, seed=2, time_it=False))
@@ -493,6 +539,17 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
         "long_decode", B=4, S=1, H=H, Hkv=Hkv, hd=hd, bs=block_size,
         lengths=[1024, 2048, 3072, 4096], n_blocks=4096 // block_size,
         softcap=0.0, dtype=bf, seed=9, time_it=True))
+    # switch128's 12 heads of 64 at the same serve shapes
+    sw_heads = dict(H=sw.num_heads, Hkv=sw.num_kv_heads,
+                    hd=sw.resolved_head_dim, softcap=0.0, dtype=bf,
+                    time_it=True)
+    out["paged_attention"].append(paged_attention_case(
+        "switch_decode", B=4, S=1, bs=block_size, lengths=[1, 77, 200, s_pad],
+        n_blocks=nb, seed=13, **sw_heads))
+    out["paged_attention"].append(paged_attention_case(
+        "switch_prefill_chunk", B=1, S=prefill_chunk, bs=bs_slab,
+        lengths=[160 + prefill_chunk], n_blocks=s_pad // bs_slab, slab=True,
+        seed=14, **sw_heads))
     out["paged_attention"].append(paged_attention_case(
         "f32_gqa_softcap", B=3, S=4, H=8, Hkv=2, hd=64, bs=5,
         lengths=[4, 23, 40], n_blocks=8, softcap=30.0, dtype=torch.float32,
@@ -517,15 +574,17 @@ def kernel_parity(cfg, flash_cfg, *, max_seq_len, prefill_chunk, block_size,
 # ----------------------------------------------------------------------
 # phase 3/4: the main path
 # ----------------------------------------------------------------------
-def small_reference_check(seed: int = 0) -> None:
-    """A reduced qwen15-moe-a27b in f32: the card's greedy streams through
-    the kernels equal the CPU's through the plain versions."""
+def small_reference_check(arch: str = "qwen15-moe-a27b", *,
+                          paged: bool = True, seed: int = 0) -> None:
+    """``arch`` reduced, in f32, served on the slab or the paged pool: the
+    card's greedy streams through the kernels equal the CPU's through the
+    plain versions."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve import Request, ServeEngine, VirtualClock, \
         engine_config_for
-    cfg = get_config("qwen15-moe-a27b").reduced()
+    cfg = get_config(arch).reduced()
     rng = torch.Generator().manual_seed(seed)
     reqs = [(int(torch.randint(5, 40, (1,), generator=rng)),) for _ in range(5)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy()
@@ -537,7 +596,7 @@ def small_reference_check(seed: int = 0) -> None:
         params = _to(params, dev)
         ecfg = engine_config_for(cfg, max_slots=3, prompt_len=40,
                                  max_new_tokens=8, prefill_chunk=16,
-                                 kv_block_size=8)
+                                 paged=paged, kv_block_size=8)
         eng = ServeEngine(model, params, ecfg, clock=VirtualClock(0.1),
                           device=dev)
         out = {}
@@ -550,11 +609,13 @@ def small_reference_check(seed: int = 0) -> None:
         eng.run([Request(rid=i, tokens=p, max_new_tokens=8)
                  for i, p in enumerate(prompts)])
         streams[dev] = out
+    pool = "paged" if paged else "slab"
     if streams["cpu"] != streams["cuda"]:
-        raise AssertionError(f"small reference: card streams "
-                             f"{streams['cuda']} != cpu streams {streams['cpu']}")
-    log(f"[reference] reduced qwen15-moe-a27b f32: {len(prompts)} greedy "
-        f"streams on the card equal the CPU plain-version streams")
+        raise AssertionError(f"small reference ({arch}, {pool}): card "
+                             f"streams {streams['cuda']} != cpu streams "
+                             f"{streams['cpu']}")
+    log(f"[reference] reduced {arch} f32 on the {pool} pool: {len(prompts)} "
+        f"greedy streams on the card equal the CPU plain-version streams")
 
 
 def _to(tree, dev, dtype=None):
@@ -569,30 +630,28 @@ def _to(tree, dev, dtype=None):
     return tree.to(dev)
 
 
-def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
-              slots, new_tokens, seed):
+def pattern_serve(cfg, params, tag, *, paged, slots, n_requests, prompt_lens,
+                  new_tokens, max_seq_len, prefill_chunk, block_size, seed):
+    """Serve ``n_requests`` on full-width ``cfg`` through ``ServeEngine`` on
+    the slab or the paged pool; print the ``[tag]`` line and hold the
+    gates: every request finishes with its budget, each kernel launched
+    once per layer of its kind and step, and the dispatch the pool
+    implies."""
     import numpy as np
     import torch
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_pattern
     from repro_torch.serve import EngineConfig, Request, ServeEngine
-    t0 = time.perf_counter()
     model = build_model(cfg, batch=slots, seq_len=max_seq_len)
-    params = model.init(seed)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[main] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on the "
-        f"card in {time.perf_counter() - t0:.1f} s "
-        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
-    ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
-                        prefill_chunk=prefill_chunk, kv_block_size=block_size)
-    eng = ServeEngine(model, params, ecfg)
+    eng = ServeEngine(model, params, EngineConfig(
+        max_slots=slots, max_seq_len=max_seq_len, prefill_chunk=prefill_chunk,
+        paged=paged, kv_block_size=block_size))
     t0 = time.perf_counter()
     eng.warmup()
-    log(f"[main] warmup (first prefill chunk + decode step) "
-        f"{time.perf_counter() - t0:.2f} s")
+    warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, tokens=rng.integers(
-                0, cfg.vocab_size, (int(rng.integers(64, 257)),)),
+                0, cfg.vocab_size, (int(rng.integers(*prompt_lens)),)),
                 max_new_tokens=new_tokens) for i in range(n_requests)]
     outputs = {}
     orig = eng._finish
@@ -601,6 +660,7 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
         outputs[st.req.rid] = list(st.output)
         orig(st, now)
     eng._finish = capture
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read = _reset_launches()
     t0 = time.perf_counter()
@@ -608,41 +668,76 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    pattern, n_steps, lead = layer_pattern(cfg)
+    n_moe = n_steps * pattern.count("moe")
+    steps = rep["decode_steps"] + rep["prefill_chunks"]
+    expect = {"moe_gmm": n_moe * steps,
+              "paged_attention": cfg.num_layers * (
+                  rep["prefill_chunks"] + (rep["decode_steps"] if paged
+                                           else 0)),
+              "flash_attention": 0}
     summary = {
+        "model": cfg.name, "pool": rep["state_pool"]["kind"],
         "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
         "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
         "ttft_p50_s": rep["ttft"]["p50"], "ttft_p90_s": rep["ttft"]["p90"],
         "tpot_p50_s": rep["tpot"]["p50"], "tpot_p90_s": rep["tpot"]["p90"],
         "throughput_tok_s": rep["throughput_tok_s"], "wall_s": wall,
-        "decode_steps": rep["decode_steps"],
+        "warmup_s": warm_s, "decode_steps": rep["decode_steps"],
         "prefill_chunks": rep["prefill_chunks"],
-        "preemptions": rep["preemptions"], "peak_mem_gib": peak,
+        "preemptions": rep["preemptions"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "moe_layers": n_moe, "attention_layers": cfg.num_layers,
         "launches": launches,
         "attention_dispatch": rep["attention_dispatch"],
     }
-    log(f"[main] {json.dumps(summary)}")
+    log(f"[{tag}] {json.dumps(summary)}")
     # --- checks -------------------------------------------------------
     if rep["n_requests"] != n_requests or len(outputs) != n_requests:
-        raise AssertionError(f"only {rep['n_requests']} of {n_requests} "
-                             f"requests finished")
+        raise AssertionError(f"[{tag}] only {rep['n_requests']} of "
+                             f"{n_requests} requests finished")
     for rid, toks in outputs.items():
         if len(toks) != new_tokens or not all(0 <= t < cfg.vocab_size
                                               for t in toks):
-            raise AssertionError(f"request {rid}: bad stream {toks}")
-    for name in ("moe_gmm", "paged_attention"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"serve path")
-    # finite logits of the expected shape on a fresh chunk
+            raise AssertionError(f"[{tag}] request {rid}: bad stream {toks}")
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {launches} != {expect} "
+                             f"({n_moe} MoE and {cfg.num_layers} attention "
+                             f"layers a step, {steps} steps)")
+    dispatch = rep["attention_dispatch"]
+    want = {"prefill_continue": {"fused": True},
+            ("decode" if paged else "decode_slab"): {"fused": paged}}
+    if dispatch != want:
+        raise AssertionError(f"[{tag}] attention dispatch {dispatch} != "
+                             f"{want}")
     cache = model.init_cache(1, prefill_chunk)
     toks = torch.as_tensor(reqs[0].tokens[:prefill_chunk][None],
                            device="cuda")
     logits, _, _, _ = model.prefill_chunk(params, toks, cache, 0)
     if tuple(logits.shape) != (1, cfg.padded_vocab) \
             or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
-        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+        raise AssertionError(f"[{tag}] bad logits {tuple(logits.shape)}")
     return summary
+
+
+def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
+              slots, new_tokens, seed):
+    """Phase 3: full-width ``cfg`` on random weights, served on the paged
+    pool (the ``[main]`` line, with ``pattern_serve``'s gates)."""
+    import torch
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    params = build_model(cfg, batch=slots, seq_len=max_seq_len).init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[main] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    return pattern_serve(cfg, params, "main", paged=True, slots=slots,
+                         n_requests=n_requests, prompt_lens=(64, 257),
+                         new_tokens=new_tokens, max_seq_len=max_seq_len,
+                         prefill_chunk=prefill_chunk, block_size=block_size,
+                         seed=seed)
 
 
 def _leaves(tree):
@@ -690,8 +785,9 @@ def ep_serve(cfg, params, policy, *, slots, n_requests, max_seq_len,
     model = build_model(ep_cfg, batch=slots, seq_len=max_seq_len,
                         ep_degree=EP_DEGREE)
     ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
-                        prefill_chunk=prefill_chunk, kv_block_size=block_size,
-                        moe_policy=policy, skew_seed=seed)
+                        prefill_chunk=prefill_chunk, paged=True,
+                        kv_block_size=block_size, moe_policy=policy,
+                        skew_seed=seed)
     eng = ServeEngine(model, params, ecfg)
     eng.warmup()
     rng = np.random.default_rng(seed)
@@ -821,7 +917,7 @@ def small_ep_reference_check(seed: int = 0) -> None:
                             ep_degree=EP_DEGREE)
         ecfg = engine_config_for(cfg, max_slots=4, prompt_len=40,
                                  max_new_tokens=8, prefill_chunk=16,
-                                 kv_block_size=8)
+                                 paged=True, kv_block_size=8)
         eng = ServeEngine(model, _to(params, dev), ecfg,
                           clock=VirtualClock(0.1), device=dev)
         out = {}
@@ -920,7 +1016,7 @@ def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
     if tuple(logits.shape) != (batch, cfg.padded_vocab) \
             or not torch.isfinite(logits[:, :cfg.vocab_size]).all():
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
-    return summary
+    return summary, params
 
 
 def small_prefill_reference_check(seed: int = 0) -> None:
@@ -1120,6 +1216,32 @@ def small_prefill_bf16_check(seed: int = 0) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------
+# phase 6: the engine across layer patterns
+# ----------------------------------------------------------------------
+def switch_path(switch, *, seed, **shape):
+    """switch128 at full width and depth (dense/MoE periods, GELU experts:
+    ``moe_gmm``'s plain form) on the slab and paged, on one set of random
+    weights."""
+    import torch
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    params = build_model(switch, batch=4,
+                         seq_len=shape["max_seq_len"]).init(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve-switch] {switch.name}: {n_params / 1e9:.2f} B parameters "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    out = {}
+    for paged in (False, True):
+        out[f"serve_switch128_{'paged' if paged else 'slab'}"] = \
+            pattern_serve(switch, params, "serve-switch", paged=paged,
+                          slots=4, n_requests=8, prompt_lens=(64, 257),
+                          new_tokens=32, seed=seed, **shape)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1161,11 +1283,12 @@ def main() -> int:
 
     cfg = get_config("qwen15-moe-a27b")
     moon = get_config("moonshot-v1-16b-a3b")
+    switch = get_config("switch128")
     shape = dict(max_seq_len=256 + 32, prefill_chunk=32, block_size=16)
     whole = dict(batch=4, prompt_len=1024, s_max=1024 + 64, new_tokens=32)
 
     # --- phase 2: kernel parity ------------------------------------------
-    parity = kernel_parity(cfg, moon, flash_batch=whole["batch"],
+    parity = kernel_parity(cfg, moon, switch, flash_batch=whole["batch"],
                            flash_len=whole["prompt_len"], **shape)
 
     # --- phase 3/4: the serve path + small reference ----------------------
@@ -1186,9 +1309,26 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
     # --- phase 5: whole-prompt prefill + slab decode ----------------------
-    whole_summary = prefill_decode_path(moon, seed=0, **whole)
+    whole_summary, moon_params = prefill_decode_path(moon, seed=0, **whole)
     small_prefill_reference_check()
     small_prefill_bf16_check()
+
+    # --- phase 6: the engine across layer patterns -------------------------
+    # moonshot (a dense lead layer) on the slab, on phase 5's weights
+    patterns = {"serve_moonshot_v1_16b_a3b_slab": pattern_serve(
+        moon, moon_params, "serve-slab", paged=False, slots=4, n_requests=4,
+        prompt_lens=(64, 129), new_tokens=8, seed=0, **shape)}
+    del moon_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[env] moonshot freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    patterns.update(switch_path(switch, seed=0, **shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (moon.name, switch.name):
+        for paged in (False, True):
+            small_reference_check(arch, paged=paged)
 
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
@@ -1205,7 +1345,9 @@ def main() -> int:
                 **{f"serve_qwen15_moe_a27b_ep{EP_DEGREE}_{p}":
                    rec["launches"][name] for p, rec in ep.items()},
                 "prefill_decode_moonshot_v1_16b_a3b":
-                    whole_summary["launches"][name]},
+                    whole_summary["launches"][name],
+                **{path: rec["launches"][name]
+                   for path, rec in patterns.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] == "bfloat16"),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

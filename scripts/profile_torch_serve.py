@@ -3,12 +3,16 @@
 of the PyTorch port's paths (random weights, bf16):
 
     python3 scripts/profile_torch_serve.py [--decode-steps 4]
+    python3 scripts/profile_torch_serve.py --arch switch128 --slab
     python3 scripts/profile_torch_serve.py --path ep [--decode-steps 4]
     python3 scripts/profile_torch_serve.py --path prefill [--decode-steps 4]
 
-``serve`` (the default): full-width qwen15-moe-a27b in ``ServeEngine``
-(paged KV, 4 slots); traces the first 32-token prefill chunk of a
-request, then, with every slot decoding, a few pure decode steps.
+``serve`` (the default): a full-width model (``--arch``, default
+qwen15-moe-a27b; also moonshot-v1-16b-a3b or switch128) in
+``ServeEngine`` with 4 slots, on the paged KV pool or, with ``--slab``,
+on the slab (the engine's default); traces the first 32-token prefill
+chunk of a request, then, with every slot decoding, a few pure decode
+steps.
 ``ep``: the same at expert-parallel degree 4 on virtual ranks under the
 synthetic skew of ``chip_smoke.py``'s phase 4b (0.9 on one expert,
 q = 1), once with the harmoeny schedule and once with round_robin.
@@ -74,6 +78,11 @@ def main() -> int:
     ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--path", choices=("serve", "ep", "prefill"),
                     default="serve")
+    ap.add_argument("--arch", default="qwen15-moe-a27b",
+                    help="the serve path's model")
+    ap.add_argument("--slab", action="store_true",
+                    help="serve path: the slab KV pool instead of the "
+                         "paged one")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -84,11 +93,13 @@ def main() -> int:
         return profile_prefill(args.decode_steps)
     if args.path == "ep":
         for policy in ("harmoeny", "round_robin"):
-            profile_serve(args.decode_steps, ep_degree=4, policy=policy)
+            profile_serve(args.decode_steps, ep_degree=4, policy=policy,
+                          arch=args.arch)
             gc.collect()                   # the engine holds cycles
             torch.cuda.empty_cache()
         return 0
-    return profile_serve(args.decode_steps)
+    return profile_serve(args.decode_steps, arch=args.arch,
+                         paged=not args.slab)
 
 
 def _timed(fn, n_steps: int = 1, traced: bool = True):
@@ -151,7 +162,8 @@ def profile_prefill(decode_steps: int) -> int:
 
 
 def profile_serve(decode_steps: int, ep_degree: int = 1,
-                  policy: str = "harmoeny") -> int:
+                  policy: str = "harmoeny", arch: str = "qwen15-moe-a27b",
+                  paged: bool = True) -> int:
     import dataclasses
     import numpy as np
     import torch
@@ -159,7 +171,7 @@ def profile_serve(decode_steps: int, ep_degree: int = 1,
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve import EngineConfig, Request, ServeEngine
-    cfg = get_config("qwen15-moe-a27b")
+    cfg = get_config(arch)
     if ep_degree > 1:             # chip_smoke.py phase 4b's skewed routing
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, policy=policy, router_skew=0.9, q_tokens=1))
@@ -168,8 +180,10 @@ def profile_serve(decode_steps: int, ep_degree: int = 1,
     params = model.init(0)
     eng = ServeEngine(model, params, EngineConfig(
         max_slots=slots, max_seq_len=288, prefill_chunk=chunk,
-        kv_block_size=16))
-    tag = "" if ep_degree == 1 else f"_ep{ep_degree}_{policy}"
+        paged=paged, kv_block_size=16))
+    tag = f"_{cfg.name}_{'paged' if paged else 'slab'}"
+    if ep_degree > 1:
+        tag += f"_ep{ep_degree}_{policy}"
     eng.warmup()
     rng = np.random.default_rng(0)
     for i in range(slots):

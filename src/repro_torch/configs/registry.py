@@ -6,10 +6,12 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.qwen15_moe_a27b import CONFIG as _qwen
+from repro_torch.configs.switch128 import CONFIG as _switch
 
 REGISTRY: Dict[str, ModelConfig] = {
     "qwen15-moe-a27b": _qwen,
     "moonshot-v1-16b-a3b": _moonshot,
+    "switch128": _switch,
 }
 
 

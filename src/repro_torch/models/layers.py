@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, the SwiGLU MLP of the shared
-experts (port of ``repro/models/layers.py``)."""
+"""Shared building blocks: RMSNorm, RoPE, and the MLP of dense layers and
+shared experts (port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -42,7 +42,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """SwiGLU MLP (the shared experts).  Plain ``torch.matmul`` products,
-    as the JAX package leaves them to XLA."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+def mlp(x: torch.Tensor, p: Dict[str, torch.Tensor],
+        act: str) -> torch.Tensor:
+    """The MLP of a dense layer or of the shared experts: SwiGLU
+    (``w_gate``, ``w_in``, ``w_out``) or, for ``gelu_mlp``, tanh-GELU
+    between two products (``jax.nn.gelu``'s default).  Plain
+    ``torch.matmul`` products, as the JAX package leaves them to XLA."""
+    h = x @ p["w_in"]
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * h
+    elif act == "gelu_mlp":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise NotImplementedError(f"{act} MLP is not ported yet")
+    return h @ p["w_out"]

@@ -1,17 +1,18 @@
 """``build_model``: the model API the serve engine and ``launch.steps`` drive.
 
-Port of ``repro/models/model.py`` for decoder-only MoE stacks whose
-layers are MoE layers after optional leading dense layers (the
-qwen15-moe-a27b and moonshot-v1-16b-a3b families; other layer patterns
-are not ported yet).  The returned ``Model`` exposes:
+Port of ``repro/models/model.py`` for decoder-only MoE stacks: MoE
+layers after optional leading dense layers (qwen15-moe-a27b,
+moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
+GELU MLPs (switch128).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
   prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key)
                                                -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
               block_size, moe_policy)          -> (logits, caches, pos + S, diags)
-  init_cache(batch, s_max)                     -> slab K/V caches
-  init_paged_cache(num_blocks, block_size)     -> the physical paged K/V pool
+  init_cache(batch, s_max, device)             -> slab K/V caches
+  init_paged_cache(num_blocks, block_size, s_ref, seq_axes)
+                                               -> the physical paged K/V pool
 Caches are updated in place.  Everything lives on ``model.device``: CUDA
 unless the caller passes ``device="cpu"``.  At expert-parallel degree
 G > 1 the MoE blocks run G ranks in lockstep on that one device
@@ -92,51 +93,67 @@ class Model:
                              "wv": nrm(n + (d, Hkv, hd), s_d),
                              "wo": nrm(n + (H, hd, d), s_d)}}
 
-        def swiglu(n, f):
-            return {"w_in": nrm(n + (d, f), s_d),
-                    "w_out": nrm(n + (f, d), (2.0 / f) ** 0.5),
-                    "w_gate": nrm(n + (d, f), s_d)}
+        def ffn(n, f):
+            """A dense MLP of ``cfg.act``: SwiGLU carries a gate."""
+            p = {"w_in": nrm(n + (d, f), s_d),
+                 "w_out": nrm(n + (f, d), (2.0 / f) ** 0.5)}
+            if cfg.act == "swiglu":
+                p["w_gate"] = nrm(n + (d, f), s_d)
+            return p
 
-        def layer():
+        def layer(kind):
+            p: Dict[str, Any] = attn_layer((n,))
+            if kind == "dense":
+                p["mlp"] = ffn((n,), cfg.d_ff)
+                return p
             topo = self.moe_spec.topo
             rows = topo.num_ranks * topo.experts_per_rank
             f = cfg.moe.d_ff_expert
-            p: Dict[str, Any] = {
-                **attn_layer((n,)),
-                "moe": {"router": nrm((n, d, topo.padded_experts), 0.02,
+            p["moe"] = {"router": nrm((n, d, topo.padded_experts), 0.02,
                                       torch.float32),
                         "w_in": nrm((n, rows, d, f), s_d),
-                        "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5),
-                        "w_gate": nrm((n, rows, d, f), s_d)},
-            }
+                        "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5)}
+            if self.moe_spec.act == "silu":    # gated experts
+                p["moe"]["w_gate"] = nrm((n, rows, d, f), s_d)
             if cfg.moe.num_shared_experts:
-                p["shared_mlp"] = swiglu((n,), cfg.moe.num_shared_experts * f)
+                p["shared_mlp"] = ffn((n,), cfg.moe.num_shared_experts * f)
             return p
 
         params: Dict[str, Any] = {
             "embed": nrm((Vp, d), 0.02),
             "final_norm": {"scale": zeros((d,))},
-            "stack": {"blocks": {f"sub{j}": layer()
-                                 for j in range(len(pattern))}},
+            "stack": {"blocks": {f"sub{j}": layer(kind)
+                                 for j, kind in enumerate(pattern)}},
         }
         if lead:
             params["stack"]["lead"] = [
-                {**attn_layer(), "mlp": swiglu((), cfg.d_ff)}
+                {**attn_layer(), "mlp": ffn((), cfg.d_ff)}
                 for _ in range(lead)]
         if not cfg.tie_embeddings:
             params["lm_head"] = nrm((Vp, d), 0.02)
         return params
 
-    def init_cache(self, b: int, s_max: int) -> Dict[str, Any]:
+    def init_cache(self, b: int, s_max: int, device=None) -> Dict[str, Any]:
+        """Slab K/V caches on ``model.device``, or on ``device`` when given
+        (the serve engine probes leaf shapes on the ``meta`` device)."""
         return {"stack": T.init_stack_cache(self.cfg, b, s_max, self.dtype,
-                                            self.device)}
+                                            device or self.device)}
 
-    def init_paged_cache(self, num_blocks: int,
-                         block_size: int) -> Dict[str, Any]:
-        """A batch-1 physical pool of ``num_blocks * block_size`` KV
-        positions per leaf, addressed through block tables."""
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         s_ref: Optional[int] = None,
+                         seq_axes: Any = None) -> Dict[str, Any]:
+        """A batch-1 physical pool: each leaf of ``init_cache(1, s_ref)``
+        (``s_ref`` default: one block) with its KV-length axis resized to
+        ``num_blocks * block_size`` positions, addressed through block
+        tables.  ``seq_axes`` skips re-discovery when the caller (the
+        serve engine) holds them."""
         from repro_torch.serve.paging import make_paged_pool
-        return make_paged_pool(self.init_cache, num_blocks, block_size)
+        from repro_torch.serve.slots import discover_seq_axes
+        s = s_ref or block_size
+        if seq_axes is None:
+            seq_axes = discover_seq_axes(self.init_cache, s)
+        return make_paged_pool(self.init_cache, s, seq_axes, num_blocks,
+                               block_size, device=self.device)
 
     # ------------------------------------------------------------------
     def _vocab_w(self, params):
@@ -248,8 +265,6 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     dev = resolve_device(device)
     unsupported = [
         (not cfg.is_moe or cfg.family != "moe", f"family {cfg.family!r}"),
-        (cfg.is_moe and cfg.moe.moe_layer_period != 1,
-         "dense layers between MoE layers"),
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
          "encoder-decoder / prefix-embedding models"),
         (cfg.rope_theta <= 0, "absolute position embeddings"),
@@ -262,12 +277,13 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{cfg.name}: {what} not ported yet")
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"{cfg.name}: {cfg.act} experts not "
-                                  f"ported yet")
+    if cfg.act not in ("swiglu", "gelu_mlp"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.act} MLPs not ported "
+                                  f"yet")
     moe_spec = MoEBlockSpec(
         moe=cfg.moe, d_model=cfg.d_model, ep_degree=ep_degree,
-        tokens_local=batch * seq_len, act="silu",
+        tokens_local=batch * seq_len,
+        act="silu" if cfg.act == "swiglu" else "gelu",
         cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m)
     # decode: one token per sequence, 128-row tiles, K per policy
     moe_spec_decode = dataclasses.replace(

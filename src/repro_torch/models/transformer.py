@@ -5,9 +5,12 @@
 Parameters stay stacked per layer exactly as in the JAX package
 (``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
 so converting JAX weights is a reshape-free copy; a Python loop over the
-steps replaces ``lax.scan``.  Leading dense layers (moonshot's first
-layer) are unstacked, one dict per layer in ``params["lead"]`` and one
-``AttnCache`` per layer in ``cache["lead"]``, and run before the stack.
+steps replaces ``lax.scan``.  A period of the stack is one MoE layer or,
+with ``moe_layer_period`` p > 1, p layers of which the one at
+``moe_layer_offset`` is MoE and the others dense (switch128: ``["dense",
+"moe"]``).  Leading dense layers (moonshot's first layer) are unstacked,
+one dict per layer in ``params["lead"]`` and one ``AttnCache`` per layer
+in ``cache["lead"]``, and run before the stack.
 """
 from __future__ import annotations
 
@@ -24,11 +27,19 @@ from repro_torch.models.layers import mlp, norm
 
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     """(pattern, n_steps, n_lead_dense): layer kinds within one period of
-    the stack, the number of periods, and leading unscanned dense layers.
-    The port builds MoE stacks with every layer after the lead an MoE
-    layer (``build_model`` rejects other patterns)."""
+    the stack, the number of periods, and leading unscanned dense layers
+    (the MoE family's patterns of the JAX ``layer_pattern``)."""
     lead = cfg.moe.first_dense_layers if cfg.is_moe else 0
-    return ["moe"], cfg.num_layers - lead, lead
+    L = cfg.num_layers - lead
+    p = cfg.moe.moe_layer_period if cfg.is_moe else 1
+    if p > 1:
+        if L % p:
+            raise ValueError(f"{cfg.name}: {L} layers are not a whole number "
+                             f"of periods of {p}")
+        pat = ["dense"] * p
+        pat[cfg.moe.moe_layer_offset] = "moe"
+        return pat, L // p, lead
+    return ["moe"], L, lead
 
 
 def layer_slice(tree: Any, i: int) -> Any:
@@ -63,8 +74,9 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      continue_prefill: bool, valid_mask, block_table,
                      block_size: int):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
-    experts) or, for a ``"dense"`` layer, the SwiGLU MLP -> residual.
-    Returns (x, diagnostics of this layer; none for a dense layer)."""
+    experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
+    residual.  Returns (x, diagnostics of this layer; none for a dense
+    layer)."""
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
@@ -72,11 +84,11 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
     x = x + h
     h = norm(x, p["norm2"], cfg.norm)
     if kind == "dense":
-        return x + mlp(h, p["mlp"]), {}
+        return x + mlp(h, p["mlp"], cfg.act), {}
     y, mdiag = moe_block(h, p["moe"], spec=moe_spec, comm=comm,
                          skew_key=skew_key, valid_mask=valid_mask)
     if "shared_mlp" in p:
-        y = y + mlp(h, p["shared_mlp"])
+        y = y + mlp(h, p["shared_mlp"], cfg.act)
     # collapse the leading batch-group axis only
     return x + y, {k: v.mean(dim=0) for k, v in mdiag.items()}
 

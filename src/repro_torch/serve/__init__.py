@@ -1,4 +1,5 @@
-"""Continuous-batching serving on the paged KV pool (port of ``repro.serve``)."""
+"""Continuous-batching serving on a slab or paged KV pool (port of
+``repro.serve``)."""
 from repro_torch.serve.arrivals import AdmissionQueue, VirtualClock, WallClock
 from repro_torch.serve.engine import EngineConfig, ServeEngine, engine_config_for
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,

@@ -1,19 +1,32 @@
 """Continuous-batching serving engine (port of ``repro/serve/engine.py``,
-unified role, paged KV pool).
+unified role, slab or paged KV pool).
 
 ``ServeEngine`` composes three parts, as in the JAX package:
 ``AdmissionFront`` (arrival queue, free slots, prefill pipeline, preempted
 recompute queue), ``StepCore`` (the prefill-chunk and decode steps) and
-``KVOwner`` (paged pool, block allocator and table, prefill scratch).
-Newcomers' prompts are consumed chunk by chunk through
+the sequence-state store (``statestore.make_state_store``: ``KVOwner``,
+which owns the pool, the prefill scratch and, paged, the block allocator
+and table).  Newcomers' prompts are consumed chunk by chunk through
 ``model.prefill_chunk`` on a ``[1, prefill_chunk]`` scratch, interleaved
-with decode steps of the whole slot batch through ``model.decode_step``
-on the paged pool.  Admission is gated on free blocks, chains grow as
-decode advances, blocks return the moment a request finishes, and when
-the allocator runs dry the youngest block holder is preempted and later
-recomputed (prompt plus committed tokens re-prefilled).  Greedy decoding.
-On the card every step goes through the hand-written kernels: paged
-attention in every layer, the grouped expert FFN in every MoE layer.
+with decode steps of the whole slot batch through ``model.decode_step``.
+
+* **slab** (``EngineConfig.paged=False``, the default, as in JAX): the
+  pool is one cache row per slot; a finished prefill is copied from the
+  scratch into its slot's row, and a free slot is the only admission
+  gate.  Decode attends each row's slab at
+  its own position (plain ``decode_attention``, as the reference has no
+  kernel there).
+* **paged**: admission is gated on free blocks, each finished chunk is
+  scattered into the request's blocks, chains grow as decode advances,
+  blocks return the moment a request finishes, and when the allocator
+  runs dry the youngest block holder is preempted and later recomputed
+  (prompt plus committed tokens re-prefilled).
+
+The engine keeps the scheduling state and leaves every pool-specific
+write to the store, so neither mode forks the step loop.  Greedy decoding.  On the card every prefill chunk runs the paged
+attention kernel over the slab scratch, every paged decode step the same
+kernel through the block table, and every MoE layer the grouped expert
+FFN.
 A model built at expert-parallel degree G > 1 runs its MoE blocks over G
 ranks (``VirtualGroup``); ``EngineConfig.moe_policy`` overrides the decode
 steps' scheduling policy, and a model with synthetic router skew draws
@@ -31,27 +44,28 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import round_up
 from repro_torch.models import attention as attention_dispatch
-from repro_torch.models.transformer import layer_pattern
 from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
-from repro_torch.serve.kvstore import KVOwner
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.paging import NULL_BLOCK
 from repro_torch.serve.request import Request, RequestState, RequestStatus
 from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.statestore import make_state_store
 from repro_torch.serve.stepcore import StepCore
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static serving shapes.  The fields after ``num_kv_blocks`` exist in
-    the JAX engine but are not ported yet: setting one raises."""
+    """Static serving shapes, with the JAX engine's defaults.  The fields
+    after ``moe_policy`` exist in the JAX engine but are not ported yet:
+    setting one raises."""
     max_slots: int = 4          # decode batch width (concurrent requests)
     max_seq_len: int = 128      # logical KV length (prompt + generation)
     prefill_chunk: int = 32     # prompt tokens consumed per prefill call
     chunks_per_step: int = 1    # prefill chunks interleaved per engine step
     eos_id: Optional[int] = None
     skew_seed: int = 0          # synthetic router-skew key stream
+    # --- KV pool: one slab row per slot, or paged blocks ---
+    paged: bool = False
     kv_block_size: int = 16     # tokens per physical KV block
     num_kv_blocks: int = 0      # usable blocks (0 = worst case for every slot)
     # decode scheduling policy override (None = the model config's policy):
@@ -59,7 +73,6 @@ class EngineConfig:
     moe_policy: Optional[str] = None
     # --- not ported yet ---
     role: str = "unified"
-    paged: bool = True
     prefix_sharing: bool = False
     speculative_k: int = 0
     temperature: float = 0.0
@@ -77,7 +90,7 @@ class EngineConfig:
             raise ValueError("max_slots and max_seq_len must be >= 1")
         if self.prefill_chunk < 1 or self.chunks_per_step < 1:
             raise ValueError("prefill_chunk and chunks_per_step must be >= 1")
-        if self.kv_block_size < 1:
+        if self.paged and self.kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
         if self.num_kv_blocks < 0:
             raise ValueError("num_kv_blocks must be >= 0")
@@ -87,7 +100,6 @@ class EngineConfig:
                              f"choose one of {known}")
         unported = {
             "role": self.role != "unified",
-            "paged": not self.paged,
             "prefix_sharing": self.prefix_sharing,
             "speculative_k": self.speculative_k != 0,
             "temperature": self.temperature != 0.0,
@@ -101,14 +113,16 @@ class EngineConfig:
         if bad:
             raise NotImplementedError(
                 f"EngineConfig fields not ported yet: {bad} (the port serves "
-                f"the unified role from a paged pool with greedy decoding)")
+                f"the unified role from a slab or paged pool with greedy "
+                f"decoding)")
         return self
 
 
 def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       max_new_tokens: int, prefill_chunk: int = 0,
                       eos_id: Optional[int] = None, skew_seed: int = 0,
-                      kv_block_size: int = 16, num_kv_blocks: int = 0,
+                      paged: bool = False, kv_block_size: int = 16,
+                      num_kv_blocks: int = 0,
                       moe_policy: Optional[str] = None) -> EngineConfig:
     """Serving shapes from a workload: the pool covers prompt + generation
     and the prefill chunk divides the padded prompt."""
@@ -117,8 +131,8 @@ def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
     return EngineConfig(
         max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
         prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed,
-        kv_block_size=kv_block_size, num_kv_blocks=num_kv_blocks,
-        moe_policy=moe_policy)
+        paged=paged, kv_block_size=kv_block_size,
+        num_kv_blocks=num_kv_blocks, moe_policy=moe_policy)
 
 
 class ServeEngine:
@@ -130,10 +144,6 @@ class ServeEngine:
                              f"to run on {dev}")
         ecfg.validate()
         cfg = model.cfg
-        if layer_pattern(cfg)[2]:
-            raise NotImplementedError(
-                f"{cfg.name}: the serve engine does not page the K/V of "
-                f"leading dense layers yet")
         if ecfg.moe_policy is not None and not cfg.is_moe:
             raise ValueError("moe_policy needs an MoE model")
         self.model = model
@@ -145,9 +155,10 @@ class ServeEngine:
         self.metrics = ServeMetrics()
         self.core = StepCore(model, ecfg)
         B, C = ecfg.max_slots, ecfg.prefill_chunk
-        # prefill writes whole padded chunks: chains cover the
-        # chunk-rounded logical length
-        self.kv = KVOwner(model, ecfg, s_pad=round_up(ecfg.max_seq_len, C))
+        # paged: prefill writes whole padded chunks, so chains cover the
+        # chunk-rounded logical length (the slab scratch is max_seq_len)
+        self.kv = make_state_store(model, ecfg,
+                                   s_pad=round_up(ecfg.max_seq_len, C))
         self.front = AdmissionFront(B)
         self.pos = np.zeros((B,), np.int32)      # per-slot sequence length
         self.tok = np.zeros((B,), np.int32)      # per-slot last token
@@ -158,10 +169,6 @@ class ServeEngine:
         attention_dispatch.reset_dispatch_log()
 
     # ------------------------------------------------------------------
-    @property
-    def block_table(self) -> np.ndarray:
-        return self.kv.block_table
-
     @property
     def _alloc(self):
         return self.kv.alloc
@@ -195,7 +202,7 @@ class ServeEngine:
         return self.front.in_flight(bool(self.active.any()))
 
     # ------------------------------------------------------------------
-    # admission (block-aware; preempted requests first)
+    # admission (block-aware in paged mode; preempted requests first)
     # ------------------------------------------------------------------
     def _place(self, st: RequestState, n_fresh: int) -> None:
         front = self.front
@@ -206,13 +213,8 @@ class ServeEngine:
         front.admit_seq += 1
         front.state_by_slot[slot] = st
         front.slot_history.append((st.req.rid, slot))
-        chain = self._alloc.alloc_chain(st.req.rid, n_fresh)
-        assert chain is not None          # gated by can_admit
-        st.prefill_pos = 0
-        # the engine-visible table row stays null until the slot joins the
-        # decode batch: decode writes every row's (garbage, for inactive
-        # rows) K/V through the table, which must not reach mid-prefill
-        # blocks.  Prefill writes go through kv.bt_row instead.
+        st.prefill_pos = 0                # no prefix sharing: start at 0
+        self.kv.place(st.req.rid, n_fresh)
         front.pf_queue.append(st)
 
     def _activate(self, st: RequestState, pos: int, tok: int) -> None:
@@ -222,7 +224,7 @@ class ServeEngine:
         self.pos[s] = pos
         self.tok[s] = tok
         self.active[s] = True
-        self.block_table[s] = self.kv.bt_row(st.req.rid)
+        self.kv.activate(st.req.rid, s)
 
     def _admit(self, now: float) -> None:
         self.front.admit(now, plan_fn=self.kv.plan,
@@ -230,7 +232,7 @@ class ServeEngine:
                          place_fn=self._place)
 
     # ------------------------------------------------------------------
-    # preemption by recompute under allocator pressure
+    # preemption by recompute under allocator pressure (paged only)
     # ------------------------------------------------------------------
     def _youngest_holder(self) -> Optional[RequestState]:
         cands = [st for st in self.front.state_by_slot if st is not None]
@@ -261,10 +263,7 @@ class ServeEngine:
         holder while the allocator is dry.  False if ``st`` itself was the
         youngest and got preempted."""
         while True:
-            blk = self._alloc.extend(st.req.rid)
-            if blk is not None:
-                n = len(self._alloc.chain(st.req.rid))
-                self.block_table[st.slot, n - 1] = blk
+            if self.kv.extend(st.req.rid, st.slot):
                 return True
             victim = self._youngest_holder()
             if victim is None:
@@ -276,14 +275,13 @@ class ServeEngine:
     def _ensure_decode_blocks(self) -> None:
         """Every active slot's chain must cover its write position before a
         decode step; grow oldest requests first."""
-        bs = self.ecfg.kv_block_size
         order = sorted(np.nonzero(self.active)[0],
                        key=lambda s: self.front.state_by_slot[s].admit_seq)
         for s in order:
             if not self.active[s]:        # preempted earlier in this pass
                 continue
             st = self.front.state_by_slot[s]
-            while len(self._alloc.chain(st.req.rid)) * bs <= self.pos[s]:
+            while not self.kv.covers(st.req.rid, self.pos[s]):
                 if not self._grow_chain(st):
                     break
 
@@ -312,16 +310,18 @@ class ServeEngine:
                                               self.kv.scratch, start, n - 1,
                                               self._chunk_idx)
             self._chunk_idx += 1
-            # finished chunk -> straight into the allocated blocks
-            self.kv.write(self.kv.bt_row(st.req.rid), start, start + n)
-            self._sync()
+            self.kv.after_chunk(st.req.rid, start)
             st.prefill_pos += n
+            if st.prefill_done:
+                self.kv.on_prefill_done(st.slot)
+            self._sync()
             self.metrics.record_step(self._host_diags(diags), 0,
                                      phase="prefill")
             did = True
             if st.prefill_done:
                 if st.resumed:
-                    # recompute finished: the pending last token decodes next
+                    # recompute finished (paged only: the slab never
+                    # preempts): the pending last token decodes next
                     self._activate(st, L, st.output[-1])
                     front.pf = None
                     continue
@@ -340,20 +340,19 @@ class ServeEngine:
         return did
 
     def _decode_work(self, now: float) -> bool:
-        if self.active.any():
-            self._ensure_decode_blocks()
+        self._ensure_decode_blocks()
         if not self.active.any():
             return False
-        nxt, diags = self.core.decode(self.params, self.tok[:, None],
-                                      self.kv.pool, self.pos,
-                                      self.block_table.copy(),
-                                      self.active.copy(), self._step_idx)
+        nxt, diags = self.core.decode(
+            self.params, self.tok[:, None], self.kv.pool, self.pos,
+            self.kv.decode_table(), self.active.copy(), self._step_idx)
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
         self.metrics.record_step(self._host_diags(diags), n_active,
                                  phase="decode")
-        self.metrics.record_kv(self._alloc.blocks_in_use,
-                               self._alloc.usable_blocks)
+        occ = self.kv.occupancy()
+        if occ is not None:
+            self.metrics.record_kv(*occ)
         for s in np.nonzero(self.active)[0]:
             st = self.front.state_by_slot[s]
             self.pos[s] += 1
@@ -377,26 +376,24 @@ class ServeEngine:
         self.tok[s] = 0
         self.front.state_by_slot[s] = None
         self.front.free_slots.append(s)
-        self.kv.release(st.req.rid, s)     # blocks return to the free list now
+        self.kv.release(st.req.rid, s)
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Run one prefill chunk and one decode step on dummy data (all
-        writes land in the null block), so the first request's TTFT does
-        not include building the kernels or first-call set-up.  The engine
-        must be idle."""
+        """Run one prefill chunk and one decode step on dummy data, so the
+        first request's TTFT does not include building the kernels or
+        first-call set-up.  Writes land in the null block (paged) or in
+        slot 0 and the scratch (slab), so the engine must be idle."""
         if self.has_work() or any(st is not None
                                   for st in self.front.state_by_slot):
             raise RuntimeError("warmup() must run on an idle engine")
         attention_dispatch.reset_dispatch_log()
         C = self.ecfg.prefill_chunk
-        null_row = np.full((self.kv.blocks_per_slot,), NULL_BLOCK, np.int32)
         self.core.prefill(self.params, np.zeros((1, C), np.int32),
                           self.kv.scratch, 0, C - 1, 2 ** 31 - 1)
-        self.kv.write(null_row, 0, C)
+        table = self.kv.warm()
         self.core.decode(self.params, self.tok[:, None], self.kv.pool,
-                         self.pos, np.full_like(self.block_table, NULL_BLOCK),
-                         self.active.copy(), 2 ** 31 - 1)
+                         self.pos, table, self.active.copy(), 2 ** 31 - 1)
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
 
@@ -440,10 +437,12 @@ class ServeEngine:
             "kv_capacity": self.kv.kv_capacity,
             "steps": self._step_idx,
             "device": str(self.device),
-            "kv_block_size": self.ecfg.kv_block_size,
-            "num_kv_blocks": self._alloc.usable_blocks,
-            "blocks_per_slot": self.kv.blocks_per_slot,
+            "paged": self.ecfg.paged,
         }
+        if self.ecfg.paged:
+            rep["engine"]["kv_block_size"] = self.ecfg.kv_block_size
+            rep["engine"]["num_kv_blocks"] = self._alloc.usable_blocks
+            rep["engine"]["blocks_per_slot"] = self.kv.blocks_per_slot
         if self.cfg.is_moe:
             rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
                                            or self.cfg.moe.policy)

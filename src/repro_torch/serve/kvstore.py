@@ -1,15 +1,22 @@
 """KV ownership for the serving engine (port of ``repro/serve/kvstore.py``'s
-``KVOwner`` in its paged mode, with no prefix sharing and no handoff).
+``KVOwner``, slab and paged, with no prefix sharing and no handoff): the
+token-indexed implementation of ``statestore.SequenceStateStore``.
 
-``KVOwner`` owns where K/V lives: the physical paged pool, the block
-allocator and block table, and the batch-1 prefill scratch that chunked
-prefill writes before each finished chunk is scattered into the slot's
-blocks.  The engine keeps the scheduling state and delegates every pool
-or allocator touch here.
+``KVOwner`` owns where K/V lives and the batch-1 prefill scratch.  On the
+slab (``EngineConfig.paged=False``, the default) the pool is
+``init_cache(max_slots, max_seq_len)``, one row a slot, and a finished
+prefill's scratch is copied into its slot's row (``slots.write_slot``).
+Paged, the pool is a batch-1 cache of ``num_kv_blocks`` blocks with a
+block allocator and table, and each finished chunk is scattered into the
+request's blocks (``paging.write_chunk_blocks``).  Cache leaves' batch and
+KV-length axes are discovered structurally (``serve/slots.py``), so
+leading dense layers' leaves ``[B, S, Hkv, hd]`` sit beside stacked ones
+``[n, B, S, Hkv, hd]``.  The engine keeps the scheduling state and
+delegates every pool or allocator touch here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,49 +24,133 @@ import torch
 from repro_torch.configs.base import round_up
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
                                       blocks_for_tokens, write_chunk_blocks)
+from repro_torch.serve.slots import (discover_batch_axes, discover_seq_axes,
+                                     min_kv_capacity, write_slot)
 
 
 class KVOwner:
     def __init__(self, model, ecfg, *, s_pad: int):
         self.ecfg = ecfg
+        self.paged = ecfg.paged
         self.device = model.device
-        B, bs = ecfg.max_slots, ecfg.kv_block_size
-        self.s_pad = s_pad
-        self.blocks_per_slot = blocks_for_tokens(s_pad, bs)
-        usable = ecfg.num_kv_blocks or B * self.blocks_per_slot
-        if usable < self.blocks_per_slot:
-            raise ValueError(
-                f"num_kv_blocks={usable} cannot hold even one worst-case "
-                f"request ({self.blocks_per_slot} blocks)")
-        self.alloc = BlockAllocator(usable + 1, bs)       # +1: null block
-        self.block_table = np.full((B, self.blocks_per_slot), NULL_BLOCK,
-                                   np.int32)
-        self.kv_capacity = s_pad
-        self.pool = model.init_paged_cache(self.alloc.num_blocks, bs)
-        self.scratch = model.init_cache(1, s_pad)
+        B = ecfg.max_slots
+        self.seq_axes = discover_seq_axes(model.init_cache, ecfg.max_seq_len)
+        self.alloc = None
+        self.block_table = None
+        if self.paged:
+            bs = ecfg.kv_block_size
+            self.s_pad = s_pad
+            self.blocks_per_slot = blocks_for_tokens(s_pad, bs)
+            usable = ecfg.num_kv_blocks or B * self.blocks_per_slot
+            if usable < self.blocks_per_slot:
+                raise ValueError(
+                    f"num_kv_blocks={usable} cannot hold even one "
+                    f"worst-case request ({self.blocks_per_slot} blocks)")
+            self.alloc = BlockAllocator(usable + 1, bs)   # +1: null block
+            self.block_table = np.full((B, self.blocks_per_slot),
+                                       NULL_BLOCK, np.int32)
+            self.kv_capacity = s_pad
+            self.pool = model.init_paged_cache(self.alloc.num_blocks, bs,
+                                               s_pad, seq_axes=self.seq_axes)
+            self.scratch = model.init_cache(1, s_pad)
+        else:
+            self.s_pad = ecfg.max_seq_len
+            self.blocks_per_slot = 0
+            self.batch_axes = discover_batch_axes(model.init_cache,
+                                                  ecfg.max_seq_len)
+            self.kv_capacity = min_kv_capacity(
+                model.init_cache, ecfg.max_seq_len, self.seq_axes)
+            self.pool = model.init_cache(B, ecfg.max_seq_len)
+            self.scratch = model.init_cache(1, ecfg.max_seq_len)
 
-    def write(self, bt_row: np.ndarray, start: int, valid_to: int) -> None:
-        """Scatter the scratch chunk at ``start`` into ``bt_row``'s blocks."""
-        write_chunk_blocks(
-            self.pool, self.scratch,
-            torch.as_tensor(bt_row, device=self.device), start,
-            chunk=self.ecfg.prefill_chunk,
-            block_size=self.ecfg.kv_block_size, valid_to=valid_to)
-
-    def release(self, rid: int, slot: int) -> None:
-        """Free ``rid``'s blocks and park its table row on the null block."""
-        self.alloc.release(rid)
-        self.block_table[slot, :] = NULL_BLOCK
-
+    # ------------------------------------------------------------------
+    # SequenceStateStore protocol (serve/statestore.py)
+    # ------------------------------------------------------------------
     def plan(self, tokens) -> int:
-        """Fresh blocks a (re)prefill over ``tokens`` needs at admission:
-        the chunk-padded prefill writes land in real blocks."""
+        """Fresh blocks a (re)prefill over ``tokens`` needs: paged, the
+        chunk-padded prefill writes (no prefix sharing, so every block is
+        fresh); none on the slab, where a free slot is the only
+        resource."""
+        if not self.paged:
+            return 0
         return blocks_for_tokens(round_up(len(tokens),
                                           self.ecfg.prefill_chunk),
                                  self.ecfg.kv_block_size)
 
     def can_admit(self, n_fresh: int) -> bool:
-        return self.alloc.can_allocate(n_fresh)
+        return not self.paged or self.alloc.can_allocate(n_fresh)
+
+    def place(self, rid: int, n_fresh: int) -> None:
+        """Reserve admitted request ``rid``'s storage: its chain of
+        ``n_fresh`` blocks (paged; the slab row is the slot itself)."""
+        if self.paged:
+            chain = self.alloc.alloc_chain(rid, n_fresh)
+            assert chain is not None          # gated by can_admit
+
+    def after_chunk(self, rid: int, start: int) -> None:
+        """The scratch holds a finished chunk at ``start``: paged, scatter
+        it into ``rid``'s blocks (the slab commits once, at the end)."""
+        if self.paged:
+            self._write_chunk(self.bt_row(rid), start)
+
+    def on_prefill_done(self, slot: int) -> None:
+        """The scratch holds a whole prefill: on the slab, copy it into
+        row ``slot`` (paged chains were written chunk by chunk)."""
+        if not self.paged:
+            write_slot(self.pool, self.scratch, slot, self.batch_axes)
+
+    def activate(self, rid: int, slot: int) -> None:
+        """``rid`` joins the decode batch in ``slot``: paged, its table
+        row goes live.  Until then the row stays on the null block,
+        because decode writes every row's (garbage, for inactive rows)
+        K/V through the table, which must not reach mid-prefill blocks."""
+        if self.paged:
+            self.block_table[slot] = self.bt_row(rid)
+
+    def covers(self, rid: int, pos: int) -> bool:
+        """Whether ``rid``'s storage holds a write at position ``pos``
+        (always on the slab, whose rows are ``max_seq_len`` long)."""
+        return (not self.paged or len(self.alloc.chain(rid))
+                * self.ecfg.kv_block_size > pos)
+
+    def extend(self, rid: int, slot: int) -> bool:
+        """Grow ``rid``'s chain by one block; False while the allocator is
+        dry (paged only: ``covers`` is always true on the slab)."""
+        blk = self.alloc.extend(rid)
+        if blk is None:
+            return False
+        self.block_table[slot, len(self.alloc.chain(rid)) - 1] = blk
+        return True
+
+    def decode_table(self) -> Optional[np.ndarray]:
+        """The block table a decode step reads (None on the slab)."""
+        return self.block_table.copy() if self.paged else None
+
+    def occupancy(self) -> Optional[Tuple[int, int]]:
+        """(blocks in use, usable blocks), or None on the slab."""
+        if not self.paged:
+            return None
+        return self.alloc.blocks_in_use, self.alloc.usable_blocks
+
+    def warm(self) -> Optional[np.ndarray]:
+        """Run the scratch-to-pool write once where no request reads it
+        (the null block; row 0 of an idle slab) and return the block
+        table a warm-up decode step should read (all null; None on the
+        slab)."""
+        if not self.paged:
+            self.on_prefill_done(0)
+            return None
+        self._write_chunk(np.full((self.blocks_per_slot,), NULL_BLOCK,
+                                  np.int32), 0)
+        return np.full_like(self.block_table, NULL_BLOCK)
+
+    def release(self, rid: int, slot: int) -> None:
+        """Free ``rid``'s blocks and park its table row on the null block
+        (a no-op on the slab: its row is overwritten whole at the slot's
+        next commit)."""
+        if self.paged:
+            self.alloc.release(rid)
+            self.block_table[slot, :] = NULL_BLOCK
 
     def bt_row(self, rid: int) -> np.ndarray:
         """A request's block-table row, built from its live chain (the
@@ -70,8 +161,17 @@ class KVOwner:
         return row
 
     def stats(self) -> Dict[str, Any]:
+        if not self.paged:
+            return {"kind": "slab", "slots": self.ecfg.max_slots}
         return {"kind": "paged",
                 "kv_block_size": self.ecfg.kv_block_size,
                 "blocks_per_slot": self.blocks_per_slot,
                 "usable_blocks": self.alloc.usable_blocks,
                 "blocks_in_use": self.alloc.blocks_in_use}
+
+    def _write_chunk(self, bt_row: np.ndarray, start: int) -> None:
+        write_chunk_blocks(
+            self.pool, self.scratch,
+            torch.as_tensor(bt_row, device=self.device), start,
+            chunk=self.ecfg.prefill_chunk,
+            block_size=self.ecfg.kv_block_size, seq_axes=self.seq_axes)

@@ -1,18 +1,26 @@
 """Paged KV pool: block allocator + block-table plumbing for the engine.
 
 Port of ``repro/serve/paging.py`` without the prefix index (no sharing,
-no copy-on-write).  Physical KV memory is a pool of fixed-size blocks;
-every request owns a chain of blocks that grows with its sequence, and a
-static ``[max_slots, max_blocks_per_slot]`` block table maps each slot's
+no copy-on-write) and without sliding-window rings.  Physical KV memory
+is a pool of fixed-size blocks; every request owns a chain of blocks that
+grows with its sequence, and a static ``[max_slots, max_blocks_per_slot]`` block table maps each slot's
 logical blocks to physical ones.  Physical block 0 is the *null block*:
 unallocated table entries point at it, so reads and writes through a
 partly filled table stay in bounds — reads are masked by each row's
 length, writes land in garbage nothing reads.
+
+Layout discovery is shared with the slab pool (``serve/slots.py``): cache
+leaves differ in where their KV-length axis sits (stacked layers
+``[n_steps, batch, positions, Hkv, hd]``, leading dense layers ``[batch,
+positions, Hkv, hd]``), so the pool and the chunk scatter work leaf by
+leaf over the discovered axes.
 """
 from __future__ import annotations
 
+import itertools
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -86,10 +94,14 @@ class BlockAllocator:
 
 
 def kv_leaves(cache: Any) -> Iterator[torch.Tensor]:
-    """Every K/V tensor of a cache tree, in a fixed order."""
+    """Every K/V tensor of a cache tree, in ``jax.tree.leaves`` order:
+    dict keys sorted, lists in order, an ``AttnCache``'s k before v."""
     if isinstance(cache, dict):
         for k in sorted(cache):
             yield from kv_leaves(cache[k])
+    elif isinstance(cache, list):
+        for c in cache:
+            yield from kv_leaves(c)
     elif isinstance(cache, AttnCache):
         yield cache.k
         yield cache.v
@@ -97,27 +109,53 @@ def kv_leaves(cache: Any) -> Iterator[torch.Tensor]:
         raise TypeError(f"unexpected cache leaf {type(cache)}")
 
 
-def make_paged_pool(init_cache: Callable[[int, int], Any], num_blocks: int,
-                    block_size: int) -> Any:
-    """Physical paged pool: the batch-1 cache with a KV axis of
-    ``num_blocks * block_size`` positions."""
-    return init_cache(1, num_blocks * block_size)
+def map_kv_leaves(fn: Callable[[torch.Tensor, int], torch.Tensor],
+                  cache: Any) -> Any:
+    """The cache tree with each K/V tensor replaced by ``fn(leaf, i)``,
+    ``i`` its index in ``kv_leaves`` order."""
+    count = itertools.count()
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(c) for c in t]
+        if isinstance(t, AttnCache):
+            k = fn(t.k, next(count))
+            return AttnCache(k, fn(t.v, next(count)))
+        raise TypeError(f"unexpected cache leaf {type(t)}")
+    return walk(cache)
+
+
+def make_paged_pool(init_cache: Callable[..., Any], s_ref: int,
+                    seq_axes: Sequence[int], num_blocks: int,
+                    block_size: int, *, device) -> Any:
+    """Physical paged pool on ``device``: each cache leaf of
+    ``init_cache(1, s_ref)`` with its KV-length axis resized to
+    ``num_blocks * block_size`` positions, built structurally from the
+    leaves' shapes (probed on the ``meta`` device)."""
+    P = num_blocks * block_size
+
+    def build(leaf, i):
+        shape = list(leaf.shape)
+        shape[seq_axes[i]] = P
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return map_kv_leaves(build, init_cache(1, s_ref, device="meta"))
 
 
 def write_chunk_blocks(pool: Any, scratch: Any, bt_row: torch.Tensor,
                        start: int, *, chunk: int, block_size: int,
-                       valid_to: Optional[int] = None) -> Any:
+                       seq_axes: Sequence[int]) -> Any:
     """Scatter scratch positions ``[start, start + chunk)`` into the paged
-    pool through one slot's block-table row (in place).  Cache leaves are
-    ``[n_steps, batch, positions, Hkv, hd]``.  Positions at or past
-    ``valid_to`` (the padding of a partial final chunk) are written into
-    the null block, whose contents nothing reads."""
-    dev = bt_row.device
-    log = start + torch.arange(chunk, device=dev)
+    pool through one slot's block-table row (in place), each leaf along
+    its own KV-length axis ``seq_axes[i]``.  The chain behind ``bt_row``
+    covers the chunk-rounded sequence, so the padding of a partial final
+    chunk lands in the slot's own blocks, as garbage past its length that
+    decode overwrites before it is read; entries still on the null block
+    write into discarded space."""
+    log = start + torch.arange(chunk, device=bt_row.device)
     phys = bt_row.long()[log // block_size] * block_size + log % block_size
-    if valid_to is not None:
-        phys = torch.where(log < valid_to, phys,
-                           NULL_BLOCK * block_size + log % block_size)
-    for p, s in zip(kv_leaves(pool), kv_leaves(scratch)):
-        p[:, 0, phys] = s[:, 0, start:start + chunk].to(p.dtype)
+    for p, s, ax in zip(kv_leaves(pool), kv_leaves(scratch), seq_axes):
+        src = s.movedim(ax, 0)[start:start + chunk]
+        p.movedim(ax, 0)[phys] = src.to(p.dtype)
     return pool

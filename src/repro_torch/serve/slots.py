@@ -1,0 +1,72 @@
+"""Slotted KV pool: ``model.init_cache`` reinterpreted as a slab of
+per-request slots (port of ``repro/serve/slots.py``).
+
+The pool is one cache tree of batch ``n_slots``; each row is a slot that
+a request occupies from admission until it finishes, after which it is
+recycled for a queued request.  Prefill runs against a batch-1 scratch
+cache of the same per-layer shapes, and the finished prefix is copied
+into the slot with ``write_slot``, in place.
+
+Cache layouts differ per leaf (stacked layers put batch at axis 1,
+leading dense layers at axis 0), so the batch axis AND the KV-length axis
+of every leaf are discovered structurally, as the JAX package does with
+``jax.eval_shape``: ``init_cache`` is built on the ``meta`` device (shapes
+only, no memory) at two batch sizes (resp. two lengths) and the differing
+axis is the one sought.  Axes are lists in ``paging.kv_leaves`` order.
+Every leaf of the ported families has a full-length KV axis; windowed
+rings and recurrent state (whose leaves lack one) come with their slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+from repro_torch.serve.paging import kv_leaves
+
+
+def _shapes(init_cache: Callable[..., Any], b: int, s_max: int) -> List:
+    return [leaf.shape for leaf in
+            kv_leaves(init_cache(b, s_max, device="meta"))]
+
+
+def _differing_axes(lo: List, hi: List, what: str) -> List[int]:
+    """Per leaf, the one axis where two probes' shapes disagree."""
+    axes = []
+    for a, b in zip(lo, hi):
+        diffs = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if len(diffs) != 1:
+            raise ValueError(f"cannot identify {what} axis for cache leaf "
+                             f"{tuple(a)} vs {tuple(b)}")
+        axes.append(diffs[0])
+    return axes
+
+
+def discover_batch_axes(init_cache: Callable[..., Any],
+                        s_max: int) -> List[int]:
+    """Per-leaf batch-axis indices of ``init_cache`` outputs."""
+    return _differing_axes(_shapes(init_cache, 2, s_max),
+                           _shapes(init_cache, 3, s_max), "batch")
+
+
+def discover_seq_axes(init_cache: Callable[..., Any],
+                      s_max: int) -> List[int]:
+    """Per-leaf KV-length-axis indices of ``init_cache`` outputs: the axis
+    that differs at lengths ``s_max`` and ``s_max + 1``."""
+    return _differing_axes(_shapes(init_cache, 1, s_max),
+                           _shapes(init_cache, 1, s_max + 1), "KV-length")
+
+
+def min_kv_capacity(init_cache: Callable[..., Any], s_max: int,
+                    seq_axes: List[int]) -> int:
+    """Smallest per-layer KV length in the pool (prefill writes must fit
+    it)."""
+    return min(shape[ax] for shape, ax in
+               zip(_shapes(init_cache, 1, s_max), seq_axes))
+
+
+def write_slot(pool: Any, scratch: Any, slot: int,
+               batch_axes: List[int]) -> Any:
+    """Copy the batch-1 ``scratch`` cache into row ``slot`` of every pool
+    leaf, along that leaf's own batch axis (in place)."""
+    for p, s, ax in zip(kv_leaves(pool), kv_leaves(scratch), batch_axes):
+        p.narrow(ax, slot, 1).copy_(s)
+    return pool

@@ -1,9 +1,9 @@
 """Step core of the serving engine (port of ``repro/serve/stepcore.py``):
 the prefill-chunk and decode entry points.  It holds no scheduling state: the
-engine passes the batch vectors (tokens, positions, active mask, block
-table) each call, as host numpy arrays, and gets host tokens back from
-decode.  Steps run eagerly; capturing the decode step as a CUDA graph is
-a later change."""
+engine passes the batch vectors (tokens, per-row positions, active mask,
+and on the paged pool the block table) each call, as host numpy arrays,
+and gets host tokens back from decode.  Steps run eagerly; capturing the
+decode step as a CUDA graph is a later change."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -43,14 +43,20 @@ class StepCore:
         return logits, diags
 
     def decode(self, params, tok: np.ndarray, pool, pos: np.ndarray,
-               block_table: np.ndarray, active: np.ndarray, step_idx: int
+               block_table: Optional[np.ndarray], active: np.ndarray,
+               step_idx: int
                ) -> Tuple[np.ndarray, Dict[str, torch.Tensor]]:
         """One decode step of every slot (the engine's ``step_idx``-th
-        step); greedy next tokens on the host."""
+        step) on the paged pool through ``block_table`` or, without one,
+        on the slab at each row's own position; greedy next tokens on the
+        host."""
+        kw = {}
+        if block_table is not None:
+            kw = dict(block_table=self._t(block_table),
+                      block_size=self.ecfg.kv_block_size)
         logits, _, _, diags = self.model.decode_step(
             params, self._t(tok), pool, self._t(pos),
             skew_key=self.next_key(self.dec_key, step_idx),
-            active_mask=self._t(active), block_table=self._t(block_table),
-            block_size=self.ecfg.kv_block_size,
-            moe_policy=self.ecfg.moe_policy)
+            active_mask=self._t(active), moe_policy=self.ecfg.moe_policy,
+            **kw)
         return sample_tokens(logits).cpu().numpy(), diags

@@ -212,3 +212,134 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         pa.paged_attention(q, pool, pool,
                            torch.zeros((1, 1), dtype=torch.int32,
                                        device=cuda), 1, block_size=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [4, 32])     # decode, a prefill chunk
+def test_moe_gmm_plain_form_at_switch128_dispatch(cuda, dtype, tokens):
+    """switch128's plain form (GELU experts, no gate) at its decode and
+    prefill-chunk dispatches: d 768, f 3072, 128 experts top-1 plus 4
+    empty foreign groups, M the step's c_total, a seeded draw of experts;
+    with the live-row count, as the model calls it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.moe_layer import MoEBlockSpec
+    from repro_torch.kernels.moe_gmm import ops
+    cfg = get_config("switch128")
+    E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
+    d, f, bm = cfg.d_model, cfg.moe.d_ff_expert, 128
+    M = MoEBlockSpec(moe=cfg.moe, d_model=d, tokens_local=tokens,
+                     block_m=bm).c_total
+    sizes = np.bincount(np.random.default_rng(tokens).integers(0, E, tokens),
+                        minlength=E).tolist() + [0] * K
+    g = torch.Generator(device=cuda).manual_seed(3)
+    sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    padded = ((sizes + bm - 1) // bm) * bm
+    x = torch.zeros((M, d), device=cuda)
+    off = 0
+    for s, p in zip(sizes.tolist(), padded.tolist()):
+        x[off:off + s] = torch.randn((s, d), generator=g, device=cuda) * 0.5
+        off += p
+    x = x.to(dtype)
+
+    def w(*shape, fan_in):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * (2.0 / fan_in) ** 0.5).to(dtype)
+    w_in, w_out = w(E, d, f, fan_in=d), w(E, f, d, fan_in=f)
+    foreign = (w(K, d, f, fan_in=d), w(K, f, d, fan_in=f), None)
+    kw = dict(act="gelu", block_m=bm, foreign=foreign,
+              live_rows=ops.live_row_count(padded, M))
+    tg = ops.tile_group_map(padded, M // bm, bm)
+    n0 = ops.moe_gmm.launches
+    got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
+    ref = ops.moe_gmm_plain(x, w_in, w_out, tg, **kw)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,slab", [(1, False), (32, True)])
+def test_paged_attention_at_switch128_heads(cuda, dtype, S, slab):
+    """12 heads of 64 (switch128's MHA): paged decode over shuffled chains
+    of 16-token blocks, and a 32-token prefill chunk over the slab viewed
+    as one contiguous chain (identity table, 96-position blocks)."""
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(4)
+    H, hd = 12, 64
+    if slab:
+        B, bs, lengths, n_blocks = 1, 96, [192], 3
+        table = torch.arange(n_blocks, dtype=torch.int32,
+                             device=cuda)[None]
+        num_phys = n_blocks
+    else:
+        B, bs, lengths, n_blocks = 4, 16, [1, 77, 200, 288], 18
+        num_phys = 1 + B * n_blocks
+        perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+        table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+        for b, L in enumerate(lengths):
+            nb = -(-L // bs)
+            table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(
+                torch.int32)
+    k = torch.randn((1, num_phys * bs, H, hd), generator=g,
+                    device=cuda).to(dtype)
+    v = torch.randn((1, num_phys * bs, H, hd), generator=g,
+                    device=cuda).to(dtype)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = ops.paged_attention(q, k, v, table, cl, block_size=bs)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, block_size=bs)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def _engine_streams(cfg, params, *, paged, device):
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (Request, ServeEngine, VirtualClock,
+                                   engine_config_for)
+    model = build_model(cfg, batch=3, seq_len=40, device=device)
+    eng = ServeEngine(model, params, engine_config_for(
+        cfg, max_slots=3, prompt_len=40, max_new_tokens=8, prefill_chunk=16,
+        paged=paged, kv_block_size=8), clock=VirtualClock(0.1),
+        device=device)
+    rng = np.random.default_rng(5)
+    out = {}
+    orig = eng._finish
+
+    def capture(st, now):
+        out[st.req.rid] = list(st.output)
+        orig(st, now)
+    eng._finish = capture
+    rep = eng.run([Request(rid=i, tokens=rng.integers(
+        0, cfg.vocab_size, (int(rng.integers(5, 40)),)), max_new_tokens=8)
+        for i in range(5)])
+    return out, rep
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "switch128"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_reduced_engine_streams_on_card_equal_cpu(cuda, arch, paged):
+    """Reduced f32 models through ``ServeEngine`` on the slab and the paged
+    pool: the card's greedy streams (moe_gmm's gated or plain form, the
+    paged kernel over the scratch and, paged, the pool) equal the CPU's
+    through the plain versions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, batch=3, seq_len=40, device="cpu").init(0)
+    out_cpu, _ = _engine_streams(cfg, params, paged=paged, device="cpu")
+    on_card = _tree_to(params, cuda)
+    out_card, rep = _engine_streams(cfg, on_card, paged=paged, device=cuda)
+    assert out_card == out_cpu
+    assert rep["state_pool"]["kind"] == ("paged" if paged else "slab")
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)

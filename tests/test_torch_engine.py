@@ -64,7 +64,7 @@ def test_engine_streams_match_jax_engine(weights, num_kv_blocks):
         out_j, rep_j = captured_run(je, _trace(JRequest))
     tm = build_model(TORCH_QWEN.reduced(), batch=SLOTS, seq_len=L,
                      device="cpu")
-    te = ServeEngine(tm, tp, engine_config_for(tm.cfg, **kw),
+    te = ServeEngine(tm, tp, engine_config_for(tm.cfg, paged=True, **kw),
                      clock=VirtualClock(0.1), device="cpu")
     out_t, rep_t = captured_run(te, _trace(Request))
     assert rep_t["n_requests"] == rep_j["n_requests"] == 6
@@ -118,8 +118,22 @@ def test_entry_points_default_to_cuda():
         build_model(cfg, batch=1, seq_len=8, ep_degree=4)
 
 
+def test_engine_config_defaults_equal_jax():
+    """The port's ``EngineConfig`` defaults to the slab pool, as the JAX
+    engine does, and every field it has defaults to the JAX value."""
+    import dataclasses
+    from repro.serve import EngineConfig as JEngineConfig
+    assert EngineConfig().paged is False
+    ours, theirs = EngineConfig(), JEngineConfig()
+    for f in dataclasses.fields(EngineConfig):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    cfg = TORCH_QWEN.reduced()
+    assert engine_config_for(cfg, max_slots=2, prompt_len=8,
+                             max_new_tokens=4).paged is False
+
+
 @pytest.mark.parametrize("field,value", [
-    ("role", "prefill"), ("paged", False), ("prefix_sharing", True),
+    ("role", "prefill"), ("prefix_sharing", True),
     ("speculative_k", 2), ("temperature", 0.7), ("replica_slots", 1),
     ("rebalance_interval", 2), ("resident_experts", 4),
     ("moe_policy", "fastest")])

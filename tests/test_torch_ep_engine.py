@@ -99,7 +99,7 @@ def run_port(params, policy, *, ep_degree=G, cfg=None):
     model = build_model(cfg, batch=SLOTS, seq_len=L, device="cpu",
                         ep_degree=ep_degree)
     eng = ServeEngine(model, params, engine_config_for(
-        cfg, moe_policy=policy, **KW), clock=VirtualClock(0.1),
+        cfg, paged=True, moe_policy=policy, **KW), clock=VirtualClock(0.1),
         device="cpu")
     out, rep = captured_run(eng, _trace())
     return eng, out, rep

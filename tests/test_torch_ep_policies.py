@@ -44,7 +44,7 @@ def _serve(cfg, params, *, ep_degree, policy=None, device="cpu"):
     model = build_model(cfg, batch=SLOTS, seq_len=L, device=device,
                         ep_degree=ep_degree)
     eng = ServeEngine(model, params, engine_config_for(
-        cfg, moe_policy=policy, skew_seed=2, **KW),
+        cfg, paged=True, moe_policy=policy, skew_seed=2, **KW),
         clock=VirtualClock(0.1), device=device)
     return captured_run(eng, _trace())
 

@@ -26,7 +26,6 @@ from repro_torch.convert import to_torch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import attention as A
 from repro_torch.models.model import build_model
-from repro_torch.serve import EngineConfig, ServeEngine
 
 TOL = 1e-4
 B, S, S_MAX = 2, 16, 24
@@ -177,7 +176,7 @@ def test_prefill_decode_consistency(models):
 
 @pytest.mark.parametrize("change", [
     {"sliding_window": 64}, {"attn_logit_softcap": 30.0},
-    {"moe": {"moe_layer_period": 2}}])
+    {"post_norm": True}])
 def test_build_model_rejects_unported_patterns(change):
     cfg = get_config("moonshot-v1-16b-a3b").reduced()
     if "moe" in change:
@@ -187,9 +186,3 @@ def test_build_model_rejects_unported_patterns(change):
     with pytest.raises(NotImplementedError):
         build_model(cfg, batch=1, seq_len=8, device="cpu")
 
-
-def test_serve_engine_rejects_lead_dense_layers(models):
-    _, _, _, tm, tp, _ = models
-    with pytest.raises(NotImplementedError, match="leading dense"):
-        ServeEngine(tm, tp, EngineConfig(max_slots=2, max_seq_len=16,
-                                         prefill_chunk=4), device="cpu")
