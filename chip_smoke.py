@@ -15,12 +15,20 @@ Phases, each of which must pass (any failure exits non-zero):
      size; moe_gmm also at the whole-prompt path's dispatch and at one EP
      rank's decode dispatch with foreign groups carrying rows,
      paged_attention also on long decode chains), with its device time, the plain version's, one PyTorch library call's as a
-     yardstick, and the card's least time for the work;
+     yardstick, and the card's least time for the work; and the Alg. 2
+     kernel (``schedule``, one CTA: the JAX scheduler's while loop)
+     against its plain version, S and the four diagnostics exactly
+     equal, at the serve paths' decode schedules (timed) and on seeded
+     count matrices at G = 1, 4, 8 and Ep = 60, 64, 128 that together
+     reach every stop condition and the pair-capacity branch;
   3. the serve path: ``ServeEngine`` serving full-width qwen15-moe-a27b
      (random weights from a seed, bf16, paged KV (asked for: the engine's
      default is the slab), chunked prefill, greedy,
      HarMoEny policy at one rank), with each kernel's launch count over
-     that run, which must be > 0;
+     that run, which must be > 0; the engine captures its decode step
+     as one CUDA graph at warmup and replays it (``jit_entries`` must be
+     ``{"decode": 1}`` with ``recompiled_after_warmup`` False after this
+     run and every engine run of phases 4b, 6 and 7);
   4. correctness of what comes out: every request finished with its
      tokens in the vocabulary, finite logits of the expected shape, and,
      on a small configuration, the card's token streams equal to the
@@ -75,7 +83,19 @@ Phases, each of which must pass (any failure exits non-zero):
      slab and paged, give the same greedy streams on the card as on the
      CPU.  Phase 2 also holds ``moe_gmm``'s plain form at switch128's
      decode and prefill-chunk dispatches and ``paged_attention`` at its
-     head shape against their plain versions.
+     head shape against their plain versions;
+  7. eager against captured, on the weights of phases 3, 4b and 6 (qwen
+     at G = 1 paged; qwen at G = 4 under harmoeny and round_robin, skew
+     0.9; moonshot on the slab; switch128 on the slab and paged): the
+     same requests served with the eager decode step
+     (``stepcore.eager()``) and with the captured one, then a window of
+     decode steps with every slot decoding under ``torch.profiler``.  A
+     ``[capture]`` line each: TPOT p50, wall ms a decode step, device
+     busy ms, idle share, host launches (kernels and graphs) and
+     copies/syncs a step, and the host ms of the skew pre-draws.  Gates:
+     equal greedy streams (where a bf16 stream differs, the logits at the
+     first differing step within 2e-2 of the largest logit), fewer host
+     launches a captured step than an eager one, one capture.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -102,6 +122,8 @@ REPLACES = {
     "moe_gmm": "src/repro/kernels/moe_gmm/moe_gmm.py:88",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:126",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
+    # not a Pallas kernel: the JAX scheduler's lax.while_loop (Alg. 2)
+    "schedule": "src/repro/core/scheduler.py:205",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 # every kernel's bf16 design runs on the tensor cores: wgmma (HGMMA) in
@@ -455,13 +477,116 @@ def ep_decode_dispatch(cfg):
     return best, spec.c_total, epr
 
 
+def schedule_counts(G, E, units, hot, seed):
+    """[G, Ep] int32 routing counts: each of G sources draws ``units``
+    units over E experts, ``hot`` of the mass on one expert (a seeded
+    choice), the padded experts empty; and the topology."""
+    import numpy as np
+    from repro_torch.core.topology import make_topology
+    topo = make_topology(G, E)
+    rng = np.random.default_rng(seed)
+    p = np.full(E, (1.0 - hot) / max(E - 1, 1))
+    p[rng.integers(E)] += hot
+    counts = np.zeros((G, topo.padded_experts), np.int32)
+    for g in range(G):
+        counts[g, :E] = rng.multinomial(units, p / p.sum())
+    return topo, counts
+
+
+# (label, G, E, units a source, hot share, seed, q, c_pair, K, max_iters).
+# The first three are the serve paths' decode schedules (timed); the rest
+# reach every stop condition of the loop and its pair-capacity branch
+# between them (found with the plain version, checked below).
+def schedule_cases(cfg, switch_cfg):
+    from repro_torch.core.moe_layer import MoEBlockSpec
+    out = []
+    for label, c, G, units, hot, q in (
+            ("serve_g1", cfg, 1, 16, 0.0, None),
+            ("serve_ep4_skew", cfg, EP_DEGREE, 4, 0.9, 1),
+            ("switch_serve_g1", switch_cfg, 1, 4, 0.0, None)):
+        spec = MoEBlockSpec(moe=c.moe, d_model=c.d_model, ep_degree=G,
+                            tokens_local=4)
+        out.append((label, G, c.moe.num_experts, units, hot, 1,
+                    q or spec.q, spec.c_pair, c.moe.num_foreign_slots, 128))
+    out += [
+        ("stop_q", 4, 60, 62, 0.41, 468, 32, 16, 4, 128),
+        ("none_allowed_pair", 8, 128, 153, 0.041, 269, 1, 8, 0, 128),
+        ("none_allowed", 4, 60, 293, 0.472, 873, 8, 256, 0, 128),
+        ("g_min_is_hot", 4, 128, 231, 0.593, 852, 32, 16, 1, 128),
+        ("t_s", 8, 60, 234, 0.523, 526, 2, 8, 1, 128),
+        ("stop_cap", 4, 128, 134, 0.773, 6, 8, 256, 1, 128),
+        ("stop_cap_pair", 8, 128, 151, 0.729, 606, 8, 64, 1, 128),
+        ("max_iters", 4, 128, 95, 0.876, 239, 1, 8, 4, 2),
+        ("balanced_after_moves", 8, 60, 110, 0.677, 721, 1, 64, 4, 128),
+    ]
+    return out
+
+
+def schedule_parity(cfg, switch_cfg):
+    """Alg. 2's kernel against its plain version: S and the four
+    diagnostics exactly equal on every case; the cases together reach
+    every stop condition and the pair-capacity branch."""
+    import torch
+    from repro_torch.core.scheduler import initial_assign
+    from repro_torch.core.topology import device_tables
+    from repro_torch.kernels.schedule import ops
+    recs, reached = [], set()
+    for label, G, E, units, hot, seed, q, c_pair, K, mi in schedule_cases(
+            cfg, switch_cfg):
+        topo, counts = schedule_counts(G, E, units, hot, seed)
+        S0 = initial_assign(torch.from_numpy(counts).cuda(), topo)
+        is_local = device_tables(topo, "cuda").is_local
+        kw = dict(q=q, c_pair=c_pair, num_foreign_slots=K, max_iters=mi)
+        S, diag = ops.rebalance(S0, is_local, **kw)
+        S_ref, diag_ref = ops.rebalance_plain(S0, is_local, **kw)
+        torch.cuda.synchronize()
+        err = max(int((S - S_ref).abs().max()),
+                  int((diag - diag_ref).abs().max()))
+        if err:
+            raise AssertionError(f"schedule[{label}]: kernel S / diag "
+                                 f"{diag.tolist()} != plain "
+                                 f"{diag_ref.tolist()}")
+        *_, stops, pair = ops._rebalance_np(
+            S0.cpu().numpy(), is_local.cpu().numpy() != 0, **kw)
+        reached.update(stops)
+        reached.update(("pair_branch",) if pair else ())
+        rec = {"case": label, "dtype": "int32", "G": G,
+               "Ep": topo.padded_experts, "diag": diag.tolist(),
+               "stops": list(stops), "pair_branch": pair,
+               "max_abs_err": float(err)}
+        if label.startswith(("serve", "switch")):
+            rec["ms"] = device_ms(lambda: ops.rebalance(S0, is_local, **kw),
+                                  20)
+            rec["event_ms"] = cuda_ms(
+                lambda: ops.rebalance(S0, is_local, **kw), 20)
+            rec["plain_ms"] = device_ms(
+                lambda: ops.rebalance_plain(S0, is_local, **kw), 5)
+            rec["library_ms"] = None     # no PyTorch call computes Alg. 2
+            # S read and written, is_local read, the diagnostics written;
+            # integer operations: the sums over S and, per iteration, a
+            # pass over an expert column and the pair matrix
+            n = S0.numel()
+            iters = int(diag[0])
+            rec["bound_ms"], rec["bound_by"] = bound(
+                8 * n + 4 * is_local.numel() + 16,
+                2 * n + iters * (topo.padded_experts + G * G + 8 * G),
+                "float32")
+        recs.append(rec)
+    want = set(ops.STOPS) | {"pair_branch"}
+    if not want <= reached:
+        raise AssertionError(f"schedule cases never reached "
+                             f"{sorted(want - reached)}")
+    return recs
+
+
 def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
                   block_size, flash_batch, flash_len):
     import numpy as np
     import torch
     from repro_torch.core.moe_layer import MoEBlockSpec
     from repro_torch.kernels.paged_attention.ops import largest_block_divisor
-    out = {"moe_gmm": [], "paged_attention": [], "flash_attention": []}
+    out = {"moe_gmm": [], "paged_attention": [], "flash_attention": [],
+           "schedule": schedule_parity(cfg, switch_cfg)}
     E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     bf = torch.bfloat16
@@ -675,7 +800,8 @@ def pattern_serve(cfg, params, tag, *, paged, slots, n_requests, prompt_lens,
               "paged_attention": cfg.num_layers * (
                   rep["prefill_chunks"] + (rep["decode_steps"] if paged
                                            else 0)),
-              "flash_attention": 0}
+              "flash_attention": 0,
+              "schedule": n_moe * steps * (cfg.moe.policy == "harmoeny")}
     summary = {
         "model": cfg.name, "pool": rep["state_pool"]["kind"],
         "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
@@ -690,9 +816,12 @@ def pattern_serve(cfg, params, tag, *, paged, slots, n_requests, prompt_lens,
         "moe_layers": n_moe, "attention_layers": cfg.num_layers,
         "launches": launches,
         "attention_dispatch": rep["attention_dispatch"],
+        "jit_entries": rep["jit_entries"],
+        "recompiled_after_warmup": rep["recompiled_after_warmup"],
     }
     log(f"[{tag}] {json.dumps(summary)}")
     # --- checks -------------------------------------------------------
+    check_one_capture(tag, rep)
     if rep["n_requests"] != n_requests or len(outputs) != n_requests:
         raise AssertionError(f"[{tag}] only {rep['n_requests']} of "
                              f"{n_requests} requests finished")
@@ -723,7 +852,8 @@ def pattern_serve(cfg, params, tag, *, paged, slots, n_requests, prompt_lens,
 def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
               slots, new_tokens, seed):
     """Phase 3: full-width ``cfg`` on random weights, served on the paged
-    pool (the ``[main]`` line, with ``pattern_serve``'s gates)."""
+    pool (the ``[main]`` line, with ``pattern_serve``'s gates); returns
+    the summary and the weights."""
     import torch
     from repro_torch.models.model import build_model
     t0 = time.perf_counter()
@@ -733,11 +863,161 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
     log(f"[main] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on the "
         f"card in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
-    return pattern_serve(cfg, params, "main", paged=True, slots=slots,
-                         n_requests=n_requests, prompt_lens=(64, 257),
-                         new_tokens=new_tokens, max_seq_len=max_seq_len,
-                         prefill_chunk=prefill_chunk, block_size=block_size,
-                         seed=seed)
+    summary = pattern_serve(cfg, params, "main", paged=True, slots=slots,
+                            n_requests=n_requests, prompt_lens=(64, 257),
+                            new_tokens=new_tokens, max_seq_len=max_seq_len,
+                            prefill_chunk=prefill_chunk,
+                            block_size=block_size, seed=seed)
+    return summary, params
+
+
+# ----------------------------------------------------------------------
+# phase 7: the eager decode step against the captured one
+# ----------------------------------------------------------------------
+def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
+                    new_tokens, max_seq_len, prefill_chunk, block_size,
+                    seed, ep_degree=1, policy=None, window=3):
+    """The same requests served twice on one set of weights, once with
+    the eager decode step (``stepcore.eager()``) and once with the
+    captured one; then, with every slot decoding, ``window`` decode steps
+    under ``torch.profiler`` and ``window`` without.  Prints the
+    ``[capture]`` line.  Gates: greedy streams equal token for token (or,
+    where a bf16 stream differs, the logits at the first differing step
+    within 2e-2 of the largest logit), fewer host launches a captured
+    step than an eager one, and one capture."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.profiling import profile_steps, untraced_ms
+    from repro_torch.serve import EngineConfig, Request, ServeEngine, stepcore
+    slots = 4
+    model = build_model(cfg, batch=slots, seq_len=max_seq_len,
+                        ep_degree=ep_degree)
+    ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
+                        prefill_chunk=prefill_chunk, paged=paged,
+                        kv_block_size=block_size, moe_policy=policy,
+                        skew_seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            (int(rng.integers(*prompt_lens)),))
+               for _ in range(n_requests)]
+    fill = [rng.integers(0, cfg.vocab_size, (prefill_chunk,))
+            for _ in range(slots)]
+    runs = {}
+    for mode in ("eager", "captured"):
+        ctx = stepcore.eager() if mode == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            eng = ServeEngine(model, params, ecfg)
+            eng.warmup()
+            core = eng.core
+            steps, outputs, record = [], {}, [True]
+            decode, finish = core.decode, eng._finish
+
+            def traced_decode(*args, **kwargs):
+                nxt, packed = decode(*args, **kwargs)
+                if record[0]:
+                    steps.append((nxt.copy(), eng.active.copy(),
+                                  core.logits[:, :cfg.vocab_size].clone()))
+                return nxt, packed
+
+            def capture(st, now):
+                outputs[st.req.rid] = list(st.output)
+                finish(st, now)
+            core.decode, eng._finish = traced_decode, capture
+            rep = eng.run([Request(rid=i, tokens=p,
+                                   max_new_tokens=new_tokens)
+                           for i, p in enumerate(prompts)])
+            record[0] = False
+            for i, p in enumerate(fill):
+                eng.submit(Request(rid=1000 + i, tokens=p,
+                                   max_new_tokens=4 * window + 16))
+            while not eng.active.all():
+                eng.step()
+
+            def step():
+                eng._decode_work(eng.clock.now())
+            prof = profile_steps(step, window, f"{tag}_{mode}")
+            wall = untraced_ms(step, window)
+            runs[mode] = {
+                "rep": rep, "outputs": outputs, "steps": steps,
+                "prof": prof, "wall_ms": wall,
+                "jit_after_window": eng.report()["jit_entries"],
+                "predraw_ms": core.predraw_s * 1e3 / max(core.predraw_steps,
+                                                         1)}
+            del eng, core
+        gc.collect()
+        torch.cuda.empty_cache()
+    e, c = runs["eager"], runs["captured"]
+    first = None
+    if e["outputs"] != c["outputs"]:
+        for i, ((te, ae, le), (tc, ac, lc)) in enumerate(
+                zip(e["steps"], c["steps"])):
+            if (ae != ac).any() or (te[ae] != tc[ac]).any():
+                rows = torch.as_tensor(ae, device=le.device)
+                gap = float((le[rows] - lc[rows]).abs().max()
+                            / le[rows].abs().max())
+                first = {"step": i, "logits_gap_rel": gap}
+                break
+    line = {"config": tag, "dtype": cfg.dtype, "ep_degree": ep_degree,
+            "pool": "paged" if paged else "slab",
+            "policy": policy or cfg.moe.policy,
+            "requests": n_requests, "decode_steps": c["rep"]["decode_steps"],
+            "streams_equal": e["outputs"] == c["outputs"],
+            "first_difference": first}
+    for mode, r in runs.items():
+        p = r["prof"]
+        line[mode] = {
+            "tpot_p50_s": r["rep"]["tpot"]["p50"],
+            "ttft_p50_s": r["rep"]["ttft"]["p50"],
+            "wall_ms_per_decode_step": r["wall_ms"],
+            "traced_wall_ms_per_decode_step": p["wall_ms_per_step"],
+            "device_busy_ms_per_step": p["device_busy_ms_per_step"],
+            "device_idle_share": p["device_idle_share"],
+            "kernel_calls_per_step": p["kernel_calls_per_step"],
+            "host_launches_per_step": p["host_launches_per_step"]
+            + p["graph_launches_per_step"],
+            "graph_launches_per_step": p["graph_launches_per_step"],
+            "copies_and_syncs_per_step":
+                p["host_device_syncs_and_copies_per_step"],
+            "skew_predraw_host_ms_per_step": r["predraw_ms"],
+            "top_kernels_ms_per_step": p["top_kernels_ms_per_step"][:6],
+        }
+    log(f"[capture] {json.dumps(line)}")
+    check_one_capture(f"capture {tag}", c["rep"])
+    if c["jit_after_window"] != {"decode": 1} \
+            or e["rep"]["jit_entries"] != {"decode": 0}:
+        raise AssertionError(
+            f"[capture] {tag}: captures {e['rep']['jit_entries']} (eager), "
+            f"{c['jit_after_window']} (captured, after the window)")
+    if first is not None:
+        log(f"[capture] {tag}: streams differ first at decode step "
+            f"{first['step']}, logits gap {first['logits_gap_rel']:.3e} of "
+            f"the largest logit")
+        if cfg.dtype == "float32" or first["logits_gap_rel"] > 2e-2:
+            raise AssertionError(f"[capture] {tag}: captured stream differs "
+                                 f"from the eager one: {first}")
+    elif e["outputs"] != c["outputs"]:
+        raise AssertionError(f"[capture] {tag}: streams differ, steps "
+                             f"agree: {e['outputs']} != {c['outputs']}")
+    if not (line["captured"]["host_launches_per_step"]
+            < line["eager"]["host_launches_per_step"]):
+        raise AssertionError(f"[capture] {tag}: captured host launches a "
+                             f"step {line['captured']} not below eager "
+                             f"{line['eager']}")
+    return line
+
+
+def check_one_capture(tag, rep):
+    """The engine captured its decode step once, at warmup, and replayed
+    it for the whole run (the JAX engine's ``jit_entries`` contract)."""
+    if rep["jit_entries"] != {"decode": 1} \
+            or rep.get("recompiled_after_warmup") is not False:
+        raise AssertionError(f"[{tag}] jit_entries {rep['jit_entries']}, "
+                             f"recompiled_after_warmup "
+                             f"{rep.get('recompiled_after_warmup')}: the "
+                             f"decode step must be captured once")
 
 
 def _leaves(tree):
@@ -752,22 +1032,21 @@ def _leaves(tree):
 
 
 def _reset_launches():
-    from repro_torch.kernels.flash_attention import ops as fa_ops
+    """Every kernel's launch count (and ``moe_gmm``'s foreign rows) set to
+    0; returns the reader of the counts."""
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    fns = {"moe_gmm": gmm_ops.moe_gmm,
-           "paged_attention": pa_ops.paged_attention,
-           "flash_attention": fa_ops.flash_attention}
+    from repro_torch.serve.stepcore import kernel_wrappers
+    fns = dict(zip(REPLACES, kernel_wrappers()))
     for fn in fns.values():
         fn.launches = 0
-    gmm_ops.moe_gmm.foreign_rows = 0
+    gmm_ops.reset_foreign_rows()
     return lambda: {name: fn.launches for name, fn in fns.items()}
 
 
 def _foreign_rows() -> int:
     """Foreign-group rows through ``moe_gmm`` since ``_reset_launches``."""
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
-    return int(gmm_ops.moe_gmm.foreign_rows)
+    return gmm_ops.foreign_rows_total()
 
 
 # ----------------------------------------------------------------------
@@ -829,8 +1108,10 @@ def ep_serve(cfg, params, policy, *, slots, n_requests, max_seq_len,
         "drops": {ph: [lb[ph]["send_drops_total"], lb[ph]["dest_drops_total"]]
                   for ph in ("decode", "prefill")},
         "launches": launches, "moe_gmm_foreign_rows": _foreign_rows(),
+        "jit_entries": rep["jit_entries"],
     }
     # --- checks of what comes out --------------------------------------
+    check_one_capture(f"ep {policy}", rep)
     if rep["n_requests"] != n_requests or len(outputs) != n_requests:
         raise AssertionError(f"[ep] {policy}: only {rep['n_requests']} of "
                              f"{n_requests} requests finished")
@@ -873,6 +1154,16 @@ def ep_path(cfg, *, seed, **shape):
             if rec["launches"][kernel] <= 0:
                 raise AssertionError(f"[ep] {name}: {kernel} was not "
                                      f"launched")
+    # Alg. 2 on the card: once per MoE layer, rank and step under
+    # harmoeny, never under round_robin
+    n_moe = cfg.num_layers
+    steps = h["decode_steps"] + h["prefill_chunks"]
+    want = {"harmoeny": EP_DEGREE * n_moe * steps, "round_robin": 0}
+    for name, rec in out.items():
+        if rec["launches"]["schedule"] != want[name]:
+            raise AssertionError(f"[ep] {name}: schedule launched "
+                                 f"{rec['launches']['schedule']} times, "
+                                 f"not {want[name]}")
     if any(v != 0 for ph in h["drops"].values() for v in ph):
         raise AssertionError(f"[ep] harmoeny dropped units: {h['drops']}")
     if h["moved_units_per_layer_decode"] <= 0:
@@ -890,7 +1181,17 @@ def ep_path(cfg, *, seed, **shape):
         f"{rr['decode_max_mean_ratio']:.3f}; harmoeny drops 0, moved "
         f"{h['moved_units_per_layer_decode']:.3f} units per layer and decode "
         f"step, {h['moe_gmm_foreign_rows']} foreign rows through moe_gmm")
-    return out
+    # phase 7 on these weights: 2 requests of 32-64 tokens a policy
+    caps = [capture_compare(ep_moe_config(cfg, policy), params,
+                            f"qwen_ep{EP_DEGREE}_{policy}", paged=True,
+                            n_requests=2, prompt_lens=(32, 65),
+                            new_tokens=shape["new_tokens"],
+                            max_seq_len=shape["max_seq_len"],
+                            prefill_chunk=shape["prefill_chunk"],
+                            block_size=shape["block_size"], seed=seed,
+                            ep_degree=EP_DEGREE, policy=policy)
+            for policy in ("harmoeny", "round_robin")]
+    return out, caps
 
 
 def small_ep_reference_check(seed: int = 0) -> None:
@@ -1233,13 +1534,17 @@ def switch_path(switch, *, seed, **shape):
     log(f"[serve-switch] {switch.name}: {n_params / 1e9:.2f} B parameters "
         f"drawn on the card in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
-    out = {}
+    out, caps = {}, []
     for paged in (False, True):
-        out[f"serve_switch128_{'paged' if paged else 'slab'}"] = \
+        pool = "paged" if paged else "slab"
+        out[f"serve_switch128_{pool}"] = \
             pattern_serve(switch, params, "serve-switch", paged=paged,
                           slots=4, n_requests=8, prompt_lens=(64, 257),
                           new_tokens=32, seed=seed, **shape)
-    return out
+        caps.append(capture_compare(
+            switch, params, f"switch128_{pool}", paged=paged, n_requests=4,
+            prompt_lens=(64, 129), new_tokens=16, seed=seed, **shape))
+    return out, caps
 
 
 def main() -> int:
@@ -1259,6 +1564,11 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+
+    t_run = time.perf_counter()
+
+    def elapsed(what):
+        log(f"[time] {what}: {time.perf_counter() - t_run:.1f} s since start")
 
     # --- phase 1: environment -------------------------------------------
     log(smi_line())
@@ -1287,52 +1597,70 @@ def main() -> int:
     shape = dict(max_seq_len=256 + 32, prefill_chunk=32, block_size=16)
     whole = dict(batch=4, prompt_len=1024, s_max=1024 + 64, new_tokens=32)
 
+    elapsed("built")
     # --- phase 2: kernel parity ------------------------------------------
     parity = kernel_parity(cfg, moon, switch, flash_batch=whole["batch"],
                            flash_len=whole["prompt_len"], **shape)
 
+    elapsed("phase 2")
     # --- phase 3/4: the serve path + small reference ----------------------
-    summary = main_path(cfg, n_requests=8, slots=4, new_tokens=32, seed=0,
-                        **shape)
+    summary, qwen_params = main_path(cfg, n_requests=8, slots=4,
+                                     new_tokens=32, seed=0, **shape)
+    # phase 7 on phase 3's weights
+    captures = [capture_compare(cfg, qwen_params, "qwen_g1", paged=True,
+                                n_requests=4, prompt_lens=(64, 129),
+                                new_tokens=16, seed=0, **shape)]
+    del qwen_params
     small_reference_check()
     gc.collect()                     # the engine holds reference cycles
     torch.cuda.empty_cache()
     log(f"[env] serve path freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
+    elapsed("phases 3-4 (+ 7 on qwen)")
     # --- phase 4b: HarMoEny across 4 virtual EP ranks ----------------------
-    ep = ep_path(cfg, seed=0, slots=4, n_requests=4, new_tokens=8, **shape)
+    ep, caps = ep_path(cfg, seed=0, slots=4, n_requests=4, new_tokens=8,
+                       **shape)
+    captures += caps
     small_ep_reference_check()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[env] EP path freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
+    elapsed("phase 4b (+ 7 on G = 4)")
     # --- phase 5: whole-prompt prefill + slab decode ----------------------
     whole_summary, moon_params = prefill_decode_path(moon, seed=0, **whole)
     small_prefill_reference_check()
     small_prefill_bf16_check()
 
+    elapsed("phase 5")
     # --- phase 6: the engine across layer patterns -------------------------
     # moonshot (a dense lead layer) on the slab, on phase 5's weights
     patterns = {"serve_moonshot_v1_16b_a3b_slab": pattern_serve(
         moon, moon_params, "serve-slab", paged=False, slots=4, n_requests=4,
         prompt_lens=(64, 129), new_tokens=8, seed=0, **shape)}
+    captures.append(capture_compare(
+        moon, moon_params, "moonshot_slab", paged=False, n_requests=2,
+        prompt_lens=(64, 129), new_tokens=8, seed=0, **shape))
     del moon_params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[env] moonshot freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
-    patterns.update(switch_path(switch, seed=0, **shape))
+    switch_serves, caps = switch_path(switch, seed=0, **shape)
+    patterns.update(switch_serves)
+    captures += caps
     gc.collect()
     torch.cuda.empty_cache()
     for arch in (moon.name, switch.name):
         for paged in (False, True):
             small_reference_check(arch, paged=paged)
 
+    elapsed("phase 6 (+ 7 on moonshot and switch128)")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
-               "flash_attention": whole_summary}
+               "flash_attention": whole_summary, "schedule": summary}
     kernels = []
     for name in REPLACES:
         main_case = parity[name][0]     # decode shapes; flash: the prefill
@@ -1349,7 +1677,7 @@ def main() -> int:
                 **{path: rec["launches"][name]
                    for path, rec in patterns.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
-                               if r["dtype"] == "bfloat16"),
+                               if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
@@ -1360,6 +1688,8 @@ def main() -> int:
                                              "library_ms", "splits", "ctas")}
                       for r in parity[name]],
         })
+    log(f"[capture] {len(captures)} configurations: captured streams "
+        f"equal the eager ones and take fewer host launches a step")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,16 @@ of the PyTorch port's paths (random weights, bf16):
     python3 scripts/profile_torch_serve.py --arch switch128 --slab
     python3 scripts/profile_torch_serve.py --path ep [--decode-steps 4]
     python3 scripts/profile_torch_serve.py --path prefill [--decode-steps 4]
+    python3 scripts/profile_torch_serve.py --eager [--arch ...] [--slab]
 
 ``serve`` (the default): a full-width model (``--arch``, default
 qwen15-moe-a27b; also moonshot-v1-16b-a3b or switch128) in
 ``ServeEngine`` with 4 slots, on the paged KV pool or, with ``--slab``,
 on the slab (the engine's default); traces the first 32-token prefill
 chunk of a request, then, with every slot decoding, a few pure decode
-steps.
+steps: the decode step captured as a CUDA graph at ``warmup()``, as the
+engine runs it, and with ``--eager`` also the same engine's eager step
+(``stepcore.eager()``), each phase printed for both, in one call.
 ``ep``: the same at expert-parallel degree 4 on virtual ranks under the
 synthetic skew of ``chip_smoke.py``'s phase 4b (0.9 on one expert,
 q = 1), once with the harmoeny schedule and once with round_robin.
@@ -20,8 +23,9 @@ q = 1), once with the harmoeny schedule and once with round_robin.
 ``launch.steps``; after one untraced warm-up prefill, traces one
 whole-prompt prefill step (4 prompts of 1024 tokens, flash attention)
 and then a few slab decode steps.  For each phase it prints one
-JSON line: the wall time per step, the device's busy time (the sum of the
-CUDA kernels' own times) and idle share, the kernels that took the most
+JSON line (``repro_torch.profiling``): the wall time per step, the
+device's busy time (the sum of the CUDA kernels' own times) and idle
+share, host launches (kernels and graphs), the kernels that took the most
 device time, the host-side operators that took the most CPU time, and the
 count of host-device copies and synchronisations.
 """
@@ -38,37 +42,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 
-def _dev_time(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def summarize(prof, label: str, wall_s: float, n_steps: int):
-    import torch
-    events = prof.key_averages()
-    kernels = [e for e in events if _dev_time(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(_dev_time(e) for e in kernels)
-    syncs = sum(e.count for e in events
-                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                             "cudaMemcpyAsync", "cudaMemcpy"))
-    rep = {
-        "phase": label, "steps": n_steps,
-        "wall_ms_per_step": wall_s * 1e3 / n_steps,
-        "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
-        "host_device_syncs_and_copies_per_step": syncs / n_steps,
-        "top_kernels_ms_per_step": [
-            (e.key[:60], _dev_time(e) / 1e3 / n_steps, e.count // n_steps)
-            for e in sorted(kernels, key=_dev_time, reverse=True)[:12]],
-        "top_host_ops_ms_per_step": [
-            (e.key[:60], e.self_cpu_time_total / 1e3 / n_steps,
-             e.count // n_steps)
-            for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                            reverse=True)[:12]],
-    }
+    from repro_torch.profiling import summarize as summary
+    rep = summary(prof, label, wall_s, n_steps)
     print(json.dumps(rep), flush=True)
     return rep
 
@@ -83,6 +59,9 @@ def main() -> int:
     ap.add_argument("--slab", action="store_true",
                     help="serve path: the slab KV pool instead of the "
                          "paged one")
+    ap.add_argument("--eager", action="store_true",
+                    help="serve / ep paths: also profile the eager decode "
+                         "step (stepcore.eager()) beside the captured one")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -91,15 +70,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.path == "prefill":
         return profile_prefill(args.decode_steps)
-    if args.path == "ep":
-        for policy in ("harmoeny", "round_robin"):
-            profile_serve(args.decode_steps, ep_degree=4, policy=policy,
-                          arch=args.arch)
+    modes = (True, False) if args.eager else (False,)
+    policies = ("harmoeny", "round_robin") if args.path == "ep" else (None,)
+    for policy in policies:
+        for eager in modes:
+            profile_serve(args.decode_steps, arch=args.arch,
+                          paged=not args.slab, eager=eager,
+                          ep_degree=4 if policy else 1,
+                          policy=policy or "harmoeny")
             gc.collect()                   # the engine holds cycles
             torch.cuda.empty_cache()
-        return 0
-    return profile_serve(args.decode_steps, arch=args.arch,
-                         paged=not args.slab)
+    return 0
 
 
 def _timed(fn, n_steps: int = 1, traced: bool = True):
@@ -163,7 +144,15 @@ def profile_prefill(decode_steps: int) -> int:
 
 def profile_serve(decode_steps: int, ep_degree: int = 1,
                   policy: str = "harmoeny", arch: str = "qwen15-moe-a27b",
-                  paged: bool = True) -> int:
+                  paged: bool = True, eager: bool = False) -> int:
+    import contextlib
+    from repro_torch.serve import stepcore
+    with stepcore.eager() if eager else contextlib.nullcontext():
+        return _profile_serve(decode_steps, ep_degree, policy, arch, paged,
+                              "_eager" if eager else "_captured")
+
+
+def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
     import dataclasses
     import numpy as np
     import torch
@@ -184,6 +173,7 @@ def profile_serve(decode_steps: int, ep_degree: int = 1,
     tag = f"_{cfg.name}_{'paged' if paged else 'slab'}"
     if ep_degree > 1:
         tag += f"_ep{ep_degree}_{policy}"
+    tag += mode
     eng.warmup()
     rng = np.random.default_rng(0)
     for i in range(slots):
@@ -223,9 +213,14 @@ def profile_serve(decode_steps: int, ep_degree: int = 1,
     for _ in range(decode_steps):
         eng._decode_work(eng.clock.now())
     torch.cuda.synchronize()
+    core = eng.core
     print(json.dumps({"phase": "decode_unprofiled" + tag,
                       "wall_ms_per_step": (time.perf_counter() - t0) * 1e3
-                      / decode_steps}), flush=True)
+                      / decode_steps,
+                      "jit_entries": eng.report()["jit_entries"],
+                      "skew_predraw_host_ms_per_step":
+                          core.predraw_s * 1e3 / max(core.predraw_steps, 1)}),
+          flush=True)
     return 0
 
 

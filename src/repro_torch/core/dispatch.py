@@ -28,6 +28,12 @@ runs up to its next collective, the group checks that all asked for the
 same one and answers it from all their tensors).  Lockstep keeps the
 order of kernel launches fixed, so results and launch counts are the
 same on every run.
+
+No step here reads a device value on the host: scatters that drop
+out-of-range rows send them to one extra dump row that is sliced off
+(never a boolean mask, whose result size only the host can know), and
+counts are scatter-adds into fixed bins, so the decode step can be
+captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from typing import Callable, Generator, List, NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.topology import EPTopology, local_slot_of
+from repro_torch.core.router import expert_counts
+from repro_torch.core.topology import EPTopology, device_tables
 
 
 class Collective(NamedTuple):
@@ -245,13 +252,14 @@ def _excl_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _scatter_drop(n: int, idx: torch.Tensor, vals: torch.Tensor, *,
                   fill: int, add: bool = False) -> torch.Tensor:
     """``full(n, fill).at[idx].set|add(vals, mode="drop")``: indices outside
-    [0, n) are dropped."""
-    out = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
-    keep = (idx >= 0) & (idx < n)
+    [0, n) go to a dump row ``n``, which is cut off."""
+    out = torch.full((n + 1,), fill, dtype=vals.dtype, device=vals.device)
+    to = torch.where((idx >= 0) & (idx < n), idx, n).long()
     if add:
-        return out.index_add_(0, idx[keep].long(), vals[keep])
-    out[idx[keep].long()] = vals[keep]
-    return out
+        out.index_add_(0, to, vals)
+    else:
+        out[to] = vals
+    return out[:n]
 
 
 def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
@@ -273,7 +281,7 @@ def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
     S = S.to(i32)
 
     # ---- sender side (histograms carry an extra row for the sentinel) ----
-    counts_local = torch.bincount(ue, minlength=Ep + 1)[:Ep + 1].to(i32)
+    counts_local = expert_counts(ue, Ep + 1)
     sort_idx = torch.argsort(unit_expert, stable=True)
     start_of_expert = _excl_cumsum(counts_local, 0)
     r_sorted = (torch.arange(U, dtype=i32, device=dev)
@@ -295,7 +303,8 @@ def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
     # ---- receiver-side group structure -----------------------------------
     recv_counts = S[:, :, me]                               # [G_src, Ep]
     tok_e = recv_counts.sum(dim=0).to(i32)                  # [Ep]
-    my_local_slot = torch.as_tensor(local_slot_of(topo)[me], device=dev)
+    tables = device_tables(topo, dev)
+    my_local_slot = tables.local_slot_of[me]
     is_foreign_active = (tok_e > 0) & (my_local_slot < 0)
     foreign_rank = (torch.cumsum(is_foreign_active.to(i32), 0) - 1).to(i32)
     ar_e = torch.arange(Ep, dtype=i32, device=dev)
@@ -308,7 +317,7 @@ def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
                     epr + foreign_rank, n_groups)).to(i32)
     grp_c = torch.clamp(grp_of_e, max=n_groups)
     group_expert = _scatter_drop(n_groups + 1, grp_c, ar_e, fill=-1)
-    group_expert[:epr] = torch.as_tensor(topo.slot_map[me], device=dev)
+    group_expert[:epr] = tables.slot_map[me]
     group_expert = group_expert[:n_groups]
     group_sizes = _scatter_drop(n_groups + 1, grp_c, tok_e, fill=0,
                                 add=True)[:n_groups]
@@ -366,22 +375,21 @@ def dispatch(x_units: torch.Tensor, layout: DispatchLayout, *,
     buffer [c_total, d]."""
     G = num_ranks
     d = x_units.shape[-1]
-    send = torch.zeros((G, c_pair, d), dtype=x_units.dtype,
+    # column c_pair and row c_total are dump rows for the units and
+    # receive rows that have no place (unit_pair_pos / row targets at or
+    # past the bound); both are cut off
+    send = torch.zeros((G, c_pair + 1, d), dtype=x_units.dtype,
                        device=x_units.device)
-    ok = layout.unit_pair_pos < c_pair
-    send[layout.unit_dest[ok].long(), layout.unit_pair_pos[ok].long()] = \
-        x_units[ok]
-    recv = (yield from all_to_all(send)).reshape(G * c_pair, d)
-    grouped = torch.zeros((c_total, d), dtype=x_units.dtype,
+    send[layout.unit_dest.long(),
+         torch.clamp(layout.unit_pair_pos, max=c_pair).long()] = x_units
+    recv = (yield from all_to_all(send[:, :c_pair])).reshape(G * c_pair, d)
+    grouped = torch.zeros((c_total + 1, d), dtype=x_units.dtype,
                           device=x_units.device)
-    tgt = layout.row_target.reshape(-1)
-    ok = tgt < c_total
-    grouped[tgt[ok].long()] = (recv * layout.row_valid.reshape(-1, 1).to(
-        recv.dtype))[ok]
+    tgt = torch.clamp(layout.row_target.reshape(-1), max=c_total).long()
+    grouped[tgt] = recv * layout.row_valid.reshape(-1, 1).to(recv.dtype)
     # self units go straight into the grouped buffer (no wire bytes)
-    ok = layout.unit_row_self < c_total
-    grouped[layout.unit_row_self[ok].long()] = x_units[ok]
-    return grouped
+    grouped[torch.clamp(layout.unit_row_self, max=c_total).long()] = x_units
+    return grouped[:c_total]
 
 
 def combine(out_grouped: torch.Tensor, layout: DispatchLayout, *,

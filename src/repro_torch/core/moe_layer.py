@@ -15,15 +15,17 @@ in one process (``VirtualGroup``) or one rank per process (``DistComm``).
 x comes replicated over the EP group and each rank routes its contiguous
 token slice.  With a ``SkewKey`` the router is the paper's synthetic skew
 (``route_skewed``), each rank drawing on the key folded with its rank, as
-the JAX block folds its key.  Tensor-parallel MoE (E < G) and replica
-slots are not ported yet and are rejected.
+the JAX block folds its key; a captured decode step cannot draw, so it
+takes the same draws made before the step (``skew_assign``, one
+``[t_slice, k]`` slice a rank: ``serve/stepcore.py``).  Nothing here reads
+a device value on the host.  Tensor-parallel MoE (E < G) and replica slots
+are not ported yet and are rejected.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,9 +34,10 @@ from repro_torch.core import dispatch as D
 from repro_torch.core import prefetch
 from repro_torch.core.grouped_ffn import grouped_ffn
 from repro_torch.core.qthreshold import q_threshold
-from repro_torch.core.router import SkewKey, route_skewed, route_topk
+from repro_torch.core.router import (SkewKey, expert_counts, route_assigned,
+                                    route_skewed, route_topk)
 from repro_torch.core.scheduler import schedule
-from repro_torch.core.topology import EPTopology, make_topology
+from repro_torch.core.topology import EPTopology, device_tables, make_topology
 
 # diagnostic keys every MoE block emits; scalars are [1]-shaped, vectors
 # [1, N] (N = ranks / experts), as in the JAX package
@@ -102,23 +105,16 @@ class MoEBlockSpec:
         return q_threshold(ep_degree=self.ep_degree, dense_fetch=True)
 
 
-def _expert_row_map(topo: EPTopology) -> np.ndarray:
-    """expert id -> its first global slot row (static)."""
-    rows = np.zeros((topo.padded_experts,), np.int64)
-    for g in range(topo.num_ranks):
-        for j in range(topo.experts_per_rank):
-            rows[topo.slot_map[g, j]] = g * topo.experts_per_rank + j
-    return rows
-
-
 def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                        spec: MoEBlockSpec, n_valid: int, me: int,
                        skew_key: Optional[SkewKey] = None,
-                       valid_rep: Optional[torch.Tensor] = None):
+                       valid_rep: Optional[torch.Tensor] = None,
+                       skew_assign: Optional[torch.Tensor] = None):
     """Per-rank body of rank ``me``, a generator that yields its
     collectives (dispatch.py) and returns (y_rep, diagnostics).
     x_rep: [t_pad, d] replicated over the EP group; ``params`` hold this
-    rank's expert rows [epr, ...] and the replicated router."""
+    rank's expert rows [epr, ...] and the replicated router;
+    ``skew_assign`` [t_slice, k] this rank's drawn skewed assignment."""
     topo, moe = spec.topo, spec.moe
     G, Ep = topo.num_ranks, topo.padded_experts
     epr = topo.experts_per_rank
@@ -129,7 +125,9 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     x_slice = x_rep[me * t_slice:(me + 1) * t_slice]
 
     # --- step 1: routing (dead tokens get the sentinel expert Ep) ---------
-    if skew_key is not None and moe.router_skew > 0:
+    if skew_assign is not None:
+        r_out = route_assigned(skew_assign, Ep)
+    elif skew_key is not None and moe.router_skew > 0:
         r_out = route_skewed(skew_key.fold_in(me).generator(dev), t_slice,
                              top_k=k, num_experts=moe.num_experts,
                              padded_experts=Ep, alpha=moe.router_skew,
@@ -141,8 +139,7 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     if valid_rep is not None:
         valid_tok = valid_tok & valid_rep[me * t_slice:(me + 1) * t_slice]
     assign = torch.where(valid_tok[:, None], r_out.assign, Ep)
-    counts = torch.bincount(assign.reshape(-1).long(),
-                            minlength=Ep + 1)[:Ep].to(torch.int32)
+    counts = expert_counts(assign, Ep + 1)[:Ep]
 
     # --- step 2: metadata exchange ---------------------------------------
     m_all = yield from D.all_gather(counts)                  # [G, Ep]
@@ -165,7 +162,7 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     foreign = foreign_rows = None
     if moe.policy == "even_split":
         # full replication: every group row gathers its expert's weights
-        rows = torch.as_tensor(_expert_row_map(topo), device=dev)
+        rows = device_tables(topo, dev).expert_row
         ge = torch.clamp(layout.group_expert, 0, Ep - 1).long()
         full = []
         for w in (w_in, w_out, w_gate):
@@ -217,13 +214,16 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
 def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               spec: MoEBlockSpec, comm=None,
               skew_key: Optional[SkewKey] = None,
-              valid_mask: Optional[torch.Tensor] = None
+              valid_mask: Optional[torch.Tensor] = None,
+              skew_assign: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> [B, S, d], diagnostics, over the EP group of
     ``comm`` (default: one rank).  ``params``' expert rows are rank-major
     ``[G * epr, ...]`` for ``LocalComm`` / ``VirtualGroup`` and this rank's
     own ``[epr, ...]`` for ``DistComm``.  ``skew_key`` switches routing to
-    the synthetic skew when ``spec.moe.router_skew > 0``.  ``valid_mask``
+    the synthetic skew when ``spec.moe.router_skew > 0``; ``skew_assign``
+    [G, t_slice, k] int32 routes on assignments drawn beforehand instead
+    (rank g takes row g).  ``valid_mask``
     [B, S] bool keeps dead tokens (inactive slots, chunk padding) out of
     routing and capacity; their outputs are garbage the caller discards.
     y is replicated; the diagnostics are those of the first rank that this
@@ -247,7 +247,9 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     def body(me: int):
         prm = {n: (w if n == "router" else comm.expert_rows(w, me, epr))
                for n, w in params.items()}
-        return _moe_forward_local(x_rep, prm, spec, n_valid, me,
-                                  skew_key=skew_key, valid_rep=v_rep)
+        return _moe_forward_local(
+            x_rep, prm, spec, n_valid, me, skew_key=skew_key,
+            valid_rep=v_rep,
+            skew_assign=None if skew_assign is None else skew_assign[me])
     y, diag = comm.run_ranks(body)[0]
     return y[:n_valid].reshape(B, S_len, d), diag

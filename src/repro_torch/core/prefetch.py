@@ -13,13 +13,15 @@ the ids are all -1 and the result is zeros, yet the einsum reads every
 expert's matrices (~1 GB per layer at qwen15-moe-a27b's width).  The port
 computes the same function as an index gather: the hosting slot's row
 divided by ``hosts_per_expert``, zeros for -1 — K rows read, not all.
+The slot tables are the topology's cached device tables
+(``topology.device_tables``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.dispatch import all_gather, all_to_all
-from repro_torch.core.topology import EPTopology, local_slot_of
+from repro_torch.core.topology import EPTopology, device_tables
 
 
 def all_foreign_ids(S: torch.Tensor, topo: EPTopology,
@@ -30,7 +32,7 @@ def all_foreign_ids(S: torch.Tensor, topo: EPTopology,
     K = num_foreign_slots
     dev = S.device
     tok_e = S.sum(dim=0)                                     # [Ep, G_dst]
-    lsl = torch.as_tensor(local_slot_of(topo), device=dev)   # [G, Ep]
+    lsl = device_tables(topo, dev).local_slot_of             # [G, Ep]
     active = (tok_e.T > 0) & (lsl < 0)
     f_rank = torch.cumsum(active.to(torch.int32), dim=1) - 1
     scatter = torch.where(active, torch.clamp(f_rank, max=K), K)
@@ -44,7 +46,7 @@ def fetch_foreign_weights(w_local: torch.Tensor, fids_all: torch.Tensor,
                           me: int, topo: EPTopology):
     """w_local [epr, ...] (this rank's expert rows) -> [K, ...] foreign
     weights for this rank.  fids_all: FIDS [G, K] replicated."""
-    slot_of = torch.as_tensor(local_slot_of(topo)[me], device=w_local.device)
+    slot_of = device_tables(topo, w_local.device).local_slot_of[me]
     slot = torch.where(fids_all >= 0,
                        slot_of[torch.clamp(fids_all, min=0).long()], -1)
     hosted = (slot >= 0).to(w_local.dtype) / topo.hosts_per_expert

@@ -7,23 +7,24 @@ deterministic function of the all-gathered counts, and every policy
 conserves ``S.sum(axis=2) == counts``.
 
 The greedy rebalance loop (Alg. 2) is a data-dependent loop of scalar
-decisions over a ``[G, Ep, G]`` tensor of a few kB.  It runs on the host
-in exact integer arithmetic (numpy), with the JAX version's ``max_iters``
-bound and its argmax/argmin first-index tie rules, so ``S`` and the
-diagnostics equal the JAX schedule integer for integer.  When the initial
-assignment is already balanced (always at G = 1) the loop body never runs
-and ``S`` stays on the counts' device.
+decisions over a ``[G, Ep, G]`` tensor of a few kB, which JAX runs inside
+its jitted step as a ``lax.while_loop``.  Here it is a one-CTA CUDA
+kernel on the card (``kernels/schedule``: S and the diagnostics never
+leave the device, so the decode step can be captured as a CUDA graph) and
+its plain numpy version on the CPU, both in exact integer arithmetic with
+the JAX version's ``max_iters`` bound and its argmax/argmin first-index
+tie rules, so ``S`` and the diagnostics equal the JAX schedule integer
+for integer.  The topology's tables come from ``device_tables``, built
+once per device.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from repro_torch.core.topology import EPTopology, local_slot_of
-
-_INT_MAX = np.iinfo(np.int32).max
+from repro_torch.core.topology import EPTopology, device_tables
+from repro_torch.kernels.schedule import ops as schedule_ops
 
 
 class ScheduleDiag(NamedTuple):
@@ -38,16 +39,13 @@ def initial_assign(counts: torch.Tensor, topo: EPTopology) -> torch.Tensor:
     [G, Ep] int32 -> S [G, Ep, G] int32; replicated experts (E < G) split
     their load evenly over the host replicas (remainder to the first)."""
     G, Ep = topo.num_ranks, topo.padded_experts
-    r = topo.hosts_per_expert
+    onehot = device_tables(topo, counts.device).host_onehot  # [r, Ep, G]
     S = torch.zeros((G, Ep, G), dtype=torch.int32, device=counts.device)
-    base = counts // r
-    rem = counts % r
-    for i in range(r):
-        onehot = np.zeros((Ep, G), np.int32)
-        onehot[np.arange(Ep), topo.host_of[:, i]] = 1
+    base = counts // topo.hosts_per_expert
+    rem = counts % topo.hosts_per_expert
+    for i in range(topo.hosts_per_expert):
         share = base + (rem > i).to(torch.int32)
-        S = S + share[:, :, None] * torch.as_tensor(
-            onehot, device=counts.device)[None, :, :]
+        S = S + share[:, :, None] * onehot[i][None, :, :]
     return S
 
 
@@ -61,12 +59,6 @@ def even_split(counts: torch.Tensor, topo: EPTopology) -> torch.Tensor:
         torch.int32)
 
 
-def _diag(device, iters, moved, before, after) -> ScheduleDiag:
-    def t(v):
-        return torch.tensor(int(v), dtype=torch.int32, device=device)
-    return ScheduleDiag(t(iters), t(moved), t(before), t(after))
-
-
 def rebalance(S_initial: torch.Tensor, topo: EPTopology, *, q: int,
               c_pair: int, num_foreign_slots: int,
               max_iters: int = 128) -> tuple[torch.Tensor, ScheduleDiag]:
@@ -74,58 +66,13 @@ def rebalance(S_initial: torch.Tensor, topo: EPTopology, *, q: int,
     same move (g_from, e_max, g_hot) -> (g_from, e_max, g_min):
       A. an off-diagonal pair exceeds ``c_pair`` (takes priority, ignores
          the q-threshold);
-      B. a destination exceeds the average load t_avg (guarded by q)."""
-    dev = S_initial.device
-    G = topo.num_ranks
-    S = S_initial.cpu().numpy().astype(np.int64)
-    is_local = local_slot_of(topo) >= 0                          # [G, Ep]
-    offdiag = 1 - np.eye(G, dtype=np.int64)
-    t_avg = S.sum() // G                                         # line 4
-    before = S.sum(axis=(0, 1)).max()
-    foreign = np.zeros(is_local.shape, bool)
-    it = moved = 0
-    while it < max_iters:
-        t_g = S.sum(axis=(0, 1))                                 # line 5
-        pair = S.sum(axis=1)                                     # [G_src, G_dst]
-        over_pair = pair * offdiag - c_pair
-        has_pair_over = bool((over_pair > 0).any())
-        if not (bool((t_g > t_avg).any()) or has_pair_over):     # line 6
-            break
-        it += 1
-        flat = int(np.argmax(over_pair))
-        if has_pair_over:
-            g_from, g_hot = flat // G, flat % G
-        else:
-            g_hot = int(np.argmax(t_g))                          # line 7
-            g_from = int(np.argmax(pair[:, g_hot]))              # line 8
-        col = S[g_from, :, g_hot]
-        e_max = int(np.argmax(col))                              # line 9
-        t_move = int(col[e_max])                                 # line 11
-        stop_q = (not has_pair_over) and t_move < q              # line 12
-        n_foreign = foreign.sum(axis=1)
-        slot_ok = (is_local[:, e_max] | foreign[:, e_max]
-                   | (n_foreign < num_foreign_slots))
-        pair_slack = np.where(np.arange(G) == g_from, _INT_MAX,
-                              c_pair - pair[g_from])
-        allowed = slot_ok & (pair_slack > 0)
-        allowed[g_hot] = False
-        g_min = int(np.argmin(np.where(allowed, t_g, _INT_MAX)))  # line 15
-        headroom = t_avg - t_g[g_min] + (q if has_pair_over else 0)
-        t_s = min(t_move, headroom, int(pair_slack[g_min]))
-        if has_pair_over:
-            t_s = min(t_s, max(int(over_pair[g_from, g_hot]), 0))
-        stop_cap = (not has_pair_over) and (t_g[g_min] + q > t_avg)  # line 16
-        if (stop_q or not allowed.any() or g_min == g_hot or t_s <= 0
-                or stop_cap):
-            break
-        S[g_from, e_max, g_hot] -= t_s                           # lines 20-23
-        S[g_from, e_max, g_min] += t_s
-        foreign[g_min, e_max] |= not is_local[g_min, e_max]
-        moved += t_s
-    after = S.sum(axis=(0, 1)).max()
-    S_out = S_initial if moved == 0 else torch.as_tensor(
-        S.astype(np.int32), device=dev)
-    return S_out, _diag(dev, it, moved, before, after)
+      B. a destination exceeds the average load t_avg (guarded by q).
+    The kernel on CUDA, the plain version on the CPU (``kernels.schedule``)."""
+    S, d = schedule_ops.rebalance(
+        S_initial.to(torch.int32).contiguous(),
+        device_tables(topo, S_initial.device).is_local, q=q, c_pair=c_pair,
+        num_foreign_slots=num_foreign_slots, max_iters=max_iters)
+    return S, ScheduleDiag(d[0], d[1], d[2], d[3])
 
 
 def schedule(counts: torch.Tensor, topo: EPTopology, *, policy: str, q: int,

@@ -5,12 +5,20 @@ Port of ``repro/core/topology.py`` (``make_topology``, ``local_slot_of``,
 Ranks are positions in the expert-parallel group.  Experts are padded to a
 multiple of the EP degree so every rank owns the same number of local
 slots; padded (dummy) experts are never routed to.
+
+``make_topology`` returns one shared ``EPTopology`` per (G, E, placement),
+and ``device_tables`` its static index tables as device tensors, built
+once per (topology, device) and read by every step after: a captured
+decode step may copy nothing from the host (``serve/stepcore.py``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import round_up
 
@@ -27,12 +35,18 @@ class EPTopology:
 
 
 def make_topology(num_ranks: int, num_experts: int,
-                  placement: np.ndarray | None = None) -> EPTopology:
+                  placement=None) -> EPTopology:
     """Round-robin placement (expert e on rank ``e % G``) when E >= G;
     each expert replicated on ``G // E`` ranks when E < G.  ``placement``
-    optionally permutes experts onto slots."""
-    G = int(num_ranks)
-    E = int(num_experts)
+    optionally permutes experts onto slots.  Equal arguments give the same
+    (shared, read-only) object."""
+    perm = None if placement is None else tuple(
+        int(p) for p in np.asarray(placement).reshape(-1))
+    return _make_topology(int(num_ranks), int(num_experts), perm)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_topology(G: int, E: int, placement) -> EPTopology:
     if E >= G:
         Ep = round_up(E, G)
         epr = Ep // G
@@ -64,6 +78,49 @@ def local_slot_of(topo: EPTopology) -> np.ndarray:
         for j in range(topo.experts_per_rank):
             out[g, topo.slot_map[g, j]] = j
     return out
+
+
+class TopoTables(NamedTuple):
+    """A topology's static tables on one device."""
+    local_slot_of: torch.Tensor   # [G, Ep] int32, ``local_slot_of(topo)``
+    is_local: torch.Tensor        # [G, Ep] int32, 1 where rank g hosts e
+    slot_map: torch.Tensor        # [G, epr] int32
+    host_onehot: torch.Tensor     # [hosts_per_expert, Ep, G] int32
+    expert_row: torch.Tensor      # [Ep] int64, expert -> first global slot row
+
+
+_tables: Dict[Tuple[int, torch.device], Tuple[EPTopology, TopoTables]] = {}
+
+
+def device_tables(topo: EPTopology, device) -> TopoTables:
+    """``topo``'s tables on ``device``, copied from the host on first use
+    and cached.  Raises if that first use is inside a CUDA-graph capture,
+    which cannot copy from pageable host memory: the eager warm step
+    before a capture builds them."""
+    device = torch.device(device)
+    key = (id(topo), device)
+    hit = _tables.get(key)
+    if hit is not None and hit[0] is topo:
+        return hit[1]
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("device_tables: first use inside a CUDA-graph "
+                           "capture; run the step once eagerly first")
+    G, Ep = topo.num_ranks, topo.padded_experts
+    lso = local_slot_of(topo)
+    onehot = np.zeros((topo.hosts_per_expert, Ep, G), np.int32)
+    for i in range(topo.hosts_per_expert):
+        onehot[i, np.arange(Ep), topo.host_of[:, i]] = 1
+    rows = np.zeros((Ep,), np.int64)
+    for g in range(G):
+        for j in range(topo.experts_per_rank):
+            rows[topo.slot_map[g, j]] = g * topo.experts_per_rank + j
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    tables = TopoTables(dev(lso), dev((lso >= 0).astype(np.int32)),
+                        dev(topo.slot_map), dev(onehot), dev(rows))
+    _tables[key] = (topo, tables)
+    return tables
 
 
 def static_opt_placement(profile_counts: np.ndarray,

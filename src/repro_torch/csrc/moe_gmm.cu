@@ -327,9 +327,13 @@ cudaError_t launch_gmm(dim3 grid, cudaStream_t s, const void* a, const void* b0,
                        const int* tile_group, const int* live_rows, void* c, int K, int N,
                        int block_m, int act) {
   using C = Gmm<MT, NB>;
-  cudaError_t e = cudaFuncSetAttribute(gmm_wgmma<MT, NB, EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return e;
+  static bool ready = false;  // one flag per instantiation: raise the limit once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gmm_wgmma<MT, NB, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
   using T = __nv_bfloat16;
   gmm_wgmma<MT, NB, EPI><<<grid, C::THREADS, C::SMEM, s>>>(
       (const T*)a, (const T*)b0, (const T*)b0_x, (const T*)b1, (const T*)b1_x, n_local,

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("moe_gmm", "paged_attention", "flash_attention")
+KERNELS = ("moe_gmm", "paged_attention", "flash_attention", "schedule")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -19,15 +19,17 @@ by construction.  The bf16 kernel learns which tiles are live from
 and skips the rest; without it every tile is live.  The f32 kernel finds
 the non-zero 32-row sub-tiles with a flag pass over ``x``.
 
-Counters, advanced only where the kernel launches: ``moe_gmm.launches``
-and ``moe_gmm.foreign_rows``, the real rows of the foreign groups that
-went through the kernel (the caller's ``foreign_rows``; a device tensor
-once the first launch adds to it, so counting never waits on the card).
+Counters, advanced only where the kernel launches: ``moe_gmm.launches``,
+and the real rows of the foreign groups that went through the kernel
+(the caller's ``foreign_rows``), added in place to one device
+accumulator per device, so counting never waits on the card and a
+captured step's replays add to it too (``foreign_rows_total``,
+``reset_foreign_rows``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -193,12 +195,37 @@ def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     build.check(rc, "moe_gmm")
     moe_gmm.launches += 1
     if foreign is not None and foreign_rows is not None:
-        moe_gmm.foreign_rows = moe_gmm.foreign_rows + foreign_rows
+        _foreign_acc(x.device).add_(foreign_rows.reshape(()))
     return y
 
 
 moe_gmm.launches = 0     # kernel launches (CUDA tensors only)
-moe_gmm.foreign_rows = 0  # foreign-group rows through those launches
+
+# foreign-group rows through those launches, one int64 scalar per device
+_foreign: Dict[torch.device, torch.Tensor] = {}
+
+
+def _foreign_acc(device: torch.device) -> torch.Tensor:
+    acc = _foreign.get(device)
+    if acc is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("moe_gmm: the foreign-row counter is made by "
+                               "an eager launch, not inside a capture")
+        acc = _foreign[device] = torch.zeros((), dtype=torch.int64,
+                                             device=device)
+    return acc
+
+
+def reset_foreign_rows() -> None:
+    """Set every device's foreign-row count to 0 (in place)."""
+    for acc in _foreign.values():
+        acc.zero_()
+
+
+def foreign_rows_total() -> int:
+    """Foreign-group rows through ``moe_gmm`` since the last reset, over
+    every device (reads the counters on the host)."""
+    return sum(int(acc) for acc in _foreign.values())
 
 
 def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,

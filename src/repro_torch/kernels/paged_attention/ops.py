@@ -155,9 +155,14 @@ _tickets: Dict[torch.device, torch.Tensor] = {}
 def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     """The merge's per-group counters: zero between calls (the last block
     of each group resets its own), grown when a call needs more.  Calls
-    share them, so launches on one device run on one stream."""
+    share them, so launches on one device run on one stream.  A captured
+    step's calls use the buffer its eager warm step sized: it is never
+    made inside a capture."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_attention: the merge counters are "
+                               "sized by an eager call, not inside a capture")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device] = buf
     return buf

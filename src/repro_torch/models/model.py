@@ -9,7 +9,8 @@ GELU MLPs (switch128).  The returned ``Model`` exposes:
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key)
                                                -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
-              block_size, moe_policy)          -> (logits, caches, pos + S, diags)
+              block_size, moe_policy, skew_assign)
+                                               -> (logits, caches, pos + S, diags)
   init_cache(batch, s_max, device)             -> slab K/V caches
   init_paged_cache(num_blocks, block_size, s_ref, seq_axes)
                                                -> the physical paged K/V pool
@@ -208,14 +209,18 @@ class Model:
     def decode_step(self, params, token: torch.Tensor, caches, pos, *,
                     skew_key: Optional[SkewKey] = None, active_mask=None,
                     block_table: Optional[torch.Tensor] = None,
-                    block_size: int = 0, moe_policy: Optional[str] = None):
+                    block_size: int = 0, moe_policy: Optional[str] = None,
+                    skew_assign: Optional[torch.Tensor] = None):
         """token [B, S] against the paged pool (``block_table`` given; S > 1
         is a multi-query window) or, with S = 1, the slab caches of
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
         window: [B], or a scalar on the slab.  ``moe_policy`` overrides the
         decode spec's scheduling policy (and its foreign slots) for this
-        step.  Returns logits [B, Vp] at the last position when S == 1,
-        else [B, S, Vp]."""
+        step.  ``skew_assign`` [n_moe_layers, G, t_slice, k] replaces the
+        skew key's draws with ones made beforehand (``run_stack``): the
+        serve engine's captured step reads no generator.  Reads no device
+        value on the host.  Returns logits [B, Vp] at the last position
+        when S == 1, else [B, S, Vp]."""
         B, S = token.shape
         if S > 1 and block_table is None:
             raise NotImplementedError(
@@ -237,7 +242,7 @@ class Model:
             h, params["stack"], self.cfg, cache=caches["stack"],
             cache_len=new_pos, q_offset=pos, moe_spec=spec, comm=self.comm,
             skew_key=skew_key, valid_mask=vmask, block_table=block_table,
-            block_size=block_size)
+            block_size=block_size, skew_assign=skew_assign)
         if S == 1:
             logits = self._head(params, h[:, -1])
         else:

@@ -42,6 +42,14 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     return ["moe"], L, lead
 
 
+def moe_layer_keys(cfg: ModelConfig) -> List[int]:
+    """The index ``run_stack`` folds into the skew key for each MoE layer,
+    in order: ``i * len(pattern) + j`` for sub-layer j of period i."""
+    pattern, n_steps, _ = layer_pattern(cfg)
+    return [i * len(pattern) + j for i in range(n_steps)
+            for j, kind in enumerate(pattern) if kind == "moe"]
+
+
 def layer_slice(tree: Any, i: int) -> Any:
     """Step ``i`` of a stacked parameter / cache tree."""
     if isinstance(tree, dict):
@@ -72,7 +80,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      cache_len, moe_spec: MoEBlockSpec, comm, skew_key,
                      continue_prefill: bool, valid_mask, block_table,
-                     block_size: int):
+                     block_size: int, skew_assign=None):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
     experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
     residual.  Returns (x, diagnostics of this layer; none for a dense
@@ -86,7 +94,8 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
     if kind == "dense":
         return x + mlp(h, p["mlp"], cfg.act), {}
     y, mdiag = moe_block(h, p["moe"], spec=moe_spec, comm=comm,
-                         skew_key=skew_key, valid_mask=valid_mask)
+                         skew_key=skew_key, valid_mask=valid_mask,
+                         skew_assign=skew_assign)
     if "shared_mlp" in p:
         y = y + mlp(h, p["shared_mlp"], cfg.act)
     # collapse the leading batch-group axis only
@@ -98,12 +107,15 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               moe_spec: MoEBlockSpec, comm=None,
               skew_key: Optional[SkewKey] = None,
               continue_prefill: bool = False, valid_mask=None,
-              block_table=None, block_size: int = 0
+              block_table=None, block_size: int = 0,
+              skew_assign: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
-    skew) is folded with each MoE layer's index.  Returns (x, cache,
-    diags averaged over the MoE layers)."""
+    skew) is folded with each layer's index (``moe_layer_keys``);
+    ``skew_assign`` [n_moe_layers, G, t_slice, k] holds assignments drawn
+    beforehand on those keys, one slice per MoE layer in order.  Returns
+    (x, cache, diags averaged over the MoE layers)."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
               comm=comm, continue_prefill=continue_prefill,
@@ -113,15 +125,20 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
         x, _ = _apply_one_layer(x, params["lead"][i], "dense", cfg,
                                 cache=cache["lead"][i], skew_key=None, **kw)
     per_step: Dict[str, List[torch.Tensor]] = {}
+    n_moe = 0
     for i in range(n_steps):
         p_step = layer_slice(params["blocks"], i)
         for j in range(len(pattern)):
             layer_key = (None if skew_key is None
                          else skew_key.fold_in(i * len(pattern) + j))
+            drawn = None
+            if skew_assign is not None and pattern[j] == "moe":
+                drawn = skew_assign[n_moe]
+                n_moe += 1
             x, d = _apply_one_layer(
                 x, p_step[f"sub{j}"], pattern[j], cfg,
                 cache=layer_slice(cache["blocks"][f"sub{j}"], i),
-                skew_key=layer_key, **kw)
+                skew_key=layer_key, skew_assign=drawn, **kw)
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)
     diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}

@@ -32,6 +32,14 @@ ranks (``VirtualGroup``); ``EngineConfig.moe_policy`` overrides the decode
 steps' scheduling policy, and a model with synthetic router skew draws
 its routing from the ``skew_seed`` key streams (``StepCore``).
 ``report()["load_balance"]`` holds the per-rank and per-expert loads.
+
+On the card the decode step is captured once as a CUDA graph, at
+``warmup()`` or at the first decode step, and replayed at every step
+after (``StepCore``); the prefill chunk runs eagerly.
+``report()["jit_entries"]`` counts the captured entries and, after
+``warmup()``, ``recompiled_after_warmup`` says whether any was captured
+again (the JAX engine's names: one entry each across admissions, slot
+recycling, block growth, preemption and EOS).
 """
 from __future__ import annotations
 
@@ -153,12 +161,13 @@ class ServeEngine:
         self.device = dev
         self.clock = clock or WallClock()
         self.metrics = ServeMetrics()
-        self.core = StepCore(model, ecfg)
         B, C = ecfg.max_slots, ecfg.prefill_chunk
         # paged: prefill writes whole padded chunks, so chains cover the
         # chunk-rounded logical length (the slab scratch is max_seq_len)
         self.kv = make_state_store(model, ecfg,
                                    s_pad=round_up(ecfg.max_seq_len, C))
+        self.core = StepCore(model, ecfg,
+                             blocks_per_slot=self.kv.blocks_per_slot)
         self.front = AdmissionFront(B)
         self.pos = np.zeros((B,), np.int32)      # per-slot sequence length
         self.tok = np.zeros((B,), np.int32)      # per-slot last token
@@ -166,6 +175,7 @@ class ServeEngine:
         self._step_idx = 0
         self._chunk_idx = 0
         self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
+        self._warm_counts: Optional[Dict[str, int]] = None
         attention_dispatch.reset_dispatch_log()
 
     # ------------------------------------------------------------------
@@ -287,9 +297,8 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def _host_diags(self, diags) -> Dict[str, np.ndarray]:
-        if not self.cfg.is_moe:
-            return {}
-        return {k: v.detach().cpu().numpy() for k, v in diags.items()}
+        """A prefill chunk's device diagnostics on the host: one copy."""
+        return self.core.host_diags(diags) if self.cfg.is_moe else {}
 
     def _prefill_work(self, now: float) -> bool:
         front = self.front
@@ -343,12 +352,12 @@ class ServeEngine:
         self._ensure_decode_blocks()
         if not self.active.any():
             return False
-        nxt, diags = self.core.decode(
-            self.params, self.tok[:, None], self.kv.pool, self.pos,
-            self.kv.decode_table(), self.active.copy(), self._step_idx)
+        nxt, packed = self.core.decode(
+            self.params, self.tok, self.kv.pool, self.pos,
+            self.kv.decode_table(), self.active, self._step_idx)
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
-        self.metrics.record_step(self._host_diags(diags), n_active,
+        self.metrics.record_step(self.core.unpack(packed), n_active,
                                  phase="decode")
         occ = self.kv.occupancy()
         if occ is not None:
@@ -381,9 +390,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def warmup(self) -> None:
         """Run one prefill chunk and one decode step on dummy data, so the
-        first request's TTFT does not include building the kernels or
-        first-call set-up.  Writes land in the null block (paged) or in
-        slot 0 and the scratch (slab), so the engine must be idle."""
+        first request's TTFT does not include building the kernels,
+        first-call set-up or, on the card, capturing the decode step.
+        Writes land in the null block (paged) or in slot 0 and the
+        scratch (slab), so the engine must be idle."""
         if self.has_work() or any(st is not None
                                   for st in self.front.state_by_slot):
             raise RuntimeError("warmup() must run on an idle engine")
@@ -392,10 +402,11 @@ class ServeEngine:
         self.core.prefill(self.params, np.zeros((1, C), np.int32),
                           self.kv.scratch, 0, C - 1, 2 ** 31 - 1)
         table = self.kv.warm()
-        self.core.decode(self.params, self.tok[:, None], self.kv.pool,
-                         self.pos, table, self.active.copy(), 2 ** 31 - 1)
+        self.core.decode(self.params, self.tok, self.kv.pool, self.pos,
+                         table, self.active, 2 ** 31 - 1)
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
+        self._warm_counts = self.core.jit_counts()
 
     def step(self) -> bool:
         """One scheduler tick: admit, prefill chunk(s), decode the batch."""
@@ -451,4 +462,8 @@ class ServeEngine:
                 else attention_dispatch.dispatch_log())
         rep["attention_dispatch"] = {d["branch"]: {"fused": d["fused"]}
                                      for d in snap}
+        rep["jit_entries"] = self.core.jit_counts()
+        if self._warm_counts is not None:
+            rep["recompiled_after_warmup"] = \
+                rep["jit_entries"] != self._warm_counts
         return rep

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: on a machine without a GPU (or without nvcc) every test
-skips.  Run on the card with
+skips.  The schedule kernel (Alg. 2) is held to its plain version under
+``hypothesis``.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -11,6 +12,8 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +73,42 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated, sizes, f, bm,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(),
                                atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@settings(max_examples=400, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(G=st.sampled_from([1, 2, 4, 8]), E=st.integers(1, 128),
+       units=st.integers(0, 600), hot=st.floats(0.0, 1.0),
+       q=st.integers(1, 64), c_pair=st.integers(8, 256),
+       K=st.integers(0, 8), max_iters=st.sampled_from([1, 3, 16, 128]),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_schedule_kernel_equals_plain(cuda, G, E, units, hot, q, c_pair, K,
+                                      max_iters, seed):
+    """Alg. 2 on the card (one CTA) against the numpy plain version, on
+    counts with a hot expert of any weight: S and the four diagnostics
+    exactly equal."""
+    from repro_torch.core.scheduler import initial_assign
+    from repro_torch.core.topology import device_tables, make_topology
+    from repro_torch.kernels.schedule import ops
+    E = max(E, G)
+    topo = make_topology(G, E)
+    Ep = topo.padded_experts
+    rng = np.random.default_rng(seed)
+    p = np.full(E, (1.0 - hot) / max(E - 1, 1))
+    p[rng.integers(E)] += hot
+    counts = np.zeros((G, Ep), np.int32)
+    for g in range(G):
+        counts[g, :E] = rng.multinomial(rng.integers(0, units + 1), p / p.sum())
+    S0 = initial_assign(torch.from_numpy(counts).to(cuda), topo)
+    is_local = device_tables(topo, cuda).is_local
+    kw = dict(q=q, c_pair=c_pair, num_foreign_slots=K, max_iters=max_iters)
+    n0 = ops.rebalance.launches
+    S, diag = ops.rebalance(S0, is_local, **kw)
+    S_ref, diag_ref = ops.rebalance_plain(S0.cpu(), is_local.cpu(), **kw)
+    torch.cuda.synchronize()
+    assert ops.rebalance.launches == n0 + 1
+    assert torch.equal(diag.cpu(), diag_ref)
+    assert torch.equal(S.cpu(), S_ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -35,3 +35,17 @@ def test_lib_path_changes_with_the_source_and_the_flags(tmp_path,
     assert build._lib_path("flash_attention") != second
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
     assert build._lib_path("moe_gmm") != second
+
+
+def test_every_kernel_has_its_source_and_a_tagged_library():
+    """Each library of ``build.KERNELS`` (the schedule kernel among them)
+    comes from its own ``csrc/<name>.cu`` and carries its name and tag."""
+    assert "schedule" in build.KERNELS
+    tags = set()
+    for name in build.KERNELS:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        path = build._lib_path(name)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        tags.add(path.name)
+    assert len(tags) == len(build.KERNELS)
