@@ -25,10 +25,12 @@ Phases, each of which must pass (any failure exits non-zero):
      (random weights from a seed, bf16, paged KV (asked for: the engine's
      default is the slab), chunked prefill, greedy,
      HarMoEny policy at one rank), with each kernel's launch count over
-     that run, which must be > 0; the engine captures its decode step
-     as one CUDA graph at warmup and replays it (``jit_entries`` must be
-     ``{"decode": 1}`` with ``recompiled_after_warmup`` False after this
-     run and every engine run of phases 4b, 6 and 7);
+     that run, which must be > 0; the engine captures its prefill
+     chunk, its decode step and the KV store's write each as one CUDA
+     graph at warmup and replays them (``jit_entries`` must be
+     ``{"prefill_chunk": 1, "decode": 1, "write_blocks": 1}``, or
+     ``"write_slot"`` on the slab, with ``recompiled_after_warmup`` False
+     after this run and every engine run of phases 4b, 6 and 7);
   4. correctness of what comes out: every request finished with its
      tokens in the vocabulary, finite logits of the expected shape, and,
      on a small configuration, the card's token streams equal to the
@@ -87,15 +89,18 @@ Phases, each of which must pass (any failure exits non-zero):
   7. eager against captured, on the weights of phases 3, 4b and 6 (qwen
      at G = 1 paged; qwen at G = 4 under harmoeny and round_robin, skew
      0.9; moonshot on the slab; switch128 on the slab and paged): the
-     same requests served with the eager decode step
-     (``stepcore.eager()``) and with the captured one, then a window of
-     decode steps with every slot decoding under ``torch.profiler``.  A
-     ``[capture]`` line each: TPOT p50, wall ms a decode step, device
-     busy ms, idle share, host launches (kernels and graphs) and
-     copies/syncs a step, and the host ms of the skew pre-draws.  Gates:
-     equal greedy streams (where a bf16 stream differs, the logits at the
-     first differing step within 2e-2 of the largest logit), fewer host
-     launches a captured step than an eager one, one capture.
+     same requests served with every entry eager (``stepcore.eager()``)
+     and with the captured ones; then prefill chunks of one long prompt
+     (one under ``torch.profiler``, the next 3 without) and a window of
+     decode steps with every slot decoding (3 traced, 3 not).  A ``[capture]``
+     line each: TTFT and TPOT p50; for a prefill chunk and for a decode
+     step, wall ms, device busy ms, idle share, host launches (kernels
+     and graphs), copies/syncs, and the host ms of the skew pre-draws.
+     Gates: equal greedy streams (where a bf16 stream differs, the logits
+     at the first differing step within 2e-2 of the largest logit),
+     fewer host launches a captured chunk and step than eager ones, at
+     most 2 a captured chunk without skew (its graph and the write's),
+     one capture of each entry, none eager.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -878,13 +883,15 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                     new_tokens, max_seq_len, prefill_chunk, block_size,
                     seed, ep_degree=1, policy=None, window=3):
     """The same requests served twice on one set of weights, once with
-    the eager decode step (``stepcore.eager()``) and once with the
-    captured one; then, with every slot decoding, ``window`` decode steps
-    under ``torch.profiler`` and ``window`` without.  Prints the
-    ``[capture]`` line.  Gates: greedy streams equal token for token (or,
-    where a bf16 stream differs, the logits at the first differing step
-    within 2e-2 of the largest logit), fewer host launches a captured
-    step than an eager one, and one capture."""
+    every entry eager (``stepcore.eager()``) and once captured; then one
+    prefill chunk of a long prompt under ``torch.profiler`` and its next
+    ``window`` without (an eager chunk's trace at G = 4 holds ~35 k
+    kernels, whose processing is the phase's longest part), and, with
+    every slot decoding, ``window`` decode steps each way.  Prints the ``[capture]`` line.  Gates: greedy
+    streams equal token for token (or, where a bf16 stream differs, the
+    logits at the first differing step within 2e-2 of the largest logit),
+    fewer host launches a captured chunk and step than eager ones, at
+    most 2 a captured chunk without skew, one capture of each entry."""
     import contextlib
     import numpy as np
     import torch
@@ -902,8 +909,13 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
     prompts = [rng.integers(0, cfg.vocab_size,
                             (int(rng.integers(*prompt_lens)),))
                for _ in range(n_requests)]
+    budget = 4 * window + 16
+    # the prefill window's prompt: 1 + window whole chunks and a partial one
+    long_prompt = rng.integers(0, cfg.vocab_size, (min(
+        (window + 1) * prefill_chunk + prefill_chunk // 2,
+        max_seq_len - budget),))
     fill = [rng.integers(0, cfg.vocab_size, (prefill_chunk,))
-            for _ in range(slots)]
+            for _ in range(slots - 1)]
     runs = {}
     for mode in ("eager", "captured"):
         ctx = stepcore.eager() if mode == "eager" \
@@ -930,9 +942,18 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                                    max_new_tokens=new_tokens)
                            for i, p in enumerate(prompts)])
             record[0] = False
+            # prefill chunks of one long prompt, alone on the card
+            eng.submit(Request(rid=999, tokens=long_prompt,
+                               max_new_tokens=budget))
+            eng._admit(eng.clock.now())
+
+            def chunk():
+                eng._prefill_work(eng.clock.now())
+            pf_prof = profile_steps(chunk, 1, f"{tag}_{mode}_prefill")
+            pf_wall = untraced_ms(chunk, window)
             for i, p in enumerate(fill):
                 eng.submit(Request(rid=1000 + i, tokens=p,
-                                   max_new_tokens=4 * window + 16))
+                                   max_new_tokens=budget))
             while not eng.active.all():
                 eng.step()
 
@@ -942,10 +963,11 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
             wall = untraced_ms(step, window)
             runs[mode] = {
                 "rep": rep, "outputs": outputs, "steps": steps,
-                "prof": prof, "wall_ms": wall,
+                "prof": prof, "wall_ms": wall, "pf_prof": pf_prof,
+                "pf_wall_ms": pf_wall,
                 "jit_after_window": eng.report()["jit_entries"],
-                "predraw_ms": core.predraw_s * 1e3 / max(core.predraw_steps,
-                                                         1)}
+                "predraw_ms": core.predraw_ms("decode"),
+                "pf_predraw_ms": core.predraw_ms("prefill_chunk")}
             del eng, core
         gc.collect()
         torch.cuda.empty_cache()
@@ -967,10 +989,26 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
             "streams_equal": e["outputs"] == c["outputs"],
             "first_difference": first}
     for mode, r in runs.items():
-        p = r["prof"]
+        p, pf = r["prof"], r["pf_prof"]
         line[mode] = {
             "tpot_p50_s": r["rep"]["tpot"]["p50"],
             "ttft_p50_s": r["rep"]["ttft"]["p50"],
+            "prefill_chunk": {
+                "prompt_tokens": len(long_prompt),
+                "wall_ms": r["pf_wall_ms"],
+                "traced_wall_ms": pf["wall_ms_per_step"],
+                "device_busy_ms": pf["device_busy_ms_per_step"],
+                "device_idle_share": pf["device_idle_share"],
+                "device_idle_share_untraced":
+                    1.0 - pf["device_busy_ms_per_step"] / r["pf_wall_ms"],
+                "kernel_calls": pf["kernel_calls_per_step"],
+                "host_launches": pf["host_launches_per_step"]
+                + pf["graph_launches_per_step"],
+                "graph_launches": pf["graph_launches_per_step"],
+                "copies_and_syncs":
+                    pf["host_device_syncs_and_copies_per_step"],
+                "skew_predraw_host_ms": r["pf_predraw_ms"],
+                "top_kernels_ms": pf["top_kernels_ms_per_step"][:4]},
             "wall_ms_per_decode_step": r["wall_ms"],
             "traced_wall_ms_per_decode_step": p["wall_ms_per_step"],
             "device_busy_ms_per_step": p["device_busy_ms_per_step"],
@@ -986,8 +1024,9 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
         }
     log(f"[capture] {json.dumps(line)}")
     check_one_capture(f"capture {tag}", c["rep"])
-    if c["jit_after_window"] != {"decode": 1} \
-            or e["rep"]["jit_entries"] != {"decode": 0}:
+    if c["jit_after_window"] != jit_entries(paged, 1) \
+            or e["rep"]["jit_entries"] != jit_entries(paged, 0) \
+            or e["jit_after_window"] != jit_entries(paged, 0):
         raise AssertionError(
             f"[capture] {tag}: captures {e['rep']['jit_entries']} (eager), "
             f"{c['jit_after_window']} (captured, after the window)")
@@ -1006,18 +1045,35 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
         raise AssertionError(f"[capture] {tag}: captured host launches a "
                              f"step {line['captured']} not below eager "
                              f"{line['eager']}")
+    pf_e, pf_c = (line[m]["prefill_chunk"] for m in ("eager", "captured"))
+    if not pf_c["host_launches"] < pf_e["host_launches"]:
+        raise AssertionError(f"[capture] {tag}: captured host launches a "
+                             f"prefill chunk {pf_c} not below eager {pf_e}")
+    skew = cfg.moe.router_skew > 0
+    if not skew and pf_c["host_launches"] > 2:
+        raise AssertionError(f"[capture] {tag}: a captured prefill chunk "
+                             f"made {pf_c['host_launches']} host launches, "
+                             f"more than its graph and the write's")
     return line
 
 
+def jit_entries(paged, n):
+    """The engine's ``jit_entries`` with each of its three entries at n."""
+    write = "write_blocks" if paged else "write_slot"
+    return {"prefill_chunk": n, "decode": n, write: n}
+
+
 def check_one_capture(tag, rep):
-    """The engine captured its decode step once, at warmup, and replayed
-    it for the whole run (the JAX engine's ``jit_entries`` contract)."""
-    if rep["jit_entries"] != {"decode": 1} \
+    """The engine captured its prefill chunk, its decode step and the
+    store's write once each, at warmup, and replayed them for the whole
+    run (the JAX engine's ``jit_entries`` contract)."""
+    want = jit_entries(rep["engine"]["paged"], 1)
+    if rep["jit_entries"] != want \
             or rep.get("recompiled_after_warmup") is not False:
         raise AssertionError(f"[{tag}] jit_entries {rep['jit_entries']}, "
                              f"recompiled_after_warmup "
-                             f"{rep.get('recompiled_after_warmup')}: the "
-                             f"decode step must be captured once")
+                             f"{rep.get('recompiled_after_warmup')}: want "
+                             f"{want}, each entry captured once")
 
 
 def _leaves(tree):
@@ -1689,7 +1745,8 @@ def main() -> int:
                       for r in parity[name]],
         })
     log(f"[capture] {len(captures)} configurations: captured streams "
-        f"equal the eager ones and take fewer host launches a step")
+        f"equal the eager ones and take fewer host launches a prefill "
+        f"chunk and a decode step")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,12 @@ of the PyTorch port's paths (random weights, bf16):
 qwen15-moe-a27b; also moonshot-v1-16b-a3b or switch128) in
 ``ServeEngine`` with 4 slots, on the paged KV pool or, with ``--slab``,
 on the slab (the engine's default); traces the first 32-token prefill
-chunk of a request, then, with every slot decoding, a few pure decode
-steps: the decode step captured as a CUDA graph at ``warmup()``, as the
-engine runs it, and with ``--eager`` also the same engine's eager step
-(``stepcore.eager()``), each phase printed for both, in one call.
+chunk of a request (and the second, untraced), then, with every slot
+decoding, a few pure decode steps: the prefill chunk, the decode step and
+the KV store's write captured as CUDA graphs at ``warmup()``, as the
+engine runs them, and with ``--eager`` also the same engine with every
+entry eager (``stepcore.eager()``), each phase printed for both, in one
+call.
 ``ep``: the same at expert-parallel degree 4 on virtual ranks under the
 synthetic skew of ``chip_smoke.py``'s phase 4b (0.9 on one expert,
 q = 1), once with the harmoeny schedule and once with round_robin.
@@ -60,8 +62,9 @@ def main() -> int:
                     help="serve path: the slab KV pool instead of the "
                          "paged one")
     ap.add_argument("--eager", action="store_true",
-                    help="serve / ep paths: also profile the eager decode "
-                         "step (stepcore.eager()) beside the captured one")
+                    help="serve / ep paths: also profile the eager prefill "
+                         "chunk and decode step (stepcore.eager()) beside "
+                         "the captured ones")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -195,7 +198,9 @@ def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
     eng._prefill_work(eng.clock.now())
     torch.cuda.synchronize()
     print(json.dumps({"phase": "prefill_chunk_unprofiled" + tag,
-                      "wall_ms_per_step": (time.perf_counter() - t0) * 1e3}),
+                      "wall_ms_per_step": (time.perf_counter() - t0) * 1e3,
+                      "skew_predraw_host_ms_per_step":
+                          eng.core.predraw_ms("prefill_chunk")}),
           flush=True)
     while not eng.active.all():      # fill every slot
         eng.step()
@@ -219,7 +224,7 @@ def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
                       / decode_steps,
                       "jit_entries": eng.report()["jit_entries"],
                       "skew_predraw_host_ms_per_step":
-                          core.predraw_s * 1e3 / max(core.predraw_steps, 1)}),
+                          core.predraw_ms("decode")}),
           flush=True)
     return 0
 

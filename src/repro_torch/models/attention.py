@@ -5,8 +5,10 @@ Port of ``repro/models/attention.py``: the projections and RoPE, the plain
 ``decode_attention``, and four ``attention_block`` branches:
 
 * ``continue_prefill``: x is a [B, C] prompt chunk at position
-  ``q_offset``; its K/V are written into the slab scratch at
-  [q_offset, q_offset + C) and attention runs through the paged kernel
+  ``q_offset`` (an int or a 0-d device tensor, which a captured step
+  reads); its K/V are written into the slab scratch at
+  [q_offset, q_offset + C) with ``index_copy_`` (the reference's
+  ``dynamic_update_slice``) and attention runs through the paged kernel
   over the slab viewed as B contiguous block chains (identity block table,
   ``largest_block_divisor(S_max)`` positions per block, ``cache_len =
   q_offset + C``), whose causal pruning stops at the write frontier.
@@ -146,10 +148,13 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     fused = x.device.type == "cuda"
 
     if continue_prefill and block_table is None:
+        # the chunk's start stays on the device (a host int would be baked
+        # into a captured step): the writes go to start + [0, S)
         S_max = cache.k.shape[1]
-        start = int(q_offset)
-        cache.k[:, start:start + S] = k.to(cache.k.dtype)
-        cache.v[:, start:start + S] = v.to(cache.v.dtype)
+        start = torch.as_tensor(q_offset, device=x.device).reshape(())
+        at = start.long() + ar
+        cache.k.index_copy_(1, at, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, at, v.to(cache.v.dtype))
         bs_slab = largest_block_divisor(S_max)
         nb = S_max // bs_slab
         Hkv, hd = cache.k.shape[2], cache.k.shape[3]
@@ -159,7 +164,8 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         _record_dispatch("prefill_continue", fused=fused)
         out = paged_attention(q, cache.k.view(1, B * S_max, Hkv, hd),
                               cache.v.view(1, B * S_max, Hkv, hd), table,
-                              start + S, block_size=bs_slab, softcap=softcap)
+                              (start + S).to(torch.int32),
+                              block_size=bs_slab, softcap=softcap)
     elif block_table is not None:
         cl = torch.as_tensor(cache_len, device=x.device).to(
             torch.int32).reshape(-1).expand(B)

@@ -6,8 +6,8 @@ moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
 GELU MLPs (switch128).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
   prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
-  prefill_chunk(params, tokens, caches, pos, last_index, skew_key)
-                                               -> (logits, caches, pos + C, diags)
+  prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
+                skew_assign)                   -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
               block_size, moe_policy, skew_assign)
                                                -> (logits, caches, pos + S, diags)
@@ -185,26 +185,33 @@ class Model:
                                   skew_key=skew_key)
         return self._head(params, h[:, -1]), caches, pos, diags
 
-    def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos: int,
-                      last_index: Optional[int] = None,
-                      skew_key: Optional[SkewKey] = None):
+    def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos,
+                      last_index=None, skew_key: Optional[SkewKey] = None,
+                      skew_assign: Optional[torch.Tensor] = None):
         """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
         ``caches`` at position ``pos`` (all rows share it).  Logits at
         ``last_index`` (default C - 1); pad tokens past it are kept out of
-        MoE routing and capacity."""
+        MoE routing and capacity.  ``pos`` and ``last_index`` are ints or
+        0-d device tensors; with tensors (and ``skew_assign``
+        [n_moe_layers, G, t_slice, k] in place of the skew key, as in
+        ``decode_step``) the chunk reads no host value, so the serve
+        engine's captured chunk replays at any position."""
         Bc, C = tokens.shape
         spec = dataclasses.replace(self.moe_spec, tokens_local=Bc * C)
         vmask = None
         if last_index is not None:
+            last = torch.as_tensor(last_index, device=self.device).reshape(1)
             vmask = (torch.arange(C, device=self.device)[None, :]
-                     <= last_index).expand(Bc, C)
+                     <= last).expand(Bc, C)
         h = params["embed"][tokens]
         h, stack, diags = T.run_stack(
             h, params["stack"], self.cfg, cache=caches["stack"],
             cache_len=pos + C, q_offset=pos, moe_spec=spec, comm=self.comm,
-            skew_key=skew_key, continue_prefill=True, valid_mask=vmask)
-        idx = C - 1 if last_index is None else last_index
-        return self._head(params, h[:, idx]), caches, pos + C, diags
+            skew_key=skew_key, continue_prefill=True, valid_mask=vmask,
+            skew_assign=skew_assign)
+        h_last = (h[:, -1] if last_index is None
+                  else h.index_select(1, last.long())[:, 0])
+        return self._head(params, h_last), caches, pos + C, diags
 
     def decode_step(self, params, token: torch.Tensor, caches, pos, *,
                     skew_key: Optional[SkewKey] = None, active_mask=None,

@@ -33,13 +33,16 @@ steps' scheduling policy, and a model with synthetic router skew draws
 its routing from the ``skew_seed`` key streams (``StepCore``).
 ``report()["load_balance"]`` holds the per-rank and per-expert loads.
 
-On the card the decode step is captured once as a CUDA graph, at
-``warmup()`` or at the first decode step, and replayed at every step
-after (``StepCore``); the prefill chunk runs eagerly.
-``report()["jit_entries"]`` counts the captured entries and, after
-``warmup()``, ``recompiled_after_warmup`` says whether any was captured
-again (the JAX engine's names: one entry each across admissions, slot
-recycling, block growth, preemption and EOS).
+On the card the prefill chunk, the decode step and the store's
+scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on the
+slab) are each captured once as a CUDA graph, at ``warmup()`` or at
+first use, and replayed at every call after (``StepCore``, ``KVOwner``).
+A chunk costs one copy to the host and one stream sync, which reads its
+first token and diagnostics.  ``report()["jit_entries"]`` counts the
+captured entries and, after ``warmup()``, ``recompiled_after_warmup``
+says whether any was captured again (the JAX engine's names: one entry
+each across chunk positions, admissions, slot recycling, block growth,
+preemption, re-prefill and EOS).
 """
 from __future__ import annotations
 
@@ -56,7 +59,6 @@ from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request, RequestState, RequestStatus
-from repro_torch.serve.sampling import sample_tokens
 from repro_torch.serve.statestore import make_state_store
 from repro_torch.serve.stepcore import StepCore
 
@@ -296,10 +298,6 @@ class ServeEngine:
                     break
 
     # ------------------------------------------------------------------
-    def _host_diags(self, diags) -> Dict[str, np.ndarray]:
-        """A prefill chunk's device diagnostics on the host: one copy."""
-        return self.core.host_diags(diags) if self.cfg.is_moe else {}
-
     def _prefill_work(self, now: float) -> bool:
         front = self.front
         did = False
@@ -315,16 +313,16 @@ class ServeEngine:
             n = min(C, L - start)
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :n] = seq[start:start + n]
-            logits, diags = self.core.prefill(self.params, chunk,
-                                              self.kv.scratch, start, n - 1,
-                                              self._chunk_idx)
+            self.core.prefill(self.params, chunk, self.kv.scratch, start,
+                              n - 1, self._chunk_idx)
             self._chunk_idx += 1
             self.kv.after_chunk(st.req.rid, start)
             st.prefill_pos += n
             if st.prefill_done:
                 self.kv.on_prefill_done(st.slot)
-            self._sync()
-            self.metrics.record_step(self._host_diags(diags), 0,
+            # one copy and one sync: the chunk's writes are done too
+            first, packed = self.core.prefill_result()
+            self.metrics.record_step(self.core.unpack(packed), 0,
                                      phase="prefill")
             did = True
             if st.prefill_done:
@@ -334,7 +332,6 @@ class ServeEngine:
                     self._activate(st, L, st.output[-1])
                     front.pf = None
                     continue
-                first = int(sample_tokens(logits)[0])
                 # stamp after the device sync: TTFT includes the prefill
                 now = self.clock.now()
                 st.first_token_time = now
@@ -389,11 +386,11 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Run one prefill chunk and one decode step on dummy data, so the
-        first request's TTFT does not include building the kernels,
-        first-call set-up or, on the card, capturing the decode step.
-        Writes land in the null block (paged) or in slot 0 and the
-        scratch (slab), so the engine must be idle."""
+        """Run one prefill chunk, the store's write and one decode step on
+        dummy data, so the first request's TTFT does not include building
+        the kernels, first-call set-up or, on the card, capturing the
+        three entries.  Writes land in the null block (paged) or in slot
+        0 and the scratch (slab), so the engine must be idle."""
         if self.has_work() or any(st is not None
                                   for st in self.front.state_by_slot):
             raise RuntimeError("warmup() must run on an idle engine")
@@ -402,11 +399,12 @@ class ServeEngine:
         self.core.prefill(self.params, np.zeros((1, C), np.int32),
                           self.kv.scratch, 0, C - 1, 2 ** 31 - 1)
         table = self.kv.warm()
+        self.core.prefill_result()
         self.core.decode(self.params, self.tok, self.kv.pool, self.pos,
                          table, self.active, 2 ** 31 - 1)
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
-        self._warm_counts = self.core.jit_counts()
+        self._warm_counts = self.jit_counts()
 
     def step(self) -> bool:
         """One scheduler tick: admit, prefill chunk(s), decode the batch."""
@@ -439,6 +437,11 @@ class ServeEngine:
                                    f"with work remaining")
         return self.report()
 
+    def jit_counts(self) -> Dict[str, int]:
+        """Every captured entry, by the JAX engine's names: the step
+        core's and the store's write."""
+        return {**self.core.jit_counts(), **self.kv.jit_counts()}
+
     def report(self) -> Dict[str, Any]:
         rep = self.metrics.report()
         rep["engine"] = {
@@ -462,7 +465,7 @@ class ServeEngine:
                 else attention_dispatch.dispatch_log())
         rep["attention_dispatch"] = {d["branch"]: {"fused": d["fused"]}
                                      for d in snap}
-        rep["jit_entries"] = self.core.jit_counts()
+        rep["jit_entries"] = self.jit_counts()
         if self._warm_counts is not None:
             rep["recompiled_after_warmup"] = \
                 rep["jit_entries"] != self._warm_counts

@@ -13,19 +13,25 @@ KV-length axes are discovered structurally (``serve/slots.py``), so
 leading dense layers' leaves ``[B, S, Hkv, hd]`` sit beside stacked ones
 ``[n, B, S, Hkv, hd]``.  The engine keeps the scheduling state and
 delegates every pool or allocator touch here.
+
+The write is compiled once, as JAX jits ``write_blocks`` / ``write_slot``
+(``stepcore.Entry``): it reads the block-table row and chunk start, or
+the slot, from a static int32 device buffer filled from pinned memory,
+and on the card it is captured as its own CUDA graph at ``warm()`` (or
+its first use) and replayed after.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.configs.base import round_up
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
                                       blocks_for_tokens, write_chunk_blocks)
 from repro_torch.serve.slots import (discover_batch_axes, discover_seq_axes,
                                      min_kv_capacity, write_slot)
+from repro_torch.serve.stepcore import Entry, Staged
 
 
 class KVOwner:
@@ -62,6 +68,10 @@ class KVOwner:
                 model.init_cache, ecfg.max_seq_len, self.seq_axes)
             self.pool = model.init_cache(B, ecfg.max_seq_len)
             self.scratch = model.init_cache(1, ecfg.max_seq_len)
+        # paged: block-table row | chunk start; slab: the slot
+        self._in = Staged(self.blocks_per_slot + 1, self.device)
+        self.write = Entry(lambda pool, scratch: self._write(pool, scratch),
+                           self.device)
 
     # ------------------------------------------------------------------
     # SequenceStateStore protocol (serve/statestore.py)
@@ -91,13 +101,13 @@ class KVOwner:
         """The scratch holds a finished chunk at ``start``: paged, scatter
         it into ``rid``'s blocks (the slab commits once, at the end)."""
         if self.paged:
-            self._write_chunk(self.bt_row(rid), start)
+            self._stage_write(np.append(self.bt_row(rid), start))
 
     def on_prefill_done(self, slot: int) -> None:
         """The scratch holds a whole prefill: on the slab, copy it into
         row ``slot`` (paged chains were written chunk by chunk)."""
         if not self.paged:
-            write_slot(self.pool, self.scratch, slot, self.batch_axes)
+            self._stage_write(np.array([slot]))
 
     def activate(self, rid: int, slot: int) -> None:
         """``rid`` joins the decode batch in ``slot``: paged, its table
@@ -134,14 +144,15 @@ class KVOwner:
 
     def warm(self) -> Optional[np.ndarray]:
         """Run the scratch-to-pool write once where no request reads it
-        (the null block; row 0 of an idle slab) and return the block
+        (the null block; row 0 of an idle slab), which on the card
+        captures it, and return the block
         table a warm-up decode step should read (all null; None on the
         slab)."""
         if not self.paged:
             self.on_prefill_done(0)
             return None
-        self._write_chunk(np.full((self.blocks_per_slot,), NULL_BLOCK,
-                                  np.int32), 0)
+        self._stage_write(np.append(np.full((self.blocks_per_slot,),
+                                            NULL_BLOCK, np.int32), 0))
         return np.full_like(self.block_table, NULL_BLOCK)
 
     def release(self, rid: int, slot: int) -> None:
@@ -169,9 +180,24 @@ class KVOwner:
                 "usable_blocks": self.alloc.usable_blocks,
                 "blocks_in_use": self.alloc.blocks_in_use}
 
-    def _write_chunk(self, bt_row: np.ndarray, start: int) -> None:
-        write_chunk_blocks(
-            self.pool, self.scratch,
-            torch.as_tensor(bt_row, device=self.device), start,
-            chunk=self.ecfg.prefill_chunk,
-            block_size=self.ecfg.kv_block_size, seq_axes=self.seq_axes)
+    def jit_counts(self) -> Dict[str, int]:
+        """The captured write, by the JAX engine's name."""
+        return {("write_blocks" if self.paged else "write_slot"):
+                self.write.captures}
+
+    def _stage_write(self, values: np.ndarray) -> None:
+        self._in.fill()[:] = values
+        self._in.push()
+        self.write(self.pool, self.scratch)
+
+    def _write(self, pool, scratch) -> None:
+        """The scratch-to-pool write on the static buffer: what the graph
+        holds."""
+        d = self._in.dev
+        if self.paged:
+            write_chunk_blocks(pool, scratch, d[:-1], d[-1],
+                               chunk=self.ecfg.prefill_chunk,
+                               block_size=self.ecfg.kv_block_size,
+                               seq_axes=self.seq_axes)
+        else:
+            write_slot(pool, scratch, d, self.batch_axes)

@@ -144,18 +144,21 @@ def make_paged_pool(init_cache: Callable[..., Any], s_ref: int,
 
 
 def write_chunk_blocks(pool: Any, scratch: Any, bt_row: torch.Tensor,
-                       start: int, *, chunk: int, block_size: int,
+                       start, *, chunk: int, block_size: int,
                        seq_axes: Sequence[int]) -> Any:
     """Scatter scratch positions ``[start, start + chunk)`` into the paged
     pool through one slot's block-table row (in place), each leaf along
-    its own KV-length axis ``seq_axes[i]``.  The chain behind ``bt_row``
-    covers the chunk-rounded sequence, so the padding of a partial final
-    chunk lands in the slot's own blocks, as garbage past its length that
-    decode overwrites before it is read; entries still on the null block
-    write into discarded space."""
-    log = start + torch.arange(chunk, device=bt_row.device)
+    its own KV-length axis ``seq_axes[i]``.  ``start`` is an int or a 0-d
+    device tensor (which a captured write reads).  The chain behind
+    ``bt_row`` covers the chunk-rounded sequence, so the padding of a
+    partial final chunk lands in the slot's own blocks, as garbage past
+    its length that decode overwrites before it is read; entries still on
+    the null block write into discarded space."""
+    dev = bt_row.device
+    log = (torch.as_tensor(start, device=dev).reshape(()).long()
+           + torch.arange(chunk, device=dev))
     phys = bt_row.long()[log // block_size] * block_size + log % block_size
     for p, s, ax in zip(kv_leaves(pool), kv_leaves(scratch), seq_axes):
-        src = s.movedim(ax, 0)[start:start + chunk]
+        src = s.index_select(ax, log).movedim(ax, 0)
         p.movedim(ax, 0)[phys] = src.to(p.dtype)
     return pool

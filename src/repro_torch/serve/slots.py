@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import torch
+
 from repro_torch.serve.paging import kv_leaves
 
 
@@ -63,10 +65,11 @@ def min_kv_capacity(init_cache: Callable[..., Any], s_max: int,
                zip(_shapes(init_cache, 1, s_max), seq_axes))
 
 
-def write_slot(pool: Any, scratch: Any, slot: int,
-               batch_axes: List[int]) -> Any:
-    """Copy the batch-1 ``scratch`` cache into row ``slot`` of every pool
-    leaf, along that leaf's own batch axis (in place)."""
+def write_slot(pool: Any, scratch: Any, slot, batch_axes: List[int]) -> Any:
+    """Copy the batch-1 ``scratch`` cache into row ``slot`` (an int or a
+    device tensor of one element, which a captured write reads) of every
+    pool leaf, along that leaf's own batch axis (in place)."""
     for p, s, ax in zip(kv_leaves(pool), kv_leaves(scratch), batch_axes):
-        p.narrow(ax, slot, 1).copy_(s)
+        row = torch.as_tensor(slot, device=p.device).reshape(1).long()
+        p.index_copy_(ax, row, s.to(p.dtype))
     return pool

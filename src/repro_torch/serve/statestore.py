@@ -83,6 +83,10 @@ class SequenceStateStore(Protocol):
         """The ``state_pool`` report section."""
         ...
 
+    def jit_counts(self) -> Dict[str, int]:
+        """The store's compiled entries (captured graphs), by name."""
+        ...
+
 
 def make_state_store(model, ecfg, *, s_pad: int) -> SequenceStateStore:
     """The state store for ``model``: ``KVOwner`` in whichever of its two

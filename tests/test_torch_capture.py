@@ -14,9 +14,13 @@ the boolean-mask and ``bincount`` forms they replace, the skew pre-draws
 equal ``route_skewed``'s per-layer draws, and ``report()`` carries
 ``jit_entries``.
 
-Marked ``cuda`` (skip without a GPU): one capture across admissions, slot
-recycling, block growth, preemption and EOS on both pools, and captured
-greedy streams equal to eager ones on reduced f32 models."""
+Marked ``cuda`` (skip without a GPU): one capture of each entry (the
+prefill chunk, the decode step, the store's write) across admissions,
+slot recycling, block growth, preemption and EOS on both pools; captured
+greedy streams equal to eager ones on reduced f32 models, also at two
+chunks an engine step and under preemption with resumed re-prefills; and
+the card's streams equal to the CPU's.  The prefill chunk's own CPU
+checks are in ``test_torch_prefill_capture.py``."""
 import dataclasses
 import os
 import shutil
@@ -121,9 +125,12 @@ def _engine(cfg, *, paged, ep_degree=1, policy=None, device="cpu",
     kw = dict(max_slots=SLOTS, prompt_len=L, max_new_tokens=GEN,
               prefill_chunk=C, kv_block_size=4, paged=paged,
               moe_policy=policy, skew_seed=3)
+    cps = ecfg.pop("chunks_per_step", 1)
     kw.update(ecfg)
-    return ServeEngine(model, params, engine_config_for(cfg, **kw),
-                       clock=VirtualClock(0.1), device=device)
+    ecfg = dataclasses.replace(engine_config_for(cfg, **kw),
+                               chunks_per_step=cps)
+    return ServeEngine(model, params, ecfg, clock=VirtualClock(0.1),
+                       device=device)
 
 
 def _tree_to(tree, dev):
@@ -301,8 +308,9 @@ def test_skew_predraws_equal_route_skewed_draws():
 
 @pytest.mark.parametrize("warm", [False, True])
 def test_report_carries_jit_entries(warm):
-    """On the CPU the step runs eagerly: one entry name, no capture, and
-    no kernel launch counted (the wrappers run their plain versions)."""
+    """On the CPU the entries run eagerly: the JAX engine's three entry
+    names, no capture, and no kernel launch counted (the wrappers run
+    their plain versions)."""
     eng = _engine(_reduced("qwen15-moe-a27b"), paged=True)
     launches = [fn.launches for fn in stepcore.kernel_wrappers()]
     if warm:
@@ -310,7 +318,8 @@ def test_report_carries_jit_entries(warm):
     rng = np.random.default_rng(6)
     _, rep = captured_run(eng, [Request(rid=i, tokens=rng.integers(
         1, 500, (6,)), max_new_tokens=3) for i in range(2)])
-    assert rep["jit_entries"] == {"decode": 0}
+    assert rep["jit_entries"] == {"prefill_chunk": 0, "decode": 0,
+                                  "write_blocks": 0}
     if warm:
         assert rep["recompiled_after_warmup"] is False
     else:
@@ -350,11 +359,28 @@ def _mixed_trace(n=8, seed=9):
         for i in range(n)]
 
 
+def _chunk_trace(n=8, seed=9):
+    """Prompts of 3-12 tokens whose last chunk ends at each of the 4
+    positions of a chunk, some of them partial, starting at 0, 4 and 8."""
+    rng = np.random.default_rng(seed)
+    lens = (3, 4, 5, 7, 8, 10, 11, 12)[:n]
+    return [Request(rid=i, tokens=rng.integers(1, 500, (n_tok,)),
+                    max_new_tokens=GEN, arrival_time=0.2 * i)
+            for i, n_tok in enumerate(lens)]
+
+
+def _entries(paged, n):
+    """The engine's ``jit_entries`` with every entry at ``n``."""
+    write = "write_blocks" if paged else "write_slot"
+    return {"prefill_chunk": n, "decode": n, write: n}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
 def test_one_capture_across_the_engine_lifecycle(cuda, paged):
     """Admissions, slot recycling, block growth, preemption (paged, 7
-    blocks) and EOS: the decode step is captured once, at warmup."""
+    blocks) with resumed re-prefills, and EOS: each entry is captured
+    once, at warmup."""
     cfg = _reduced("qwen15-moe-a27b")
     extra = dict(num_kv_blocks=7) if paged else {}
     first = _engine(cfg, paged=paged, device="cuda", **extra)
@@ -364,9 +390,9 @@ def test_one_capture_across_the_engine_lifecycle(cuda, paged):
     eos = next(t for toks in out.values() for t in toks[1:-1])
     eng = _engine(cfg, paged=paged, device="cuda", eos_id=int(eos), **extra)
     eng.warmup()
-    assert eng.report()["jit_entries"] == {"decode": 1}
+    assert eng.report()["jit_entries"] == _entries(paged, 1)
     out2, rep2 = captured_run(eng, _mixed_trace())
-    assert rep2["jit_entries"] == {"decode": 1}
+    assert rep2["jit_entries"] == _entries(paged, 1)
     assert rep2["recompiled_after_warmup"] is False
     assert rep2["n_requests"] == 8
     assert any(len(t) < GEN for t in out2.values())          # EOS
@@ -374,19 +400,35 @@ def test_one_capture_across_the_engine_lifecycle(cuda, paged):
         assert rep2["preemptions"] > 0 and rep["preemptions"] > 0
 
 
-def _streams(cfg, *, paged, ep_degree, eager):
-    eng = _engine(cfg, paged=paged, ep_degree=ep_degree, device="cuda")
+def _streams(cfg, *, paged, ep_degree, eager, **ecfg):
+    eng = _engine(cfg, paged=paged, ep_degree=ep_degree, device="cuda",
+                  **ecfg)
     if eager:
         with stepcore.eager():
             eng.warmup()
-            out, rep = captured_run(eng, _mixed_trace())
-        assert rep["jit_entries"] == {"decode": 0}
+            out, rep = captured_run(eng, _chunk_trace())
+        assert rep["jit_entries"] == _entries(paged, 0)
     else:
         eng.warmup()
-        out, rep = captured_run(eng, _mixed_trace())
-        assert rep["jit_entries"] == {"decode": 1}
+        out, rep = captured_run(eng, _chunk_trace())
+        assert rep["jit_entries"] == _entries(paged, 1)
         assert rep["recompiled_after_warmup"] is False
     return out, rep
+
+
+def _equal_runs(cfg, *, paged, ep, **ecfg):
+    out_e, rep_e = _streams(cfg, paged=paged, ep_degree=ep, eager=True,
+                            **ecfg)
+    out_c, rep_c = _streams(cfg, paged=paged, ep_degree=ep, eager=False,
+                            **ecfg)
+    assert out_c == out_e
+    for phase in ("decode", "prefill"):
+        for key in ("moved_units", "sched_iters", "send_drops",
+                    "dest_drops"):
+            assert rep_c["moe"][f"{phase}/{key}"] == \
+                rep_e["moe"][f"{phase}/{key}"], (phase, key)
+    assert rep_c["prefill_chunks"] == rep_e["prefill_chunks"]
+    return rep_c
 
 
 @pytest.mark.cuda
@@ -395,14 +437,50 @@ def _streams(cfg, *, paged, ep_degree, eager):
     ("moonshot-v1-16b-a3b", 1), ("switch128", 1)])
 @pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
 def test_captured_streams_equal_eager_streams(cuda, arch, ep, paged):
-    """Reduced f32 models on the card: the captured step's greedy streams
-    equal the eager step's, token for token (G = 4 with q = 1, so units
-    move and foreign groups carry rows)."""
+    """Reduced f32 models on the card: the captured entries' greedy
+    streams and MoE diagnostics equal the eager entries', token for token,
+    over prompts whose last chunk ends at every chunk position (G = 4
+    with q = 1, so units move and foreign groups carry rows)."""
     cfg = _reduced(arch, q_tokens=1) if ep > 1 else _reduced(arch)
-    out_e, rep_e = _streams(cfg, paged=paged, ep_degree=ep, eager=True)
-    out_c, rep_c = _streams(cfg, paged=paged, ep_degree=ep, eager=False)
-    assert out_c == out_e
-    for key in ("moved_units", "sched_iters", "send_drops", "dest_drops"):
-        assert rep_c["moe"][f"decode/{key}"] == rep_e["moe"][f"decode/{key}"]
+    rep = _equal_runs(cfg, paged=paged, ep=ep)
     if ep > 1:
-        assert rep_c["moe"]["decode/moved_units"] > 0
+        assert rep["moe"]["decode/moved_units"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep,paged,extra", [
+    (1, False, dict(chunks_per_step=2)),
+    (1, True, dict(chunks_per_step=2)),
+    (1, True, dict(num_kv_blocks=7)),
+    (G, True, dict(num_kv_blocks=7)),
+    (G, False, dict(chunks_per_step=2))],
+    ids=["g1-slab-2chunks", "g1-paged-2chunks", "g1-paged-preempt",
+         "g4-paged-preempt", "g4-slab-2chunks"])
+def test_captured_prefill_streams_under_chunk_pairs_and_preemption(
+        cuda, ep, paged, extra):
+    """Two chunks an engine step (the prefill graph replayed back to back,
+    each from its own staging copy) and preemption with resumed
+    re-prefills through the same graph: captured streams equal eager."""
+    cfg = (_reduced("qwen15-moe-a27b", q_tokens=1) if ep > 1
+           else _reduced("qwen15-moe-a27b"))
+    rep = _equal_runs(cfg, paged=paged, ep=ep, **extra)
+    if "num_kv_blocks" in extra:
+        assert rep["preemptions"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,ep", [
+    ("qwen15-moe-a27b", 1), ("qwen15-moe-a27b", G),
+    ("moonshot-v1-16b-a3b", 1), ("switch128", 1)])
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_card_streams_equal_cpu_streams(cuda, arch, ep, paged):
+    """Reduced f32 models: the card's captured entries give the CPU's
+    plain-version greedy streams."""
+    cfg = _reduced(arch, q_tokens=1) if ep > 1 else _reduced(arch)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = _engine(cfg, paged=paged, ep_degree=ep, device=dev)
+        eng.warmup()
+        outs[dev], rep = captured_run(eng, _chunk_trace())
+    assert rep["jit_entries"] == _entries(paged, 1)
+    assert outs["cuda"] == outs["cpu"]

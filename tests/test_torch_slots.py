@@ -2,7 +2,9 @@
 ``serve/paging.py``) against the JAX package's on the same cache layouts
 and the same numpy arrays: per-leaf batch and KV-length axes, the pool's
 KV capacity, the paged pool's shapes, ``write_slot`` and
-``write_chunk_blocks`` bit for bit.  Reduced moonshot-v1-16b-a3b carries a
+``write_chunk_blocks`` bit for bit, each also with its slot or start in
+a device buffer (the captured write's form) and in the host-int form it
+replaced.  Reduced moonshot-v1-16b-a3b carries a
 leading dense layer (leaf ``[B, S, Hkv, hd]`` beside stacked leaves
 ``[n, B, S, Hkv, hd]``), reduced switch128 a stack of dense/MoE periods.
 The store factory refuses the recurrent families, whose slotted store is
@@ -123,6 +125,84 @@ def test_write_chunk_blocks_equals_jax_bit_for_bit(pair, start, bt):
         seq_axes=slots.discover_seq_axes(tm.init_cache, S_MAX))
     for g, e in zip(_port_leaves(tpool), jax.tree.leaves(want)):
         np.testing.assert_array_equal(g, np.asarray(e))
+
+
+def _write_slot_narrow(pool, scratch, slot, batch_axes):
+    """``write_slot``'s host-int form before the captured write."""
+    for p, s, ax in zip(paging.kv_leaves(pool), paging.kv_leaves(scratch),
+                        batch_axes):
+        p.narrow(ax, slot, 1).copy_(s)
+
+
+def _write_chunk_blocks_sliced(pool, scratch, bt_row, start, *, chunk,
+                               block_size, seq_axes):
+    """``write_chunk_blocks``' host-int form before the captured write."""
+    log = start + torch.arange(chunk)
+    phys = bt_row.long()[log // block_size] * block_size + log % block_size
+    for p, s, ax in zip(paging.kv_leaves(pool), paging.kv_leaves(scratch),
+                        seq_axes):
+        p.movedim(ax, 0)[phys] = s.movedim(ax, 0)[start:start + chunk]
+
+
+@pytest.mark.parametrize("slot", [0, 2])
+def test_write_slot_device_slot_equals_host_forms_and_jax(pair, slot):
+    """The captured write's form (the slot in a device buffer) against the
+    host int, the narrow form it replaced, and JAX's traced slot."""
+    _, jm, tm = pair
+    pool = _random_like(jm.init_cache(3, S_MAX), 5)
+    scratch = _random_like(jm.init_cache(1, S_MAX), 6)
+    want = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(
+        jslots.write_slot(pool, scratch, np.int32(slot),
+                          jslots.discover_batch_axes(jm.init_cache,
+                                                     S_MAX))))]
+    axes = slots.discover_batch_axes(tm.init_cache, S_MAX)
+    tscratch = to_torch(scratch, device="cpu")
+    for form in ("narrow", "int", "device"):
+        tpool = to_torch(pool, device="cpu")
+        if form == "narrow":
+            _write_slot_narrow(tpool, tscratch, slot, axes)
+        else:
+            at = slot if form == "int" else torch.tensor([slot],
+                                                         dtype=torch.int32)
+            slots.write_slot(tpool, tscratch, at, axes)
+        for g, e in zip(_port_leaves(tpool), want):
+            np.testing.assert_array_equal(g, e, err_msg=form)
+
+
+@pytest.mark.parametrize("start,bt", [
+    (0, [5, 2, 7, 0, 0, 0]), (8, [5, 2, 7, 11, 0, 0]),
+    (16, [5, 2, 7, 11, 3, 9])])        # the last chunk of the chain
+def test_write_chunk_blocks_device_start_equals_host_forms_and_jax(
+        pair, start, bt):
+    """The captured write's form (block-table row and start in one device
+    buffer) against the host int, the sliced form it replaced, and JAX's
+    traced start."""
+    _, jm, tm = pair
+    nb, bs, C = 13, 4, 8
+    pool = _random_like(jm.init_paged_cache(nb, bs, S_MAX), 7)
+    scratch = _random_like(jm.init_cache(1, S_MAX), 8)
+    bt_row = np.asarray(bt, np.int32)
+    want = [np.asarray(x) for x in jax.tree.leaves(jax.device_get(
+        jpaging.write_chunk_blocks(
+            pool, scratch, bt_row, np.int32(start), chunk=C, block_size=bs,
+            seq_axes=jslots.discover_seq_axes(jm.init_cache, S_MAX))))]
+    kw = dict(chunk=C, block_size=bs,
+              seq_axes=slots.discover_seq_axes(tm.init_cache, S_MAX))
+    tscratch = to_torch(scratch, device="cpu")
+    staged = torch.from_numpy(np.append(bt_row, start).astype(np.int32))
+    for form in ("sliced", "int", "device"):
+        tpool = to_torch(pool, device="cpu")
+        if form == "sliced":
+            _write_chunk_blocks_sliced(tpool, tscratch,
+                                       torch.from_numpy(bt_row), start, **kw)
+        elif form == "int":
+            paging.write_chunk_blocks(tpool, tscratch,
+                                      torch.from_numpy(bt_row), start, **kw)
+        else:
+            paging.write_chunk_blocks(tpool, tscratch, staged[:-1],
+                                      staged[-1], **kw)
+        for g, e in zip(_port_leaves(tpool), want):
+            np.testing.assert_array_equal(g, e, err_msg=form)
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
