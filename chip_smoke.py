@@ -100,7 +100,27 @@ Phases, each of which must pass (any failure exits non-zero):
      at the first differing step within 2e-2 of the largest logit),
      fewer host launches a captured chunk and step than eager ones, at
      most 2 a captured chunk without skew (its graph and the write's),
-     one capture of each entry, none eager.
+     one capture of each entry, none eager;
+  8. serving-time expert placement, right after phase 4b on its weights
+     (which carry 2 zero replica slots a rank): full-width qwen at EP
+     degree 4 under harmoeny, skew 0.9, q = 1, paged, 3 requests of
+     64-128 prompt tokens and 12 new tokens, served without either
+     mechanism, with hot-expert replica slots (``replica_slots=2,
+     rebalance_interval=4``: a captured device gather into the replica
+     leaves) and with tiered residency (``resident_experts=32``, W = 8
+     of 15, under each prefetch policy: every expert row in pinned host
+     memory, each decision's rows copied to the card on a side stream).
+     A ``[placement]`` line each: TTFT/TPOT p50, decode balance, drops,
+     foreign rows through ``moe_gmm``, launches, ``jit_entries``, the
+     captured decode step's wall and busy ms with every slot decoding,
+     swaps, hot experts and the swap's device ms against its bound, the
+     residency counters, the host tier's size and pinning seconds, and
+     each stage's rows, bytes, copy ms and GB/s against PCIe Gen5's
+     64 GB/s.  Gates: streams equal the run without the mechanism, one
+     capture of each entry and of the swap across every swap and stage,
+     at least one swap and one stage (none under ``none``), drops 0.
+     Phase 2 also holds ``moe_gmm`` with replica groups (a third weight
+     source) against its plain version at this path's decode dispatch.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -234,9 +254,11 @@ def tensor_core_counts(build):
 # phase 2: kernel parity
 # ----------------------------------------------------------------------
 def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
-                 time_it, gated=True):
+                 time_it, gated=True, n_rep=0):
     """``gated``: SwiGLU experts (the gated form); else GELU experts with no
-    gate matrix (the plain form, switch128's)."""
+    gate matrix (the plain form, switch128's).  The groups after the
+    ``n_local`` local ones are ``n_rep`` replica groups (their own weight
+    source) and then foreign ones."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.moe_gmm import ops
@@ -256,15 +278,17 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
     def w(n, a, b, fan_in):
         return (torch.randn((n, a, b), generator=g, device=dev)
                 * (2.0 / fan_in) ** 0.5).to(dtype)
-    K = G - n_local
+    K = G - n_local - n_rep
     w_in, w_out = w(n_local, d, f, d), w(n_local, f, d, f)
     w_gate = w(n_local, d, f, d) if gated else None
+    replica = ((w(n_rep, d, f, d), w(n_rep, f, d, f),
+                w(n_rep, d, f, d) if gated else None) if n_rep else None)
     foreign = ((w(K, d, f, d), w(K, f, d, f),
                 w(K, d, f, d) if gated else None) if K else None)
     tg = ops.tile_group_map(padded, M // block_m, block_m)
     # as the main path calls it: with the live-row count of the extents
     kw = dict(w_gate=w_gate, act="silu" if gated else "gelu",
-              block_m=block_m, foreign=foreign,
+              block_m=block_m, replica=replica, foreign=foreign,
               live_rows=ops.live_row_count(padded, M))
     got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
     every_tile = ops.moe_gmm(x, w_in, w_out, tg, **{**kw, "live_rows": None})
@@ -277,12 +301,16 @@ def moe_gmm_case(label, sizes, *, M, n_local, d, f, block_m, dtype, seed,
     rec = {"case": label, "dtype": dname, "form": "gated" if gated else
            "plain", "M": M, "G": G, "d": d, "f": f, "max_abs_err": err,
            "tol": tol}
+    if n_rep:
+        rec["groups"] = {"local": n_local, "replica": n_rep, "foreign": K}
+        rec["rows"] = {"local": sum(sizes[:n_local]),
+                       "replica": sum(sizes[n_local:n_local + n_rep]),
+                       "foreign": sum(sizes[n_local + n_rep:])}
     if time_it:
-        fi, fo, fg = foreign if foreign else (None, None, None)
-        all_in = torch.cat([w_in, fi]) if K else w_in
-        all_gate = (torch.cat([w_gate, fg]) if K else w_gate) if gated \
-            else None
-        all_out = torch.cat([w_out, fo]) if K else w_out
+        parts = [(w_in, w_out, w_gate)] + [p for p in (replica, foreign) if p]
+        all_in = torch.cat([p[0] for p in parts])
+        all_out = torch.cat([p[1] for p in parts])
+        all_gate = torch.cat([p[2] for p in parts]) if gated else None
         offs = [0] + torch.cumsum(padded, 0).tolist()
         live = [(gi, offs[gi], s) for gi, s in enumerate(sizes) if s]
 
@@ -434,30 +462,38 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
 EP_DEGREE = 4
 
 
-def ep_moe_config(cfg, policy="harmoeny"):
+def ep_moe_config(cfg, policy="harmoeny", replica_slots=0):
     """The EP phase's model: ``cfg`` under the paper's synthetic skew (0.9
-    of the routing mass on one expert) with q = 1."""
+    of the routing mass on one expert) with q = 1, and ``replica_slots``
+    hot-expert replica slots a rank."""
     import dataclasses
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, policy=policy, router_skew=0.9, router_skew_experts=1,
-        q_tokens=1))
+        q_tokens=1, num_replica_slots=replica_slots))
 
 
-def ep_decode_dispatch(cfg):
+def ep_decode_dispatch(cfg, replica_slots=0):
     """One rank's grouped-buffer extents at the EP phase's decode step (4
     slots, EP degree 4, harmoeny, one skewed draw): the rank whose foreign
-    groups carry the most rows.  Returns (group sizes, M = c_total, local
-    groups)."""
+    groups carry the most rows.  With ``replica_slots`` R, the skew's hot
+    expert (0, hosted by rank 0) sits in replica slot 0 of every other
+    rank, as the rebalancer places it, and the rank whose replica groups
+    carry the most rows is taken.  Returns (group sizes, M = c_total,
+    local groups)."""
     import dataclasses
     import torch
     from repro_torch.core import dispatch as D
     from repro_torch.core.moe_layer import MoEBlockSpec
     from repro_torch.core.router import SkewKey, route_skewed
     from repro_torch.core.scheduler import schedule
-    moe = ep_moe_config(cfg).moe
+    moe = ep_moe_config(cfg, replica_slots=replica_slots).moe
     spec = MoEBlockSpec(moe=moe, d_model=cfg.d_model, ep_degree=EP_DEGREE,
                         tokens_local=4, block_m=128)
-    topo, K = spec.topo, moe.num_foreign_slots
+    topo, K, R = spec.topo, moe.num_foreign_slots, replica_slots
+    rep_ids = torch.full((EP_DEGREE, max(R, 1)), -1, dtype=torch.int32)
+    rep_ids[1:, 0] = 0
+    extra = D.replica_slot_map(rep_ids, topo.padded_experts) >= 0 if R \
+        else None
     assigns = [route_skewed(
         SkewKey((0, 1, g)).generator("cpu"), spec.t_slice,
         top_k=moe.num_experts_per_tok, num_experts=moe.num_experts,
@@ -467,18 +503,25 @@ def ep_decode_dispatch(cfg):
                                          minlength=topo.padded_experts)
                           for a in assigns]).to(torch.int32)
     S, _ = schedule(counts, topo, policy="harmoeny", q=spec.q,
-                    c_pair=spec.c_pair, num_foreign_slots=K)
+                    c_pair=spec.c_pair, num_foreign_slots=K,
+                    extra_local=extra)
     epr = topo.experts_per_rank
     best = None
     for g in range(EP_DEGREE):
         lay = D.build_layout(S, assigns[g], g, topo, c_pair=spec.c_pair,
                              c_total=spec.c_total, num_foreign_slots=K,
-                             block_m=spec.block_m)
+                             block_m=spec.block_m, num_replica_slots=R,
+                             replica_ids_me=rep_ids[g] if R else None)
         sizes = [int(v) for v in lay.group_sizes]
-        if best is None or sum(sizes[epr:]) > sum(best[epr:]):
+
+        def carried(s):          # rows of the replica (else foreign) groups
+            return sum(s[epr:epr + R] if R else s[epr:])
+        if best is None or carried(sizes) > carried(best):
             best = sizes
-    if sum(best[epr:]) == 0:
-        raise AssertionError("ep_decode: no rank's foreign groups hold rows")
+    if carried(best) == 0:
+        raise AssertionError(f"ep_decode: no rank's "
+                             f"{'replica' if R else 'foreign'} groups hold "
+                             f"rows")
     return best, spec.c_total, epr
 
 
@@ -631,6 +674,16 @@ def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
     out["moe_gmm"].append(moe_gmm_case(
         "ep_decode", sizes, M=M, n_local=n_local, d=d, f=f, block_m=128,
         dtype=bf, seed=10, time_it=True))
+    # the same dispatch with 2 replica slots a rank (phase 8): 15 local, 2
+    # replica and 4 foreign groups, replica slot 0 holding the hot expert
+    sizes, M, n_local = ep_decode_dispatch(cfg, replica_slots=2)
+    out["moe_gmm"].append(moe_gmm_case(
+        "ep_replica_decode", sizes, M=M, n_local=n_local, d=d, f=f,
+        block_m=128, dtype=bf, seed=15, time_it=True, n_rep=2))
+    out["moe_gmm"].append(moe_gmm_case(
+        "f32_replica_small", [40, 0, 7, 128, 0, 3, 1, 0], M=640,
+        n_local=4, d=256, f=192, block_m=64, dtype=torch.float32, seed=16,
+        time_it=False, n_rep=2))
     # switch128's plain form (GELU experts, no gate) at its decode
     # dispatch (4 slots, top-1: 4 rows) and its prefill chunk's (32 rows),
     # each a seeded draw over the 128 experts; M is each step's c_total
@@ -1193,8 +1246,10 @@ def ep_path(cfg, *, seed, **shape):
     ``[ep]`` line printed, and the gates held."""
     from repro_torch.models.model import build_model
     t0 = time.perf_counter()
-    params = build_model(ep_moe_config(cfg), batch=shape["slots"],
-                         seq_len=shape["max_seq_len"],
+    # with phase 8's replica leaves (zeros): the models without replica
+    # slots do not read them
+    params = build_model(ep_moe_config(cfg, replica_slots=PLACEMENT_REPLICAS),
+                         batch=shape["slots"], seq_len=shape["max_seq_len"],
                          ep_degree=EP_DEGREE).init(seed)
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"[ep] {cfg.name} at EP degree {EP_DEGREE} on virtual ranks: "
@@ -1247,7 +1302,224 @@ def ep_path(cfg, *, seed, **shape):
                             block_size=shape["block_size"], seed=seed,
                             ep_degree=EP_DEGREE, policy=policy)
             for policy in ("harmoeny", "round_robin")]
-    return out, caps
+    return out, caps, params
+
+
+# ----------------------------------------------------------------------
+# phase 8: serving-time expert placement (replica slots, tiered residency)
+# ----------------------------------------------------------------------
+PCIE_BYTES_S = 64e9          # PCIe Gen5 x16, one direction (data sheet)
+PLACEMENT_REPLICAS, PLACEMENT_INTERVAL, PLACEMENT_RESIDENT = 2, 4, 32
+
+
+def placement_serve(cfg, params, tag, *, ekw, replica_slots, slots,
+                    n_requests, new_tokens, max_seq_len, prefill_chunk,
+                    block_size, seed, window=3):
+    """Serve ``n_requests`` on full-width ``cfg`` at EP degree 4 under
+    harmoeny with skew 0.9 and the placement fields ``ekw``; then, with
+    every slot decoding, one decode step traced (a G = 4 step's trace
+    holds ~35 k kernels) and ``window`` untraced.  Returns the
+    ``[placement]`` summary and the streams."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.profiling import profile_steps, untraced_ms
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    ep_cfg = ep_moe_config(cfg, replica_slots=replica_slots)
+    model = build_model(ep_cfg, batch=slots, seq_len=max_seq_len,
+                        ep_degree=EP_DEGREE)
+    ecfg = EngineConfig(max_slots=slots, max_seq_len=max_seq_len,
+                        prefill_chunk=prefill_chunk, paged=True,
+                        kv_block_size=block_size, moe_policy="harmoeny",
+                        skew_seed=seed, **ekw)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, ecfg)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 8)
+    reqs = [Request(rid=i, tokens=rng.integers(
+                0, cfg.vocab_size, (int(rng.integers(64, 129)),)),
+                max_new_tokens=new_tokens) for i in range(n_requests)]
+    outputs = {}
+    finish = eng._finish
+
+    def capture(st, now):
+        outputs[st.req.rid] = list(st.output)
+        finish(st, now)
+    eng._finish = capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, foreign = read(), _foreign_rows()
+    stages = eng.stage_times()
+    swap_ms = None
+    if eng._rebalancer is not None:
+        # one more replay of the captured swap, on the last swap's rows
+        # (the replica leaves get the values they hold)
+        swap_ms = device_ms(lambda: eng._swap.entry(eng._swap.pairs), 3, 1)
+    # the captured decode step with every slot decoding, mechanism on
+    fill = [rng.integers(0, cfg.vocab_size, (prefill_chunk,))
+            for _ in range(slots)]
+    for i, p in enumerate(fill):
+        eng.submit(Request(rid=1000 + i, tokens=p,
+                           max_new_tokens=4 * window + 4))
+    while not eng.active.all():
+        eng.step()
+    n_stages = len(eng.stage_log)
+
+    def step():
+        eng._decode_work(eng.clock.now())
+    prof = profile_steps(step, 1, f"placement_{tag}")
+    dec_wall = untraced_ms(step, window)
+    window_stages = len(eng.stage_log) - n_stages
+    rep_after = eng.report()
+    lb = rep["load_balance"]["decode"]
+    engine = rep["engine"]
+    summary = {
+        "config": tag, "ep_degree": EP_DEGREE, "fields": ekw,
+        "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
+        "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+        "wall_s": wall, "engine_build_s": build_s, "warmup_s": warm_s,
+        "decode_steps": rep["decode_steps"],
+        "prefill_chunks": rep["prefill_chunks"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "decode_max_mean_ratio": lb["max_mean_ratio"],
+        "decode_moved_units": rep["moe"]["decode/moved_units"],
+        "decode_drops": [lb["send_drops_total"], lb["dest_drops_total"]],
+        "launches": launches, "moe_gmm_foreign_rows": foreign,
+        "jit_entries": rep["jit_entries"],
+        "recompiled_after_warmup": rep.get("recompiled_after_warmup"),
+        "decode_step": {
+            "wall_ms": dec_wall, "traced_wall_ms": prof["wall_ms_per_step"],
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            # of the traced step itself: a stage's rows differ step to step
+            "device_idle_share": prof["device_idle_share"],
+            "host_launches": prof["host_launches_per_step"]
+            + prof["graph_launches_per_step"],
+            "copies_and_syncs":
+                prof["host_device_syncs_and_copies_per_step"],
+            "stages_in_window": window_stages},
+    }
+    if eng._rebalancer is not None:
+        summary["replicas"] = {
+            "replica_swaps": engine["replica_swaps"],
+            "rebalances": engine["rebalances"],
+            "hot_experts": engine["hot_experts"],
+            "replica_ids": engine["replica_ids"],
+            "swap_rows": eng._replica_ids.size,
+            "swap_bytes": sum(w.numel() * w.element_size()
+                              for _, w in eng._swap.pairs),
+            "swap_ms": swap_ms}
+        # the gather reads and writes every replica leaf once
+        summary["replicas"]["swap_bound_ms"] = (
+            2 * summary["replicas"]["swap_bytes"] / HBM_BYTES_S * 1e3)
+    if eng._residency is not None:
+        tier = eng._host_tier
+        staged = [dict(s, gb_s=s["bytes"] / s["ms"] / 1e6,
+                       bound_ms=s["bytes"] / PCIE_BYTES_S * 1e3)
+                  for s in stages]
+        summary["residency"] = {
+            "counters": rep["residency"],
+            "residency_stages": engine["residency_stages"],
+            "residency_ids": engine["residency_ids"],
+            "host_tier_gb": tier.nbytes / 1e9, "row_mb": tier.row_bytes / 1e6,
+            "pin_s": tier.pin_s, "fill_s": tier.fill_s,
+            "stages": staged,
+            "stage_ms_per_row": (sum(s["ms"] for s in staged)
+                                 / max(sum(s["rows"] for s in staged), 1)),
+            "stage_gb_s": (sum(s["bytes"] for s in staged)
+                           / max(sum(s["ms"] for s in staged), 1e-9) / 1e6),
+            "bound_ms_per_row": tier.row_bytes / PCIE_BYTES_S * 1e3,
+            "modeled_pcie_gb_s": eng._residency.cost.pcie_bw / 1e9}
+    # --- checks of what comes out --------------------------------------
+    want = jit_entries(True, 1)
+    if eng._rebalancer is not None:
+        want["replica_swap"] = 1
+    if eng._residency is not None:
+        want["residency_stage"] = 0
+    for r in (rep, rep_after):
+        if r["jit_entries"] != want \
+                or r.get("recompiled_after_warmup") is not False:
+            raise AssertionError(f"[placement] {tag}: jit_entries "
+                                 f"{r['jit_entries']}, recompiled "
+                                 f"{r.get('recompiled_after_warmup')}: want "
+                                 f"{want}")
+    if rep["n_requests"] != n_requests or any(
+            len(t) != new_tokens or not all(0 <= v < cfg.vocab_size
+                                            for v in t)
+            for t in outputs.values()):
+        raise AssertionError(f"[placement] {tag}: bad streams {outputs}")
+    if launches["moe_gmm"] <= 0 or launches["schedule"] != (
+            EP_DEGREE * cfg.num_layers
+            * (rep["decode_steps"] + rep["prefill_chunks"])):
+        raise AssertionError(f"[placement] {tag}: launches {launches}")
+    if not torch.isfinite(eng.core.logits[:, :cfg.vocab_size]).all():
+        raise AssertionError(f"[placement] {tag}: non-finite logits")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, outputs
+
+
+def placement_path(cfg, params, *, seed, slots, max_seq_len, prefill_chunk,
+                   block_size, n_requests=3, new_tokens=12, **_):
+    """Phase 8 on phase 4b's weights (which carry the replica leaves):
+    harmoeny without either mechanism; with hot-expert replica slots; with
+    tiered residency under each prefetch policy.  Prints a
+    ``[placement]`` line each; gates: streams equal the run without the
+    mechanism, one capture of each entry and of the swap, a swap and a
+    stage happened, drops 0."""
+    import torch
+    shape = dict(slots=slots, n_requests=n_requests, new_tokens=new_tokens,
+                 max_seq_len=max_seq_len, prefill_chunk=prefill_chunk,
+                 block_size=block_size, seed=seed)
+    runs = {"base": ({}, 0),
+            "replicas": (dict(replica_slots=PLACEMENT_REPLICAS,
+                              rebalance_interval=PLACEMENT_INTERVAL),
+                         PLACEMENT_REPLICAS)}
+    for policy in ("predictive", "on_demand", "none"):
+        runs[f"residency_{policy}"] = (dict(
+            resident_experts=PLACEMENT_RESIDENT, prefetch_policy=policy), 0)
+    out, streams = {}, {}
+    for tag, (ekw, R) in runs.items():
+        out[tag], streams[tag] = placement_serve(
+            cfg, params, tag, ekw=ekw, replica_slots=R, **shape)
+        log(f"[placement] {json.dumps(out[tag])}")
+        # the pinned host tier goes back to the system between runs
+        torch._C._host_emptyCache()
+    for tag, rec in out.items():
+        if streams[tag] != streams["base"]:
+            raise AssertionError(f"[placement] {tag}: streams differ from "
+                                 f"the run without the mechanism")
+        if any(rec["decode_drops"]):
+            raise AssertionError(f"[placement] {tag}: drops "
+                                 f"{rec['decode_drops']}")
+    if out["replicas"]["replicas"]["replica_swaps"] < 1:
+        raise AssertionError("[placement] no replica swap took place")
+    for policy in ("predictive", "on_demand"):
+        if out[f"residency_{policy}"]["residency"]["residency_stages"] < 1:
+            raise AssertionError(f"[placement] {policy}: no stage")
+    if out["residency_none"]["residency"]["stages"]:
+        raise AssertionError("[placement] none staged rows")
+    res = out["residency_predictive"]["residency"]
+    log(f"[placement] gates held: streams equal the run without each "
+        f"mechanism in all {len(out)} runs; {out['replicas']['replicas']['replica_swaps']} "
+        f"swap(s) of {out['replicas']['replicas']['swap_bytes'] / 1e9:.2f} GB "
+        f"in {out['replicas']['replicas']['swap_ms']:.3f} ms; predictive "
+        f"stages {res['residency_stages']}, {res['stage_ms_per_row']:.3f} ms "
+        f"a {res['row_mb']:.1f} MB row ({res['stage_gb_s']:.1f} GB/s against "
+        f"{PCIE_BYTES_S / 1e9:.0f} GB/s, bound "
+        f"{res['bound_ms_per_row']:.3f} ms); foreign rows through moe_gmm "
+        f"{out['base']['moe_gmm_foreign_rows']} without replicas, "
+        f"{out['replicas']['moe_gmm_foreign_rows']} with")
+    return out
 
 
 def small_ep_reference_check(seed: int = 0) -> None:
@@ -1675,16 +1947,20 @@ def main() -> int:
 
     elapsed("phases 3-4 (+ 7 on qwen)")
     # --- phase 4b: HarMoEny across 4 virtual EP ranks ----------------------
-    ep, caps = ep_path(cfg, seed=0, slots=4, n_requests=4, new_tokens=8,
-                       **shape)
+    ep, caps, ep_params = ep_path(cfg, seed=0, slots=4, n_requests=4,
+                                  new_tokens=8, **shape)
     captures += caps
     small_ep_reference_check()
+    elapsed("phase 4b (+ 7 on G = 4)")
+    # --- phase 8: replica slots and tiered residency on 4b's weights --------
+    placement = placement_path(cfg, ep_params, seed=0, slots=4, **shape)
+    del ep_params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[env] EP path freed: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
 
-    elapsed("phase 4b (+ 7 on G = 4)")
+    elapsed("phase 8")
     # --- phase 5: whole-prompt prefill + slab decode ----------------------
     whole_summary, moon_params = prefill_decode_path(moon, seed=0, **whole)
     small_prefill_reference_check()
@@ -1728,6 +2004,8 @@ def main() -> int:
                 "serve_qwen15_moe_a27b": summary["launches"][name],
                 **{f"serve_qwen15_moe_a27b_ep{EP_DEGREE}_{p}":
                    rec["launches"][name] for p, rec in ep.items()},
+                **{f"placement_qwen15_moe_a27b_ep{EP_DEGREE}_{tag}":
+                   rec["launches"][name] for tag, rec in placement.items()},
                 "prefill_decode_moonshot_v1_16b_a3b":
                     whole_summary["launches"][name],
                 **{path: rec["launches"][name]

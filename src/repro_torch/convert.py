@@ -8,8 +8,11 @@ conversion copies leaves and never remaps them.  K/V caches (the JAX
 ``AttnCache`` named tuples) become the port's ``AttnCache``.  bfloat16
 leaves (numpy's ``ml_dtypes`` extension type) travel as raw 16-bit words.
 At expert-parallel degree G the expert leaves stay rank-major, padded
-experts included (``VirtualGroup`` runs on them as they are);
-``expert_shard`` cuts one rank's rows out for ``DistComm``.
+experts included (``VirtualGroup`` runs on them as they are), and so do
+the replica-slot leaves ``w_rep_in`` / ``w_rep_out`` / ``w_rep_gate``
+(``G * R`` rows, row ``g * R + r`` is slot r of rank g) of a model built
+with ``num_replica_slots`` R; ``expert_shard`` cuts one rank's rows out
+of both for ``DistComm``.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ def expert_shard(moe_params: Dict[str, Any], rank: int,
     """One MoE layer's parameters as rank ``rank`` of ``ep_degree`` holds
     them under ``DistComm``: its own rows ``[epr, ...]`` of each rank-major
     expert leaf (row ``g * epr + j`` is slot j of rank g, as
-    ``init_moe_params`` lays them out) and the replicated router."""
+    ``init_moe_params`` lays them out), its ``[R, ...]`` of each replica
+    leaf, and the replicated router."""
     out = {}
     for name, w in moe_params.items():
         if name == "router":

@@ -15,7 +15,10 @@ Buffers: send/recv ``[G, c_pair, d]`` for off-diagonal pairs only (the
 self-pair bypasses the all-to-all and has no capacity bound), and the
 grouped compute buffer ``[c_total, d]`` whose groups start at multiples of
 ``block_m``.  Overflowing units are dropped and counted.  Group order:
-local (epr) | foreign (K).
+local (epr) | replica (R) | foreign (K).  The replica groups hold copies of
+hot experts' weights chosen between serving windows
+(``serve/rebalance.py``); which expert occupies each is a device int32
+vector (``replica_ids_me``, -1 = empty), so a swap changes values only.
 
 Collectives.  The per-rank body (``moe_layer._moe_forward_local``) is a
 generator: each collective is a ``yield`` of a ``Collective`` request
@@ -262,18 +265,39 @@ def _scatter_drop(n: int, idx: torch.Tensor, vals: torch.Tensor, *,
     return out[:n]
 
 
+def replica_slot_map(replica_ids: torch.Tensor,
+                     padded_experts: int) -> torch.Tensor:
+    """replica_ids [..., R] int32 (-1 = empty slot) -> [..., Ep] expert ->
+    slot map (-1 = no replica): a one-hot max, with no scatter and no host
+    read, so one captured step serves every slot assignment.  The highest
+    slot wins a (degenerate) duplicate."""
+    R = replica_ids.shape[-1]
+    dev = replica_ids.device
+    tgt = torch.where(replica_ids >= 0, replica_ids, padded_experts)
+    onehot = tgt[..., :, None] == torch.arange(padded_experts,
+                                               dtype=torch.int32, device=dev)
+    slots = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    return torch.where(onehot, slots, -1).amax(dim=-2)
+
+
 def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
                  topo: EPTopology, *, c_pair: int, c_total: int,
-                 num_foreign_slots: int, block_m: int) -> DispatchLayout:
+                 num_foreign_slots: int, block_m: int,
+                 num_replica_slots: int = 0,
+                 replica_ids_me: Optional[torch.Tensor] = None
+                 ) -> DispatchLayout:
     """Derive the full dispatch layout from schedule S [G, Ep, G] and the
     local assignment ``assign`` [T, k] (values in [0, Ep]; the sentinel Ep
-    marks padding units that are never scheduled)."""
+    marks padding units that are never scheduled); ``replica_ids_me`` [R]
+    the experts in this rank's replica slots (-1 = empty)."""
     dev = assign.device
     i32 = torch.int32
     G, Ep = topo.num_ranks, topo.padded_experts
     epr = topo.experts_per_rank
     K = num_foreign_slots
-    n_groups = epr + K
+    R = num_replica_slots
+    with_replicas = bool(R) and replica_ids_me is not None
+    n_groups = epr + R + K
     unit_expert = assign.reshape(-1).to(i32)               # [U], token-major
     ue = unit_expert.long()
     U = unit_expert.shape[0]
@@ -305,19 +329,29 @@ def build_layout(S: torch.Tensor, assign: torch.Tensor, me: int,
     tok_e = recv_counts.sum(dim=0).to(i32)                  # [Ep]
     tables = device_tables(topo, dev)
     my_local_slot = tables.local_slot_of[me]
-    is_foreign_active = (tok_e > 0) & (my_local_slot < 0)
+    if with_replicas:
+        rep_slot = replica_slot_map(replica_ids_me, Ep)
+    else:
+        rep_slot = torch.full((Ep,), -1, dtype=i32, device=dev)
+    is_replica = (my_local_slot < 0) & (rep_slot >= 0)
+    is_foreign_active = (tok_e > 0) & (my_local_slot < 0) & ~is_replica
     foreign_rank = (torch.cumsum(is_foreign_active.to(i32), 0) - 1).to(i32)
     ar_e = torch.arange(Ep, dtype=i32, device=dev)
     scatter_idx = torch.where(is_foreign_active,
                               torch.clamp(foreign_rank, max=K), K)
     fids = _scatter_drop(K + 1, scatter_idx, ar_e, fill=-1)[:K]
+    # local slot j -> group j; replica slot r -> epr + r; k-th foreign ->
+    # epr + R + k; n_groups: no group (dropped)
     grp_of_e = torch.where(
         my_local_slot >= 0, my_local_slot,
-        torch.where(is_foreign_active & (foreign_rank < K),
-                    epr + foreign_rank, n_groups)).to(i32)
+        torch.where(is_replica, epr + rep_slot,
+                    torch.where(is_foreign_active & (foreign_rank < K),
+                                epr + R + foreign_rank, n_groups))).to(i32)
     grp_c = torch.clamp(grp_of_e, max=n_groups)
     group_expert = _scatter_drop(n_groups + 1, grp_c, ar_e, fill=-1)
     group_expert[:epr] = tables.slot_map[me]
+    if with_replicas:
+        group_expert[epr:epr + R] = replica_ids_me
     group_expert = group_expert[:n_groups]
     group_sizes = _scatter_drop(n_groups + 1, grp_c, tok_e, fill=0,
                                 add=True)[:n_groups]

@@ -18,8 +18,19 @@ token slice.  With a ``SkewKey`` the router is the paper's synthetic skew
 the JAX block folds its key; a captured decode step cannot draw, so it
 takes the same draws made before the step (``skew_assign``, one
 ``[t_slice, k]`` slice a rank: ``serve/stepcore.py``).  Nothing here reads
-a device value on the host.  Tensor-parallel MoE (E < G) and replica slots
-are not ported yet and are rejected.
+a device value on the host.
+
+Serving-time expert placement (paper §4.2-4.3): with
+``num_replica_slots`` R > 0 the block carries ``w_rep_*`` leaves of
+``G * R`` rows (zeros at init; ``serve/rebalance.py`` copies hot experts'
+rows into them in place), and ``replica_ids`` [G, R] (-1 = empty) names
+their experts: replica holders count as local destinations in the
+schedule, take their groups between the local and foreign ones, and fetch
+nothing for them.  ``residency_ids`` [G, W] (``serve/residency.py``)
+demotes statically placed experts outside a rank's working set to
+foreign destinations in the harmoeny schedule.  Both tables are device
+tensors, so changing them changes values only.  Tensor-parallel MoE
+(E < G) is not ported yet and is rejected.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from repro_torch.core import dispatch as D
 from repro_torch.core import prefetch
 from repro_torch.core.grouped_ffn import grouped_ffn
 from repro_torch.core.qthreshold import q_threshold
+from repro_torch.core.dispatch import replica_slot_map
 from repro_torch.core.router import (SkewKey, expert_counts, route_assigned,
                                     route_skewed, route_topk)
 from repro_torch.core.scheduler import schedule
@@ -62,8 +74,6 @@ class MoEBlockSpec:
         if self.moe.num_experts < self.ep_degree:
             raise NotImplementedError("tensor-parallel MoE (E < EP degree) "
                                       "is not ported yet")
-        if self.moe.num_replica_slots:
-            raise NotImplementedError("replica slots are not ported yet")
 
     @property
     def topo(self) -> EPTopology:
@@ -89,8 +99,9 @@ class MoEBlockSpec:
 
     @property
     def n_groups(self) -> int:
-        # compute-buffer group order: local | foreign
-        return self.topo.experts_per_rank + self.moe.num_foreign_slots
+        # compute-buffer group order: local | replica | foreign
+        return (self.topo.experts_per_rank + self.moe.num_replica_slots
+                + self.moe.num_foreign_slots)
 
     @property
     def c_total(self) -> int:
@@ -109,17 +120,22 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                        spec: MoEBlockSpec, n_valid: int, me: int,
                        skew_key: Optional[SkewKey] = None,
                        valid_rep: Optional[torch.Tensor] = None,
-                       skew_assign: Optional[torch.Tensor] = None):
+                       skew_assign: Optional[torch.Tensor] = None,
+                       replica_ids: Optional[torch.Tensor] = None,
+                       residency_ids: Optional[torch.Tensor] = None):
     """Per-rank body of rank ``me``, a generator that yields its
     collectives (dispatch.py) and returns (y_rep, diagnostics).
     x_rep: [t_pad, d] replicated over the EP group; ``params`` hold this
-    rank's expert rows [epr, ...] and the replicated router;
-    ``skew_assign`` [t_slice, k] this rank's drawn skewed assignment."""
+    rank's expert rows [epr, ...] (and replica rows [R, ...]) and the
+    replicated router; ``skew_assign`` [t_slice, k] this rank's drawn
+    skewed assignment; ``replica_ids`` [G, R] and ``residency_ids``
+    [G, W] the replicated placement tables (module docstring)."""
     topo, moe = spec.topo, spec.moe
     G, Ep = topo.num_ranks, topo.padded_experts
     epr = topo.experts_per_rank
     k = moe.num_experts_per_tok
     K = moe.num_foreign_slots
+    R = moe.num_replica_slots                # moe_block passes the table
     dev = x_rep.device
     t_slice = x_rep.shape[0] // G
     x_slice = x_rep[me * t_slice:(me + 1) * t_slice]
@@ -145,13 +161,21 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     m_all = yield from D.all_gather(counts)                  # [G, Ep]
 
     # --- step 3: replicated deterministic scheduling ------------------------
+    # replica holders count as local destinations; experts swapped out of
+    # a rank's working set stop counting as free ones
+    extra_local = replica_slot_map(replica_ids, Ep) >= 0 if R else None
+    non_local = (None if residency_ids is None
+                 else prefetch.residency_non_local(residency_ids, topo))
     S, sdiag = schedule(m_all, topo, policy=moe.policy, q=spec.q,
-                        c_pair=spec.c_pair, num_foreign_slots=K)
+                        c_pair=spec.c_pair, num_foreign_slots=K,
+                        extra_local=extra_local, non_local=non_local)
 
     # --- step 4: scatter -----------------------------------------------------
     layout = D.build_layout(S, assign, me, topo, c_pair=spec.c_pair,
                             c_total=spec.c_total, num_foreign_slots=K,
-                            block_m=spec.block_m)
+                            block_m=spec.block_m,
+                            num_replica_slots=moe.num_replica_slots,
+                            replica_ids_me=replica_ids[me] if R else None)
     x_units = torch.repeat_interleave(x_slice, k, dim=0)   # token-major
     grouped = yield from D.dispatch(x_units, layout, num_ranks=G,
                                     c_pair=spec.c_pair, c_total=spec.c_total)
@@ -159,6 +183,8 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     # --- step 5: expert processing + foreign-weight fetch --------------------
     names = ("w_in", "w_out", "w_gate")
     w_in, w_out, w_gate = (params.get(n) for n in names)
+    replica = (tuple(params.get("w_rep_" + n[2:]) for n in names) if R
+               else None)
     foreign = foreign_rows = None
     if moe.policy == "even_split":
         # full replication: every group row gathers its expert's weights
@@ -172,20 +198,22 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
             w_all = yield from prefetch.gather_all_experts(w)
             full.append(w_all[rows[ge]])
         w_in, w_out, w_gate = full
+        replica = None          # the gather covers the replica groups too
     elif K > 0:
-        fids_all = prefetch.all_foreign_ids(S, topo, K)
+        fids_all = prefetch.all_foreign_ids(
+            S, topo, K, replica_ids=replica_ids if R else None)
         fetched = []
         for w in (w_in, w_out, w_gate):
             fetched.append(None if w is None else (
                 yield from prefetch.fetch_foreign_weights(w, fids_all, me,
                                                           topo)))
         foreign = tuple(fetched)
-        foreign_rows = layout.group_sizes[epr:].sum()
+        foreign_rows = layout.group_sizes[epr + R:].sum()
     sizes_padded = D.round_up_j(layout.group_sizes, spec.block_m)
     out_grouped = grouped_ffn(grouped, w_in, w_out, sizes_padded,
                               w_gate=w_gate, act=spec.act,
-                              block_m=spec.block_m, foreign=foreign,
-                              foreign_rows=foreign_rows)
+                              block_m=spec.block_m, replica=replica,
+                              foreign=foreign, foreign_rows=foreign_rows)
 
     # --- step 6: gather + combine ---------------------------------------------
     y_slice = yield from D.combine(out_grouped, layout, num_ranks=G,
@@ -215,7 +243,9 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               spec: MoEBlockSpec, comm=None,
               skew_key: Optional[SkewKey] = None,
               valid_mask: Optional[torch.Tensor] = None,
-              skew_assign: Optional[torch.Tensor] = None
+              skew_assign: Optional[torch.Tensor] = None,
+              replica_ids: Optional[torch.Tensor] = None,
+              residency_ids: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> [B, S, d], diagnostics, over the EP group of
     ``comm`` (default: one rank).  ``params``' expert rows are rank-major
@@ -226,9 +256,14 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     (rank g takes row g).  ``valid_mask``
     [B, S] bool keeps dead tokens (inactive slots, chunk padding) out of
     routing and capacity; their outputs are garbage the caller discards.
-    y is replicated; the diagnostics are those of the first rank that this
-    process runs (rank 0 unless ``DistComm``), as the JAX block reports
-    rank 0's."""
+    With ``spec.moe.num_replica_slots`` R > 0, ``params`` carry the
+    ``w_rep_*`` leaves (``G * R`` rows rank-major, or this rank's R under
+    ``DistComm``) and ``replica_ids`` [G, R] int32 (-1 = empty; default
+    all empty) names their experts; ``residency_ids`` [G, W] int32 (-1
+    pads) is the tiered-residency working set (None: everything
+    resident).  y is replicated; the diagnostics are those of the first
+    rank that this process runs (rank 0 unless ``DistComm``), as the JAX
+    block reports rank 0's."""
     comm = comm if comm is not None else D.LocalComm()
     if comm.size != spec.ep_degree:
         raise ValueError(f"communicator of {comm.size} ranks for a spec of "
@@ -243,13 +278,29 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         v = valid_mask.reshape(-1).to(torch.bool)
         v_rep = torch.cat([v, v.new_zeros(t_pad - n_valid)])
     epr = spec.topo.experts_per_rank
+    R = spec.moe.num_replica_slots
+    if R:
+        if "w_rep_in" not in params:
+            raise ValueError("num_replica_slots > 0 needs the w_rep_* "
+                             "parameter leaves (Model.init)")
+        if replica_ids is None:
+            replica_ids = torch.full((spec.ep_degree, R), -1,
+                                     dtype=torch.int32, device=x.device)
+    else:
+        replica_ids = None
+
+    def rows_of(name: str) -> int:
+        return R if name.startswith("w_rep_") else epr
 
     def body(me: int):
-        prm = {n: (w if n == "router" else comm.expert_rows(w, me, epr))
-               for n, w in params.items()}
+        prm = {n: (w if n == "router" else comm.expert_rows(w, me,
+                                                            rows_of(n)))
+               for n, w in params.items()
+               if R or not n.startswith("w_rep_")}
         return _moe_forward_local(
             x_rep, prm, spec, n_valid, me, skew_key=skew_key,
             valid_rep=v_rep,
-            skew_assign=None if skew_assign is None else skew_assign[me])
+            skew_assign=None if skew_assign is None else skew_assign[me],
+            replica_ids=replica_ids, residency_ids=residency_ids)
     y, diag = comm.run_ranks(body)[0]
     return y[:n_valid].reshape(B, S_len, d), diag

@@ -8,9 +8,13 @@
 //   plain: y = act(x @ w_in[g]) @ w_out[g]
 // with f32 accumulation and the intermediate h rounded to x's type before
 // the second product, exactly where the TPU kernel rounds (moe_gmm.py:61).
-// Group g reads its weights from the local rows (g < n_local) or from the
-// separate foreign rows (g - n_local), so the caller never concatenates the
-// two weight sets into one copy.  The TPU kernel's [block_m, d] f32
+// Group g reads its weights from one of three separate sources, in group
+// order: the local rows (g < n_local), the replica rows (g - n_local, for
+// n_local <= g < n_local + n_rep: hot experts' copies, serve/rebalance.py)
+// and the foreign rows (g - n_local - n_rep), so the caller never
+// concatenates the weight sets into one copy (at qwen's width that would
+// copy every rank's 15 local experts, 17.3 MB each, at every call).  With
+// n_rep = 0 the replica source is never read.  The TPU kernel's [block_m, d] f32
 // accumulator (1 MB at d = 2048) does not fit a block's 227 KB of shared
 // memory, so the work is two launches: up/gate into h [M, f] (x's type),
 // then h @ w_out.  Two designs, chosen by dtype (no input reaches both):
@@ -78,20 +82,29 @@ __global__ void tile_live(const float* __restrict__ x, int* __restrict__ live, i
   if (threadIdx.x == 0) live[blockIdx.x] = any;
 }
 
+// One weight matrix's three sources: local | replica | foreign (extra).
 template <typename T>
-__device__ __forceinline__ const T* group_rows(const T* local, const T* extra,
-                                               int n_local, int g, size_t stride) {
-  return g < n_local ? local + (size_t)g * stride : extra + (size_t)(g - n_local) * stride;
+struct Src {
+  const T* local;
+  const T* rep;
+  const T* extra;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* group_rows(Src<T> w, int n_local, int n_rep, int g,
+                                               size_t stride) {
+  if (g < n_local) return w.local + (size_t)g * stride;
+  g -= n_local;
+  if (g < n_rep) return w.rep + (size_t)g * stride;
+  return w.extra + (size_t)(g - n_rep) * stride;
 }
 
 // h[m, n] = act-combine(x @ w_in[g], x @ w_gate[g]) for a BM x BN tile.
 template <bool GATED>
 __global__ void __launch_bounds__(NT)
-gmm_up(const float* __restrict__ x, const float* __restrict__ w_in,
-       const float* __restrict__ w_gate, const float* __restrict__ w_in_x,
-       const float* __restrict__ w_gate_x, int n_local, const int* __restrict__ tile_group,
-       const int* __restrict__ live, float* __restrict__ h, int d, int f, int block_m,
-       int act) {
+gmm_up(const float* __restrict__ x, Src<float> w_in, Src<float> w_gate, int n_local,
+       int n_rep, const int* __restrict__ tile_group, const int* __restrict__ live,
+       float* __restrict__ h, int d, int f, int block_m, int act) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   if (!live[blockIdx.y]) {
@@ -101,8 +114,8 @@ gmm_up(const float* __restrict__ x, const float* __restrict__ w_in,
   }
   const int g = tile_group[m0 / block_m];
   const size_t stride = (size_t)d * f;
-  const float* wi = group_rows(w_in, w_in_x, n_local, g, stride);
-  const float* wg = GATED ? group_rows(w_gate, w_gate_x, n_local, g, stride) : nullptr;
+  const float* wi = group_rows(w_in, n_local, n_rep, g, stride);
+  const float* wg = GATED ? group_rows(w_gate, n_local, n_rep, g, stride) : nullptr;
   __shared__ float xs[BM][BK + 1];
   __shared__ float wis[BK][BN];
   __shared__ float wgs[GATED ? BK : 1][BN];
@@ -144,9 +157,9 @@ gmm_up(const float* __restrict__ x, const float* __restrict__ w_in,
 
 // y[m, n] = h @ w_out[g] for a BM x BN tile (reduction over f).
 __global__ void __launch_bounds__(NT)
-gmm_down(const float* __restrict__ h, const float* __restrict__ w_out,
-         const float* __restrict__ w_out_x, int n_local, const int* __restrict__ tile_group,
-         const int* __restrict__ live, float* __restrict__ y, int d, int f, int block_m) {
+gmm_down(const float* __restrict__ h, Src<float> w_out, int n_local, int n_rep,
+         const int* __restrict__ tile_group, const int* __restrict__ live,
+         float* __restrict__ y, int d, int f, int block_m) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   if (!live[blockIdx.y]) {
@@ -155,7 +168,7 @@ gmm_down(const float* __restrict__ h, const float* __restrict__ w_out,
     return;
   }
   const int g = tile_group[m0 / block_m];
-  const float* wo = group_rows(w_out, w_out_x, n_local, g, (size_t)f * d);
+  const float* wo = group_rows(w_out, n_local, n_rep, g, (size_t)f * d);
   __shared__ float hs[BM][BK + 1];
   __shared__ float ws[BK][BN];
   float acc[2][4] = {};
@@ -184,20 +197,19 @@ gmm_down(const float* __restrict__ h, const float* __restrict__ w_out,
       y[(size_t)(m0 + ty + 16 * i) * d + n0 + tx + 16 * j] = acc[i][j];
 }
 
-int launch_f32(int gated, int act, const float* x, const float* w_in, const float* w_gate,
-               const float* w_out, const float* w_in_x, const float* w_gate_x,
-               const float* w_out_x, int n_local, const int* tile_group, int* live, float* h,
-               float* y, int M, int d, int f, int block_m, cudaStream_t s) {
+int launch_f32(int gated, int act, const float* x, Src<float> w_in, Src<float> w_gate,
+               Src<float> w_out, int n_local, int n_rep, const int* tile_group, int* live,
+               float* h, float* y, int M, int d, int f, int block_m, cudaStream_t s) {
   const int n_tiles = M / BM;
   tile_live<<<n_tiles, 256, 0, s>>>(x, live, d);
   const dim3 grid_up(f / BN, n_tiles), grid_down(d / BN, n_tiles);
   if (gated)
-    gmm_up<true><<<grid_up, NT, 0, s>>>(x, w_in, w_gate, w_in_x, w_gate_x, n_local,
-                                        tile_group, live, h, d, f, block_m, act);
+    gmm_up<true><<<grid_up, NT, 0, s>>>(x, w_in, w_gate, n_local, n_rep, tile_group, live, h,
+                                        d, f, block_m, act);
   else
-    gmm_up<false><<<grid_up, NT, 0, s>>>(x, w_in, nullptr, w_in_x, nullptr, n_local,
-                                         tile_group, live, h, d, f, block_m, act);
-  gmm_down<<<grid_down, NT, 0, s>>>(h, w_out, w_out_x, n_local, tile_group, live, y, d, f,
+    gmm_up<false><<<grid_up, NT, 0, s>>>(x, w_in, w_gate, n_local, n_rep, tile_group, live,
+                                         h, d, f, block_m, act);
+  gmm_down<<<grid_down, NT, 0, s>>>(h, w_out, n_local, n_rep, tile_group, live, y, d, f,
                                     block_m);
   return (int)cudaGetLastError();
 }
@@ -223,9 +235,8 @@ struct Gmm {
 // silu(acc of b1) * acc of b0 (gated up, b0 = w_in, b1 = w_gate).
 template <int MT, int NB, int EPI>
 __global__ void __launch_bounds__(Gmm<MT, NB>::THREADS, 1)
-gmm_wgmma(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b0,
-          const __nv_bfloat16* __restrict__ b0_x, const __nv_bfloat16* __restrict__ b1,
-          const __nv_bfloat16* __restrict__ b1_x, int n_local,
+gmm_wgmma(const __nv_bfloat16* __restrict__ a, Src<__nv_bfloat16> b0,
+          Src<__nv_bfloat16> b1, int n_local, int n_rep,
           const int* __restrict__ tile_group, const int* __restrict__ live_rows,
           __nv_bfloat16* __restrict__ c, int K, int N, int block_m, int act) {
   using namespace hopper;
@@ -244,8 +255,8 @@ gmm_wgmma(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__
     return;
   }
   const int g = tile_group[m0 / block_m];
-  const __nv_bfloat16* w0 = group_rows(b0, b0_x, n_local, g, (size_t)K * N);
-  const __nv_bfloat16* w1 = NB == 2 ? group_rows(b1, b1_x, n_local, g, (size_t)K * N) : w0;
+  const __nv_bfloat16* w0 = group_rows(b0, n_local, n_rep, g, (size_t)K * N);
+  const __nv_bfloat16* w1 = NB == 2 ? group_rows(b1, n_local, n_rep, g, (size_t)K * N) : w0;
   const __nv_bfloat16* a_tile = a + (size_t)m0 * K;
 
   auto load = [&](int kt) {
@@ -321,11 +332,12 @@ gmm_wgmma(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__
   }
 }
 
+using Bf16 = Src<__nv_bfloat16>;
+
 template <int MT, int NB, int EPI>
-cudaError_t launch_gmm(dim3 grid, cudaStream_t s, const void* a, const void* b0,
-                       const void* b0_x, const void* b1, const void* b1_x, int n_local,
-                       const int* tile_group, const int* live_rows, void* c, int K, int N,
-                       int block_m, int act) {
+cudaError_t launch_gmm(dim3 grid, cudaStream_t s, const void* a, Bf16 b0, Bf16 b1,
+                       int n_local, int n_rep, const int* tile_group, const int* live_rows,
+                       void* c, int K, int N, int block_m, int act) {
   using C = Gmm<MT, NB>;
   static bool ready = false;  // one flag per instantiation: raise the limit once
   if (!ready) {
@@ -336,49 +348,58 @@ cudaError_t launch_gmm(dim3 grid, cudaStream_t s, const void* a, const void* b0,
   }
   using T = __nv_bfloat16;
   gmm_wgmma<MT, NB, EPI><<<grid, C::THREADS, C::SMEM, s>>>(
-      (const T*)a, (const T*)b0, (const T*)b0_x, (const T*)b1, (const T*)b1_x, n_local,
-      tile_group, live_rows, (T*)c, K, N, block_m, act);
+      (const T*)a, b0, b1, n_local, n_rep, tile_group, live_rows, (T*)c, K, N, block_m, act);
   return cudaGetLastError();
 }
 
 template <int MT>
-int launch_bf16(int gated, int act, const void* x, const void* w_in, const void* w_gate,
-                const void* w_out, const void* w_in_x, const void* w_gate_x,
-                const void* w_out_x, int n_local, const int* tile_group, const int* live_rows,
-                void* h, void* y, int M, int d, int f, int block_m, cudaStream_t s) {
+int launch_bf16(int gated, int act, const void* x, Bf16 w_in, Bf16 w_gate, Bf16 w_out,
+                int n_local, int n_rep, const int* tile_group, const int* live_rows, void* h,
+                void* y, int M, int d, int f, int block_m, cudaStream_t s) {
   const dim3 grid_up((f + TN - 1) / TN, M / MT), grid_down((d + TN - 1) / TN, M / MT);
   cudaError_t e =
-      gated ? launch_gmm<MT, 2, 2>(grid_up, s, x, w_in, w_in_x, w_gate, w_gate_x, n_local,
-                                   tile_group, live_rows, h, d, f, block_m, act)
-            : launch_gmm<MT, 1, 1>(grid_up, s, x, w_in, w_in_x, nullptr, nullptr, n_local,
-                                   tile_group, live_rows, h, d, f, block_m, act);
+      gated ? launch_gmm<MT, 2, 2>(grid_up, s, x, w_in, w_gate, n_local, n_rep, tile_group,
+                                   live_rows, h, d, f, block_m, act)
+            : launch_gmm<MT, 1, 1>(grid_up, s, x, w_in, w_gate, n_local, n_rep, tile_group,
+                                   live_rows, h, d, f, block_m, act);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_gmm<MT, 1, 0>(grid_down, s, h, w_out, w_out_x, nullptr, nullptr, n_local,
-                                   tile_group, live_rows, y, f, d, block_m, act);
+  return (int)launch_gmm<MT, 1, 0>(grid_down, s, h, w_out, w_out, n_local, n_rep, tile_group,
+                                   live_rows, y, f, d, block_m, act);
+}
+
+template <typename T>
+Src<T> src(const void* local, const void* rep, const void* extra) {
+  return Src<T>{(const T*)local, (const T*)rep, (const T*)extra};
 }
 
 }  // namespace
 
 // dtype: 0 float32 (CUDA cores, `live` scratch of M / 32 ints for the
 // flag pass), 1 bfloat16 (tensor cores; `live_rows` a device int, or null
-// for every tile live).  Shapes are checked by the Python wrapper: M %
-// block_m == 0, d % 64 == 0, f % 64 == 0, block_m % 32 == 0 (f32) or %
-// 64 == 0 (bf16).
+// for every tile live).  Each weight comes as its local rows (n_local
+// groups), replica rows (n_rep groups; null when n_rep == 0) and foreign
+// rows (the groups after them; null when there are none).  Shapes are
+// checked by the Python wrapper: M % block_m == 0, d % 64 == 0, f % 64 ==
+// 0, block_m % 32 == 0 (f32) or % 64 == 0 (bf16).
 extern "C" int moe_gmm_launch(int dtype, int gated, int act, const void* x,
                               const void* w_in, const void* w_gate, const void* w_out,
+                              const void* w_in_r, const void* w_gate_r, const void* w_out_r,
                               const void* w_in_x, const void* w_gate_x, const void* w_out_x,
-                              int n_local, const int* tile_group, int* live,
+                              int n_local, int n_rep, const int* tile_group, int* live,
                               const int* live_rows, void* h, void* y, int M, int d, int f,
                               int block_m, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(gated, act, (const float*)x, (const float*)w_in, (const float*)w_gate,
-                      (const float*)w_out, (const float*)w_in_x, (const float*)w_gate_x,
-                      (const float*)w_out_x, n_local, tile_group, live, (float*)h, (float*)y,
-                      M, d, f, block_m, s);
+    return launch_f32(gated, act, (const float*)x, src<float>(w_in, w_in_r, w_in_x),
+                      src<float>(w_gate, w_gate_r, w_gate_x),
+                      src<float>(w_out, w_out_r, w_out_x), n_local, n_rep, tile_group, live,
+                      (float*)h, (float*)y, M, d, f, block_m, s);
+  const Bf16 wi = src<__nv_bfloat16>(w_in, w_in_r, w_in_x),
+             wg = src<__nv_bfloat16>(w_gate, w_gate_r, w_gate_x),
+             wo = src<__nv_bfloat16>(w_out, w_out_r, w_out_x);
   if (block_m % 128 == 0)
-    return launch_bf16<128>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x, w_out_x,
-                            n_local, tile_group, live_rows, h, y, M, d, f, block_m, s);
-  return launch_bf16<64>(gated, act, x, w_in, w_gate, w_out, w_in_x, w_gate_x, w_out_x,
-                         n_local, tile_group, live_rows, h, y, M, d, f, block_m, s);
+    return launch_bf16<128>(gated, act, x, wi, wg, wo, n_local, n_rep, tile_group, live_rows,
+                            h, y, M, d, f, block_m, s);
+  return launch_bf16<64>(gated, act, x, wi, wg, wo, n_local, n_rep, tile_group, live_rows, h,
+                         y, M, d, f, block_m, s);
 }

@@ -5,9 +5,11 @@ Port of ``repro/kernels/moe_gmm/`` (``moe_gmm``, ``ops.fused_expert_ffn``,
 ``csrc/moe_gmm.cu`` for CUDA tensors and runs ``moe_gmm_plain`` for CPU
 tensors; there is no fallback from one to the other.
 
-Weights come as ``G0`` local groups plus, optionally, ``foreign`` — the
-``K`` fetched foreign groups that follow them in group order — so the
-caller never concatenates the two into one copy.
+Weights come as ``G0`` local groups plus, optionally, ``replica`` — the
+``R`` replica-slot groups that follow them (hot experts' copies,
+``serve/rebalance.py``) — and ``foreign`` — the ``K`` fetched foreign
+groups after those — so the caller never concatenates them into one
+copy.
 
 The kernel's design is chosen by ``x.dtype``, explicitly (no input can
 reach both): bfloat16, the main paths' type, runs on the tensor cores
@@ -72,24 +74,30 @@ def _act(name: str, h: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def _with_foreign(w_in, w_out, w_gate, foreign: Foreign):
-    if foreign is None:
-        return w_in, w_out, w_gate
-    fi, fo, fg = foreign
-    return (torch.cat([w_in, fi]), torch.cat([w_out, fo]),
-            None if w_gate is None else torch.cat([w_gate, fg]))
+def _with_foreign(w_in, w_out, w_gate, replica: Foreign, foreign: Foreign):
+    """The three sources concatenated in group order: local | replica |
+    foreign."""
+    for extra in (replica, foreign):
+        if extra is None:
+            continue
+        ei, eo, eg = extra
+        w_in, w_out = torch.cat([w_in, ei]), torch.cat([w_out, eo])
+        w_gate = None if w_gate is None else torch.cat([w_gate, eg])
+    return w_in, w_out, w_gate
 
 
 def moe_gmm_plain(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                   tile_group: torch.Tensor, *,
                   w_gate: Optional[torch.Tensor] = None, act: str = "silu",
-                  block_m: int = 128, foreign: Foreign = None,
+                  block_m: int = 128, replica: Foreign = None,
+                  foreign: Foreign = None,
                   live_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: per tile, f32 products, the
     activation in f32, h rounded to x's type before the second product.
     Every tile is computed: ``live_rows`` only promises that the rows at
     or past it are zero, whose output is zero either way."""
-    w_in, w_out, w_gate = _with_foreign(w_in, w_out, w_gate, foreign)
+    w_in, w_out, w_gate = _with_foreign(w_in, w_out, w_gate, replica,
+                                        foreign)
     M, d = x.shape
     tg = tile_group.long()
     xt = x.reshape(M // block_m, block_m, d).float()
@@ -111,21 +119,22 @@ def _lib():
     fn = lib.moe_gmm_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, i, p, p, p, p, p,
-                       i, i, i, i, p]
+        fn.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p, i, i, p, p,
+                       p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
-           live_rows=None):
+           live_rows=None, replica=None):
     M, d = x.shape
     G0, d_w, f = w_in.shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"moe_gmm takes float32 or bfloat16, not {x.dtype}")
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
-    mats = [w_in, w_out, w_gate] + (list(foreign) if foreign else [])
+    mats = ([w_in, w_out, w_gate] + (list(replica) if replica else [])
+            + (list(foreign) if foreign else []))
     for t in [x, tile_group, live_rows] + mats:
         if t is None:
             continue
@@ -138,13 +147,15 @@ def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
     if d_w != d or w_out.shape != (G0, f, d) or (
             w_gate is not None and w_gate.shape != w_in.shape):
         raise ValueError("moe_gmm: weight shapes disagree with x")
-    if foreign is not None:
-        fi, fo, fg = foreign
-        K = fi.shape[0]
-        if fi.shape != (K, d, f) or fo.shape != (K, f, d) or (
-                (fg is None) != (w_gate is None)
-                or (fg is not None and fg.shape != fi.shape)):
-            raise ValueError("moe_gmm: foreign weight shapes disagree")
+    for what, extra in (("replica", replica), ("foreign", foreign)):
+        if extra is None:
+            continue
+        ei, eo, eg = extra
+        n = ei.shape[0]
+        if ei.shape != (n, d, f) or eo.shape != (n, f, d) or (
+                (eg is None) != (w_gate is None)
+                or (eg is not None and eg.shape != ei.shape)):
+            raise ValueError(f"moe_gmm: {what} weight shapes disagree")
     if tile_group.dtype != torch.int32 or tile_group.shape != (M // block_m,):
         raise ValueError("moe_gmm: tile_group must be int32 [M // block_m]")
     if live_rows is not None and (live_rows.dtype != torch.int32
@@ -161,25 +172,29 @@ def _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
 
 def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
             tile_group: torch.Tensor, *, w_gate: Optional[torch.Tensor] = None,
-            act: str = "silu", block_m: int = 128, foreign: Foreign = None,
+            act: str = "silu", block_m: int = 128, replica: Foreign = None,
+            foreign: Foreign = None,
             live_rows: Optional[torch.Tensor] = None,
             foreign_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [M, d]; w_in/w_gate [G0, d, f]; w_out [G0, f, d]; ``foreign`` an
-    optional (w_in, w_out, w_gate) of K more groups; tile_group
-    [M // block_m] int32 in [0, G0 + K); ``live_rows`` an optional int32
-    [1] on x's device, a multiple of block_m, past which every row of x is
-    zero; ``foreign_rows`` the foreign groups' real row count, for the
-    counter -> [M, d] in x's type."""
+    """x [M, d]; w_in/w_gate [G0, d, f]; w_out [G0, f, d]; ``replica`` an
+    optional (w_in, w_out, w_gate) of R more groups and ``foreign`` one of
+    K groups after those; tile_group [M // block_m] int32 in [0, G0 + R +
+    K); ``live_rows`` an optional int32 [1] on x's device, a multiple of
+    block_m, past which every row of x is zero; ``foreign_rows`` the
+    foreign groups' real row count, for the counter -> [M, d] in x's
+    type."""
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w_in, w_out, tile_group, w_gate=w_gate,
-                             act=act, block_m=block_m, foreign=foreign,
-                             live_rows=live_rows)
+                             act=act, block_m=block_m, replica=replica,
+                             foreign=foreign, live_rows=live_rows)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm runs on cuda or cpu, not {x.device}")
     _check(x, w_in, w_out, w_gate, foreign, tile_group, act, block_m,
-           live_rows)
+           live_rows, replica)
     M, d = x.shape
     f = w_in.shape[2]
+    ri, ro, rg = replica if replica is not None else (None, None, None)
+    n_rep = 0 if ri is None else ri.shape[0]
     fi, fo, fg = foreign if foreign is not None else (None, None, None)
     h = torch.empty((M, f), dtype=x.dtype, device=x.device)
     y = torch.empty((M, d), dtype=x.dtype, device=x.device)
@@ -189,8 +204,8 @@ def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib()(_DTYPES[x.dtype], int(w_gate is not None), _ACTS[act],
                 x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
-                _ptr(fi), _ptr(fg), _ptr(fo), w_in.shape[0],
-                tile_group.data_ptr(), _ptr(live), _ptr(live_rows),
+                _ptr(ri), _ptr(rg), _ptr(ro), _ptr(fi), _ptr(fg), _ptr(fo),
+                w_in.shape[0], n_rep, tile_group.data_ptr(), _ptr(live), _ptr(live_rows),
                 h.data_ptr(), y.data_ptr(), M, d, f, block_m, stream)
     build.check(rc, "moe_gmm")
     moe_gmm.launches += 1
@@ -231,7 +246,8 @@ def foreign_rows_total() -> int:
 def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                      group_sizes_padded: torch.Tensor, *,
                      w_gate: Optional[torch.Tensor] = None, act: str = "silu",
-                     block_m: int = 128, foreign: Foreign = None,
+                     block_m: int = 128, replica: Foreign = None,
+                     foreign: Foreign = None,
                      foreign_rows: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Entry used by ``core/grouped_ffn.py``: block-aligned group extents
@@ -239,6 +255,6 @@ def fused_expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     M = x.shape[0]
     tg = tile_group_map(group_sizes_padded, M // block_m, block_m)
     return moe_gmm(x, w_in, w_out, tg, w_gate=w_gate, act=act,
-                   block_m=block_m, foreign=foreign,
+                   block_m=block_m, replica=replica, foreign=foreign,
                    live_rows=live_row_count(group_sizes_padded, M),
                    foreign_rows=foreign_rows)

@@ -7,9 +7,10 @@ GELU MLPs (switch128).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
   prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
-                skew_assign)                   -> (logits, caches, pos + C, diags)
+                skew_assign, moe_replica_ids)  -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
-              block_size, moe_policy, skew_assign)
+              block_size, moe_policy, skew_assign, moe_replica_ids,
+              moe_residency_ids, moe_layer_diags)
                                                -> (logits, caches, pos + S, diags)
   init_cache(batch, s_max, device)             -> slab K/V caches
   init_paged_cache(num_blocks, block_size, s_ref, seq_axes)
@@ -116,6 +117,16 @@ class Model:
                         "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5)}
             if self.moe_spec.act == "silu":    # gated experts
                 p["moe"]["w_gate"] = nrm((n, rows, d, f), s_d)
+            R = cfg.moe.num_replica_slots
+            if R:
+                # replica slots start empty (ids -1, never scheduled);
+                # serve/rebalance.py copies hot experts' rows into them
+                for name in ("in", "out", "gate"):
+                    if f"w_{name}" in p["moe"]:
+                        p["moe"][f"w_rep_{name}"] = torch.zeros(
+                            (n, topo.num_ranks * R)
+                            + tuple(p["moe"][f"w_{name}"].shape[2:]),
+                            dtype=dt, device=dev)
             if cfg.moe.num_shared_experts:
                 p["shared_mlp"] = ffn((n,), cfg.moe.num_shared_experts * f)
             return p
@@ -187,7 +198,8 @@ class Model:
 
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos,
                       last_index=None, skew_key: Optional[SkewKey] = None,
-                      skew_assign: Optional[torch.Tensor] = None):
+                      skew_assign: Optional[torch.Tensor] = None,
+                      moe_replica_ids: Optional[torch.Tensor] = None):
         """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
         ``caches`` at position ``pos`` (all rows share it).  Logits at
         ``last_index`` (default C - 1); pad tokens past it are kept out of
@@ -195,7 +207,9 @@ class Model:
         0-d device tensors; with tensors (and ``skew_assign``
         [n_moe_layers, G, t_slice, k] in place of the skew key, as in
         ``decode_step``) the chunk reads no host value, so the serve
-        engine's captured chunk replays at any position."""
+        engine's captured chunk replays at any position.
+        ``moe_replica_ids`` [G, R] names the experts in the replica slots
+        (``moe_layer.moe_block``)."""
         Bc, C = tokens.shape
         spec = dataclasses.replace(self.moe_spec, tokens_local=Bc * C)
         vmask = None
@@ -208,7 +222,7 @@ class Model:
             h, params["stack"], self.cfg, cache=caches["stack"],
             cache_len=pos + C, q_offset=pos, moe_spec=spec, comm=self.comm,
             skew_key=skew_key, continue_prefill=True, valid_mask=vmask,
-            skew_assign=skew_assign)
+            skew_assign=skew_assign, moe_replica_ids=moe_replica_ids)
         h_last = (h[:, -1] if last_index is None
                   else h.index_select(1, last.long())[:, 0])
         return self._head(params, h_last), caches, pos + C, diags
@@ -217,7 +231,10 @@ class Model:
                     skew_key: Optional[SkewKey] = None, active_mask=None,
                     block_table: Optional[torch.Tensor] = None,
                     block_size: int = 0, moe_policy: Optional[str] = None,
-                    skew_assign: Optional[torch.Tensor] = None):
+                    skew_assign: Optional[torch.Tensor] = None,
+                    moe_replica_ids: Optional[torch.Tensor] = None,
+                    moe_residency_ids: Optional[torch.Tensor] = None,
+                    moe_layer_diags: bool = False):
         """token [B, S] against the paged pool (``block_table`` given; S > 1
         is a multi-query window) or, with S = 1, the slab caches of
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
@@ -225,8 +242,12 @@ class Model:
         decode spec's scheduling policy (and its foreign slots) for this
         step.  ``skew_assign`` [n_moe_layers, G, t_slice, k] replaces the
         skew key's draws with ones made beforehand (``run_stack``): the
-        serve engine's captured step reads no generator.  Reads no device
-        value on the host.  Returns logits [B, Vp] at the last position
+        serve engine's captured step reads no generator.
+        ``moe_replica_ids`` [G, R] (-1 = empty) names the experts in the
+        replica slots, ``moe_residency_ids`` [G, W] (-1 pads) each rank's
+        resident working set (``moe_layer.moe_block``); ``moe_layer_diags``
+        adds ``expert_load_layers`` to the diagnostics
+        (``transformer.run_stack``).  Reads no device value on the host.  Returns logits [B, Vp] at the last position
         when S == 1, else [B, S, Vp]."""
         B, S = token.shape
         if S > 1 and block_table is None:
@@ -249,7 +270,10 @@ class Model:
             h, params["stack"], self.cfg, cache=caches["stack"],
             cache_len=new_pos, q_offset=pos, moe_spec=spec, comm=self.comm,
             skew_key=skew_key, valid_mask=vmask, block_table=block_table,
-            block_size=block_size, skew_assign=skew_assign)
+            block_size=block_size, skew_assign=skew_assign,
+            moe_replica_ids=moe_replica_ids,
+            moe_residency_ids=moe_residency_ids,
+            moe_layer_diags=moe_layer_diags)
         if S == 1:
             logits = self._head(params, h[:, -1])
         else:

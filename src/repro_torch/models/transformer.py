@@ -80,7 +80,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      cache_len, moe_spec: MoEBlockSpec, comm, skew_key,
                      continue_prefill: bool, valid_mask, block_table,
-                     block_size: int, skew_assign=None):
+                     block_size: int, skew_assign=None, moe_replica_ids=None,
+                     moe_residency_ids=None):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
     experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
     residual.  Returns (x, diagnostics of this layer; none for a dense
@@ -95,7 +96,9 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
         return x + mlp(h, p["mlp"], cfg.act), {}
     y, mdiag = moe_block(h, p["moe"], spec=moe_spec, comm=comm,
                          skew_key=skew_key, valid_mask=valid_mask,
-                         skew_assign=skew_assign)
+                         skew_assign=skew_assign,
+                         replica_ids=moe_replica_ids,
+                         residency_ids=moe_residency_ids)
     if "shared_mlp" in p:
         y = y + mlp(h, p["shared_mlp"], cfg.act)
     # collapse the leading batch-group axis only
@@ -108,19 +111,29 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               skew_key: Optional[SkewKey] = None,
               continue_prefill: bool = False, valid_mask=None,
               block_table=None, block_size: int = 0,
-              skew_assign: Optional[torch.Tensor] = None
+              skew_assign: Optional[torch.Tensor] = None,
+              moe_replica_ids: Optional[torch.Tensor] = None,
+              moe_residency_ids: Optional[torch.Tensor] = None,
+              moe_layer_diags: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
     skew) is folded with each layer's index (``moe_layer_keys``);
     ``skew_assign`` [n_moe_layers, G, t_slice, k] holds assignments drawn
-    beforehand on those keys, one slice per MoE layer in order.  Returns
-    (x, cache, diags averaged over the MoE layers)."""
+    beforehand on those keys, one slice per MoE layer in order.
+    ``moe_replica_ids`` [G, R] and ``moe_residency_ids`` [G, W] are the
+    serving-time placement tables every MoE block reads
+    (``moe_layer.moe_block``).  Returns (x, cache, diags averaged over the
+    MoE layers); ``moe_layer_diags`` adds ``expert_load_layers``
+    [n_moe_layers, Ep], each MoE layer's expert loads before the mean,
+    which the tiered-residency manager reads."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
               comm=comm, continue_prefill=continue_prefill,
               valid_mask=valid_mask, block_table=block_table,
               block_size=block_size)
+    moe_kw = dict(moe_replica_ids=moe_replica_ids,
+                  moe_residency_ids=moe_residency_ids)
     for i in range(lead):
         x, _ = _apply_one_layer(x, params["lead"][i], "dense", cfg,
                                 cache=cache["lead"][i], skew_key=None, **kw)
@@ -138,8 +151,10 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
             x, d = _apply_one_layer(
                 x, p_step[f"sub{j}"], pattern[j], cfg,
                 cache=layer_slice(cache["blocks"][f"sub{j}"], i),
-                skew_key=layer_key, skew_assign=drawn, **kw)
+                skew_key=layer_key, skew_assign=drawn, **kw, **moe_kw)
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)
     diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}
+    if moe_layer_diags and "expert_load" in per_step:
+        diags["expert_load_layers"] = torch.stack(per_step["expert_load"])
     return x, cache, diags

@@ -43,6 +43,29 @@ captured entries and, after ``warmup()``, ``recompiled_after_warmup``
 says whether any was captured again (the JAX engine's names: one entry
 each across chunk positions, admissions, slot recycling, block growth,
 preemption, re-prefill and EOS).
+
+Serving-time expert placement (paper §4.2-4.3, MoE models at G > 1):
+
+* ``replica_slots`` / ``rebalance_interval``: every
+  ``rebalance_interval`` steps the ``ExpertRebalancer`` proposes the
+  EMA-hottest experts, and, when the proposal changed, their weight rows
+  are gathered into the model's replica slots in place
+  (``placement.ReplicaSwap``, captured once: ``jit_entries
+  ["replica_swap"]``), while the ``[G, R]`` replica table rides into the
+  next chunks and steps in their static buffers.
+* ``resident_experts`` / ``prefetch_policy``: the
+  ``ExpertResidencyManager`` keeps a ``[G, W]`` working set of each
+  rank's experts (``W = resident_experts / G``) from each decode step's
+  per-layer loads; its decision is applied at the start of the next
+  decode step, as in the JAX engine: the decision's rows are copied from
+  the pinned host tier (``placement.HostTier``) to the card on a side
+  stream, that step's decode waits on the copy's event, and the new table
+  demotes the experts outside the working set in the harmoeny schedule.
+  The stage copies a different number of rows each time, so it is never
+  captured: ``jit_entries["residency_stage"]`` reads 0 (the key set stays
+  the JAX engine's).  The device weights stay authoritative (a staged row
+  is a bit-identical copy), so greedy streams are the same at every
+  budget and policy.
 """
 from __future__ import annotations
 
@@ -58,7 +81,12 @@ from repro_torch.models import attention as attention_dispatch
 from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.placement import HostTier, ReplicaSwap, expert_leaves
+from repro_torch.serve.rebalance import ExpertRebalancer
 from repro_torch.serve.request import Request, RequestState, RequestStatus
+from repro_torch.serve.residency import (PREFETCH_POLICIES,
+                                         ExpertResidencyManager,
+                                         TierCostModel)
 from repro_torch.serve.statestore import make_state_store
 from repro_torch.serve.stepcore import StepCore
 
@@ -66,8 +94,8 @@ from repro_torch.serve.stepcore import StepCore
 @dataclass(frozen=True)
 class EngineConfig:
     """Static serving shapes, with the JAX engine's defaults.  The fields
-    after ``moe_policy`` exist in the JAX engine but are not ported yet:
-    setting one raises."""
+    after ``prefetch_policy`` exist in the JAX engine but are not ported
+    yet: setting one raises."""
     max_slots: int = 4          # decode batch width (concurrent requests)
     max_seq_len: int = 128      # logical KV length (prompt + generation)
     prefill_chunk: int = 32     # prompt tokens consumed per prefill call
@@ -81,6 +109,18 @@ class EngineConfig:
     # decode scheduling policy override (None = the model config's policy):
     # harmoeny / round_robin / even_split / static_opt (core/scheduler.py)
     moe_policy: Optional[str] = None
+    # between-window hot-expert replication (serve/rebalance.py): every
+    # `rebalance_interval` engine steps the EMA-hottest experts' weights
+    # are copied into the model's replica slots; the model must be built
+    # with MoEConfig.num_replica_slots == replica_slots
+    rebalance_interval: int = 0
+    replica_slots: int = 0
+    # tiered expert residency (serve/residency.py): `resident_experts`
+    # working-set rows (pod total, split evenly over the EP ranks) stay
+    # resident, the rest are staged in from the pinned host tier per
+    # `prefetch_policy` (predictive / on_demand / none); 0 = off
+    resident_experts: int = 0
+    prefetch_policy: str = "predictive"
     # --- not ported yet ---
     role: str = "unified"
     prefix_sharing: bool = False
@@ -88,9 +128,6 @@ class EngineConfig:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
-    rebalance_interval: int = 0
-    replica_slots: int = 0
-    resident_experts: int = 0
 
     def __post_init__(self):
         self.validate()
@@ -108,6 +145,18 @@ class EngineConfig:
         if self.moe_policy is not None and self.moe_policy not in known:
             raise ValueError(f"unknown moe_policy {self.moe_policy!r}; "
                              f"choose one of {known}")
+        if self.replica_slots < 0 or self.rebalance_interval < 0:
+            raise ValueError("replica_slots and rebalance_interval must "
+                             "be >= 0")
+        if self.rebalance_interval > 0 and self.replica_slots == 0:
+            raise ValueError("rebalance_interval > 0 needs replica_slots "
+                             "> 0 (there is nowhere to place hot experts)")
+        if self.resident_experts < 0:
+            raise ValueError("resident_experts must be >= 0")
+        if self.prefetch_policy not in PREFETCH_POLICIES:
+            raise ValueError(
+                f"unknown prefetch_policy {self.prefetch_policy!r}; choose "
+                f"one of {PREFETCH_POLICIES}")
         unported = {
             "role": self.role != "unified",
             "prefix_sharing": self.prefix_sharing,
@@ -115,9 +164,6 @@ class EngineConfig:
             "temperature": self.temperature != 0.0,
             "top_k": self.top_k != 0,
             "top_p": self.top_p != 1.0,
-            "rebalance_interval": self.rebalance_interval != 0,
-            "replica_slots": self.replica_slots != 0,
-            "resident_experts": self.resident_experts != 0,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -133,7 +179,10 @@ def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       eos_id: Optional[int] = None, skew_seed: int = 0,
                       paged: bool = False, kv_block_size: int = 16,
                       num_kv_blocks: int = 0,
-                      moe_policy: Optional[str] = None) -> EngineConfig:
+                      moe_policy: Optional[str] = None,
+                      rebalance_interval: int = 0, replica_slots: int = 0,
+                      resident_experts: int = 0,
+                      prefetch_policy: str = "predictive") -> EngineConfig:
     """Serving shapes from a workload: the pool covers prompt + generation
     and the prefill chunk divides the padded prompt."""
     chunk = prefill_chunk or min(max(prompt_len, 1), 32)
@@ -142,7 +191,9 @@ def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
         max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
         prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed,
         paged=paged, kv_block_size=kv_block_size,
-        num_kv_blocks=num_kv_blocks, moe_policy=moe_policy)
+        num_kv_blocks=num_kv_blocks, moe_policy=moe_policy,
+        rebalance_interval=rebalance_interval, replica_slots=replica_slots,
+        resident_experts=resident_experts, prefetch_policy=prefetch_policy)
 
 
 class ServeEngine:
@@ -154,8 +205,9 @@ class ServeEngine:
                              f"to run on {dev}")
         ecfg.validate()
         cfg = model.cfg
-        if ecfg.moe_policy is not None and not cfg.is_moe:
-            raise ValueError("moe_policy needs an MoE model")
+        if (ecfg.moe_policy is not None or ecfg.replica_slots > 0) \
+                and not cfg.is_moe:
+            raise ValueError("moe_policy / replica_slots need an MoE model")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -179,6 +231,54 @@ class ServeEngine:
         self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
         self._warm_counts: Optional[Dict[str, int]] = None
         attention_dispatch.reset_dispatch_log()
+        self._init_placement(params)
+
+    def _init_placement(self, params) -> None:
+        """The replica slots' rebalancer and swap, and the residency
+        manager and host tier, with the JAX engine's refusals."""
+        ecfg, cfg = self.ecfg, self.cfg
+        self._rebalancer: Optional[ExpertRebalancer] = None
+        self._replica_ids: Optional[np.ndarray] = None
+        self._rebalances = 0
+        self._replica_swaps = 0
+        if ecfg.replica_slots > 0:
+            if cfg.moe.num_replica_slots != ecfg.replica_slots:
+                raise ValueError(
+                    f"EngineConfig.replica_slots={ecfg.replica_slots} but "
+                    f"the model was built with MoEConfig.num_replica_slots="
+                    f"{cfg.moe.num_replica_slots}; the slots must exist "
+                    f"from init so swaps never change parameter shapes")
+            topo = self.model.moe_spec.topo
+            self._rebalancer = ExpertRebalancer(topo, ecfg.replica_slots)
+            self._replica_ids = np.full(
+                (topo.num_ranks, ecfg.replica_slots), -1, np.int32)
+            self._swap = ReplicaSwap(
+                params, topo.num_ranks * ecfg.replica_slots, self.device)
+        self._residency: Optional[ExpertResidencyManager] = None
+        self._residency_ids: Optional[np.ndarray] = None
+        self._pending_stage = None        # decision applied next step start
+        self._residency_stages = 0        # stages dispatched
+        self._host_tier: Optional[HostTier] = None
+        self.stage_log: List[Dict[str, Any]] = []
+        if ecfg.resident_experts > 0:
+            if not cfg.is_moe:
+                raise ValueError("tiered expert residency needs an MoE "
+                                 "model")
+            leaves = expert_leaves(params)
+            if not leaves:
+                raise ValueError("tiered expert residency found no expert "
+                                 "weight leaves in the parameter tree")
+            expert_bytes = float(sum(
+                w.numel() * w.element_size() // w.shape[w.ndim - 3]
+                for w in leaves))
+            self._residency = ExpertResidencyManager(
+                self.model.moe_spec.topo, ecfg.resident_experts,
+                policy=ecfg.prefetch_policy,
+                cost=TierCostModel(expert_bytes=expert_bytes))
+            self._residency_ids = self._residency._last_ids.copy()
+            self._host_tier = HostTier(leaves)
+            if self.device.type == "cuda":
+                self._stage_stream = torch.cuda.Stream(self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -314,7 +414,7 @@ class ServeEngine:
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :n] = seq[start:start + n]
             self.core.prefill(self.params, chunk, self.kv.scratch, start,
-                              n - 1, self._chunk_idx)
+                              n - 1, self._chunk_idx, self._replica_ids)
             self._chunk_idx += 1
             self.kv.after_chunk(st.req.rid, start)
             st.prefill_pos += n
@@ -322,8 +422,9 @@ class ServeEngine:
                 self.kv.on_prefill_done(st.slot)
             # one copy and one sync: the chunk's writes are done too
             first, packed = self.core.prefill_result()
-            self.metrics.record_step(self.core.unpack(packed), 0,
-                                     phase="prefill")
+            self.metrics.record_step(
+                self.core.unpack(packed, "prefill_chunk"), 0,
+                phase="prefill")
             did = True
             if st.prefill_done:
                 if st.resumed:
@@ -349,13 +450,18 @@ class ServeEngine:
         self._ensure_decode_blocks()
         if not self.active.any():
             return False
+        self._apply_pending_stage()
         nxt, packed = self.core.decode(
             self.params, self.tok, self.kv.pool, self.pos,
-            self.kv.decode_table(), self.active, self._step_idx)
+            self.kv.decode_table(), self.active, self._step_idx,
+            self._replica_ids, self._residency_ids)
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
-        self.metrics.record_step(self.core.unpack(packed), n_active,
-                                 phase="decode")
+        diags = self.core.unpack(packed, "decode")
+        layer_loads = diags.pop("expert_load_layers", None)
+        self.metrics.record_step(diags, n_active, phase="decode")
+        self._observe_load(diags)
+        self._observe_residency(layer_loads)
         occ = self.kv.occupancy()
         if occ is not None:
             self.metrics.record_kv(*occ)
@@ -371,6 +477,97 @@ class ServeEngine:
             else:
                 self.tok[s] = t
         return True
+
+    # ------------------------------------------------------------------
+    # between-window hot-expert replication (serve/rebalance.py)
+    # ------------------------------------------------------------------
+    def _observe_load(self, diags) -> None:
+        """Fold this decode step's global per-expert load ([Ep]
+        ``expert_load``) into the rebalancer's EMA."""
+        if self._rebalancer is None or "expert_load" not in diags:
+            return
+        self._rebalancer.observe(
+            np.asarray(diags["expert_load"]).reshape(-1))
+
+    def _rebalance_now(self) -> None:
+        """Close a load window: re-derive the hot set from the EMA and, if
+        it changed, gather the hot experts' rows into every non-host
+        rank's replica slots (in place, one captured graph) and publish
+        the new ``[G, R]`` table to the next chunks and steps."""
+        dec = self._rebalancer.propose()
+        self._rebalances += 1
+        if not dec.changed:
+            return
+        self._swap(dec.weight_rows)
+        self._replica_ids = dec.replica_ids
+        self._replica_swaps += 1
+
+    # ------------------------------------------------------------------
+    # tiered expert residency (serve/residency.py)
+    # ------------------------------------------------------------------
+    def _observe_residency(self, layer_loads) -> None:
+        """Feed this step's per-layer expert loads ([n_moe_layers, Ep]) to
+        the residency manager; its decision is applied at the start of
+        the next decode step."""
+        if self._residency is None or layer_loads is None:
+            return
+        self._pending_stage = self._residency.step(np.asarray(layer_loads))
+
+    def _apply_pending_stage(self) -> None:
+        """Apply the previous step's decision: stage its rows, then
+        publish the new ``[G, W]`` table to this step."""
+        dec = self._pending_stage
+        if dec is None:
+            return
+        self._pending_stage = None
+        if dec.stage_rows.size:
+            self._dispatch_stage(dec.stage_rows)
+        self._residency_ids = dec.residency_ids
+
+    def _dispatch_stage(self, rows: np.ndarray) -> None:
+        """Copy ``rows`` (stacked weight-row indices) from the host tier
+        into the expert leaves.  On the card the copies run on a side
+        stream after the work already queued, and the current stream (the
+        decode step that follows) waits on their end; the events around
+        them time the copy (``stage_times``)."""
+        rows = [int(r) for r in rows]
+        entry = {"rows": len(rows),
+                 "bytes": len(rows) * self._host_tier.row_bytes}
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            side = self._stage_stream
+            side.wait_stream(cur)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            with torch.cuda.stream(side):
+                start.record(side)
+                self._host_tier.stage(rows)
+                end.record(side)
+            cur.wait_event(end)
+            entry["events"] = (start, end)
+        else:
+            self._host_tier.stage(rows)
+        self.stage_log.append(entry)
+        self._residency_stages += 1
+
+    def stage_times(self) -> List[Dict[str, float]]:
+        """Each stage's rows, bytes and, on the card, the copy's device
+        ms (from the events around it on the side stream)."""
+        if self.device.type == "cuda":
+            self._sync()
+        out = []
+        for e in self.stage_log:
+            rec = {"rows": e["rows"], "bytes": e["bytes"]}
+            if "events" in e:
+                rec["ms"] = e["events"][0].elapsed_time(e["events"][1])
+            out.append(rec)
+        return out
+
+    def close(self) -> None:
+        """Release the host tier once no copy from it is in flight."""
+        if self._host_tier is not None:
+            self._sync()
+            self._host_tier.release()
 
     def _finish(self, st: RequestState, now: float) -> None:
         st.finish_time = now
@@ -397,11 +594,17 @@ class ServeEngine:
         attention_dispatch.reset_dispatch_log()
         C = self.ecfg.prefill_chunk
         self.core.prefill(self.params, np.zeros((1, C), np.int32),
-                          self.kv.scratch, 0, C - 1, 2 ** 31 - 1)
+                          self.kv.scratch, 0, C - 1, 2 ** 31 - 1,
+                          self._replica_ids)
         table = self.kv.warm()
         self.core.prefill_result()
         self.core.decode(self.params, self.tok, self.kv.pool, self.pos,
-                         table, self.active, 2 ** 31 - 1)
+                         table, self.active, 2 ** 31 - 1,
+                         self._replica_ids, self._residency_ids)
+        if self._rebalancer is not None:
+            # capture the swap too: the slots are empty (ids all -1), so
+            # the rows copied are dead, and real swaps replay the graph
+            self._swap(np.zeros((self._replica_ids.size,), np.int32))
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
         self._warm_counts = self.jit_counts()
@@ -413,6 +616,11 @@ class ServeEngine:
         did = self._prefill_work(now)
         did = self._decode_work(now) or did
         self._step_idx += 1
+        if self._rebalancer is not None \
+                and self.ecfg.rebalance_interval > 0 \
+                and self._step_idx % self.ecfg.rebalance_interval == 0 \
+                and self._rebalancer.steps_observed > 0:
+            self._rebalance_now()
         if not did:
             nxt = self.front.queue.next_arrival()
             if nxt is not None:
@@ -439,10 +647,18 @@ class ServeEngine:
 
     def jit_counts(self) -> Dict[str, int]:
         """Every captured entry, by the JAX engine's names: the step
-        core's and the store's write."""
-        return {**self.core.jit_counts(), **self.kv.jit_counts()}
+        core's, the store's write, the replica swap and the residency
+        stage (never captured: 0)."""
+        counts = {**self.core.jit_counts(), **self.kv.jit_counts()}
+        if self._rebalancer is not None:
+            counts["replica_swap"] = self._swap.captures
+        if self._residency is not None:
+            counts["residency_stage"] = 0
+        return counts
 
     def report(self) -> Dict[str, Any]:
+        if self._residency is not None:
+            self.metrics.residency = self._residency.counters()
         rep = self.metrics.report()
         rep["engine"] = {
             "max_slots": self.ecfg.max_slots,
@@ -460,6 +676,20 @@ class ServeEngine:
         if self.cfg.is_moe:
             rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
                                            or self.cfg.moe.policy)
+            rep["engine"]["replica_slots"] = self.ecfg.replica_slots
+            if self._rebalancer is not None:
+                rep["engine"]["rebalance_interval"] = \
+                    self.ecfg.rebalance_interval
+                rep["engine"]["rebalances"] = self._rebalances
+                rep["engine"]["replica_swaps"] = self._replica_swaps
+                rep["engine"]["replica_ids"] = self._replica_ids.tolist()
+                rep["engine"]["hot_experts"] = self._rebalancer.hot()
+            rep["engine"]["resident_experts"] = self.ecfg.resident_experts
+            if self._residency is not None:
+                rep["engine"]["prefetch_policy"] = self.ecfg.prefetch_policy
+                rep["engine"]["residency_stages"] = self._residency_stages
+                rep["engine"]["residency_ids"] = \
+                    self._residency_ids.tolist()
         rep["state_pool"] = self.kv.stats()
         snap = (self._attn_dispatch if self._attn_dispatch is not None
                 else attention_dispatch.dispatch_log())

@@ -1,18 +1,21 @@
 """Serving metrics (port of the TTFT / TPOT / throughput and
-``load_balance`` parts of ``repro/serve/metrics.py``).
+``load_balance`` and ``residency`` parts of ``repro/serve/metrics.py``).
 
 Per request: TTFT = first_token_time - arrival_time (queueing + prefill),
 TPOT = mean inter-token time over the decode phase, e2e = finish_time -
 arrival_time.  Per step: active decode slots, paged KV-block occupancy,
 the MoE block's scalar schedule diagnostics and its vector ones (per-rank
 and per-expert loads), from which ``report()["load_balance"]`` is
-derived.  ``report()`` is JSON-safe on an empty window (percentiles over
-no requests come back as None).
+derived.  The ``residency`` section (hits, misses, lookups, swaps,
+prefetches, stall_units, bytes_staged, hit_rate) is the tiered-residency
+manager's counters, which the engine sets; it is absent with residency
+off.  ``report()`` is JSON-safe on an empty window (percentiles over no
+requests come back as None).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -83,6 +86,9 @@ class ServeMetrics:
         self.kv_blocks_in_use: List[int] = []
         self.kv_blocks_total = 0
         self.preemptions = 0
+        # tiered expert residency's counters (serve/residency.py), set by
+        # the engine's report(); None = residency off
+        self.residency: Optional[Dict[str, Any]] = None
 
     @property
     def empty(self) -> bool:
@@ -152,6 +158,8 @@ class ServeMetrics:
         if self.moe_diags:
             rep["moe"] = {k: float(np.mean(v))
                           for k, v in self.moe_diags.items()}
+        if self.residency:
+            rep["residency"] = dict(self.residency)
         lb = self._load_balance()
         if lb:
             rep["load_balance"] = lb

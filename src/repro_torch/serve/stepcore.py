@@ -23,6 +23,13 @@ passes its key into the jitted step the same way).  An entry hands back
 its greedy tokens and its MoE diagnostics packed in one float32 tensor:
 one copy to the host a call.
 
+The serving-time expert placement rides in the same static buffers: the
+replica table ``[G, R]`` (prefill chunk and decode; ``serve/rebalance``)
+and the residency table ``[G, W]`` (decode; ``serve/residency``) are
+int32 values filled from pinned memory before each replay, so a swap or a
+stage changes what a graph reads, never the graph; with residency on,
+the decode step also hands back ``expert_load_layers`` in its one copy.
+
 There is no fallback: a step that cannot be captured fails.  ``eager()``
 (the counterpart of ``jax.disable_jit()``) runs every entry, the KV
 store's writes included, without the graph, on the same buffers, for
@@ -169,10 +176,18 @@ class StepCore:
         self.pf_key, self.dec_key = base.fold_in(0), base.fold_in(1)
         B, C = self.B, self.C = ecfg.max_slots, ecfg.prefill_chunk
         self.bps = blocks_per_slot if ecfg.paged else 0
-        # decode: tokens | positions | active | block table;
-        # prefill chunk: tokens | start | last
-        self._dec_in = Staged(3 * B + B * self.bps, dev)
-        self._pf_in = Staged(C + 2, dev)
+        G = model.moe_spec_decode.topo.num_ranks if cfg.is_moe else 1
+        self.G, self.R = G, ecfg.replica_slots
+        self.W = ecfg.resident_experts // G
+        n_rep, n_res = G * self.R, G * self.W
+        # decode: tokens | positions | active | replica table | residency
+        # table | block table; prefill chunk: tokens | start | last |
+        # replica table
+        self._rep_at = 3 * B
+        self._res_at = 3 * B + n_rep
+        self._bt_at = 3 * B + n_rep + n_res
+        self._dec_in = Staged(self._bt_at + B * self.bps, dev)
+        self._pf_in = Staged(C + 2 + n_rep, dev)
         self._h_out: Dict[int, torch.Tensor] = {}
         self._skew = self._pf_skew = None
         if self.skew:
@@ -193,7 +208,8 @@ class StepCore:
         # host seconds spent on skew draws, and calls, by entry
         self.predraw_s = {"decode": 0.0, "prefill_chunk": 0.0}
         self.predraw_calls = {"decode": 0, "prefill_chunk": 0}
-        self._layout = []
+        self._layouts: Dict[str, list] = {}    # packed diagnostics, by entry
+        self._last_packed = "decode"
         # the lambdas look the step up at each call (tests wrap it)
         self.decode_entry = Entry(lambda p, pool: self._step(p, pool), dev)
         self.prefill_entry = Entry(
@@ -216,14 +232,18 @@ class StepCore:
 
     # ------------------------------------------------------------------
     def prefill(self, params, chunk: np.ndarray, scratch, start: int,
-                last: int, chunk_idx: int) -> None:
+                last: int, chunk_idx: int,
+                replica_ids: Optional[np.ndarray] = None) -> None:
         """Enqueue one [1, C] prompt chunk at ``start`` into the scratch
         (the engine's ``chunk_idx``-th), whose logits are read at
-        ``last``; ``prefill_result`` reads what it hands back."""
+        ``last``, with the replica table ``replica_ids`` [G, R];
+        ``prefill_result`` reads what it hands back."""
         C = self.C
         h = self._pf_in.fill()
         h[:C] = np.asarray(chunk).reshape(C)
         h[C], h[C + 1] = start, last
+        if self.R:
+            h[C + 2:] = np.asarray(replica_ids).reshape(-1)
         self._pf_in.push()
         self._predraw(chunk_idx, "prefill_chunk")
         self._pf_packed = self.prefill_entry(params, scratch)
@@ -237,21 +257,28 @@ class StepCore:
     def _prefill_step(self, params, scratch) -> torch.Tensor:
         """The prefill chunk on the static buffers: what the graph holds."""
         C, d = self.C, self._pf_in.dev
+        rep = d[C + 2:].view(self.G, self.R) if self.R else None
         logits, _, _, diags = self.model.prefill_chunk(
             params, d[:C].view(1, C), scratch, d[C], d[C + 1],
-            skew_assign=self._pf_skew)
-        return torch.cat([sample_tokens(logits).float(), self._pack(diags)])
+            skew_assign=self._pf_skew, moe_replica_ids=rep)
+        return torch.cat([sample_tokens(logits).float(),
+                          self._pack(diags, "prefill_chunk")])
 
-    def _pack(self, diags: Dict[str, torch.Tensor]) -> torch.Tensor:
-        self._layout = [(k, tuple(v.shape)) for k, v in diags.items()]
+    def _pack(self, diags: Dict[str, torch.Tensor],
+              entry: str) -> torch.Tensor:
+        self._layouts[entry] = [(k, tuple(v.shape)) for k, v in diags.items()]
+        self._last_packed = entry
         if not diags:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
         return torch.cat([v.reshape(-1).float() for v in diags.values()])
 
-    def unpack(self, packed: np.ndarray) -> Dict[str, np.ndarray]:
-        """A packed diagnostics vector -> {key: array of its shape}."""
+    def unpack(self, packed: np.ndarray,
+               entry: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """A packed diagnostics vector of ``entry`` ("prefill_chunk" or
+        "decode"; default: the entry packed last) -> {key: array of its
+        shape}."""
         out, i = {}, 0
-        for k, shape in self._layout:
+        for k, shape in self._layouts[entry or self._last_packed]:
             n = int(np.prod(shape))
             out[k] = packed[i:i + n].reshape(shape)
             i += n
@@ -260,10 +287,13 @@ class StepCore:
     # ------------------------------------------------------------------
     def decode(self, params, tok: np.ndarray, pool, pos: np.ndarray,
                block_table: Optional[np.ndarray], active: np.ndarray,
-               step_idx: int) -> Tuple[np.ndarray, np.ndarray]:
+               step_idx: int, replica_ids: Optional[np.ndarray] = None,
+               residency_ids: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
         """One decode step of every slot (the engine's ``step_idx``-th
         step) on the paged pool through ``block_table`` or, without one,
-        on the slab at each row's own position.  Returns the greedy next
+        on the slab at each row's own position, with the replica table
+        [G, R] and the residency table [G, W].  Returns the greedy next
         tokens [B] and the packed MoE diagnostics (``unpack``), on the
         host."""
         B = self.B
@@ -271,8 +301,13 @@ class StepCore:
         h[:B] = np.asarray(tok).reshape(B)
         h[B:2 * B] = pos
         h[2 * B:3 * B] = active
+        if self.R:
+            h[self._rep_at:self._res_at] = np.asarray(replica_ids).reshape(-1)
+        if self.W:
+            h[self._res_at:self._bt_at] = np.asarray(
+                residency_ids).reshape(-1)
         if self.bps:
-            h[3 * B:] = np.asarray(block_table).reshape(-1)
+            h[self._bt_at:] = np.asarray(block_table).reshape(-1)
         self._dec_in.push()
         self._predraw(step_idx, "decode")
         packed, self.logits = self.decode_entry(params, pool)
@@ -303,13 +338,21 @@ class StepCore:
         B, d = self.B, self._dec_in.dev
         kw = {}
         if self.bps:
-            kw = dict(block_table=d[3 * B:].view(B, self.bps),
+            kw = dict(block_table=d[self._bt_at:].view(B, self.bps),
                       block_size=self.ecfg.kv_block_size)
+        if self.R:
+            kw["moe_replica_ids"] = d[self._rep_at:self._res_at].view(
+                self.G, self.R)
+        if self.W:
+            kw.update(moe_layer_diags=True,
+                      moe_residency_ids=d[self._res_at:self._bt_at].view(
+                          self.G, self.W))
         logits, _, _, diags = self.model.decode_step(
             params, d[:B].view(B, 1), pool, d[B:2 * B],
             active_mask=d[2 * B:3 * B].to(torch.bool),
             moe_policy=self.ecfg.moe_policy, skew_assign=self._skew, **kw)
-        packed = torch.cat([sample_tokens(logits).float(), self._pack(diags)])
+        packed = torch.cat([sample_tokens(logits).float(),
+                            self._pack(diags, "decode")])
         return packed, logits
 
     def _to_host(self, packed: torch.Tensor) -> np.ndarray:

@@ -142,3 +142,177 @@ def assert_block_matches(rec, y, diag, got, spec):
         assert len(got["fids"]) == G
         for f_r in got["fids"]:
             np.testing.assert_array_equal(f_r.numpy(), rec["fids"])
+
+
+# ----------------------------------------------------------------------
+# the serving-time expert placement (replica slots, tiered residency):
+# one JAX engine run a cell on a (1, G) mesh and the port's counterpart,
+# each recording what the engine decided along the way; the hooks are
+# source text that both sides run
+# ----------------------------------------------------------------------
+RECORD_SRC = '''
+def record_placement(eng):
+    """Hook ``eng`` so that it records its greedy streams, the replica
+    table after every rebalance, the residency table after every applied
+    decision and the rows of every stage."""
+    rec = {"streams": {}, "replica_ids": [], "residency_ids": [],
+           "stage_rows": []}
+    finish, rebalance = eng._finish, eng._rebalance_now
+    apply_stage, dispatch = eng._apply_pending_stage, eng._dispatch_stage
+
+    def on_finish(st, now):
+        rec["streams"][str(st.req.rid)] = [int(t) for t in st.output]
+        finish(st, now)
+
+    def on_rebalance():
+        rebalance()
+        rec["replica_ids"].append(eng._replica_ids.tolist())
+
+    def on_apply():
+        apply_stage()
+        if eng._residency_ids is not None:
+            rec["residency_ids"].append(eng._residency_ids.tolist())
+
+    def on_dispatch(rows):
+        rec["stage_rows"].append([int(r) for r in rows])
+        dispatch(rows)
+    eng._finish, eng._rebalance_now = on_finish, on_rebalance
+    eng._apply_pending_stage, eng._dispatch_stage = on_apply, on_dispatch
+    return rec
+'''
+exec(RECORD_SRC)
+
+PLACEMENT_JAX_BODY = FLATTEN_SRC + RECORD_SRC + '''
+import dataclasses, json
+import jax
+# cells that trace the same steps (the tight budgets under each policy)
+# compile once
+jax.config.update("jax_compilation_cache_dir", CACHE)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+from repro.configs.base import ParallelConfig
+from repro.configs.qwen15_moe_a27b import CONFIG
+from repro.launch.mesh import make_host_mesh
+from repro.models.model import MeshShape, build_model
+from repro.serve import Request, ServeEngine, VirtualClock, engine_config_for
+cfg = CONFIG.reduced()
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+    cfg.moe, q_tokens=1, router_skew=0.9, num_replica_slots=R))
+mesh = make_host_mesh(1, G)
+ms = MeshShape(tuple(zip(mesh.axis_names, mesh.devices.shape)))
+model = build_model(cfg, ParallelConfig(attn_chunk=8, loss_chunk=8),
+                    batch=KW["max_slots"], seq_len=KW["prompt_len"],
+                    mesh_shape=ms, mesh=mesh)
+with mesh:
+    params = model.init(jax.random.PRNGKey(0))
+out = flatten(jax.device_get(params), "params/")
+from repro.core.router import route_skewed
+moe = cfg.moe
+
+
+def _skew_draws(key, t_slice):
+    layers = []
+    for _ in range(cfg.num_layers):
+        sub = jax.random.fold_in(key, 0)
+        layers.append(jax.numpy.stack([route_skewed(
+            jax.random.fold_in(sub, g), t_slice,
+            top_k=moe.num_experts_per_tok, num_experts=moe.num_experts,
+            padded_experts=model.moe_spec.topo.padded_experts,
+            alpha=moe.router_skew, n_hot=moe.router_skew_experts
+        ).assign for g in range(G)]))
+        key = jax.random.fold_in(key, 997)
+    return jax.numpy.stack(layers)
+
+
+_skew_draws = jax.jit(_skew_draws, static_argnums=1)
+
+
+def skew_draws(key, tokens):
+    """What the MoE blocks of one call on ``key`` draw: [layer][rank]
+    [t_slice][k] (the scan folds 997 into the key a layer, the one MoE
+    sub-layer folds 0, each rank its index)."""
+    return np.asarray(_skew_draws(key, -(-max(tokens, G) // G))).tolist()
+
+
+def record_draws(eng, rec):
+    rec["draws"] = {"prefill_chunk": [], "decode": []}
+    next_key = eng._next_key
+
+    def on_next_key(stream, idx):
+        key = next_key(stream, idx)
+        pf = np.array_equal(np.asarray(stream), np.asarray(eng._pf_key))
+        rec["draws"]["prefill_chunk" if pf else "decode"].append(
+            skew_draws(key, KW["prefill_chunk"] if pf else KW["max_slots"]))
+        return key
+    eng._next_key = on_next_key
+
+
+for name, ekw in CELLS.items():
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, tokens=rng.integers(
+                0, 512, (int(rng.integers(3, KW["prompt_len"] + 1)),)
+            ).astype(np.int32), max_new_tokens=KW["max_new_tokens"],
+            arrival_time=0.3 * i) for i in range(6)]
+    eng = ServeEngine(model, params, engine_config_for(cfg, **KW, **ekw),
+                      mesh=mesh, clock=VirtualClock(0.1))
+    rec = record_placement(eng)
+    record_draws(eng, rec)
+    with mesh:
+        rec["report"] = eng.run(reqs)
+    out[name] = np.array(json.dumps(rec, default=int))
+np.savez(OUT, **out)
+'''
+
+
+def placement_jax(tmp_path_factory, *, G, R, KW, CELLS):
+    """The JAX engine's records, one a cell, and its converted weights
+    (one subprocess on G emulated host devices)."""
+    import json
+    from repro_torch.convert import to_torch
+    tmp = tmp_path_factory.mktemp("placement")
+    body = (f"import numpy as np\nG = {G}\nR = {R}\nKW = {KW!r}\n"
+            f"CELLS = {CELLS!r}\nCACHE = {str(tmp / 'xla')!r}\n"
+            + PLACEMENT_JAX_BODY)
+    flat = run_jax(body, tmp / "p.npz", timeout=600)
+    params = to_torch(unflatten(flat, "params"), device="cpu")
+    return params, {c: json.loads(str(flat[c])) for c in CELLS}
+
+
+def replay_draws(eng, draws):
+    """Make ``eng``'s step core route on the skewed assignments the JAX
+    engine drew, call by call (the two frameworks' generators differ):
+    its pre-draws copy them into the static buffers instead."""
+    core = eng.core
+    left = {entry: list(d) for entry, d in draws.items()}
+
+    def predraw(idx, entry="decode"):
+        buf = core._pf_skew if entry == "prefill_chunk" else core._skew
+        buf.copy_(torch.tensor(left[entry].pop(0), dtype=torch.int32))
+    core._predraw = predraw
+    return left
+
+
+def placement_port(params, *, G, R, KW, ekw, draws, device="cpu"):
+    """The port's engine on the same trace, weights and skew draws: its
+    record (the report under "report"), the engine, and the JAX draws it
+    left unused."""
+    import dataclasses
+    from repro_torch.configs.qwen15_moe_a27b import CONFIG as TORCH_QWEN
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (Request, ServeEngine, VirtualClock,
+                                   engine_config_for)
+    cfg = TORCH_QWEN.reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, q_tokens=1, router_skew=0.9, num_replica_slots=R))
+    model = build_model(cfg, batch=KW["max_slots"], seq_len=KW["prompt_len"],
+                        device=device, ep_degree=G)
+    eng = ServeEngine(model, params, engine_config_for(cfg, **KW, **ekw),
+                      clock=VirtualClock(0.1), device=device)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, tokens=rng.integers(
+                0, 512, (int(rng.integers(3, KW["prompt_len"] + 1)),)
+            ).astype(np.int32), max_new_tokens=KW["max_new_tokens"],
+            arrival_time=0.3 * i) for i in range(6)]
+    rec = record_placement(eng)
+    left = replay_draws(eng, draws)
+    rec["report"] = eng.run(reqs)
+    return rec, eng, left

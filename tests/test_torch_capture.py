@@ -20,7 +20,15 @@ slot recycling, block growth, preemption and EOS on both pools; captured
 greedy streams equal to eager ones on reduced f32 models, also at two
 chunks an engine step and under preemption with resumed re-prefills; and
 the card's streams equal to the CPU's.  The prefill chunk's own CPU
-checks are in ``test_torch_prefill_capture.py``."""
+checks are in ``test_torch_prefill_capture.py``.
+
+The serving-time expert placement (replica slots, tiered residency) at
+G = 4: after swaps and stages the decode step still reads its tables
+from the static buffer under the guard, and a table read as Python ints
+fails it; on the card, swaps (one captured gather) and stages (copies on
+a side stream) between replays equal the eager run, and the card's
+streams with both mechanisms equal the CPU's."""
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -483,4 +491,149 @@ def test_card_streams_equal_cpu_streams(cuda, arch, ep, paged):
         eng.warmup()
         outs[dev], rep = captured_run(eng, _chunk_trace())
     assert rep["jit_entries"] == _entries(paged, 1)
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ----------------------------------------------------------------------
+# the serving-time expert placement's tables in the captured steps
+# ----------------------------------------------------------------------
+PLACEMENT = {"replicas": dict(replica_slots=1, rebalance_interval=2),
+             "residency": dict(resident_experts=4),
+             "both": dict(replica_slots=1, rebalance_interval=2,
+                          resident_experts=4)}
+
+
+def _placement_engine(cell, *, paged, device="cpu", skew=0.9):
+    """Reduced qwen at G = 4 under harmoeny (q = 1) with the replica slots
+    and / or tiered residency (W = 1 of 2) of ``cell``."""
+    fields = PLACEMENT[cell]
+    cfg = _reduced("qwen15-moe-a27b", q_tokens=1, router_skew=skew,
+                   num_replica_slots=fields.get("replica_slots", 0))
+    return _engine(cfg, paged=paged, ep_degree=G, policy="harmoeny",
+                   device=device, **fields)
+
+
+def _placement_guarded_steps(eng, monkeypatch, n_steps=3):
+    """Serve until a swap and / or a stage has happened, then guard
+    ``n_steps`` decode steps (their swaps and stages run before and
+    between them, outside the step)."""
+    guard = HostSyncGuard()
+    plain = schedule_ops.rebalance_plain
+
+    def exempt_plain(*args, **kwargs):
+        guard.paused += 1
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            guard.paused -= 1
+    monkeypatch.setattr(schedule_ops, "rebalance_plain", exempt_plain)
+    rng = np.random.default_rng(5)
+    for i in range(6):
+        eng.submit(Request(rid=i, tokens=rng.integers(
+            1, 500, (int(rng.integers(3, L + 1)),)), max_new_tokens=GEN))
+
+    def placed():
+        return ((eng._rebalancer is None or eng._replica_swaps > 0)
+                and (eng._residency is None or eng._residency_stages > 0))
+    for _ in range(40):
+        if placed() and eng.active.any():
+            break
+        eng.step()
+    assert placed() and eng.active.any()
+    step = eng.core._step
+
+    def guarded(params, pool):
+        with guard:
+            return step(params, pool)
+    monkeypatch.setattr(eng.core, "_step", guarded)
+    for _ in range(n_steps):
+        if not eng.active.any():
+            break
+        eng.step()
+    return guard
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+@pytest.mark.parametrize("cell", list(PLACEMENT))
+def test_decode_step_with_placement_tables_never_syncs_the_host(
+        cell, paged, monkeypatch):
+    """After a replica swap and / or a residency stage, the decode step
+    reads the ``[G, R]`` and ``[G, W]`` tables from its static buffer:
+    no host sync, no host copy."""
+    eng = _placement_engine(cell, paged=paged)
+    eng.warmup()
+    guard = _placement_guarded_steps(eng, monkeypatch)
+    assert guard.ops > 100
+    assert guard.hits == []
+    if eng._rebalancer is not None:
+        assert (eng._replica_ids >= 0).any()
+
+
+@pytest.mark.parametrize("cell,target", [("replicas", "replica_slot_map"),
+                                         ("residency",
+                                          "residency_non_local")])
+def test_a_host_int_in_a_placement_table_fails_the_guard(cell, target,
+                                                         monkeypatch):
+    """The guard sees a table read as Python ints (``int()`` of each
+    entry, then a tensor made of them), which a graph would freeze."""
+    from repro_torch.core import moe_layer
+    from repro_torch.core import prefetch
+    owner = moe_layer if target == "replica_slot_map" else prefetch
+    real = getattr(owner, target)
+
+    def host_read(ids, *args):
+        vals = [[int(v) for v in row] for row in ids.reshape(
+            -1, ids.shape[-1])]
+        return real(torch.tensor(vals, dtype=torch.int32).reshape(
+            ids.shape), *args)
+    eng = _placement_engine(cell, paged=True)
+    eng.warmup()
+    monkeypatch.setattr(owner, target, host_read)
+    guard = _placement_guarded_steps(eng, monkeypatch)
+    assert "aten._local_scalar_dense.default" in guard.hits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_swaps_and_stages_between_replays_equal_eager_steps(cuda, paged):
+    """Replica swaps (one captured gather, replayed) and residency stages
+    (host-to-device copies on a side stream) between the replays of the
+    captured chunk and step: the streams, tables and counters equal the
+    same run with every entry eager."""
+    runs = {}
+    for eager in (True, False):
+        eng = _placement_engine("both", paged=paged, device="cuda")
+        with (stepcore.eager() if eager else contextlib.nullcontext()):
+            eng.warmup()
+            out, rep = captured_run(eng, _chunk_trace())
+        runs[eager] = out, rep
+        eng.close()
+    (out_e, rep_e), (out_c, rep_c) = runs[True], runs[False]
+    assert out_c == out_e
+    for key in ("replica_swaps", "replica_ids", "hot_experts",
+                "residency_stages", "residency_ids"):
+        assert rep_c["engine"][key] == rep_e["engine"][key], key
+    assert rep_c["engine"]["replica_swaps"] >= 1
+    assert rep_c["engine"]["residency_stages"] >= 1
+    assert rep_c["residency"] == rep_e["residency"]
+    assert rep_c["load_balance"] == rep_e["load_balance"]
+    want = {**_entries(paged, 1), "replica_swap": 1, "residency_stage": 0}
+    assert rep_c["jit_entries"] == want
+    assert rep_c["recompiled_after_warmup"] is False
+    assert rep_e["jit_entries"] == {k: 0 for k in want}
+
+
+@pytest.mark.cuda
+def test_placement_card_streams_equal_cpu_streams(cuda):
+    """Learned routing (the two devices' generators draw different skew):
+    the card's captured entries with swaps and stages give the CPU's
+    plain-version streams and tables."""
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = _placement_engine("both", paged=True, device=dev, skew=0.0)
+        eng.warmup()
+        out, rep = captured_run(eng, _chunk_trace())
+        outs[dev] = (out, rep["engine"]["replica_ids"],
+                     rep["engine"]["residency_ids"], rep["residency"])
+        eng.close()
     assert outs["cuda"] == outs["cpu"]

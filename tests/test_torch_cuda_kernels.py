@@ -382,3 +382,59 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("n_rep,n_foreign", [(2, 2), (3, 0), (0, 2)])
+@pytest.mark.parametrize("bm", [64, 128])
+def test_moe_gmm_kernel_with_replica_groups_matches_plain(
+        cuda, dtype, gated, n_rep, n_foreign, bm):
+    """Three weight sources, local | replica | foreign, each group reading
+    its own (f32 2e-5, bf16 2e-2); the replica groups give, bit for bit,
+    what the two-source launch gives with those rows appended to the
+    local ones; and the foreign-row counter counts only the groups after
+    the replicas."""
+    from repro_torch.kernels.moe_gmm import ops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d, f, n_local = 128, 192, 3
+    sizes = [33, 0, 70][:n_local] + [17, 64, 1][:n_rep] + [5, 90][:n_foreign]
+    sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    padded = ((sizes + bm - 1) // bm) * bm
+    M = int(padded.sum()) + bm
+    x = torch.zeros((M, d), device=cuda)
+    off = 0
+    for s, p in zip(sizes.tolist(), padded.tolist()):
+        x[off:off + s] = torch.randn((s, d), generator=g, device=cuda) * 0.5
+        off += p
+    x = x.to(dtype)
+
+    def w(n):
+        return tuple((torch.randn(shape, generator=g, device=cuda) * 0.1
+                      ).to(dtype) if m != 2 or gated else None
+                     for m, shape in enumerate([(n, d, f), (n, f, d),
+                                                (n, d, f)]))
+    local, rep, foreign = w(n_local), w(n_rep), w(n_foreign)
+    kw = dict(w_gate=local[2], act="silu" if gated else "gelu", block_m=bm,
+              replica=rep if n_rep else None,
+              foreign=foreign if n_foreign else None,
+              live_rows=ops.live_row_count(padded, M))
+    tg = ops.tile_group_map(padded, M // bm, bm)
+    ops.reset_foreign_rows()
+    n0 = ops.moe_gmm.launches
+    f_rows = sizes[n_local + n_rep:].sum()
+    got = ops.moe_gmm(x, local[0], local[1], tg, foreign_rows=f_rows, **kw)
+    ref = ops.moe_gmm_plain(x, local[0], local[1], tg, **kw)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == n0 + 1
+    assert ops.foreign_rows_total() == (int(f_rows) if n_foreign else 0)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+    if n_rep:
+        cat = [None if a is None else torch.cat([a, b])
+               for a, b in zip(local, rep)]
+        two = ops.moe_gmm(x, cat[0], cat[1], tg, **{**kw, "replica": None,
+                                                    "w_gate": cat[2]})
+        torch.cuda.synchronize()
+        assert torch.equal(two, got)

@@ -139,7 +139,20 @@ def test_engine_config_defaults_equal_jax():
     ("moe_policy", "fastest")])
 def test_unported_engine_fields_raise(field, value):
     """Fields not ported yet raise NotImplementedError; ``moe_policy`` is
-    ported and, as in the JAX engine, an unknown policy is a ValueError."""
+    ported and, as in the JAX engine, an unknown policy is a ValueError.
+    The serving-time expert placement fields are ported too and validate
+    as the JAX engine's: an interval without replica slots is a
+    ValueError naming the field, a legal value is kept."""
+    if field in ("replica_slots", "rebalance_interval", "resident_experts"):
+        from repro.serve import EngineConfig as JEngineConfig
+        try:
+            JEngineConfig(**{field: value})
+        except ValueError:
+            with pytest.raises(ValueError, match=field):
+                EngineConfig(**{field: value})
+        else:
+            assert getattr(EngineConfig(**{field: value}), field) == value
+        return
     exc = ValueError if field == "moe_policy" else NotImplementedError
     with pytest.raises(exc, match=field):
         EngineConfig(**{field: value})

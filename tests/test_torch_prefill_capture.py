@@ -16,6 +16,10 @@ position) would freeze into the graph.  Here:
   non-tensor argument, are the same at every triple (what a graph would
   replay), and its logits, scratch K/V, first token and diagnostics are
   bit-equal to ``model.prefill_chunk`` called with host ints;
+* the placement tables (replica ``[G, R]``, residency ``[G, W]``) are
+  values: the chunk and the decode step dispatch the same ops with the
+  same host arguments under every table, and agree with the model's
+  entries called with the tables as fresh tensors;
 * the prefill chunk's skew pre-draws equal ``route_skewed``'s draws;
 * ``report()["jit_entries"]`` has the JAX engine's keys on both pools.
 """
@@ -25,7 +29,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import ParallelConfig as JPC
@@ -46,7 +50,8 @@ from repro_torch.serve.paging import kv_leaves
 from _ep_helpers import one_torch_thread  # noqa: F401 (autouse)
 from _serve_helpers import captured_run
 from test_torch_capture import (GUARD_CASES, G, HostSyncGuard, _engine,
-                                _reduced, _static_opt_cfg)
+                                _placement_engine, _reduced,
+                                _static_opt_cfg)
 
 C = 4
 
@@ -233,6 +238,85 @@ def test_prefill_skew_predraws_equal_route_skewed_draws():
     assert outs[0][1].keys() == outs[1][1].keys()
     for key in outs[0][1]:
         assert torch.equal(outs[0][1][key], outs[1][1][key]), key
+
+
+# ----------------------------------------------------------------------
+# the serving-time placement tables: values, not part of the graph
+# ----------------------------------------------------------------------
+# (replica table [G, R], residency table [G, W]) pairs of a reduced qwen
+# at G = 4 (8 experts, rank g holds g and g + 4)
+TABLES = [([[-1], [0], [0], [0]], [[0], [1], [2], [3]]),
+          ([[4], [-1], [4], [6]], [[4], [5], [2], [7]]),
+          ([[-1], [-1], [-1], [-1]], [[0], [5], [6], [3]])]
+
+
+@pytest.mark.parametrize("entry", ["prefill_chunk", "decode"])
+def test_steps_read_the_placement_tables_as_values(entry, monkeypatch):
+    """One ``StepCore`` runs its entry from its buffers with several
+    replica (and, at decode, residency) tables: the same ops with the same
+    host arguments at every table (what a graph would replay, so a swap
+    or a stage needs no new capture), and the same first token and
+    diagnostics as the model's entry called with the tables as fresh
+    tensors."""
+    eng = _placement_engine("both", paged=True)
+    eng.warmup()
+    core, model, params = eng.core, eng.model, eng.params
+    name = "_prefill_step" if entry == "prefill_chunk" else "_step"
+    step = getattr(core, name)
+    seen = {}
+
+    def recording_step(*args):
+        rec = OpRecorder()
+        with rec:
+            out = step(*args)
+        seen["trace"] = rec.trace
+        return out
+    monkeypatch.setattr(core, name, recording_step)
+    rng = np.random.default_rng(12)
+    B = eng.ecfg.max_slots
+    pos = np.array([5, 9, 2], np.int32)
+    active = np.array([True, True, False])
+    table = eng.kv.decode_table()
+    traces = []
+    for i, (rep, res) in enumerate(TABLES):
+        rep_t, res_t = (torch.tensor(t, dtype=torch.int32)
+                        for t in (rep, res))
+        if entry == "prefill_chunk":
+            toks = rng.integers(1, 500, (1, C)).astype(np.int32)
+            cache = tree_map(torch.clone, eng.kv.scratch)
+            core.prefill(params, toks, eng.kv.scratch, C, C - 2, i,
+                         np.array(rep))
+            first, packed = core.prefill_result()
+            got = core.unpack(packed, entry)
+            logits, _, _, want = model.prefill_chunk(
+                params, torch.from_numpy(toks), cache, C, C - 2,
+                skew_assign=core._pf_skew, moe_replica_ids=rep_t)
+        else:
+            tok = rng.integers(1, 500, (B,)).astype(np.int32)
+            nxt, packed = core.decode(params, tok, eng.kv.pool, pos, table,
+                                      active, i, np.array(rep),
+                                      np.array(res))
+            first = int(nxt[0])
+            got = core.unpack(packed, entry)
+            logits, _, _, want = model.decode_step(
+                params, torch.from_numpy(tok)[:, None], eng.kv.pool,
+                torch.from_numpy(pos), active_mask=torch.from_numpy(active),
+                block_table=torch.from_numpy(table),
+                block_size=eng.ecfg.kv_block_size, skew_assign=core._skew,
+                moe_replica_ids=rep_t, moe_residency_ids=res_t,
+                moe_layer_diags=True)
+        traces.append(seen["trace"])
+        assert first == int(torch.argmax(logits[0]))
+        assert got.keys() == want.keys()
+        for key, v in want.items():
+            np.testing.assert_array_equal(got[key], v.float().numpy(),
+                                          err_msg=key)
+    assert ("expert_load_layers" in got) == (entry == "decode")
+    for t in traces[1:]:
+        diff = [(a, b) for a, b in zip(traces[0], t) if a != b]
+        assert len(t) == len(traces[0]) and not diff, \
+            f"the step's ops or their host arguments depend on the " \
+            f"placement tables: {diff[:2]}"
 
 
 # ----------------------------------------------------------------------
