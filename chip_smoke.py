@@ -120,7 +120,26 @@ Phases, each of which must pass (any failure exits non-zero):
      capture of each entry and of the swap across every swap and stage,
      at least one swap and one stage (none under ``none``), drops 0.
      Phase 2 also holds ``moe_gmm`` with replica groups (a third weight
-     source) against its plain version at this path's decode dispatch.
+     source) against its plain version at this path's decode dispatch;
+  9. the serving CLI, last, in processes of its own: first the decode
+     step's sampler at the serve shape (8 x the padded vocabulary),
+     captured in a CUDA graph, against its plain version on the CPU, token
+     for token, on tie-heavy bf16 logits and fixed noise at (top_k, top_p)
+     = (0, 1), (50, 1), (0, 0.9), (50, 0.9), with its device ms a step;
+     reduced qwen15-moe-a27b in f32, sampled, paged: the card's streams
+     equal the CPU's on the same noise; then ``python -m
+     repro_torch.launch.serve`` twice at full width and depth, bf16,
+     sampled (temperature 0.8, top-k 50): (a) one rank, 8 slots, 24
+     Poisson requests at 8 req/s of 128 prompt tokens and 32 new, top-p
+     0.9 (a ``[cli]`` line: TTFT p50/p90/p99, TPOT p50/p90, throughput,
+     peak memory, launches, the sampler's device ms a step and the noise
+     pre-draw's host ms); (b) four virtual EP ranks under 0.9 skew, q = 1,
+     harmoeny, 4 requests of 8 new tokens (a ``[cli-ep]`` line, with the
+     decode max/mean rank load and moved units).  Gates: each process
+     exits 0 and writes its report; every request finishes with its
+     budget, tokens in the vocabulary; one capture of each entry; each
+     kernel launched once per layer (and rank) and step; the kernels'
+     dispatch; (b) drops nothing and moves units.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -633,6 +652,7 @@ def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
     import torch
     from repro_torch.core.moe_layer import MoEBlockSpec
     from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    from repro_torch.serve import engine_config_for
     out = {"moe_gmm": [], "paged_attention": [], "flash_attention": [],
            "schedule": schedule_parity(cfg, switch_cfg)}
     E, K = cfg.moe.num_experts, cfg.moe.num_foreign_slots
@@ -733,6 +753,29 @@ def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
         "switch_prefill_chunk", B=1, S=prefill_chunk, bs=bs_slab,
         lengths=[160 + prefill_chunk], n_blocks=s_pad // bs_slab, slab=True,
         seed=14, **sw_heads))
+    # the CLI runs' shapes (phase 9), from their argv and the engine's
+    # defaults: each run's decode over its chains (an idle slot at length
+    # 1, the rest from prompt + 1 up to the pool's end), then the last
+    # chunk of a prompt over the slab scratch, which both runs share
+    for tag, argv in CLI_RUNS.items():
+        prompt = _flag(argv, "--prompt-len")
+        ecfg = engine_config_for(cfg, max_slots=_flag(argv, "--batch"),
+                                 prompt_len=prompt,
+                                 max_new_tokens=_flag(argv, "--gen"))
+        B, L, C = ecfg.max_slots, ecfg.max_seq_len, ecfg.prefill_chunk
+        s_cli = -(-L // C) * C
+        lengths = [1] + [prompt + 1 + (L - prompt - 1) * i // (B - 2)
+                         for i in range(B - 1)]
+        out["paged_attention"].append(paged_attention_case(
+            f"{tag.replace('-', '_')}_decode", B=B, S=1, H=H, Hkv=Hkv, hd=hd,
+            bs=ecfg.kv_block_size, lengths=lengths,
+            n_blocks=-(-s_cli // ecfg.kv_block_size), softcap=0.0, dtype=bf,
+            seed=17, time_it=True))
+    bs_cli = largest_block_divisor(s_cli)
+    out["paged_attention"].append(paged_attention_case(
+        "cli_prefill_chunk", B=1, S=C, H=H, Hkv=Hkv, hd=hd, bs=bs_cli,
+        lengths=[-(-prompt // C) * C], n_blocks=s_cli // bs_cli, softcap=0.0,
+        dtype=bf, seed=18, time_it=True, slab=True))
     out["paged_attention"].append(paged_attention_case(
         "f32_gqa_softcap", B=3, S=4, H=8, Hkv=2, hd=64, bs=5,
         lengths=[4, 23, 40], n_blocks=8, softcap=30.0, dtype=torch.float32,
@@ -891,7 +934,8 @@ def pattern_serve(cfg, params, tag, *, paged, slots, n_requests, prompt_lens,
         raise AssertionError(f"[{tag}] launches {launches} != {expect} "
                              f"({n_moe} MoE and {cfg.num_layers} attention "
                              f"layers a step, {steps} steps)")
-    dispatch = rep["attention_dispatch"]
+    dispatch = {b: {"fused": d["fused"]}
+                for b, d in rep["attention_dispatch"].items()}
     want = {"prefill_continue": {"fused": True},
             ("decode" if paged else "decode_slab"): {"fused": paged}}
     if dispatch != want:
@@ -1875,6 +1919,237 @@ def switch_path(switch, *, seed, **shape):
     return out, caps
 
 
+# ----------------------------------------------------------------------
+# phase 9: the serving CLI, sampled
+# ----------------------------------------------------------------------
+# the argv of each CLI run: (a) one rank, sampled, Poisson arrivals;
+# (b) four virtual EP ranks under 0.9 skew, sampled
+CLI_RUNS = {
+    "cli": ["--arch", "qwen15-moe-a27b", "--paged", "--batch", "8",
+            "--requests", "24", "--rate", "8", "--prompt-len", "128",
+            "--gen", "32", "--temperature", "0.8", "--top-k", "50",
+            "--top-p", "0.9", "--seed", "0"],
+    "cli-ep": ["--arch", "qwen15-moe-a27b", "--model-par", "4", "--skew",
+               "0.9", "--q-tokens", "1", "--policy", "harmoeny", "--paged",
+               "--batch", "4", "--requests", "4", "--prompt-len", "128",
+               "--gen", "8", "--temperature", "0.8", "--top-k", "50",
+               "--seed", "0"],
+}
+SAMPLER_CASES = [(0, 1.0), (50, 1.0), (0, 0.9), (50, 0.9)]
+
+
+def _flag(argv, name, cast=int, default=None):
+    return cast(argv[argv.index(name) + 1]) if name in argv else default
+
+
+def cli_run(tag, argv, cfg, sampler_ms):
+    """Run the port's CLI (``python -m repro_torch.launch.serve``) in its
+    own process on the card, read its report (``--out``) and its
+    ``[serve] device`` line, print the ``[tag]`` line and hold the gates:
+    exit 0, every request with its budget, tokens in the vocabulary, one
+    capture of each entry, each kernel launched once per layer (and rank)
+    and step, the kernels' dispatch, and at G > 1 no drop and units
+    moved."""
+    out = os.path.join(HERE, "build", "cli", f"{tag}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *argv, "--out", out], capture_output=True,
+                       text=True, env=env, cwd=HERE, timeout=900)
+    wall = time.perf_counter() - t0
+    device = None
+    for line in r.stdout.splitlines():
+        if line.startswith("[serve] device "):
+            device = json.loads(line[len("[serve] device "):])
+        elif line.startswith("[serve]"):
+            log(f"[{tag}] {line}")
+    if r.returncode != 0 or device is None or not os.path.exists(out):
+        raise AssertionError(f"[{tag}] the CLI exited {r.returncode}: "
+                             f"{r.stderr[-4000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    n_req, gen = _flag(argv, "--requests"), _flag(argv, "--gen")
+    G = _flag(argv, "--model-par", default=1)
+    lb, moe = rep["load_balance"], rep["moe"]
+    steps = rep["decode_steps"] + rep["prefill_chunks"]
+    summary = {
+        "argv": " ".join(argv), "device": device["device"],
+        "requests": rep["n_requests"], "tokens_out": rep["total_new_tokens"],
+        "ttft_p50_s": rep["ttft"]["p50"], "ttft_p90_s": rep["ttft"]["p90"],
+        "ttft_p99_s": rep["ttft"]["p99"], "tpot_p50_s": rep["tpot"]["p50"],
+        "tpot_p90_s": rep["tpot"]["p90"],
+        "throughput_tok_s": rep["throughput_tok_s"],
+        "peak_mem_gib": device["peak_mem_gib"],
+        "decode_steps": rep["decode_steps"],
+        "prefill_chunks": rep["prefill_chunks"],
+        "mean_occupancy": rep["mean_occupancy"],
+        "launches": device["launches"],
+        "sampler_device_ms_a_step": sampler_ms,
+        "noise_predraw_host_ms": device["noise_predraw_ms"],
+        "noise_predraws": device["noise_predraws"],
+        "skew_predraw_host_ms": device["skew_predraw_ms"],
+        "process_wall_s": wall, "jit_entries": rep["jit_entries"],
+        "recompiled_after_warmup": rep.get("recompiled_after_warmup"),
+    }
+    if G > 1:
+        summary.update({
+            "ep_degree": G,
+            "decode_max_mean_ratio": lb["decode"]["max_mean_ratio"],
+            "prefill_max_mean_ratio": lb["prefill"]["max_mean_ratio"],
+            "moved_units_decode": moe["decode/moved_units"],
+            "moved_units_prefill": moe["prefill/moved_units"],
+            "drops": {ph: [lb[ph]["send_drops_total"],
+                           lb[ph]["dest_drops_total"]]
+                      for ph in ("decode", "prefill")}})
+    log(f"[{tag}] {json.dumps(summary)}")
+    # --- checks -------------------------------------------------------
+    check_one_capture(tag, rep)
+    toks = device["tokens"]
+    if rep["n_requests"] != n_req or toks["per_request"] != [gen] \
+            or toks["count"] != n_req * gen:
+        raise AssertionError(f"[{tag}] {rep['n_requests']} of {n_req} "
+                             f"requests finished, lengths "
+                             f"{toks['per_request']} (budget {gen})")
+    if not 0 <= toks["min"] <= toks["max"] < cfg.vocab_size:
+        raise AssertionError(f"[{tag}] token ids {toks['min']}.."
+                             f"{toks['max']} outside the vocabulary")
+    n_moe = cfg.num_layers
+    expect = {"moe_gmm": G * n_moe * steps,
+              "paged_attention": cfg.num_layers * steps,
+              "flash_attention": 0, "schedule": G * n_moe * steps}
+    if device["launches"] != expect:
+        raise AssertionError(f"[{tag}] launches {device['launches']} != "
+                             f"{expect}")
+    dispatch = {b: d["fused"] for b, d in rep["attention_dispatch"].items()}
+    if dispatch != {"prefill_continue": True, "decode": True} \
+            or not (rep["engine"]["fused_paged_attention"]
+                    and rep["engine"]["fused_moe_gmm"]):
+        raise AssertionError(f"[{tag}] dispatch {rep['attention_dispatch']}"
+                             f", engine {rep['engine']}")
+    if G > 1:
+        drops = sum(sum(v) for v in summary["drops"].values())
+        if drops or moe["decode/moved_units"] <= 0:
+            raise AssertionError(f"[{tag}] drops {summary['drops']}, moved "
+                                 f"units at decode "
+                                 f"{moe['decode/moved_units']}")
+    return summary
+
+
+def _tie_logits(B, V, seed, dev):
+    """bf16 logits with many exact ties (a few hundred distinct values)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    lv = torch.randint(-400, 8, (B, V), generator=g).float() / 16
+    return lv.to(torch.bfloat16).float().to(dev)
+
+
+def sampler_parity(cfg, batch):
+    """The decode step's sampler at the serve shape ([batch, padded
+    vocab]), captured in a CUDA graph as the decode step holds it, against
+    its plain version on the CPU on tie-heavy bf16 logits and fixed
+    noise, token for token, at each (top_k, top_p) of SAMPLER_CASES; and
+    its device ms a step.  Returns {case: ms}."""
+    import torch
+    from repro_torch.serve.sampling import gumbel_, noise_width, sample_tokens
+    V = cfg.padded_vocab
+    out_ms = {}
+    for top_k, top_p in SAMPLER_CASES:
+        kw = dict(temperature=0.8, top_k=top_k, top_p=top_p)
+        lg = _tie_logits(batch, V, 0, "cuda")
+        nz = torch.zeros((batch, noise_width(V, top_k)), device="cuda")
+        sample_tokens(lg, nz, **kw)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sample_tokens(lg, nz, **kw)
+        for seed in range(3):
+            lg.copy_(_tie_logits(batch, V, seed, "cpu"))
+            host = gumbel_(torch.empty(nz.shape),
+                           torch.Generator().manual_seed(seed))
+            nz.copy_(host)
+            graph.replay()
+            want = sample_tokens(lg.cpu(), host, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out.cpu(), want):
+                raise AssertionError(
+                    f"sampler (top_k {top_k}, top_p {top_p}) seed {seed}: "
+                    f"card {out.cpu().tolist()} != cpu {want.tolist()}")
+        out_ms[f"top_k={top_k},top_p={top_p}"] = device_ms(graph.replay, 20)
+    log(f"[sampler] {batch} x {V} f32, tie-heavy bf16 logits: the captured "
+        f"sampler equals its plain version token for token in "
+        f"{len(SAMPLER_CASES)} cases x 3 noise draws; device ms a step "
+        f"{json.dumps(out_ms)}")
+    return out_ms
+
+
+def small_sampled_reference_check(seed: int = 0) -> None:
+    """Reduced qwen15-moe-a27b in f32, sampled (temperature 0.8, top-k 5,
+    top-p 0.9), paged: the card's streams (the captured decode step's
+    sampler, the host twin's first tokens) equal the CPU's, on the same
+    noise drawn on the host from each step's key."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, ServeEngine, VirtualClock, \
+        engine_config_for
+    from repro_torch.serve.sampling import gumbel_
+    cfg = get_config("qwen15-moe-a27b").reduced()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(5, 40)),))
+               for _ in range(5)]
+    params = build_model(cfg, batch=3, seq_len=40, device="cpu").init(seed)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, batch=3, seq_len=40, device=dev)
+        ecfg = engine_config_for(cfg, max_slots=3, prompt_len=40,
+                                 max_new_tokens=8, prefill_chunk=16,
+                                 paged=True, kv_block_size=8,
+                                 temperature=0.8, top_k=5, top_p=0.9)
+        eng = ServeEngine(model, _to(params, dev), ecfg,
+                          clock=VirtualClock(0.1), device=dev)
+        core = eng.core
+
+        def host_noise(idx, core=core):
+            buf = torch.empty(core._noise.shape)
+            core._noise.copy_(gumbel_(buf, core.dec_key.fold_in(
+                idx).generator("cpu")))
+        core._draw_noise = host_noise
+        eng.warmup()
+        out = {}
+        orig = eng._finish
+
+        def capture(st, now, out=out, orig=orig):
+            out[st.req.rid] = list(st.output)
+            orig(st, now)
+        eng._finish = capture
+        rep = eng.run([Request(rid=i, tokens=p, max_new_tokens=8)
+                       for i, p in enumerate(prompts)])
+        streams[dev] = out
+    check_one_capture("sampled reference", rep)
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(f"sampled reference: card streams "
+                             f"{streams['cuda']} != cpu streams "
+                             f"{streams['cpu']}")
+    log(f"[reference] reduced qwen15-moe-a27b f32, sampled (0.8, top-k 5, "
+        f"top-p 0.9), paged: {len(prompts)} streams on the card equal the "
+        f"CPU plain-version streams on the same noise")
+
+
+def cli_path(cfg):
+    """Phase 9: the sampler's parity and time, the reduced sampled
+    reference, then the two CLI runs; returns their summaries."""
+    sampler = sampler_parity(cfg, batch=_flag(CLI_RUNS["cli"], "--batch"))
+    small_sampled_reference_check()
+    top_k = _flag(CLI_RUNS["cli"], "--top-k")
+    top_p = _flag(CLI_RUNS["cli"], "--top-p", float)
+    ms = sampler[f"top_k={top_k},top_p={top_p}"]
+    return {tag: cli_run(tag, argv, cfg, ms if tag == "cli" else None)
+            for tag, argv in CLI_RUNS.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -1990,6 +2265,11 @@ def main() -> int:
             small_reference_check(arch, paged=paged)
 
     elapsed("phase 6 (+ 7 on moonshot and switch128)")
+    # --- phase 9: the serving CLI, sampled, in its own processes ------------
+    log(f"[env] before the CLI runs: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+    clis = cli_path(cfg)
+    elapsed("phase 9")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -2009,7 +2289,9 @@ def main() -> int:
                 "prefill_decode_moonshot_v1_16b_a3b":
                     whole_summary["launches"][name],
                 **{path: rec["launches"][name]
-                   for path, rec in patterns.items()}},
+                   for path, rec in patterns.items()},
+                **{f"{tag}_qwen15_moe_a27b_sampled": rec["launches"][name]
+                   for tag, rec in clis.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -47,9 +47,11 @@ class AttnCache(NamedTuple):
     v: torch.Tensor
 
 
-# Dispatch record, one entry per attention_block call: which branch ran
-# and whether it launched the CUDA kernel (``fused``) or, on the CPU, the
-# kernel's plain version.  The serve engine snapshots it after warmup.
+# Dispatch record, one entry per attention_block call: which branch ran,
+# whether it launched the CUDA kernel (``fused``) or, on the CPU, the
+# kernel's plain version, and why the kernel did not run (``reason``).
+# The serve engine snapshots it after warmup and reports it beside its
+# config's ``fused_paged_attention`` (the JAX log's ``requested``).
 _dispatch_log: list = []
 _DISPATCH_LOG_CAP = 4096
 
@@ -62,9 +64,14 @@ def dispatch_log() -> list:
     return list(_dispatch_log)
 
 
-def _record_dispatch(branch: str, *, fused: bool) -> None:
+def _record_dispatch(branch: str, *, fused: bool, has_kernel: bool = True
+                     ) -> None:
     if len(_dispatch_log) < _DISPATCH_LOG_CAP:
-        _dispatch_log.append({"branch": branch, "fused": bool(fused)})
+        reason = ("" if fused else
+                  "the plain version runs on the CPU" if has_kernel else
+                  "slab decode has no kernel (paged pool required)")
+        _dispatch_log.append({"branch": branch, "fused": bool(fused),
+                              "reason": reason})
 
 
 def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
@@ -195,7 +202,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         at = (cl.long() - 1).expand(B)
         cache.k[rows, at] = k[:, 0].to(cache.k.dtype)
         cache.v[rows, at] = v[:, 0].to(cache.v.dtype)
-        _record_dispatch("decode_slab", fused=False)
+        _record_dispatch("decode_slab", fused=False, has_kernel=False)
         out = decode_attention(q, cache.k, cache.v, cl, softcap=softcap)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache

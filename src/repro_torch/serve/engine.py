@@ -23,10 +23,20 @@ with decode steps of the whole slot batch through ``model.decode_step``.
   (prompt plus committed tokens re-prefilled).
 
 The engine keeps the scheduling state and leaves every pool-specific
-write to the store, so neither mode forks the step loop.  Greedy decoding.  On the card every prefill chunk runs the paged
-attention kernel over the slab scratch, every paged decode step the same
-kernel through the block table, and every MoE layer the grouped expert
-FFN.
+write to the store, so neither mode forks the step loop.  Decoding is
+greedy, or with ``temperature > 0`` truncated sampling (``top_k``,
+``top_p``): the decode step samples inside its captured graph, and a
+prompt's first token is the host twin's draw over its last logits row
+(``serve/sampling.py``), on the JAX engine's generator seed.  On the card
+every prefill chunk runs the paged attention kernel over the slab
+scratch, every paged decode step the same kernel through the block
+table, and every MoE layer the grouped expert FFN, whatever
+``fused_paged_attention`` and ``fused_moe_gmm`` say: those two fields
+are accepted for the JAX engine's sake, and ``report()`` gives what ran
+(True on the card, False on the CPU, where the plain versions run).
+
+``report()`` has every section and key the JAX engine's has for the same
+``EngineConfig``, plus ``engine.device``.
 A model built at expert-parallel degree G > 1 runs its MoE blocks over G
 ranks (``VirtualGroup``); ``EngineConfig.moe_policy`` overrides the decode
 steps' scheduling policy, and a model with synthetic router skew draws
@@ -69,6 +79,8 @@ Serving-time expert placement (paper §4.2-4.3, MoE models at G > 1):
 """
 from __future__ import annotations
 
+import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -77,6 +89,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import round_up
+from repro_torch.kernels.paged_attention.ops import largest_block_divisor
 from repro_torch.models import attention as attention_dispatch
 from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
@@ -87,25 +100,41 @@ from repro_torch.serve.request import Request, RequestState, RequestStatus
 from repro_torch.serve.residency import (PREFETCH_POLICIES,
                                          ExpertResidencyManager,
                                          TierCostModel)
+from repro_torch.serve.sampling import sample_np
 from repro_torch.serve.statestore import make_state_store
 from repro_torch.serve.stepcore import StepCore
+
+ENGINE_ROLES = ("unified", "prefill", "decode")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static serving shapes, with the JAX engine's defaults.  The fields
-    after ``prefetch_policy`` exist in the JAX engine but are not ported
-    yet: setting one raises."""
+    """Static serving shapes: every field of the JAX engine's, with its
+    defaults and its validation.  ``role != "unified"``,
+    ``prefix_sharing`` and ``speculative_k > 0`` are not ported yet:
+    setting one raises ``NotImplementedError``."""
     max_slots: int = 4          # decode batch width (concurrent requests)
     max_seq_len: int = 128      # logical KV length (prompt + generation)
     prefill_chunk: int = 32     # prompt tokens consumed per prefill call
     chunks_per_step: int = 1    # prefill chunks interleaved per engine step
     eos_id: Optional[int] = None
-    skew_seed: int = 0          # synthetic router-skew key stream
+    skew_seed: int = 0          # synthetic router-skew + sampling key stream
+    role: str = "unified"       # prefill / decode roles: not ported
     # --- KV pool: one slab row per slot, or paged blocks ---
     paged: bool = False
     kv_block_size: int = 16     # tokens per physical KV block
     num_kv_blocks: int = 0      # usable blocks (0 = worst case for every slot)
+    # the JAX engine's kernel switches; on the card the hand-written
+    # kernels run whatever they say (report() gives what ran)
+    fused_paged_attention: bool = False
+    fused_moe_gmm: bool = False
+    prefix_sharing: bool = False        # not ported
+    speculative_k: int = 0              # not ported
+    speculative_policy: str = "ngram"
+    # --- sampling (0 temperature = greedy) ---
+    temperature: float = 0.0
+    top_k: int = 0              # 0 = full vocab when temperature > 0
+    top_p: float = 1.0          # nucleus truncation (1.0 = disabled)
     # decode scheduling policy override (None = the model config's policy):
     # harmoeny / round_robin / even_split / static_opt (core/scheduler.py)
     moe_policy: Optional[str] = None
@@ -121,13 +150,6 @@ class EngineConfig:
     # `prefetch_policy` (predictive / on_demand / none); 0 = off
     resident_experts: int = 0
     prefetch_policy: str = "predictive"
-    # --- not ported yet ---
-    role: str = "unified"
-    prefix_sharing: bool = False
-    speculative_k: int = 0
-    temperature: float = 0.0
-    top_k: int = 0
-    top_p: float = 1.0
 
     def __post_init__(self):
         self.validate()
@@ -137,10 +159,33 @@ class EngineConfig:
             raise ValueError("max_slots and max_seq_len must be >= 1")
         if self.prefill_chunk < 1 or self.chunks_per_step < 1:
             raise ValueError("prefill_chunk and chunks_per_step must be >= 1")
+        if self.role not in ENGINE_ROLES:
+            raise ValueError(f"unknown engine role {self.role!r}; choose "
+                             f"one of {ENGINE_ROLES}")
+        if self.speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0")
+        unported = {
+            "role": self.role != "unified",
+            "prefix_sharing": self.prefix_sharing,
+            "speculative_k": self.speculative_k > 0,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"EngineConfig fields not ported yet: {bad} (the port serves "
+                f"the unified role from a slab or paged pool, without prefix "
+                f"sharing or speculative decoding; ROADMAP item 7)")
         if self.paged and self.kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
         if self.num_kv_blocks < 0:
             raise ValueError("num_kv_blocks must be >= 0")
+        if self.fused_paged_attention and not self.paged:
+            raise ValueError("fused_paged_attention is the paged decode "
+                             "kernel; it requires EngineConfig.paged=True")
+        if self.temperature < 0 or self.top_k < 0:
+            raise ValueError("temperature and top_k must be >= 0")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
         known = ("harmoeny", "round_robin", "even_split", "static_opt")
         if self.moe_policy is not None and self.moe_policy not in known:
             raise ValueError(f"unknown moe_policy {self.moe_policy!r}; "
@@ -157,41 +202,38 @@ class EngineConfig:
             raise ValueError(
                 f"unknown prefetch_policy {self.prefetch_policy!r}; choose "
                 f"one of {PREFETCH_POLICIES}")
-        unported = {
-            "role": self.role != "unified",
-            "prefix_sharing": self.prefix_sharing,
-            "speculative_k": self.speculative_k != 0,
-            "temperature": self.temperature != 0.0,
-            "top_k": self.top_k != 0,
-            "top_p": self.top_p != 1.0,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"EngineConfig fields not ported yet: {bad} (the port serves "
-                f"the unified role from a slab or paged pool with greedy "
-                f"decoding)")
         return self
 
 
 def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       max_new_tokens: int, prefill_chunk: int = 0,
                       eos_id: Optional[int] = None, skew_seed: int = 0,
-                      paged: bool = False, kv_block_size: int = 16,
-                      num_kv_blocks: int = 0,
-                      moe_policy: Optional[str] = None,
+                      role: str = "unified", paged: bool = False,
+                      kv_block_size: int = 16, num_kv_blocks: int = 0,
+                      prefix_sharing: bool = False,
+                      fused_paged_attention: bool = False,
+                      fused_moe_gmm: bool = False, speculative_k: int = 0,
+                      speculative_policy: str = "ngram",
+                      temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, moe_policy: Optional[str] = None,
                       rebalance_interval: int = 0, replica_slots: int = 0,
                       resident_experts: int = 0,
                       prefetch_policy: str = "predictive") -> EngineConfig:
     """Serving shapes from a workload: the pool covers prompt + generation
-    and the prefill chunk divides the padded prompt."""
+    and the prefill chunk divides the padded prompt (the JAX function's
+    keywords; the port builds no sliding-window model, so its window
+    checks never apply)."""
     chunk = prefill_chunk or min(max(prompt_len, 1), 32)
     pad = round_up(prompt_len, chunk)
     return EngineConfig(
         max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
-        prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed,
+        prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed, role=role,
         paged=paged, kv_block_size=kv_block_size,
-        num_kv_blocks=num_kv_blocks, moe_policy=moe_policy,
+        num_kv_blocks=num_kv_blocks, prefix_sharing=prefix_sharing,
+        fused_paged_attention=fused_paged_attention,
+        fused_moe_gmm=fused_moe_gmm, speculative_k=speculative_k,
+        speculative_policy=speculative_policy, temperature=temperature,
+        top_k=top_k, top_p=top_p, moe_policy=moe_policy,
         rebalance_interval=rebalance_interval, replica_slots=replica_slots,
         resident_experts=resident_experts, prefetch_policy=prefetch_policy)
 
@@ -208,6 +250,9 @@ class ServeEngine:
         if (ecfg.moe_policy is not None or ecfg.replica_slots > 0) \
                 and not cfg.is_moe:
             raise ValueError("moe_policy / replica_slots need an MoE model")
+        if ecfg.fused_moe_gmm and not cfg.is_moe:
+            raise ValueError("fused_moe_gmm is the grouped-GEMM expert "
+                             "FFN kernel; it needs an MoE model")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -215,6 +260,9 @@ class ServeEngine:
         self.device = dev
         self.clock = clock or WallClock()
         self.metrics = ServeMetrics()
+        self.role = ecfg.role
+        # the kernels run on the card whatever the fused_* fields say
+        self._fused = dev.type == "cuda"
         B, C = ecfg.max_slots, ecfg.prefill_chunk
         # paged: prefill writes whole padded chunks, so chains cover the
         # chunk-rounded logical length (the slab scratch is max_seq_len)
@@ -223,6 +271,13 @@ class ServeEngine:
         self.core = StepCore(model, ecfg,
                              blocks_per_slot=self.kv.blocks_per_slot)
         self.front = AdmissionFront(B)
+        # the JAX report's per-phase attention byte model: bytes one KV
+        # token costs across the stack (K + V, every layer)
+        kvb = {"float32": 4, "bfloat16": 2}.get(cfg.dtype, 4)
+        self._kv_token_bytes = (2 * cfg.num_layers
+                                * (cfg.num_kv_heads or cfg.num_heads)
+                                * cfg.resolved_head_dim * kvb)
+        self._slab_bs = largest_block_divisor(self.kv.s_pad)
         self.pos = np.zeros((B,), np.int32)      # per-slot sequence length
         self.tok = np.zeros((B,), np.int32)      # per-slot last token
         self.active = np.zeros((B,), bool)       # slot in the decode batch
@@ -413,6 +468,7 @@ class ServeEngine:
             n = min(C, L - start)
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :n] = seq[start:start + n]
+            t0 = time.perf_counter()
             self.core.prefill(self.params, chunk, self.kv.scratch, start,
                               n - 1, self._chunk_idx, self._replica_ids)
             self._chunk_idx += 1
@@ -425,6 +481,8 @@ class ServeEngine:
             self.metrics.record_step(
                 self.core.unpack(packed, "prefill_chunk"), 0,
                 phase="prefill")
+            self.metrics.record_phase("prefill", n, time.perf_counter() - t0,
+                                      self._prefill_kv_bytes(start + n))
             did = True
             if st.prefill_done:
                 if st.resumed:
@@ -433,6 +491,12 @@ class ServeEngine:
                     self._activate(st, L, st.output[-1])
                     front.pf = None
                     continue
+                if self.core.sample:
+                    # the host twin draws the first token, as in JAX
+                    first = sample_np(
+                        self.core.prefill_logits(), self.core.samp_rng,
+                        temperature=self.ecfg.temperature,
+                        top_k=self.ecfg.top_k, top_p=self.ecfg.top_p)
                 # stamp after the device sync: TTFT includes the prefill
                 now = self.clock.now()
                 st.first_token_time = now
@@ -451,15 +515,19 @@ class ServeEngine:
         if not self.active.any():
             return False
         self._apply_pending_stage()
+        t0 = time.perf_counter()
         nxt, packed = self.core.decode(
             self.params, self.tok, self.kv.pool, self.pos,
             self.kv.decode_table(), self.active, self._step_idx,
             self._replica_ids, self._residency_ids)
+        dt = time.perf_counter() - t0
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
         diags = self.core.unpack(packed, "decode")
         layer_loads = diags.pop("expert_load_layers", None)
         self.metrics.record_step(diags, n_active, phase="decode")
+        self.metrics.record_phase("decode", n_active, dt,
+                                  self._attn_kv_bytes(1))
         self._observe_load(diags)
         self._observe_residency(layer_loads)
         occ = self.kv.occupancy()
@@ -477,6 +545,33 @@ class ServeEngine:
             else:
                 self.tok[s] = t
         return True
+
+    def _attn_kv_bytes(self, span: int) -> int:
+        """Analytic attention-read bytes of one decode step whose deepest
+        read a row is ``pos + span`` (the JAX engine's model): the kernel
+        reads each row's live block-rounded chain; the plain version
+        every row's whole logical view."""
+        bs = self.ecfg.kv_block_size
+        if self.ecfg.paged:
+            if self._fused:
+                lens = self.pos[self.active] + span
+                toks = int(np.sum(-(-lens // bs) * bs))
+            else:
+                toks = self.ecfg.max_slots * self.kv.blocks_per_slot * bs
+        else:
+            toks = self.ecfg.max_slots * self.ecfg.max_seq_len
+        return toks * self._kv_token_bytes
+
+    def _prefill_kv_bytes(self, upto: int) -> int:
+        """Analytic attention-read bytes of one prefill chunk whose
+        deepest position is ``upto``: the kernel stops at the
+        slab-block-rounded frontier on the paged pool (the JAX engine's
+        model); otherwise the whole scratch."""
+        if self.ecfg.paged and self._fused:
+            toks = -(-upto // self._slab_bs) * self._slab_bs
+        else:
+            toks = self.kv.s_pad
+        return toks * self._kv_token_bytes
 
     # ------------------------------------------------------------------
     # between-window hot-expert replication (serve/rebalance.py)
@@ -657,9 +752,15 @@ class ServeEngine:
         return counts
 
     def report(self) -> Dict[str, Any]:
+        """The JAX engine's report: the metrics' sections, ``engine``
+        (plus ``device``, the port's own key), ``attention_dispatch``
+        with ``attention_fallbacks``, ``jit_entries`` and, after
+        ``warmup()``, ``recompiled_after_warmup``."""
         if self._residency is not None:
             self.metrics.residency = self._residency.counters()
         rep = self.metrics.report()
+        rep["state_pool"] = {**self.kv.stats(),
+                             "preemptions": self.metrics.preemptions}
         rep["engine"] = {
             "max_slots": self.ecfg.max_slots,
             "max_seq_len": self.ecfg.max_seq_len,
@@ -668,14 +769,19 @@ class ServeEngine:
             "steps": self._step_idx,
             "device": str(self.device),
             "paged": self.ecfg.paged,
+            "role": self.role,
         }
         if self.ecfg.paged:
             rep["engine"]["kv_block_size"] = self.ecfg.kv_block_size
             rep["engine"]["num_kv_blocks"] = self._alloc.usable_blocks
             rep["engine"]["blocks_per_slot"] = self.kv.blocks_per_slot
+            rep["engine"]["prefix_sharing"] = self.ecfg.prefix_sharing
+            rep["engine"]["fused_paged_attention"] = self._fused
+            rep["engine"]["speculative_k"] = self.ecfg.speculative_k
         if self.cfg.is_moe:
             rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
                                            or self.cfg.moe.policy)
+            rep["engine"]["fused_moe_gmm"] = self._fused
             rep["engine"]["replica_slots"] = self.ecfg.replica_slots
             if self._rebalancer is not None:
                 rep["engine"]["rebalance_interval"] = \
@@ -690,11 +796,18 @@ class ServeEngine:
                 rep["engine"]["residency_stages"] = self._residency_stages
                 rep["engine"]["residency_ids"] = \
                     self._residency_ids.tolist()
-        rep["state_pool"] = self.kv.stats()
         snap = (self._attn_dispatch if self._attn_dispatch is not None
                 else attention_dispatch.dispatch_log())
-        rep["attention_dispatch"] = {d["branch"]: {"fused": d["fused"]}
-                                     for d in snap}
+        if snap:
+            # the last record a branch wins (every call of one agrees);
+            # ``requested`` is the config's switch, as in JAX, and a
+            # fallback is a record where it was on and the kernel did not run
+            req = self.ecfg.fused_paged_attention
+            rep["attention_dispatch"] = {
+                d["branch"]: {"fused": d["fused"], "requested": req,
+                              "reason": d["reason"]} for d in snap}
+            rep["attention_fallbacks"] = dict(Counter(
+                d["branch"] for d in snap if req and not d["fused"]))
         rep["jit_entries"] = self.jit_counts()
         if self._warm_counts is not None:
             rep["recompiled_after_warmup"] = \

@@ -178,7 +178,8 @@ class KVOwner:
                 "kv_block_size": self.ecfg.kv_block_size,
                 "blocks_per_slot": self.blocks_per_slot,
                 "usable_blocks": self.alloc.usable_blocks,
-                "blocks_in_use": self.alloc.blocks_in_use}
+                "blocks_in_use": self.alloc.blocks_in_use,
+                "window_ring": False}     # no sliding-window model here
 
     def jit_counts(self) -> Dict[str, int]:
         """The captured write, by the JAX engine's name."""

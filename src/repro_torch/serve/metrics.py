@@ -1,16 +1,20 @@
-"""Serving metrics (port of the TTFT / TPOT / throughput and
-``load_balance`` and ``residency`` parts of ``repro/serve/metrics.py``).
+"""Serving metrics (port of ``repro/serve/metrics.py``, with the JAX
+report's schema).
 
 Per request: TTFT = first_token_time - arrival_time (queueing + prefill),
 TPOT = mean inter-token time over the decode phase, e2e = finish_time -
 arrival_time.  Per step: active decode slots, paged KV-block occupancy,
 the MoE block's scalar schedule diagnostics and its vector ones (per-rank
 and per-expert loads), from which ``report()["load_balance"]`` is
-derived.  The ``residency`` section (hits, misses, lookups, swaps,
-prefetches, stall_units, bytes_staged, hit_rate) is the tiered-residency
-manager's counters, which the engine sets; it is absent with residency
-off.  ``report()`` is JSON-safe on an empty window (percentiles over no
-requests come back as None).
+derived, and each phase's tokens, wall seconds and analytic attention
+KV bytes (``record_phase``, the ``phases`` section).  The ``residency``
+section (hits, misses, lookups, swaps, prefetches, stall_units,
+bytes_staged, hit_rate) is the tiered-residency manager's counters, which
+the engine sets; it is absent with residency off.  The prefix-sharing
+counters (``cow_copies``, ``evictions``, ``resume_cached_tokens``,
+``prefix_hit_rate``) are the JAX report's keys; the port shares no
+prefix, so they stay 0.  ``report()`` is JSON-safe on an empty window
+(percentiles over no requests come back as None).
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ class RequestRecord:
     admitted_time: float
     first_token_time: float
     finish_time: float
+    cached_prefix_tokens: int = 0   # no prefix sharing in the port: 0
 
     @property
     def ttft(self) -> float:
@@ -71,7 +76,8 @@ class RequestRecord:
                 "n_generated": self.n_generated,
                 "arrival_time": self.arrival_time,
                 "queue_delay": self.admitted_time - self.arrival_time,
-                "ttft": self.ttft, "tpot": self.tpot, "e2e": self.e2e}
+                "ttft": self.ttft, "tpot": self.tpot, "e2e": self.e2e,
+                "cached_prefix_tokens": self.cached_prefix_tokens}
 
 
 class ServeMetrics:
@@ -86,6 +92,16 @@ class ServeMetrics:
         self.kv_blocks_in_use: List[int] = []
         self.kv_blocks_total = 0
         self.preemptions = 0
+        # the JAX report's prefix-sharing counters (no sharing here: 0)
+        self.cow_copies = 0
+        self.evictions = 0
+        self.resume_cached_tokens = 0
+        # per phase (prefill / decode): tokens, wall seconds around the
+        # synced call, analytic attention KV bytes, calls
+        self.phase_tokens: Dict[str, int] = {}
+        self.phase_seconds: Dict[str, float] = {}
+        self.phase_kv_bytes: Dict[str, int] = {}
+        self.phase_steps: Dict[str, int] = {}
         # tiered expert residency's counters (serve/residency.py), set by
         # the engine's report(); None = residency off
         self.residency: Optional[Dict[str, Any]] = None
@@ -112,6 +128,19 @@ class ServeMetrics:
                 self.moe_diags.setdefault(f"{phase}/{k}", []).append(
                     float(arr))
 
+    def record_phase(self, phase: str, tokens: int, seconds: float,
+                     kv_bytes: int) -> None:
+        """One prefill chunk's or decode step's contribution to its
+        phase: tokens processed, wall seconds around the synced call,
+        analytic attention KV bytes."""
+        self.phase_tokens[phase] = self.phase_tokens.get(phase, 0) \
+            + int(tokens)
+        self.phase_seconds[phase] = self.phase_seconds.get(phase, 0.0) \
+            + float(seconds)
+        self.phase_kv_bytes[phase] = self.phase_kv_bytes.get(phase, 0) \
+            + int(kv_bytes)
+        self.phase_steps[phase] = self.phase_steps.get(phase, 0) + 1
+
     def record_kv(self, blocks_in_use: int, blocks_total: int) -> None:
         self.kv_blocks_in_use.append(int(blocks_in_use))
         self.kv_blocks_total = int(blocks_total)
@@ -129,6 +158,7 @@ class ServeMetrics:
     def report(self) -> Dict[str, Any]:
         recs = self.requests
         total_new = sum(r.n_generated for r in recs)
+        total_prompt = sum(r.prompt_len for r in recs)
         span = (max(r.finish_time for r in recs)
                 - min(r.arrival_time for r in recs)) if recs else 0.0
         rep: Dict[str, Any] = {
@@ -147,6 +177,12 @@ class ServeMetrics:
             "max_occupancy": (int(max(self.occupancy))
                               if self.occupancy else 0),
             "preemptions": self.preemptions,
+            "cow_copies": self.cow_copies,
+            "evictions": self.evictions,
+            "resume_cached_tokens": self.resume_cached_tokens,
+            "prefix_hit_rate": (
+                sum(r.cached_prefix_tokens for r in recs) / total_prompt
+                if total_prompt else None),
             "requests": [r.asdict() for r in recs],
         }
         if self.kv_blocks_in_use:
@@ -158,12 +194,30 @@ class ServeMetrics:
         if self.moe_diags:
             rep["moe"] = {k: float(np.mean(v))
                           for k, v in self.moe_diags.items()}
+        phases = self._phases_section()
+        if phases:
+            rep["phases"] = phases
         if self.residency:
             rep["residency"] = dict(self.residency)
         lb = self._load_balance()
         if lb:
             rep["load_balance"] = lb
         return _json_safe(rep)
+
+    def _phases_section(self) -> Optional[Dict[str, Any]]:
+        if not self.phase_steps:
+            return None
+        out = {}
+        for ph in sorted(self.phase_steps):
+            tok, sec = self.phase_tokens.get(ph, 0), \
+                self.phase_seconds.get(ph, 0.0)
+            kvb = self.phase_kv_bytes.get(ph, 0)
+            out[ph] = {"steps": self.phase_steps[ph], "tokens": tok,
+                       "seconds": sec,
+                       "tokens_per_s": tok / sec if sec > 0 else None,
+                       "kv_bytes_touched": kvb,
+                       "kv_bytes_per_token": kvb / tok if tok else None}
+        return out
 
     def _load_balance(self) -> Dict[str, Any]:
         """Paper §5 load metrics per phase, from the per-step vector

@@ -20,8 +20,18 @@ under synthetic router skew, the call's skewed assignments
 ``SkewKey`` generators, in the same order, as an eager call's
 ``route_skewed`` draws (a captured step cannot seed a generator; JAX
 passes its key into the jitted step the same way).  An entry hands back
-its greedy tokens and its MoE diagnostics packed in one float32 tensor:
-one copy to the host a call.
+its tokens and its MoE diagnostics packed in one float32 tensor: one copy
+to the host a call.
+
+With ``temperature > 0`` the decode step samples inside the graph
+(``sampling.sample_tokens``) on Gumbel noise that rides in a static
+buffer, drawn before each replay on a generator seeded by (``skew_seed``,
+the decode stream, the step index), as the JAX step folds its key; with
+skew on too, the key splits as JAX's does, ``fold_in(key, 0)`` for the
+skew draws and ``fold_in(key, 1)`` for the noise.  The prefill chunk
+keeps its argmax: a prompt's first token is the host twin's draw
+(``sampling.sample_np``) over the chunk's logits row, which
+``prefill_logits`` copies to the host only when sampling is on.
 
 The serving-time expert placement rides in the same static buffers: the
 replica table ``[G, R]`` (prefill chunk and decode; ``serve/rebalance``)
@@ -48,7 +58,7 @@ import torch
 from repro_torch.configs.base import round_up
 from repro_torch.core.router import SkewKey, skew_draw, skew_probs
 from repro_torch.models.transformer import moe_layer_keys
-from repro_torch.serve.sampling import sample_tokens
+from repro_torch.serve.sampling import gumbel_, noise_width, sample_tokens
 
 _eager = False
 
@@ -73,6 +83,12 @@ def kernel_wrappers():
     from repro_torch.kernels.schedule import ops as sched
     return (gmm.moe_gmm, pa.paged_attention, fa.flash_attention,
             sched.rebalance)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each kernel's launches so far, by kernel name."""
+    names = ("moe_gmm", "paged_attention", "flash_attention", "schedule")
+    return {n: fn.launches for n, fn in zip(names, kernel_wrappers())}
 
 
 class Staged:
@@ -205,9 +221,20 @@ class StepCore:
                                      model.moe_spec_decode.topo.padded_experts,
                                      moe.router_skew,
                                      moe.router_skew_experts, dev)
-        # host seconds spent on skew draws, and calls, by entry
-        self.predraw_s = {"decode": 0.0, "prefill_chunk": 0.0}
-        self.predraw_calls = {"decode": 0, "prefill_chunk": 0}
+        # sampling: the decode step's Gumbel noise [B, candidates] and the
+        # host twin's generator for first tokens (the JAX engine's seed)
+        self.sample = ecfg.temperature > 0
+        self._noise: Optional[torch.Tensor] = None
+        self.samp_rng: Optional[np.random.Generator] = None
+        if self.sample:
+            self._noise = torch.zeros(
+                (B, noise_width(cfg.padded_vocab, ecfg.top_k)),
+                dtype=torch.float32, device=dev)
+            self.samp_rng = np.random.default_rng(ecfg.skew_seed + 101)
+        # host seconds spent on skew draws (by entry) and on the decode
+        # step's sampling noise ("noise"), and calls
+        self.predraw_s = {"decode": 0.0, "prefill_chunk": 0.0, "noise": 0.0}
+        self.predraw_calls = {"decode": 0, "prefill_chunk": 0, "noise": 0}
         self._layouts: Dict[str, list] = {}    # packed diagnostics, by entry
         self._last_packed = "decode"
         # the lambdas look the step up at each call (tests wrap it)
@@ -215,6 +242,7 @@ class StepCore:
         self.prefill_entry = Entry(
             lambda p, scratch: self._prefill_step(p, scratch), dev)
         self._pf_packed: Optional[torch.Tensor] = None
+        self._pf_logits: Optional[torch.Tensor] = None   # the last chunk's
         self.logits: Optional[torch.Tensor] = None  # the last decode's
 
     def next_key(self, stream: SkewKey, idx: int) -> Optional[SkewKey]:
@@ -226,7 +254,8 @@ class StepCore:
                 "decode": self.decode_entry.captures}
 
     def predraw_ms(self, entry: str) -> float:
-        """Host ms a call spent on ``entry``'s skew pre-draws."""
+        """Host ms a call spent on ``entry``'s skew pre-draws ("decode",
+        "prefill_chunk") or on the decode step's noise ("noise")."""
         return (self.predraw_s[entry] * 1e3
                 / max(self.predraw_calls[entry], 1))
 
@@ -246,7 +275,7 @@ class StepCore:
             h[C + 2:] = np.asarray(replica_ids).reshape(-1)
         self._pf_in.push()
         self._predraw(chunk_idx, "prefill_chunk")
-        self._pf_packed = self.prefill_entry(params, scratch)
+        self._pf_packed, self._pf_logits = self.prefill_entry(params, scratch)
 
     def prefill_result(self) -> Tuple[int, np.ndarray]:
         """The last chunk's greedy token at ``last`` and its packed MoE
@@ -254,15 +283,23 @@ class StepCore:
         packed = self._to_host(self._pf_packed)
         return int(packed[0]), packed[1:]
 
-    def _prefill_step(self, params, scratch) -> torch.Tensor:
+    def prefill_logits(self) -> np.ndarray:
+        """The last chunk's logits row at ``last`` [padded vocab] on the
+        host (float32), for the host sampler: one more copy, made only
+        for a finished prompt when sampling is on."""
+        return self._to_host(self._pf_logits[0])
+
+    def _prefill_step(self, params, scratch
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The prefill chunk on the static buffers: what the graph holds."""
         C, d = self.C, self._pf_in.dev
         rep = d[C + 2:].view(self.G, self.R) if self.R else None
         logits, _, _, diags = self.model.prefill_chunk(
             params, d[:C].view(1, C), scratch, d[C], d[C + 1],
             skew_assign=self._pf_skew, moe_replica_ids=rep)
-        return torch.cat([sample_tokens(logits).float(),
-                          self._pack(diags, "prefill_chunk")])
+        packed = torch.cat([sample_tokens(logits).float(),
+                            self._pack(diags, "prefill_chunk")])
+        return packed, logits
 
     def _pack(self, diags: Dict[str, torch.Tensor],
               entry: str) -> torch.Tensor:
@@ -293,9 +330,9 @@ class StepCore:
         """One decode step of every slot (the engine's ``step_idx``-th
         step) on the paged pool through ``block_table`` or, without one,
         on the slab at each row's own position, with the replica table
-        [G, R] and the residency table [G, W].  Returns the greedy next
-        tokens [B] and the packed MoE diagnostics (``unpack``), on the
-        host."""
+        [G, R] and the residency table [G, W].  Returns the next tokens
+        [B] (greedy, or sampled on this step's noise) and the packed MoE
+        diagnostics (``unpack``), on the host."""
         B = self.B
         h = self._dec_in.fill()
         h[:B] = np.asarray(tok).reshape(B)
@@ -310,6 +347,8 @@ class StepCore:
             h[self._bt_at:] = np.asarray(block_table).reshape(-1)
         self._dec_in.push()
         self._predraw(step_idx, "decode")
+        if self.sample:
+            self._draw_noise(step_idx)
         packed, self.logits = self.decode_entry(params, pool)
         packed = self._to_host(packed)
         return packed[:B].astype(np.int32), packed[B:]
@@ -324,6 +363,8 @@ class StepCore:
         buf, key = ((self._pf_skew, self.pf_key) if entry == "prefill_chunk"
                     else (self._skew, self.dec_key))
         key = key.fold_in(idx)
+        if entry == "decode" and self.sample:
+            key = key.fold_in(0)          # JAX's split: 0 skew, 1 sampling
         T, k = buf.shape[2], buf.shape[3]
         for m, layer in enumerate(self._moe_keys):
             lk = key.fold_in(layer)
@@ -332,6 +373,18 @@ class StepCore:
                                           self._probs, T, k))
         self.predraw_s[entry] += time.perf_counter() - t0
         self.predraw_calls[entry] += 1
+
+    def _draw_noise(self, idx: int) -> None:
+        """The ``idx``-th decode step's Gumbel noise into its static
+        buffer (the key JAX's step samples on: the decode stream's
+        ``idx``, folded with 1 when the skew draws share it)."""
+        t0 = time.perf_counter()
+        key = self.dec_key.fold_in(idx)
+        if self.skew:
+            key = key.fold_in(1)
+        gumbel_(self._noise, key.generator(self.device))
+        self.predraw_s["noise"] += time.perf_counter() - t0
+        self.predraw_calls["noise"] += 1
 
     def _step(self, params, pool):
         """The decode step on the static buffers: what the graph holds."""
@@ -351,8 +404,10 @@ class StepCore:
             params, d[:B].view(B, 1), pool, d[B:2 * B],
             active_mask=d[2 * B:3 * B].to(torch.bool),
             moe_policy=self.ecfg.moe_policy, skew_assign=self._skew, **kw)
-        packed = torch.cat([sample_tokens(logits).float(),
-                            self._pack(diags, "decode")])
+        e = self.ecfg
+        nxt = sample_tokens(logits, self._noise, temperature=e.temperature,
+                            top_k=e.top_k, top_p=e.top_p)
+        packed = torch.cat([nxt.float(), self._pack(diags, "decode")])
         return packed, logits
 
     def _to_host(self, packed: torch.Tensor) -> np.ndarray:

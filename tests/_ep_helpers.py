@@ -316,3 +316,99 @@ def placement_port(params, *, G, R, KW, ekw, draws, device="cpu"):
     left = replay_draws(eng, draws)
     rec["report"] = eng.run(reqs)
     return rec, eng, left
+
+
+# ----------------------------------------------------------------------
+# truncated sampling: what a JAX engine samples and routes on, recorded by
+# call index (warmup's calls included), and the port's StepCore replaying
+# it; the recording hooks are source text for the JAX side
+# ----------------------------------------------------------------------
+SAMPLING_RECORD_SRC = '''
+def make_skew_draws(cfg, model, G):
+    """What the MoE blocks of one call on ``key`` draw: [layer][rank]
+    [t_slice][k] (the scan folds 997 into the key a layer, the one MoE
+    sub-layer folds 0, each rank its index)."""
+    from repro.core.router import route_skewed
+    moe = cfg.moe
+
+    def one(key, t_slice):
+        layers = []
+        for _ in range(cfg.num_layers):
+            sub = jax.random.fold_in(key, 0)
+            layers.append(jax.numpy.stack([route_skewed(
+                jax.random.fold_in(sub, g), t_slice,
+                top_k=moe.num_experts_per_tok, num_experts=moe.num_experts,
+                padded_experts=model.moe_spec.topo.padded_experts,
+                alpha=moe.router_skew, n_hot=moe.router_skew_experts
+            ).assign for g in range(G)]))
+            key = jax.random.fold_in(key, 997)
+        return jax.numpy.stack(layers)
+    one = jax.jit(one, static_argnums=1)
+    return lambda key, tokens: np.asarray(
+        one(key, -(-max(tokens, G) // G))).tolist()
+
+
+def record_sampling(eng, width, skew_draws=None):
+    """Hook the JAX ``ServeEngine`` ``eng`` so that it records its streams,
+    and by call index the Gumbel draw each decode step samples on
+    (``noise``, [max_slots, width]) and, under router skew, the skewed
+    assignments each prefill chunk and decode step routes on (``draws``;
+    with sampling on a decode step splits its key, 0 skew and 1
+    sampling)."""
+    rec = {"streams": {}, "noise": {},
+           "draws": {"prefill_chunk": {}, "decode": {}}}
+    next_key, finish = eng._next_key, eng._finish
+
+    def on_next_key(stream, idx):
+        key = next_key(stream, idx)
+        if key is None:
+            return key
+        pf = np.array_equal(np.asarray(stream), np.asarray(eng._pf_key))
+        skew_key, samp_key = key, None
+        if not pf and eng._sample:
+            skew_key, samp_key = ((jax.random.fold_in(key, 0),
+                                   jax.random.fold_in(key, 1))
+                                  if eng._skew else (None, key))
+        if samp_key is not None:
+            rec["noise"][str(idx)] = np.asarray(jax.random.gumbel(
+                samp_key, (eng.ecfg.max_slots, width),
+                jax.numpy.float32)).tolist()
+        if eng._skew:
+            entry = "prefill_chunk" if pf else "decode"
+            rec["draws"][entry][str(idx)] = skew_draws(
+                skew_key, eng.ecfg.prefill_chunk if pf
+                else eng.ecfg.max_slots)
+        return key
+
+    def on_finish(st, now):
+        rec["streams"][str(st.req.rid)] = [int(t) for t in st.output]
+        finish(st, now)
+    eng._next_key, eng._finish = on_next_key, on_finish
+    return rec
+'''
+
+
+def keyed_replay(rec):
+    """``StepCore`` methods (``_predraw``, ``_draw_noise``) that copy the
+    JAX engine's skew draws and noise of the same call index (``rec``,
+    from ``record_sampling``) into the static buffers; a call JAX did not
+    make (the port's warmup) leaves them as they are."""
+    def predraw(core, idx, entry="decode"):
+        d = rec["draws"][entry].get(str(idx))
+        if d is not None:
+            buf = core._pf_skew if entry == "prefill_chunk" else core._skew
+            buf.copy_(torch.tensor(d, dtype=torch.int32))
+
+    def draw_noise(core, idx):
+        n = rec["noise"].get(str(idx))
+        if n is not None:
+            core._noise.copy_(torch.tensor(n, dtype=torch.float32))
+    return predraw, draw_noise
+
+
+def replay_on(eng, rec):
+    """Make ``eng``'s step core route and sample on ``rec``'s draws."""
+    import functools
+    predraw, draw_noise = keyed_replay(rec)
+    eng.core._predraw = functools.partial(predraw, eng.core)
+    eng.core._draw_noise = functools.partial(draw_noise, eng.core)

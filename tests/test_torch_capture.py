@@ -637,3 +637,60 @@ def test_placement_card_streams_equal_cpu_streams(cuda):
                      rep["engine"]["residency_ids"], rep["residency"])
         eng.close()
     assert outs["cuda"] == outs["cpu"]
+
+
+# ----------------------------------------------------------------------
+# truncated sampling inside the captured decode step
+# ----------------------------------------------------------------------
+SAMPLED = dict(temperature=0.8, top_k=5, top_p=0.9)
+
+
+def _host_noise(eng):
+    """Every decode step's noise drawn on the host from the step's key,
+    so that two engines on two devices sample on the same values."""
+    from repro_torch.serve.sampling import gumbel_
+    core = eng.core
+
+    def draw(idx):
+        key = core.dec_key.fold_in(idx)
+        if core.skew:
+            key = key.fold_in(1)
+        buf = torch.empty(core._noise.shape, dtype=torch.float32)
+        core._noise.copy_(gumbel_(buf, key.generator("cpu")))
+    core._draw_noise = draw
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+@pytest.mark.parametrize("ep", [1, G])
+def test_sampled_decode_step_never_syncs_the_host(ep, paged, monkeypatch):
+    """With temperature, top-k and top-p on, the decode step (sort,
+    nucleus mask, Gumbel argmax over the static noise buffer) still reads
+    no device value on the host, at G = 1 and under skew at G = 4."""
+    cfg = (_reduced("qwen15-moe-a27b", q_tokens=1, router_skew=0.9)
+           if ep > 1 else _reduced("qwen15-moe-a27b"))
+    eng = _engine(cfg, paged=paged, ep_degree=ep, **SAMPLED)
+    assert eng.core.sample and eng.core._noise.shape[1] == SAMPLED["top_k"]
+    guard = _guarded_decode_steps(eng, monkeypatch)
+    assert guard.ops > 100
+    assert guard.hits == []
+    assert eng.core.predraw_calls["noise"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_sampled_card_streams_equal_cpu_streams(cuda, paged):
+    """Reduced f32 qwen, sampled: the card's captured decode step and host
+    first tokens give the CPU's streams on the same noise, with each
+    entry captured once."""
+    cfg = _reduced("qwen15-moe-a27b")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = _engine(cfg, paged=paged, device=dev, **SAMPLED)
+        _host_noise(eng)
+        eng.warmup()
+        outs[dev], rep = captured_run(eng, _chunk_trace())
+    assert rep["jit_entries"] == _entries(paged, 1)
+    assert rep["recompiled_after_warmup"] is False
+    assert outs["cuda"] == outs["cpu"]
+    greedy = _engine(cfg, paged=paged, device="cpu")
+    assert captured_run(greedy, _chunk_trace())[0] != outs["cpu"]

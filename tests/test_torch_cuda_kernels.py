@@ -438,3 +438,41 @@ def test_moe_gmm_kernel_with_replica_groups_matches_plain(
                                                     "w_gate": cat[2]})
         torch.cuda.synchronize()
         assert torch.equal(two, got)
+
+
+def _tie_logits(B, V, seed):
+    """bf16 logits with many exact ties: a few hundred distinct values
+    over the vocabulary, the largest shared by dozens of tokens."""
+    g = torch.Generator().manual_seed(seed)
+    lv = torch.randint(-400, 8, (B, V), generator=g).float() / 16
+    return lv.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (50, 1.0), (0, 0.9),
+                                         (50, 0.9)])
+def test_captured_sampler_equals_plain(cuda, top_k, top_p):
+    """The decode step's sampler at qwen15-moe-a27b's serve shape (8 rows
+    x its 152,064 padded-vocabulary logits), captured in a CUDA graph (a host read would fail
+    the capture) and replayed on fresh noise in its static buffer: token
+    for token the CPU's plain version on the same tie-heavy logits and
+    noise."""
+    from repro_torch.serve.sampling import gumbel_, noise_width, sample_tokens
+    B, V = 8, 152064
+    kw = dict(temperature=0.8, top_k=top_k, top_p=top_p)
+    lg = _tie_logits(B, V, 0).to(cuda)
+    nz = torch.zeros((B, noise_width(V, top_k)), device=cuda)
+    eager = sample_tokens(lg, nz, **kw)          # warm the allocator
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sample_tokens(lg, nz, **kw)
+    for seed in range(4):
+        lg.copy_(_tie_logits(B, V, seed))
+        host = gumbel_(torch.empty(nz.shape), torch.Generator().manual_seed(
+            seed))
+        nz.copy_(host)
+        graph.replay()
+        eager = sample_tokens(lg, nz, **kw)
+        want = sample_tokens(lg.cpu(), host, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want), seed
+        assert torch.equal(eager.cpu(), want), seed

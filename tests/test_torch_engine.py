@@ -80,8 +80,38 @@ def test_engine_streams_match_jax_engine(weights, num_kv_blocks):
         assert rep_t[key] == rep_j[key], key
     assert rep_t["moe"].keys() == rep_j["moe"].keys()
     assert te._alloc.blocks_in_use == 0                # all reclaimed
-    assert rep_t["attention_dispatch"] == {
-        "prefill_continue": {"fused": False}, "decode": {"fused": False}}
+    cpu = {"fused": False, "requested": False,
+           "reason": "the plain version runs on the CPU"}
+    assert rep_t["attention_dispatch"] == {"prefill_continue": cpu,
+                                           "decode": cpu}
+    assert rep_t["attention_fallbacks"] == {}
+
+
+def test_fused_attention_flag_is_the_requested_key(weights):
+    """``fused_paged_attention`` is what the JAX log calls ``requested``:
+    on the CPU, where the plain versions run, every record of a branch it
+    asked a kernel of is a fallback, and the streams are the flag-off
+    ones."""
+    tp = weights[3]
+    kw = dict(max_slots=SLOTS, prompt_len=L, max_new_tokens=GEN,
+              prefill_chunk=C, kv_block_size=4, paged=True)
+    outs, reps = {}, {}
+    for on in (False, True):
+        tm = build_model(TORCH_QWEN.reduced(), batch=SLOTS, seq_len=L,
+                         device="cpu")
+        te = ServeEngine(tm, tp, engine_config_for(
+            tm.cfg, fused_paged_attention=on, **kw),
+            clock=VirtualClock(0.1), device="cpu")
+        outs[on], reps[on] = captured_run(te, _trace(Request))
+    assert outs[True] == outs[False]
+    assert reps[False]["attention_fallbacks"] == {}
+    dispatch = reps[True]["attention_dispatch"]
+    assert {b: d["requested"] for b, d in dispatch.items()} \
+        == {"prefill_continue": True, "decode": True}
+    assert not any(d["fused"] for d in dispatch.values())
+    fallbacks = reps[True]["attention_fallbacks"]
+    assert set(fallbacks) == {"prefill_continue", "decode"}
+    assert min(fallbacks.values()) > 0
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -136,14 +166,16 @@ def test_engine_config_defaults_equal_jax():
     ("role", "prefill"), ("prefix_sharing", True),
     ("speculative_k", 2), ("temperature", 0.7), ("replica_slots", 1),
     ("rebalance_interval", 2), ("resident_experts", 4),
-    ("moe_policy", "fastest")])
+    ("moe_policy", "fastest"), ("temperature", -1.0), ("top_p", 0.0)])
 def test_unported_engine_fields_raise(field, value):
     """Fields not ported yet raise NotImplementedError; ``moe_policy`` is
     ported and, as in the JAX engine, an unknown policy is a ValueError.
-    The serving-time expert placement fields are ported too and validate
-    as the JAX engine's: an interval without replica slots is a
-    ValueError naming the field, a legal value is kept."""
-    if field in ("replica_slots", "rebalance_interval", "resident_experts"):
+    The serving-time expert placement fields and the sampling fields are
+    ported too and validate as the JAX engine's: an interval without
+    replica slots, a negative temperature or a top_p of 0 is a ValueError
+    naming the field, a legal value is kept."""
+    if field in ("replica_slots", "rebalance_interval", "resident_experts",
+                 "temperature", "top_p"):
         from repro.serve import EngineConfig as JEngineConfig
         try:
             JEngineConfig(**{field: value})

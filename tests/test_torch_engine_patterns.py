@@ -73,9 +73,10 @@ def test_engine_matches_jax_engine(weights, pool, num_kv_blocks):
             assert a[key] == pytest.approx(b[key]), key
     for key in ("decode_steps", "prefill_chunks", "max_occupancy"):
         assert rep_t[key] == rep_j[key], key
-    assert rep_t["attention_dispatch"] == {
-        branch: {"fused": d["fused"]}
-        for branch, d in rep_j["attention_dispatch"].items()}
+    for key in ("fused", "requested"):          # the JAX log's keys
+        assert {b: d[key] for b, d in rep_t["attention_dispatch"].items()} \
+            == {b: d[key] for b, d in rep_j["attention_dispatch"].items()}
+    assert rep_t["attention_fallbacks"] == rep_j["attention_fallbacks"]
     decode = "decode" if pool == "paged" else "decode_slab"
     assert set(rep_t["attention_dispatch"]) == {"prefill_continue", decode}
     assert rep_t["state_pool"]["kind"] == rep_j["state_pool"]["kind"] == pool
