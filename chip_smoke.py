@@ -92,7 +92,8 @@ Phases, each of which must pass (any failure exits non-zero):
      same requests served with every entry eager (``stepcore.eager()``)
      and with the captured ones; then prefill chunks of one long prompt
      (one under ``torch.profiler``, the next 3 without) and a window of
-     decode steps with every slot decoding (3 traced, 3 not).  A ``[capture]``
+     decode steps with every slot decoding (3 traced, 1 at G = 4, where an
+     eager step's trace holds ~35 k kernels; 3 not).  A ``[capture]``
      line each: TTFT and TPOT p50; for a prefill chunk and for a decode
      step, wall ms, device busy ms, idle share, host launches (kernels
      and graphs), copies/syncs, and the host ms of the skew pre-draws.
@@ -121,7 +122,7 @@ Phases, each of which must pass (any failure exits non-zero):
      at least one swap and one stage (none under ``none``), drops 0.
      Phase 2 also holds ``moe_gmm`` with replica groups (a third weight
      source) against its plain version at this path's decode dispatch;
-  9. the serving CLI, last, in processes of its own: first the decode
+  9. the serving CLI, in processes of its own: first the decode
      step's sampler at the serve shape (8 x the padded vocabulary),
      captured in a CUDA graph, against its plain version on the CPU, token
      for token, on tie-heavy bf16 logits and fixed noise at (top_k, top_p)
@@ -139,7 +140,33 @@ Phases, each of which must pass (any failure exits non-zero):
      exits 0 and writes its report; every request finishes with its
      budget, tokens in the vocabulary; one capture of each entry; each
      kernel launched once per layer (and rank) and step; the kernels'
-     dispatch; (b) drops nothing and moves units.
+     dispatch; (b) drops nothing and moves units;
+  10. HarMoEny across processes, and the foreign fetch on its side
+     stream: (a) the CLI at full width and G = 1 in its own process under
+     ``torch.distributed.run --standalone --nproc-per-node 1``
+     (``DistComm`` on NCCL, dense fetch, every entry captured), 4
+     requests of 128 prompt tokens and 8 new, against the same argv
+     without a launcher (``LocalComm``); each replays its last decode
+     graph once more under the profiler (a ``[cli-nccl]`` line).  Gates:
+     exit 0, reports written, one capture of each entry, equal greedy
+     streams and launches, device work in the NCCL graph beyond the
+     ``LocalComm`` graph's; (b) four processes on the one card over gloo
+     (gloo's collectives tried on CUDA tensors first), each a
+     ``DistComm`` rank with the hosted fetch and eager entries holding
+     only its own 15 experts a layer, serving full-width qwen at G = 4
+     under skew 0.9 with harmoeny (2 requests of 64-128 prompt tokens,
+     8 new), against ``VirtualGroup(4)`` eager on the same weights
+     (``[dist]`` lines: each process's peak memory, fetch bytes a call,
+     pre-draw host ms, launches).  Gates: streams and ``load_balance``
+     equal on every rank, drops 0, units moved, launches per process =
+     layers x calls; (c) from phase 7's G = 4 runs, for the decode step
+     and the prefill chunk of each policy: wall, busy, idle, the fetch's
+     side-stream device ms and how much of it ran beside other kernels,
+     against the busy ms of the dense fetch before it (a ``[fetch]``
+     line each; phase 7's
+     harmoeny run also serves its windows captured with the dense fetch
+     on the compute stream, whose tokens must equal the gather's).
+     Gate: the eager trace puts the fetch on a stream of its own.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -978,13 +1005,20 @@ def main_path(cfg, *, n_requests, max_seq_len, prefill_chunk, block_size,
 # ----------------------------------------------------------------------
 def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                     new_tokens, max_seq_len, prefill_chunk, block_size,
-                    seed, ep_degree=1, policy=None, window=3):
+                    seed, ep_degree=1, policy=None, window=3,
+                    traced=None, dense_inline=False):
     """The same requests served twice on one set of weights, once with
     every entry eager (``stepcore.eager()``) and once captured; then one
     prefill chunk of a long prompt under ``torch.profiler`` and its next
     ``window`` without (an eager chunk's trace at G = 4 holds ~35 k
     kernels, whose processing is the phase's longest part), and, with
-    every slot decoding, ``window`` decode steps each way.  Prints the ``[capture]`` line.  Gates: greedy
+    every slot decoding, ``traced`` decode steps under the profiler
+    (default ``window``) and ``window`` without.  With
+    ``dense_inline`` a third engine, captured, whose ``VirtualGroup``
+    fetches in the dense form on the compute stream (the port's fetch
+    before the gather and the side stream), runs the long prompt's chunks
+    and the decode window only, which must give the captured run's
+    tokens.  Prints the ``[capture]`` line.  Gates: greedy
     streams equal token for token (or, where a bf16 stream differs, the
     logits at the first differing step within 2e-2 of the largest logit),
     fewer host launches a captured chunk and step than eager ones, at
@@ -1014,11 +1048,20 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
     fill = [rng.integers(0, cfg.vocab_size, (prefill_chunk,))
             for _ in range(slots - 1)]
     runs = {}
-    for mode in ("eager", "captured"):
+    modes = ("eager", "captured") + (("dense_inline",) if dense_inline
+                                      else ())
+    mode_s = {}
+    for mode in modes:
+        t_mode = time.perf_counter()
         ctx = stepcore.eager() if mode == "eager" \
             else contextlib.nullcontext()
         with ctx:
-            eng = ServeEngine(model, params, ecfg)
+            m = model
+            if mode == "dense_inline":
+                m = build_model(cfg, batch=slots, seq_len=max_seq_len,
+                                ep_degree=ep_degree,
+                                comm=DenseInlineGroup(ep_degree))
+            eng = ServeEngine(m, params, ecfg)
             eng.warmup()
             core = eng.core
             steps, outputs, record = [], {}, [True]
@@ -1035,9 +1078,20 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                 outputs[st.req.rid] = list(st.output)
                 finish(st, now)
             core.decode, eng._finish = traced_decode, capture
-            rep = eng.run([Request(rid=i, tokens=p,
-                                   max_new_tokens=new_tokens)
-                           for i, p in enumerate(prompts)])
+            rep = None
+            if mode != "dense_inline":
+                rep = eng.run([Request(rid=i, tokens=p,
+                                       max_new_tokens=new_tokens)
+                               for i, p in enumerate(prompts)])
+                served_at = (eng._step_idx, eng._chunk_idx,
+                             list(eng.front.free_slots))
+            else:
+                # the window's calls draw their skew on the same call
+                # indices, and its requests take the same slots (skewed
+                # routing goes by batch row), as the captured run's window
+                eng._step_idx, eng._chunk_idx, free = served_at
+                eng.front.free_slots.clear()
+                eng.front.free_slots.extend(free)
             record[0] = False
             # prefill chunks of one long prompt, alone on the card
             eng.submit(Request(rid=999, tokens=long_prompt,
@@ -1056,7 +1110,7 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
 
             def step():
                 eng._decode_work(eng.clock.now())
-            prof = profile_steps(step, window, f"{tag}_{mode}")
+            prof = profile_steps(step, traced or window, f"{tag}_{mode}")
             wall = untraced_ms(step, window)
             runs[mode] = {
                 "rep": rep, "outputs": outputs, "steps": steps,
@@ -1064,10 +1118,24 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                 "pf_wall_ms": pf_wall,
                 "jit_after_window": eng.report()["jit_entries"],
                 "predraw_ms": core.predraw_ms("decode"),
-                "pf_predraw_ms": core.predraw_ms("prefill_chunk")}
-            del eng, core
+                "pf_predraw_ms": core.predraw_ms("prefill_chunk"),
+                "window_tokens": {st.req.rid: list(st.output)
+                                  for st in eng.front.state_by_slot
+                                  if st is not None}}
+            del eng, core, m
         gc.collect()
         torch.cuda.empty_cache()
+        mode_s[mode] = time.perf_counter() - t_mode
+    if dense_inline:
+        d = runs.pop("dense_inline")
+        if d["window_tokens"] != runs["captured"]["window_tokens"]:
+            raise AssertionError(
+                f"[capture] {tag}: the dense inline fetch's tokens "
+                f"{d['window_tokens']} != the gather's "
+                f"{runs['captured']['window_tokens']}")
+        if d["jit_after_window"] != jit_entries(paged, 1):
+            raise AssertionError(f"[capture] {tag}: dense inline captures "
+                                 f"{d['jit_after_window']}")
     e, c = runs["eager"], runs["captured"]
     first = None
     if e["outputs"] != c["outputs"]:
@@ -1084,7 +1152,7 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
             "policy": policy or cfg.moe.policy,
             "requests": n_requests, "decode_steps": c["rep"]["decode_steps"],
             "streams_equal": e["outputs"] == c["outputs"],
-            "first_difference": first}
+            "first_difference": first, "seconds": mode_s}
     for mode, r in runs.items():
         p, pf = r["prof"], r["pf_prof"]
         line[mode] = {
@@ -1105,6 +1173,7 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
                 "copies_and_syncs":
                     pf["host_device_syncs_and_copies_per_step"],
                 "skew_predraw_host_ms": r["pf_predraw_ms"],
+                "streams": pf["streams"],
                 "top_kernels_ms": pf["top_kernels_ms_per_step"][:4]},
             "wall_ms_per_decode_step": r["wall_ms"],
             "traced_wall_ms_per_decode_step": p["wall_ms_per_step"],
@@ -1117,8 +1186,19 @@ def capture_compare(cfg, params, tag, *, paged, n_requests, prompt_lens,
             "copies_and_syncs_per_step":
                 p["host_device_syncs_and_copies_per_step"],
             "skew_predraw_host_ms_per_step": r["predraw_ms"],
+            "streams": p["streams"],
             "top_kernels_ms_per_step": p["top_kernels_ms_per_step"][:6],
         }
+    if dense_inline:
+        line["dense_inline"] = {
+            "tokens_equal_captured": True,
+            "prefill_chunk": {"wall_ms": d["pf_wall_ms"],
+                              "device_busy_ms":
+                                  d["pf_prof"]["device_busy_ms_per_step"],
+                              "streams": d["pf_prof"]["streams"]},
+            "wall_ms_per_decode_step": d["wall_ms"],
+            "device_busy_ms_per_step": d["prof"]["device_busy_ms_per_step"],
+            "streams": d["prof"]["streams"]}
     log(f"[capture] {json.dumps(line)}")
     check_one_capture(f"capture {tag}", c["rep"])
     if c["jit_after_window"] != jit_entries(paged, 1) \
@@ -1344,7 +1424,8 @@ def ep_path(cfg, *, seed, **shape):
                             max_seq_len=shape["max_seq_len"],
                             prefill_chunk=shape["prefill_chunk"],
                             block_size=shape["block_size"], seed=seed,
-                            ep_degree=EP_DEGREE, policy=policy)
+                            ep_degree=EP_DEGREE, policy=policy, traced=1,
+                            dense_inline=policy == "harmoeny")
             for policy in ("harmoeny", "round_robin")]
     return out, caps, params
 
@@ -2150,6 +2231,434 @@ def cli_path(cfg):
             for tag, argv in CLI_RUNS.items()}
 
 
+# ----------------------------------------------------------------------
+# phase 10: HarMoEny across processes, and the fetch on its side stream
+# ----------------------------------------------------------------------
+# busy ms of phase 7's captured G = 4 decode step and prefill chunk when
+# the fetch was the dense outbox on the compute stream (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 5)
+DENSE_FETCH_BUSY_MS = {
+    "harmoeny": {"decode_step": 139.8, "prefill_chunk": 141.4},
+    "round_robin": {"decode_step": 52.4, "prefill_chunk": 140.8}}
+# (a): phase 3's traffic cut as phase 9 cuts it, greedy, one rank
+NCCL_ARGV = ["--arch", "qwen15-moe-a27b", "--paged", "--batch", "4",
+             "--requests", "4", "--prompt-len", "128", "--gen", "8",
+             "--seed", "0"]
+# (b): phase 4b's traffic cut to 2 requests of 8 new tokens
+DIST_REQUESTS, DIST_NEW = 2, 8
+# an eager step's kernels run on the compute stream and the fetch's side
+# stream (and a copy stream or two); a captured graph's on dozens
+EAGER_STREAMS = 4
+
+
+def DenseInlineGroup(size):
+    """A ``VirtualGroup`` whose fetch is the port's form before the
+    gather and the side stream: each rank's [G, K] outbox of the rows it
+    hosts, stacked, summed over sources, on the compute stream (phase 7's
+    in-run comparison for the gather)."""
+    import torch
+    from repro_torch.core import dispatch as D
+
+    class _Group(D.VirtualGroup):
+        def _fetch_rows(self, xs, args):
+            boxes = torch.stack([D.dense_outbox(x, f, me, topo)
+                                 for x, (f, me, topo, _) in zip(xs, args)])
+            return [D.Fetched(boxes[:, dst].sum(dim=0))
+                    for dst in range(self.size)]
+    return _Group(size)
+
+
+def fetch_lines(caps):
+    """Phase 10 (c), from phase 7's captured G = 4 runs: for the decode
+    step and the prefill chunk of each policy, wall, busy (kernel time,
+    and the time anything ran) and idle, the fetch's own device ms (its
+    side stream's kernels) and how much of it ran beside the main
+    stream's, against the dense fetch's busy ms before it
+    (``DENSE_FETCH_BUSY_MS``).  Gate: the eager trace puts the
+    fetch's kernels on a stream of their own under harmoeny."""
+    def one(wall, busy, st):
+        union = st.get("union_busy_ms_per_step", 0.0)
+        rec = {"wall_ms": wall, "busy_ms": busy, "union_busy_ms": union,
+               "idle_share": 1.0 - union / wall,
+               "trace_streams": st.get("streams", 0),
+               "concurrent_ms": st.get("concurrent_ms_per_step")}
+        # a graph's replay shows on the streams CUDA gives its branches
+        # (dozens), so only an eager trace names the fetch's own stream
+        if rec["trace_streams"] <= EAGER_STREAMS:
+            rec.update(fetch_side_ms=st.get("side_ms_per_step"),
+                       fetch_overlap_ms=st.get("side_overlap_ms_per_step"),
+                       side_kernels=st.get("side_top_kernels_ms_per_step"))
+        return rec
+    out = {}
+    for cap in caps:
+        if cap["ep_degree"] == 1:
+            continue
+        rec = {}
+        for mode in ("eager", "captured"):
+            c, pf = cap[mode], cap[mode]["prefill_chunk"]
+            rec[mode] = {
+                "decode_step": one(c["wall_ms_per_decode_step"],
+                                   c["device_busy_ms_per_step"],
+                                   c["streams"]),
+                "prefill_chunk": one(pf["wall_ms"], pf["device_busy_ms"],
+                                     pf["streams"])}
+        if "dense_inline" in cap:
+            d = cap["dense_inline"]
+            rec["dense_inline_captured"] = {
+                "decode_step": one(d["wall_ms_per_decode_step"],
+                                   d["device_busy_ms_per_step"],
+                                   d["streams"]),
+                "prefill_chunk": one(d["prefill_chunk"]["wall_ms"],
+                                     d["prefill_chunk"]["device_busy_ms"],
+                                     d["prefill_chunk"]["streams"])}
+        rec["dense_fetch_busy_ms_before"] = DENSE_FETCH_BUSY_MS[cap["policy"]]
+        out[cap["policy"]] = rec
+        log(f"[fetch] {json.dumps({'policy': cap['policy'], **rec})}")
+    for what, rec in out["harmoeny"]["eager"].items():
+        if not 2 <= rec["trace_streams"] <= EAGER_STREAMS \
+                or not rec["fetch_side_ms"]:
+            raise AssertionError(f"[fetch] harmoeny {what}: the fetch ran "
+                                 f"on no side stream: {rec}")
+    return out
+
+
+PROFILED_CLI = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.launch import serve as S
+from repro_torch.serve import engine as E
+ops_out = sys.argv[1]
+run = E.ServeEngine.run
+
+
+def profiled_run(self, requests=(), **kw):
+    rep = run(self, requests, **kw)
+    # the last decode step's graph once more, under the profiler: what
+    # its replay runs on the card, the collectives' work included
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        self.core.decode_entry.graph.replay()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            names[e.name()] = names.get(e.name(), 0) + 1
+    json.dump(names, open(ops_out, "w"))
+    return rep
+
+
+E.ServeEngine.run = profiled_run
+S.main(sys.argv[2:])
+"""
+
+
+def nccl_cli_path(cfg):
+    """Phase 10 (a): the CLI at full width, G = 1, in its own process
+    under ``torch.distributed.run --standalone --nproc-per-node 1``
+    (``DistComm`` on NCCL, dense fetch, every entry captured), and the
+    same argv in a process without a launcher (``LocalComm``); each
+    replays its last decode graph once more under the profiler.  Gates:
+    both exit 0 and write their reports, one capture of each entry,
+    equal greedy streams (their digests) and launches, and the NCCL
+    run's replayed graph holds device work the ``LocalComm`` graph does
+    not (the collectives')."""
+    from collections import Counter
+    build = os.path.join(HERE, "build", "cli")
+    os.makedirs(build, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    worker = os.path.join(build, "profiled_cli.py")
+    with open(worker, "w") as f:
+        f.write(PROFILED_CLI)
+    runs = {}
+    for tag, launcher in (("local", [sys.executable, worker]),
+                          ("nccl", [sys.executable, "-m",
+                                    "torch.distributed.run", "--standalone",
+                                    "--nproc-per-node", "1", worker])):
+        out, ops = (os.path.join(build, f"{tag}{x}.json")
+                    for x in ("", "_ops"))
+        for path in (out, ops):
+            if os.path.exists(path):
+                os.remove(path)
+        t0 = time.perf_counter()
+        r = subprocess.run(launcher + [ops] + NCCL_ARGV + ["--out", out],
+                           capture_output=True, text=True, env=env,
+                           cwd=HERE, timeout=600)
+        wall = time.perf_counter() - t0
+        device = next((json.loads(line[len("[serve] device "):])
+                       for line in r.stdout.splitlines()
+                       if line.startswith("[serve] device ")), None)
+        if r.returncode != 0 or device is None or not os.path.exists(out):
+            raise AssertionError(f"[cli-nccl] {tag}: exited {r.returncode}:"
+                                 f" {r.stderr[-4000:]}")
+        with open(out) as f:
+            rep = json.load(f)
+        with open(ops) as f:
+            ops = json.load(f)
+        check_one_capture(f"cli-nccl {tag}", rep)
+        runs[tag] = {"rep": rep, "device": device, "wall": wall,
+                     "ops": Counter(ops)}
+    loc, nc = runs["local"], runs["nccl"]
+    comm_ops = dict(nc["ops"] - loc["ops"])
+    summary = {
+        "argv": " ".join(NCCL_ARGV), "comm": nc["rep"]["engine"].get("comm"),
+        "streams_equal": loc["device"]["tokens"]["streams_sha256"]
+        == nc["device"]["tokens"]["streams_sha256"],
+        "tokens": nc["device"]["tokens"]["count"],
+        "launches": {"nccl": nc["device"]["launches"],
+                     "local": loc["device"]["launches"]},
+        "tpot_p50_s": {t: r["rep"]["tpot"]["p50"] for t, r in runs.items()},
+        "ttft_p50_s": {t: r["rep"]["ttft"]["p50"] for t, r in runs.items()},
+        "peak_mem_gib": {t: r["device"]["peak_mem_gib"]
+                         for t, r in runs.items()},
+        "process_wall_s": {t: r["wall"] for t, r in runs.items()},
+        "replayed_decode_graph_ops": {t: sum(r["ops"].values())
+                                      for t, r in runs.items()},
+        "ops_beyond_local": comm_ops,
+        "jit_entries": nc["rep"]["jit_entries"]}
+    log(f"[cli-nccl] {json.dumps(summary)}")
+    comm = summary["comm"] or {}
+    if comm.get("backend") != "nccl" or comm.get("entries") != "captured" \
+            or comm.get("fetch") != "dense":
+        raise AssertionError(f"[cli-nccl] the launched CLI ran on {comm}")
+    if loc["rep"]["engine"].get("comm") is not None:
+        raise AssertionError("[cli-nccl] the run without a launcher built a "
+                             "DistComm")
+    if not summary["streams_equal"]:
+        raise AssertionError("[cli-nccl] greedy streams under DistComm on "
+                             "NCCL differ from LocalComm's")
+    if not comm_ops:
+        raise AssertionError(f"[cli-nccl] the NCCL run's replayed decode "
+                             f"graph holds no work beyond LocalComm's: "
+                             f"{dict(nc['ops'])}")
+    if summary["launches"]["nccl"] != summary["launches"]["local"]:
+        raise AssertionError(f"[cli-nccl] launches {summary['launches']}")
+    return summary
+
+
+DIST_WORKER = """
+import json, sys, time
+import numpy as np, torch, torch.distributed as dist
+rank, port, here, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, here + "/src")
+sys.path.insert(0, here)
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4)
+dev = torch.device("cuda", 0)
+probe = {}
+for name, fn in {
+    "all_gather_into_tensor": lambda x: dist.all_gather_into_tensor(
+        x.new_empty((4 * 8,)), x),
+    "all_to_all_single even": lambda x: dist.all_to_all_single(
+        torch.empty_like(x), x),
+    "all_to_all_single uneven": lambda x: dist.all_to_all_single(
+        x.new_empty((4 * (rank + 1),)), x.repeat(2)[:10],
+        output_split_sizes=[rank + 1] * 4, input_split_sizes=[1, 2, 3, 4]),
+    "all_reduce": lambda x: dist.all_reduce(x),
+    "broadcast": lambda x: dist.broadcast(x, src=0)}.items():
+    try:
+        fn(torch.arange(8, device=dev, dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        probe[name] = "ok"
+    except Exception as e:            # recorded, and the phase fails on it
+        probe[name] = f"{type(e).__name__}: {e}"
+if any(v != "ok" for v in probe.values()):
+    json.dump({"probe": probe}, open(f"{out}/rank{rank}.json", "w"))
+    sys.exit(3)
+import chip_smoke as CS
+from repro_torch.configs.registry import get_config
+from repro_torch.core.dispatch import DistComm
+from repro_torch.models.model import build_model
+from repro_torch.serve import EngineConfig, ServeEngine, stepcore
+spec = json.load(open(f"{out}/spec.json"))
+cfg = CS.ep_moe_config(get_config("qwen15-moe-a27b"), "harmoeny")
+comm = DistComm(fetch="hosted")
+model = build_model(cfg, batch=spec["slots"], seq_len=spec["max_seq_len"],
+                    ep_degree=4, comm=comm)
+t0 = time.perf_counter()
+params = model.init(spec["seed"])
+torch.cuda.synchronize()
+init_s = time.perf_counter() - t0
+held = torch.cuda.memory_allocated() / 2**30
+ecfg = EngineConfig(**spec["ecfg"])
+from repro_torch.serve import Request
+reqs = [Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
+                max_new_tokens=r["max_new_tokens"]) for r in spec["requests"]]
+streams = {}
+with stepcore.eager():
+    eng = ServeEngine(model, params, ecfg)
+    finish = eng._finish
+    def record(st, now):
+        streams[str(st.req.rid)] = [int(t) for t in st.output]
+        finish(st, now)
+    eng._finish = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = CS._reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+calls = rep["decode_steps"] + rep["prefill_chunks"]
+json.dump({"probe": probe, "streams": streams,
+           "load_balance": rep["load_balance"], "moe": rep["moe"],
+           "comm": rep["engine"]["comm"], "launches": read(),
+           "decode_steps": rep["decode_steps"],
+           "prefill_chunks": rep["prefill_chunks"],
+           "init_s": init_s, "held_gib": held,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "fetch_bytes": comm.fetch_bytes,
+           "fetch_mb_per_call": comm.fetch_bytes / 1e6 / max(calls, 1),
+           "skew_predraw_host_ms": {e: eng.core.predraw_ms(e)
+                                    for e in ("prefill_chunk", "decode")},
+           "tpot_p50_s": rep["tpot"]["p50"], "ttft_p50_s": rep["ttft"]["p50"],
+           "wall_s": wall},
+          open(f"{out}/rank{rank}.json", "w"),
+          default=lambda o: o.item() if hasattr(o, "item") else int(o))
+dist.destroy_process_group()
+"""
+
+
+def dist_spec(cfg, *, seed, slots, max_seq_len, prefill_chunk, block_size,
+              **_):
+    """Phase 10 (b)'s requests and engine config: 2 requests of 64-128
+    prompt tokens and 8 new, harmoeny under skew 0.9, paged, eager."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 10)
+    reqs = [{"rid": i, "tokens": [int(t) for t in rng.integers(
+        0, cfg.vocab_size, (int(rng.integers(64, 129)),))],
+        "max_new_tokens": DIST_NEW} for i in range(DIST_REQUESTS)]
+    ecfg = dict(max_slots=slots, max_seq_len=max_seq_len,
+                prefill_chunk=prefill_chunk, paged=True,
+                kv_block_size=block_size, moe_policy="harmoeny",
+                skew_seed=seed)
+    return {"seed": seed, "slots": slots, "max_seq_len": max_seq_len,
+            "ecfg": ecfg, "requests": reqs}
+
+
+def dist_reference(cfg, params, spec):
+    """Phase 10 (b)'s reference, on phase 4b's weights: the same requests
+    on ``VirtualGroup(4)`` in one process, every entry eager as the gloo
+    processes run."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import EngineConfig, Request, ServeEngine, \
+        stepcore
+    model = build_model(ep_moe_config(cfg, "harmoeny"), batch=spec["slots"],
+                        seq_len=spec["max_seq_len"], ep_degree=EP_DEGREE)
+    streams = {}
+    with stepcore.eager():
+        eng = ServeEngine(model, params, EngineConfig(**spec["ecfg"]))
+        finish = eng._finish
+
+        def record(st, now):
+            streams[str(st.req.rid)] = [int(t) for t in st.output]
+            finish(st, now)
+        eng._finish = record
+        read = _reset_launches()
+        t0 = time.perf_counter()
+        rep = eng.run([Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
+                               max_new_tokens=r["max_new_tokens"])
+                       for r in spec["requests"]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"streams": streams,
+            "load_balance": json.loads(json.dumps(rep["load_balance"],
+                                                  default=float)),
+            "launches": read(), "wall_s": wall,
+            "tpot_p50_s": rep["tpot"]["p50"]}
+
+
+def dist_gloo_path(cfg, spec, ref):
+    """Phase 10 (b): four processes on the one card over gloo, each one
+    ``DistComm`` rank (hosted fetch, entries eager) holding only its own
+    15 experts a layer of the weights phase 4b drew, serving the
+    reference's requests.  First each process tries gloo's collectives on
+    CUDA tensors.  A ``[dist]`` line per process (peak memory, fetch
+    bytes a call, pre-draw host ms, launches) and a gates line.  Gates:
+    every collective takes CUDA tensors; greedy streams and
+    ``load_balance`` equal the ``VirtualGroup(4)`` run's on every rank;
+    drops 0; units moved; each process launched ``moe_gmm`` and
+    ``schedule`` once per layer and call, not x 4."""
+    import socket
+    work = os.path.join(HERE, "build", "dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, str(r),
+                               port, HERE, work], env=env, cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(EP_DEGREE)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, p in enumerate(procs):
+        path = os.path.join(work, f"rank{r}.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+        if "probe" in rec and any(v != "ok" for v in rec["probe"].values()):
+            raise AssertionError(f"[dist] gloo refused CUDA tensors: "
+                                 f"{rec['probe']}")
+        if p.returncode != 0:
+            raise AssertionError(f"[dist] rank {r} exited {p.returncode}: "
+                                 f"{errs[r][-4000:]}")
+        ranks.append(rec)
+    log(f"[dist] gloo on CUDA tensors: {json.dumps(ranks[0]['probe'])}")
+    n_layers = cfg.num_layers
+    for r, rec in enumerate(ranks):
+        line = {k: rec[k] for k in ("comm", "init_s", "held_gib",
+                                    "peak_mem_gib", "fetch_bytes",
+                                    "fetch_mb_per_call",
+                                    "skew_predraw_host_ms", "launches",
+                                    "decode_steps", "prefill_chunks",
+                                    "tpot_p50_s", "ttft_p50_s", "wall_s")}
+        log(f"[dist] rank {r}: {json.dumps(line)}")
+        calls = rec["decode_steps"] + rec["prefill_chunks"]
+        want = {"moe_gmm": n_layers * calls, "schedule": n_layers * calls,
+                "paged_attention": n_layers * calls, "flash_attention": 0}
+        if rec["launches"] != want:
+            raise AssertionError(f"[dist] rank {r}: launches "
+                                 f"{rec['launches']} != {want}")
+        if rec["streams"] != ref["streams"]:
+            raise AssertionError(f"[dist] rank {r}: streams "
+                                 f"{rec['streams']} != VirtualGroup's "
+                                 f"{ref['streams']}")
+        if rec["load_balance"] != ref["load_balance"]:
+            raise AssertionError(f"[dist] rank {r}: load_balance differs "
+                                 f"from VirtualGroup's")
+    lb, moe = ranks[0]["load_balance"], ranks[0]["moe"]
+    drops = sum(lb[ph][k] for ph in ("decode", "prefill")
+                for k in ("send_drops_total", "dest_drops_total"))
+    if drops or moe["decode/moved_units"] <= 0:
+        raise AssertionError(f"[dist] drops {drops}, moved units at decode "
+                             f"{moe['decode/moved_units']}")
+    summary = {"processes": EP_DEGREE, "wall_s": wall,
+               "reference_wall_s": ref["wall_s"],
+               "reference_tpot_p50_s": ref["tpot_p50_s"],
+               "reference_launches": ref["launches"],
+               "decode_max_mean_ratio": lb["decode"]["max_mean_ratio"],
+               "moved_units_decode": moe["decode/moved_units"],
+               "streams": len(ref["streams"]),
+               "peak_mem_gib": [rec["peak_mem_gib"] for rec in ranks],
+               "launches": [rec["launches"] for rec in ranks]}
+    log(f"[dist] gates held: {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -2167,6 +2676,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.model import build_model
 
     t_run = time.perf_counter()
 
@@ -2270,6 +2780,20 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
     clis = cli_path(cfg)
     elapsed("phase 9")
+    # --- phase 10: across processes; the fetch on its side stream -----------
+    fetch = fetch_lines(captures)                          # (c), phase 7's
+    nccl = nccl_cli_path(cfg)                               # (a)
+    elapsed("phase 10 (a)")
+    spec = dist_spec(cfg, seed=0, slots=4, **shape)         # (b)
+    ref_params = build_model(ep_moe_config(cfg), batch=4,
+                             seq_len=shape["max_seq_len"],
+                             ep_degree=EP_DEGREE).init(0)
+    dist_ref = dist_reference(cfg, ref_params, spec)
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = dist_gloo_path(cfg, spec, dist_ref)
+    elapsed("phase 10")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -2291,7 +2815,13 @@ def main() -> int:
                 **{path: rec["launches"][name]
                    for path, rec in patterns.items()},
                 **{f"{tag}_qwen15_moe_a27b_sampled": rec["launches"][name]
-                   for tag, rec in clis.items()}},
+                   for tag, rec in clis.items()},
+                "cli_nccl_qwen15_moe_a27b_g1":
+                    nccl["launches"]["nccl"][name],
+                f"dist_gloo_qwen15_moe_a27b_ep{EP_DEGREE}_per_process":
+                    [rec[name] for rec in dist["launches"]],
+                f"dist_reference_qwen15_moe_a27b_ep{EP_DEGREE}_virtual":
+                    dist["reference_launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -12,7 +12,8 @@ experts included (``VirtualGroup`` runs on them as they are), and so do
 the replica-slot leaves ``w_rep_in`` / ``w_rep_out`` / ``w_rep_gate``
 (``G * R`` rows, row ``g * R + r`` is slot r of rank g) of a model built
 with ``num_replica_slots`` R; ``expert_shard`` cuts one rank's rows out
-of both for ``DistComm``.
+of both in one layer's dict, and ``shard_params`` in a whole stacked
+parameter tree, for ``DistComm``.
 """
 from __future__ import annotations
 
@@ -52,20 +53,38 @@ def _convert(tree: Any, device: torch.device) -> Any:
 
 
 def expert_shard(moe_params: Dict[str, Any], rank: int,
-                 ep_degree: int) -> Dict[str, Any]:
-    """One MoE layer's parameters as rank ``rank`` of ``ep_degree`` holds
+                 ep_degree: int, axis: int = 0) -> Dict[str, Any]:
+    """One MoE block's parameters as rank ``rank`` of ``ep_degree`` holds
     them under ``DistComm``: its own rows ``[epr, ...]`` of each rank-major
     expert leaf (row ``g * epr + j`` is slot j of rank g, as
     ``init_moe_params`` lays them out), its ``[R, ...]`` of each replica
-    leaf, and the replicated router."""
+    leaf, and the replicated router.  The rows are on ``axis`` (1 for the
+    stacked per-layer leaves ``[n, rows, ...]``); the cut is a view."""
     out = {}
     for name, w in moe_params.items():
         if name == "router":
             out[name] = w
             continue
-        if w.shape[0] % ep_degree:
-            raise ValueError(f"{name}: {w.shape[0]} rows do not split over "
-                             f"{ep_degree} ranks")
-        epr = w.shape[0] // ep_degree
-        out[name] = w[rank * epr:(rank + 1) * epr]
+        if w.shape[axis] % ep_degree:
+            raise ValueError(f"{name}: {w.shape[axis]} rows do not split "
+                             f"over {ep_degree} ranks")
+        epr = w.shape[axis] // ep_degree
+        out[name] = w.narrow(axis, rank * epr, epr)
     return out
+
+
+def shard_params(params: Any, rank: int, ep_degree: int) -> Any:
+    """A whole parameter tree as rank ``rank`` of ``ep_degree`` holds it
+    under ``DistComm``: every MoE block's expert and replica leaves cut to
+    the rank's rows (``expert_shard`` on axis 1 of the stacked leaves,
+    copied so that the whole tree can be freed), the rest shared."""
+    if isinstance(params, dict):
+        return {k: ({n: (w if n == "router" else w.clone(
+                        memory_format=torch.contiguous_format))
+                     for n, w in expert_shard(v, rank, ep_degree,
+                                              axis=1).items()}
+                    if k == "moe" else shard_params(v, rank, ep_degree))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [shard_params(v, rank, ep_degree) for v in params]
+    return params

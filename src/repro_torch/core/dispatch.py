@@ -22,15 +22,36 @@ vector (``replica_ids_me``, -1 = empty), so a swap changes values only.
 
 Collectives.  The per-rank body (``moe_layer._moe_forward_local``) is a
 generator: each collective is a ``yield`` of a ``Collective`` request
-(``yield from all_gather(x)``, ``all_to_all``, ``psum``), and the
-communicator answers it.  Three communicators run the same body:
-``LocalComm`` (one rank: every collective is the identity), ``DistComm``
-(one rank per process over ``torch.distributed``) and ``VirtualGroup``
-(G ranks in one process on one device, advanced in lockstep: every rank
-runs up to its next collective, the group checks that all asked for the
-same one and answers it from all their tensors).  Lockstep keeps the
-order of kernel launches fixed, so results and launch counts are the
-same on every run.
+(``yield from all_gather(x)``, ``all_to_all``, ``psum``,
+``fetch_rows``), and the communicator answers it.  Three communicators
+run the same body: ``LocalComm`` (one rank: every collective is the
+identity), ``DistComm`` (one rank per process over
+``torch.distributed``) and ``VirtualGroup`` (G ranks in one process on
+one device, advanced in lockstep: every rank runs up to its next
+collective, the group checks that all asked for the same one and answers
+it from all their tensors).  Lockstep keeps the order of kernel launches
+fixed, so results and launch counts are the same on every run.
+
+The foreign-weight fetch is a collective of its own, ``fetch_rows``
+(paper §4.3; ``prefetch.fetch_foreign_weights``): each communicator
+answers with this rank's ``[K, ...]`` foreign expert rows (zeros where
+the id is -1) in the form its transport does best.  ``LocalComm``: the
+dense form below with the identity all-to-all (at G = 1 nothing is
+foreign: zeros).  ``VirtualGroup``: one gather from the
+rank-major weight.  ``DistComm``: ``fetch="dense"``, the JAX form (each
+source sends every destination a ``[K, ...]`` outbox, zero where it
+hosts nothing, through an even all-to-all; static shapes, so NCCL can
+capture it) or ``fetch="hosted"`` (each source sends only the rows it
+hosts, through an uneven all-to-all whose split sizes are read from FIDS
+on the host: eager only, and it raises inside a capture).  With
+``hosts_per_expert == 1`` (every configuration the port builds) exactly
+one source holds a row, so the forms are bit-equal.  On the card a
+communicator issues the fetch on a side CUDA stream of its own, forked
+from the current stream by an event, and answers with a ``Fetched``
+whose ``done`` event the body joins before the grouped FFN
+(``prefetch.join``): the fetch overlaps the dispatch that follows it,
+the paper's dedicated stream.  Fork and join are events, so a captured
+step holds them too.
 
 No step here reads a device value on the host: scatters that drop
 out-of-range rows send them to one extra dump row that is sliced off
@@ -40,21 +61,32 @@ captured as a CUDA graph.
 """
 from __future__ import annotations
 
-from typing import Callable, Generator, List, NamedTuple, Optional
+import contextlib
+from typing import Callable, Dict, Generator, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.router import expert_counts
-from repro_torch.core.topology import EPTopology, device_tables
+from repro_torch.core.topology import EPTopology, device_tables, local_slot_of
 
 
 class Collective(NamedTuple):
-    op: str               # "all_gather" | "all_to_all" | "psum"
+    op: str               # "all_gather" | "all_to_all" | "psum" | "fetch_rows"
     x: torch.Tensor
+    args: tuple = ()      # fetch_rows: (fids_all, me, topo, fetch_chunk)
 
 
-Body = Generator[Collective, torch.Tensor, object]
+class Fetched(NamedTuple):
+    """A ``fetch_rows`` answer: ``rows`` [K, ...], and ``done``, the event
+    recorded on the side stream after the fetch (None when it ran on the
+    current stream: the CPU, ``LocalComm``)."""
+    rows: torch.Tensor
+    done: Optional[object] = None
+
+
+Body = Generator[Collective, object, object]
 
 
 def all_gather(x: torch.Tensor):
@@ -75,13 +107,79 @@ def psum(x: torch.Tensor):
 def run(comm, body: Body):
     """Drive one rank's body against a communicator that answers each
     collective at once (``LocalComm``, ``DistComm``, or a test's stand-in
-    with ``all_gather`` / ``all_to_all`` / ``psum`` methods)."""
+    with ``all_gather`` / ``all_to_all`` / ``psum`` / ``fetch_rows``
+    methods; ``fetch_rows(w_local, fids_all, me, topo, fetch_chunk)``
+    answers with a ``Fetched``)."""
     try:
         req = next(body)
         while True:
-            req = body.send(getattr(comm, req.op)(req.x))
+            req = body.send(getattr(comm, req.op)(req.x, *req.args))
     except StopIteration as stop:
         return stop.value
+
+
+def dense_outbox(w_local: torch.Tensor, fids_all: torch.Tensor, me: int,
+                 topo: EPTopology) -> torch.Tensor:
+    """This source's outbox of the dense fetch, [G_dst, K, ...]: for each
+    destination's k-th foreign expert the hosting slot's row over
+    ``hosts_per_expert``, zero where this rank hosts nothing (an index
+    gather, not JAX's mask einsum over every local expert: the same
+    values)."""
+    slot_of = device_tables(topo, w_local.device).local_slot_of[me]
+    slot = torch.where(fids_all >= 0,
+                       slot_of[torch.clamp(fids_all, min=0).long()], -1)
+    hosted = (slot >= 0).to(w_local.dtype) / topo.hosts_per_expert
+    idx = torch.clamp(slot, min=0).long()                    # [G, K]
+    return w_local[idx] * hosted.reshape(hosted.shape
+                                         + (1,) * (w_local.ndim - 1))
+
+
+def dense_fetch(w_local: torch.Tensor, fids_all: torch.Tensor, me: int,
+                topo: EPTopology, all_to_all_fn, fetch_chunk: int = 0
+                ) -> torch.Tensor:
+    """The JAX fetch (``repro/core/prefetch.py:66-100``): every source's
+    ``dense_outbox`` through an even all-to-all, summed over sources.
+    With ``fetch_chunk`` > 0 and a longer last dimension, the last
+    dimension goes through in chunks of ``fetch_chunk`` (the last one
+    zero-padded to that width, then cut), which bounds the outbox; the
+    values are the same."""
+    def one(w):
+        return all_to_all_fn(dense_outbox(w, fids_all, me, topo)).sum(dim=0)
+
+    F_ = w_local.shape[-1]
+    if not fetch_chunk or F_ <= fetch_chunk:
+        return one(w_local)
+    parts = []
+    for lo in range(0, F_, fetch_chunk):
+        w = w_local[..., lo:lo + fetch_chunk]
+        pad = fetch_chunk - w.shape[-1]
+        parts.append(one(torch.nn.functional.pad(w, (0, pad)) if pad
+                         else w)[..., :fetch_chunk - pad])
+    return torch.cat(parts, dim=-1)
+
+
+class _SideStream:
+    """The communicator's side CUDA stream for the fetch: ``fork()`` makes
+    it wait on the current stream (the fetch's inputs are ready) and
+    enters it; the block's end records ``done`` on it."""
+
+    def __init__(self, device: torch.device):
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    @contextlib.contextmanager
+    def fork(self, *inputs: torch.Tensor):
+        if self.stream is None:
+            yield None
+            return
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        for t in inputs:                  # made on the current stream
+            t.record_stream(self.stream)
+        done = torch.cuda.Event()
+        with torch.cuda.stream(self.stream):
+            yield done
+            done.record(self.stream)
 
 
 class LocalComm:
@@ -89,6 +187,7 @@ class LocalComm:
     collective is the identity (up to the stacked source axis)."""
     rank = 0
     size = 1
+    ranks_here = (0,)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         return x[None]
@@ -99,6 +198,11 @@ class LocalComm:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0):
+        # one rank hosts every expert, so FIDS is all -1: zeros
+        return Fetched(dense_fetch(w_local, fids_all, me, topo,
+                                   self.all_to_all, fetch_chunk))
+
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
         return w
 
@@ -106,20 +210,49 @@ class LocalComm:
         return [run(self, make_body(0))]
 
 
+FETCH_FORMS = ("dense", "hosted")
+
+
 class DistComm:
     """One expert-parallel rank per process over ``torch.distributed``
-    (gloo on CPU tensors, NCCL on CUDA ones).  Expert weights come as this
-    rank's own rows ``[epr, ...]`` (``convert.expert_shard``)."""
+    (gloo or NCCL).  Expert weights come as this rank's own rows
+    ``[epr, ...]`` (``convert.expert_shard``).  ``fetch`` picks the
+    foreign fetch's form (module docstring): ``"dense"`` (capturable) or
+    ``"hosted"`` (eager only); ``describe()`` reports it with the backend.
+    ``fetch_bytes`` counts the bytes of expert rows this rank has sent to
+    other ranks through the fetch.  On the card the fetch runs on a side
+    stream (``_SideStream``).  A backend that refuses what is asked of it
+    raises: nothing is copied to the host to get round it."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, *, fetch: str = "dense"):
         import torch.distributed as dist
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError("DistComm needs an initialized "
                                "torch.distributed process group")
+        if fetch not in FETCH_FORMS:
+            raise ValueError(f"unknown fetch form {fetch!r}; choose one of "
+                             f"{FETCH_FORMS}")
         self._dist = dist
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.ranks_here = (self.rank,)
+        self.backend = str(dist.get_backend(group))
+        self.fetch = fetch
+        self.fetch_bytes = 0
+        self._side: Optional[_SideStream] = None     # made at the first fetch
+
+    def describe(self) -> Dict[str, object]:
+        """What runs the collectives: the backend, the fetch form, and
+        whether the backend's collectives can be captured (NCCL's can,
+        gloo's cannot)."""
+        return {"kind": "DistComm", "backend": self.backend,
+                "world_size": self.size, "fetch": self.fetch,
+                "capturable": self.capturable}
+
+    @property
+    def capturable(self) -> bool:
+        return self.backend == "nccl" and self.fetch == "dense"
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         shape = tuple(x.shape)
@@ -129,6 +262,11 @@ class DistComm:
         return out.reshape((self.size,) + shape)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [G_dst, ...] -> [G_src, ...]: even splits, one slice of
+        axis 0 to each rank (the axis must be the group's size)."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"DistComm.all_to_all splits axis 0 evenly "
+                             f"over {self.size} ranks, got {x.shape[0]}")
         x = x.contiguous()
         out = torch.empty_like(x)
         self._dist.all_to_all_single(out, x, group=self.group)
@@ -137,6 +275,68 @@ class DistComm:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         out = x.clone()
         self._dist.all_reduce(out, group=self.group)
+        return out
+
+    def rank0_value(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank (the serve engine's per-step
+        clock reading; a CPU tensor on gloo, a device one on NCCL)."""
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.backend == "nccl" else torch.device("cpu"))
+        t = torch.tensor([value], dtype=torch.float64, device=dev)
+        src = 0 if self.group is None else self._dist.get_global_rank(
+            self.group, 0)
+        self._dist.broadcast(t, src=src, group=self.group)
+        return float(t.cpu())
+
+    def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0):
+        if (self.fetch == "hosted" and w_local.is_cuda
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                "DistComm(fetch='hosted') reads FIDS on the host and cannot "
+                "run inside a CUDA graph capture; use fetch='dense'")
+        if self._side is None:
+            self._side = _SideStream(w_local.device)
+        with self._side.fork(fids_all) as done:
+            if self.fetch == "dense":
+                rows = dense_fetch(w_local, fids_all, me, topo,
+                                   self.all_to_all, fetch_chunk)
+                self.fetch_bytes += (w_local[0].numel()
+                                     * w_local.element_size()
+                                     * fids_all.shape[1] * (self.size - 1))
+            else:
+                rows = self._hosted_fetch(w_local, fids_all, me, topo)
+        return Fetched(rows, done)
+
+    def _hosted_fetch(self, w_local, fids_all, me, topo) -> torch.Tensor:
+        """Each source sends each destination only the rows it hosts, in
+        k order; the destination puts them at their k and zeros
+        elsewhere.  The split sizes are FIDS read on the host."""
+        if topo.hosts_per_expert != 1:
+            raise ValueError("the hosted fetch needs hosts_per_expert == 1 "
+                             f"(got {topo.hosts_per_expert}); use "
+                             f"fetch='dense'")
+        fids = fids_all.cpu().numpy()                        # host sync
+        lso = local_slot_of(topo)                            # [G, Ep]
+        G, K = fids.shape
+        host = np.where(fids >= 0, topo.host_of[np.maximum(fids, 0), 0], -1)
+        send_slots = [int(lso[me, fids[dst, k]]) for dst in range(G)
+                      for k in range(K) if host[dst, k] == me]
+        in_splits = [int((host[dst] == me).sum()) for dst in range(G)]
+        recv_k = [k for src in range(G) for k in range(K)
+                  if host[me, k] == src]
+        out_splits = [int((host[me] == src).sum()) for src in range(G)]
+        out = w_local.new_zeros((K,) + tuple(w_local.shape[1:]))
+        if not (host >= 0).any():          # no rank sends: skip the call
+            return out
+        dev = w_local.device
+        send = w_local[torch.tensor(send_slots, dtype=torch.long,
+                                    device=dev)]
+        recv = w_local.new_empty((len(recv_k),) + tuple(w_local.shape[1:]))
+        self._dist.all_to_all_single(recv, send, output_split_sizes=out_splits,
+                                     input_split_sizes=in_splits,
+                                     group=self.group)
+        out[torch.tensor(recv_k, dtype=torch.long, device=dev)] = recv
+        self.fetch_bytes += send.numel() * send.element_size()
         return out
 
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
@@ -176,10 +376,12 @@ class VirtualGroup:
         if size < 1:
             raise ValueError("a VirtualGroup needs at least one rank")
         self.size = size
+        self.ranks_here = tuple(range(size))
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        self._side = _SideStream(dev)
 
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
         if w.shape[0] != self.size * epr:
@@ -211,7 +413,8 @@ class VirtualGroup:
                 if x.device != self.device:
                     raise ValueError(f"VirtualGroup on {self.device} got a "
                                      f"tensor on {x.device}")
-            answers = getattr(self, "_" + reqs[0].op)(xs)
+            answers = getattr(self, "_" + reqs[0].op)(
+                xs, *(([r.args for r in reqs],) if reqs[0].args else ()))
 
     def _all_gather(self, xs):
         out = _adjacent_view(xs)
@@ -228,6 +431,28 @@ class VirtualGroup:
         for x in xs[1:]:
             total = total + x                       # rank order
         return [total] * self.size
+
+    def _fetch_rows(self, xs, args):
+        """Every destination's foreign rows in one gather from the
+        rank-major weight (a view when the ranks' rows are adjacent):
+        row ``expert_row[id]``, zeros for -1.  FIDS is replicated, so
+        rank 0's copy serves all."""
+        fids_all, _, topo, _ = args[0]
+        if topo.hosts_per_expert != 1:
+            raise ValueError("the VirtualGroup fetch gathers one hosting "
+                             "row an expert: it needs hosts_per_expert == 1 "
+                             f"(got {topo.hosts_per_expert})")
+        w_all = _adjacent_view(xs)
+        if w_all is None:
+            w_all = torch.stack(xs)
+        w_all = w_all.reshape((-1,) + tuple(xs[0].shape[1:]))
+        with self._side.fork(fids_all) as done:
+            rows = device_tables(topo, self.device).expert_row[
+                torch.clamp(fids_all, min=0).long()]         # [G, K]
+            keep = (fids_all >= 0).to(w_all.dtype)
+            out = w_all[rows] * keep.reshape(
+                keep.shape + (1,) * (w_all.ndim - 1))       # [G_dst, K, ...]
+        return [Fetched(out[g], done) for g in range(self.size)]
 
 
 class DispatchLayout(NamedTuple):

@@ -7,7 +7,9 @@ Port of ``repro/core/moe_layer.py`` (``MoEBlockSpec``, ``moe_block`` and
   3. token scheduling       -> replicated deterministic schedule (scheduler.py)
   4. scatter tokens         -> static-capacity all_to_all (dispatch.py)
   5. expert processing      -> grouped FFN (the moe_gmm kernel) + the
-                               foreign-weight fetch (prefetch.py)
+                               foreign-weight fetch (prefetch.py), issued
+                               right after step 3 (on the card on a side
+                               stream) and joined just before the FFN
   6. gather tokens          -> reverse all_to_all + gate combine (dispatch.py)
 The body is a generator that yields its collectives, so one body runs on
 every communicator of ``dispatch.py``: one rank (``LocalComm``), G ranks
@@ -35,7 +37,7 @@ tensors, so changing them changes values only.  Tensor-parallel MoE
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +71,7 @@ class MoEBlockSpec:
     block_m: int = 128
     cf_pair: float = 2.0
     act: str = "silu"            # expert activation; gated experts carry w_gate
+    fetch_chunk: int = 2048      # the dense fetch's last-dim chunk (JAX's)
 
     def __post_init__(self):
         if self.moe.num_experts < self.ep_degree:
@@ -122,14 +125,17 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                        valid_rep: Optional[torch.Tensor] = None,
                        skew_assign: Optional[torch.Tensor] = None,
                        replica_ids: Optional[torch.Tensor] = None,
-                       residency_ids: Optional[torch.Tensor] = None):
+                       residency_ids: Optional[torch.Tensor] = None,
+                       overlap: Optional[Callable[[], object]] = None):
     """Per-rank body of rank ``me``, a generator that yields its
-    collectives (dispatch.py) and returns (y_rep, diagnostics).
-    x_rep: [t_pad, d] replicated over the EP group; ``params`` hold this
-    rank's expert rows [epr, ...] (and replica rows [R, ...]) and the
-    replicated router; ``skew_assign`` [t_slice, k] this rank's drawn
-    skewed assignment; ``replica_ids`` [G, R] and ``residency_ids``
-    [G, W] the replicated placement tables (module docstring)."""
+    collectives (dispatch.py) and returns (y_rep, diagnostics, the
+    result of ``overlap``).  x_rep: [t_pad, d] replicated over the EP
+    group; ``params`` hold this rank's expert rows [epr, ...] (and replica
+    rows [R, ...]) and the replicated router; ``skew_assign`` [t_slice, k]
+    this rank's drawn skewed assignment; ``replica_ids`` [G, R] and
+    ``residency_ids`` [G, W] the replicated placement tables (module
+    docstring); ``overlap`` work independent of the block (the shared
+    experts), run on the current stream while the fetch is in flight."""
     topo, moe = spec.topo, spec.moe
     G, Ep = topo.num_ranks, topo.padded_experts
     epr = topo.experts_per_rank
@@ -170,7 +176,24 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                         c_pair=spec.c_pair, num_foreign_slots=K,
                         extra_local=extra_local, non_local=non_local)
 
-    # --- step 4: scatter -----------------------------------------------------
+    # --- step 5, first half: the foreign-weight fetch, issued as soon as
+    # FIDS exist (on the card on the communicator's side stream) ----------
+    names = ("w_in", "w_out", "w_gate")
+    w_in, w_out, w_gate = (params.get(n) for n in names)
+    replica = (tuple(params.get("w_rep_" + n[2:]) for n in names) if R
+               else None)
+    fetched = None
+    if moe.policy != "even_split" and K > 0:
+        fids_all = prefetch.all_foreign_ids(
+            S, topo, K, replica_ids=replica_ids if R else None)
+        fetched = []
+        for w in (w_in, w_out, w_gate):
+            fetched.append(None if w is None else (
+                yield from prefetch.fetch_foreign_weights(
+                    w, fids_all, me, topo, spec.fetch_chunk)))
+    side_out = overlap() if overlap is not None else None
+
+    # --- step 4: scatter, while the fetch is in flight ---------------------
     layout = D.build_layout(S, assign, me, topo, c_pair=spec.c_pair,
                             c_total=spec.c_total, num_foreign_slots=K,
                             block_m=spec.block_m,
@@ -180,11 +203,7 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     grouped = yield from D.dispatch(x_units, layout, num_ranks=G,
                                     c_pair=spec.c_pair, c_total=spec.c_total)
 
-    # --- step 5: expert processing + foreign-weight fetch --------------------
-    names = ("w_in", "w_out", "w_gate")
-    w_in, w_out, w_gate = (params.get(n) for n in names)
-    replica = (tuple(params.get("w_rep_" + n[2:]) for n in names) if R
-               else None)
+    # --- step 5: expert processing, joined with the fetch -----------------
     foreign = foreign_rows = None
     if moe.policy == "even_split":
         # full replication: every group row gathers its expert's weights
@@ -199,15 +218,9 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
             full.append(w_all[rows[ge]])
         w_in, w_out, w_gate = full
         replica = None          # the gather covers the replica groups too
-    elif K > 0:
-        fids_all = prefetch.all_foreign_ids(
-            S, topo, K, replica_ids=replica_ids if R else None)
-        fetched = []
-        for w in (w_in, w_out, w_gate):
-            fetched.append(None if w is None else (
-                yield from prefetch.fetch_foreign_weights(w, fids_all, me,
-                                                          topo)))
-        foreign = tuple(fetched)
+    elif fetched is not None:
+        foreign = tuple(None if f is None else prefetch.join(f)
+                        for f in fetched)
         foreign_rows = layout.group_sizes[epr + R:].sum()
     sizes_padded = D.round_up_j(layout.group_sizes, spec.block_m)
     out_grouped = grouped_ffn(grouped, w_in, w_out, sizes_padded,
@@ -236,7 +249,7 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
         "rank_load": t_g[None, :],
         "expert_load": m_all.sum(dim=0).float()[None, :],
     }
-    return y_rep, diag
+    return y_rep, diag, side_out
 
 
 def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
@@ -245,15 +258,20 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               valid_mask: Optional[torch.Tensor] = None,
               skew_assign: Optional[torch.Tensor] = None,
               replica_ids: Optional[torch.Tensor] = None,
-              residency_ids: Optional[torch.Tensor] = None
+              residency_ids: Optional[torch.Tensor] = None,
+              shared: Optional[Callable[[], torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> [B, S, d], diagnostics, over the EP group of
     ``comm`` (default: one rank).  ``params``' expert rows are rank-major
     ``[G * epr, ...]`` for ``LocalComm`` / ``VirtualGroup`` and this rank's
     own ``[epr, ...]`` for ``DistComm``.  ``skew_key`` switches routing to
     the synthetic skew when ``spec.moe.router_skew > 0``; ``skew_assign``
-    [G, t_slice, k] int32 routes on assignments drawn beforehand instead
-    (rank g takes row g).  ``valid_mask``
+    [n, t_slice, k] int32 routes on assignments drawn beforehand instead,
+    one row for each rank this process runs (``comm.ranks_here``: all G,
+    or under ``DistComm`` this rank's own).  ``shared`` computes the
+    shared experts' output [B, S, d] on the same input; it runs while the
+    foreign fetch is in flight and is added last, ``y = moe_y +
+    shared``.  ``valid_mask``
     [B, S] bool keeps dead tokens (inactive slots, chunk padding) out of
     routing and capacity; their outputs are garbage the caller discards.
     With ``spec.moe.num_replica_slots`` R > 0, ``params`` carry the
@@ -292,6 +310,8 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     def rows_of(name: str) -> int:
         return R if name.startswith("w_rep_") else epr
 
+    here = comm.ranks_here
+
     def body(me: int):
         prm = {n: (w if n == "router" else comm.expert_rows(w, me,
                                                             rows_of(n)))
@@ -300,7 +320,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         return _moe_forward_local(
             x_rep, prm, spec, n_valid, me, skew_key=skew_key,
             valid_rep=v_rep,
-            skew_assign=None if skew_assign is None else skew_assign[me],
-            replica_ids=replica_ids, residency_ids=residency_ids)
-    y, diag = comm.run_ranks(body)[0]
-    return y[:n_valid].reshape(B, S_len, d), diag
+            skew_assign=(None if skew_assign is None
+                         else skew_assign[here.index(me)]),
+            replica_ids=replica_ids, residency_ids=residency_ids,
+            overlap=shared if me == here[0] else None)
+    y, diag, side = comm.run_ranks(body)[0]
+    y = y[:n_valid].reshape(B, S_len, d)
+    return (y if side is None else y + side), diag

@@ -2,19 +2,26 @@
 
 Port of ``repro/core/prefetch.py`` (``all_foreign_ids``,
 ``fetch_foreign_weights``, ``gather_all_experts``).  Every rank computes
-every destination's foreign-expert ids from the replicated schedule; each
-source fills, for each destination, the K slots it hosts, and one
-all-to-all delivers them.  The fetch and the gather are body generators
-(``dispatch.py``: collectives are yielded to the communicator).
+every destination's foreign-expert ids (FIDS) from the replicated
+schedule, and the fetch is one collective of its own, ``fetch_rows``
+(``dispatch.py``), which each communicator answers with this rank's K
+foreign rows in the form its transport does best: zeros at G = 1
+(``LocalComm``), one gather from the rank-major weight on virtual ranks
+(``VirtualGroup``), and across processes (``DistComm``) either the JAX
+form, a [G, K] outbox per source through an even all-to-all, chunked
+along the last dimension by ``fetch_chunk`` as in JAX, or only the
+hosted rows through an uneven one.  All give the JAX function's values:
+the hosting slot's row over ``hosts_per_expert``, zeros for -1.  The
+JAX version builds each outbox as a mask einsum over all local experts
+(``prefetch.py:84``); the port's dense form is an index gather with the
+same values.
 
-The JAX version builds each source's outbox as a mask einsum over ALL of
-its local experts (``prefetch.py:84``).  At G = 1 every expert is local,
-the ids are all -1 and the result is zeros, yet the einsum reads every
-expert's matrices (~1 GB per layer at qwen15-moe-a27b's width).  The port
-computes the same function as an index gather: the hosting slot's row
-divided by ``hosts_per_expert``, zeros for -1 — K rows read, not all.
-The slot tables are the topology's cached device tables
-(``topology.device_tables``).
+On the card the communicator issues the fetch on its side stream and the
+MoE block joins it (``join``) just before the grouped FFN, so the fetch
+overlaps the dispatch in between: the paper's dedicated CUDA stream,
+which XLA's latency-hiding scheduler gives the JAX package.  The fetch
+and the gather are body generators (collectives are yielded to the
+communicator).
 
 Tiered residency (``serve/residency.py``): the serve engine keeps a
 ``[G, W]`` table of each rank's device-resident working set, which rides
@@ -30,7 +37,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.dispatch import (all_gather, all_to_all,
+from repro_torch.core.dispatch import (Collective, Fetched, all_gather,
                                        replica_slot_map)
 from repro_torch.core.topology import EPTopology, device_tables
 
@@ -60,18 +67,24 @@ def all_foreign_ids(S: torch.Tensor, topo: EPTopology,
 
 
 def fetch_foreign_weights(w_local: torch.Tensor, fids_all: torch.Tensor,
-                          me: int, topo: EPTopology):
-    """w_local [epr, ...] (this rank's expert rows) -> [K, ...] foreign
-    weights for this rank.  fids_all: FIDS [G, K] replicated."""
-    slot_of = device_tables(topo, w_local.device).local_slot_of[me]
-    slot = torch.where(fids_all >= 0,
-                       slot_of[torch.clamp(fids_all, min=0).long()], -1)
-    hosted = (slot >= 0).to(w_local.dtype) / topo.hosts_per_expert
-    idx = torch.clamp(slot, min=0).long()                    # [G, K]
-    extra = (1,) * (w_local.ndim - 1)
-    out = w_local[idx] * hosted.reshape(hosted.shape + extra)  # [G_dst, K, ...]
-    ret = yield from all_to_all(out)                         # [G_src, K, ...]
-    return ret.sum(dim=0)                                    # sum over sources
+                          me: int, topo: EPTopology, fetch_chunk: int = 0):
+    """w_local [epr, ...] (this rank's expert rows) -> a ``Fetched`` of
+    this rank's [K, ...] foreign weights (``join`` waits for them).
+    fids_all: FIDS [G, K] replicated; ``fetch_chunk`` > 0 chunks the
+    dense form's last dimension."""
+    return (yield Collective("fetch_rows", w_local,
+                             (fids_all, me, topo, fetch_chunk)))
+
+
+def join(fetched: Fetched) -> torch.Tensor:
+    """The fetched rows, once the current stream has waited for the
+    fetch's side stream; the rows' memory is kept from reuse until the
+    current stream's work on them is done."""
+    if fetched.done is not None:
+        cur = torch.cuda.current_stream(fetched.rows.device)
+        cur.wait_event(fetched.done)
+        fetched.rows.record_stream(cur)
+    return fetched.rows
 
 
 def residency_non_local(residency_ids: torch.Tensor,

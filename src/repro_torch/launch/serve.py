@@ -20,6 +20,18 @@ virtual ranks on the one card (``VirtualGroup``), where ``--skew`` and
 gives per-request TTFT/TPOT percentiles, decode tokens/s and the
 HarMoEny schedule diagnostics (moved units, drops, load balance).
 
+Across processes, one EP rank each, the launcher's environment takes the
+place of JAX's device mesh:
+  torchrun --nproc-per-node G -m repro_torch.launch.serve ... --model-par G
+(or any launcher that sets ``RANK`` and ``WORLD_SIZE``) builds a
+``DistComm`` over the default process group, NCCL on
+``cuda:LOCAL_RANK``, with the dense fetch and every entry captured;
+``serve(args, device="cpu")`` under an initialized process group runs
+it on gloo with the hosted fetch and the entries eager (gloo cannot be
+captured).  ``WORLD_SIZE`` must equal ``--model-par``.  Each process holds
+only its own expert rows; every process serves the same requests in
+lockstep, and only rank 0 prints and writes the report.
+
 ``--fused-attention`` and ``--fused-moe`` are accepted as in JAX: on the
 card the hand-written kernels run whatever they say, and the report
 gives what ran (True on the card, False on the CPU, where the plain
@@ -40,17 +52,23 @@ pre-draws.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import REGISTRY, get_config
+from repro_torch.convert import shard_params
+from repro_torch.core.dispatch import DistComm
 from repro_torch.core.topology import static_opt_placement
 from repro_torch.models.model import build_model
 from repro_torch.serve import (EngineConfig, ServeEngine, engine_config_for,
                                load_trace, poisson_requests)
+from repro_torch.serve import stepcore
 from repro_torch.serve.stepcore import kernel_launches
 
 # One row per EngineConfig knob: the flag and the field it sets; argparse
@@ -197,24 +215,60 @@ def _engine_cfg(args, cfg, prompt_len, gen):
         moe_policy=args.moe_policy or None, **engine_overrides(args))
 
 
+def process_group_comm(args, device):
+    """The launcher's process group as the MoE blocks' communicator, and
+    the device this process runs on: a ``DistComm`` over the default
+    group when one is initialized or the environment names one
+    (``RANK`` / ``WORLD_SIZE``, initialized here: NCCL on
+    ``cuda:LOCAL_RANK``, gloo when the caller asks for the CPU), else
+    None (one process: ``LocalComm`` or ``VirtualGroup``).  NCCL takes
+    the dense fetch, whose collectives can be captured; gloo the hosted
+    fetch, with the entries eager."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+            return None, device
+        if torch.device(device).type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            device = torch.device("cuda", local)
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+    world = dist.get_world_size()
+    if world != args.model_par:
+        raise ValueError(f"WORLD_SIZE {world} != --model-par "
+                         f"{args.model_par}: one process runs one EP rank")
+    backend = str(dist.get_backend())
+    if torch.device(device).type == "cuda" and backend == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return DistComm(fetch="dense" if backend == "nccl" else "hosted"), device
+
+
 def build_serving_engine(args, cfg=None, *, prompt_len=None, gen=None,
-                         device="cuda", params=None):
+                         device="cuda", params=None, comm=None):
     """Config, model and engine from CLI args: the model at expert-parallel
-    degree ``--model-par`` on ``device``, on ``params`` or, without them,
-    on weights drawn from seed 0."""
+    degree ``--model-par`` on ``device`` (over ``comm`` when given: this
+    process's rank), on ``params`` (the whole tree; a ``DistComm`` rank
+    keeps its own expert rows of it) or, without them, on weights drawn
+    from seed 0."""
     cfg = cfg if cfg is not None else config_from_args(args)
     prompt_len = prompt_len or args.prompt_len
     gen = gen or args.gen
     ecfg = _engine_cfg(args, cfg, prompt_len, gen)
     model = build_model(cfg, batch=args.batch, seq_len=prompt_len,
-                        device=device, ep_degree=args.model_par)
+                        device=device, ep_degree=args.model_par, comm=comm)
     if params is None:
         params = model.init(0)
+    elif isinstance(comm, DistComm):
+        params = shard_params(params, comm.rank, comm.size)
     return cfg, ServeEngine(model, params, ecfg, device=device)
 
 
 def serve(args, *, device="cuda", params=None):
     cfg = config_from_args(args)
+    comm, device = process_group_comm(args, device)
+    lead = comm is None or comm.rank == 0         # prints, writes the report
     if args.trace:
         requests = load_trace(args.trace, vocab_size=cfg.vocab_size)
         prompt_len = max(r.prompt_len for r in requests)
@@ -227,7 +281,22 @@ def serve(args, *, device="cuda", params=None):
             seed=args.seed, shared_prefix_len=args.shared_prefix_len)
         prompt_len, gen = args.prompt_len, args.gen
     cfg, engine = build_serving_engine(args, cfg, prompt_len=prompt_len,
-                                       gen=gen, device=device, params=params)
+                                       gen=gen, device=device, params=params,
+                                       comm=comm)
+    # gloo cannot be captured: its engine runs every entry eagerly
+    mode = (stepcore.eager() if comm is not None and not comm.capturable
+            else contextlib.nullcontext())
+    with mode:
+        rep, streams, launches = _serve_run(engine, requests)
+    if lead:
+        _print_report(args, engine, rep, streams, launches)
+    engine.close()
+    return rep
+
+
+def _serve_run(engine, requests):
+    """Warm up, then serve ``requests``: the report, the streams by
+    request id and each kernel's launches over the run."""
     engine.warmup()                  # capture outside the TTFT window
     streams = {}
     finish = engine._finish
@@ -242,7 +311,14 @@ def serve(args, *, device="cuda", params=None):
         torch.cuda.reset_peak_memory_stats(engine.device)
     launches0 = kernel_launches()
     rep = engine.run(requests)
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    return rep, streams, launches
 
+
+def _print_report(args, engine, rep, streams, launches):
+    """The JAX CLI's ``[serve]`` lines, the port's ``[serve] device``
+    line, and the report to ``--out``."""
+    cuda = engine.device.type == "cuda"
     ttft, tpot = rep["ttft"], rep["tpot"]
     print(f"[serve] arch={args.arch} policy={args.policy} skew={args.skew} "
           f"slots={args.batch} requests={rep['n_requests']} rate={args.rate}")
@@ -304,11 +380,14 @@ def serve(args, *, device="cuda", params=None):
                    else str(engine.device)),
         "peak_mem_gib": (torch.cuda.max_memory_allocated(engine.device)
                          / 2 ** 30 if cuda else None),
-        "launches": {k: v - launches0[k]
-                     for k, v in kernel_launches().items()},
+        "launches": launches,
+        "comm": rep["engine"].get("comm"),
         "tokens": {"count": len(toks), "min": min(toks, default=None),
                    "max": max(toks, default=None),
-                   "per_request": sorted({len(o) for o in streams.values()})},
+                   "per_request": sorted({len(o) for o in streams.values()}),
+                   "streams_sha256": hashlib.sha256(json.dumps(
+                       sorted(streams.items()), default=int).encode()
+                   ).hexdigest()},
         "noise_predraw_ms": core.predraw_ms("noise"),
         "noise_predraws": core.predraw_calls["noise"],
         "skew_predraw_ms": {e: core.predraw_ms(e)
@@ -317,8 +396,6 @@ def serve(args, *, device="cuda", params=None):
         with open(args.out, "w") as f:
             json.dump(rep, f, indent=2)
         print(f"[serve] report -> {args.out}")
-    engine.close()
-    return rep
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -340,7 +417,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "batches redistribute)")
     ap.add_argument("--data-par", type=int, default=0)
     ap.add_argument("--model-par", type=int, default=1,
-                    help="expert-parallel degree: virtual ranks on the card")
+                    help="expert-parallel degree: virtual ranks on the card, "
+                         "or one process a rank under a launcher that sets "
+                         "RANK and WORLD_SIZE")
     ap.add_argument("--seed", type=int, default=0)
     add_engine_flags(ap)
     ap.add_argument("--requests", type=int, default=0,
@@ -368,7 +447,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    serve(build_parser().parse_args(argv))
+    import torch.distributed as dist
+    started = dist.is_initialized()
+    try:
+        serve(build_parser().parse_args(argv))
+    finally:
+        if dist.is_initialized() and not started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

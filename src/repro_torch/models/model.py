@@ -19,7 +19,11 @@ Caches are updated in place.  Everything lives on ``model.device``: CUDA
 unless the caller passes ``device="cpu"``.  At expert-parallel degree
 G > 1 the MoE blocks run G ranks in lockstep on that one device
 (``dispatch.VirtualGroup``); expert weights stay rank-major
-``[G * epr, ...]``, as the JAX package lays them out.
+``[G * epr, ...]``, as the JAX package lays them out.  Given a
+``dispatch.DistComm`` of G processes, the model is that process's rank of
+a G-way model: its expert leaves hold the rank's own ``[n, epr, ...]``
+rows (``convert.shard_params``, or ``init``), everything else is
+replicated, and every process runs the whole stack on the same tokens.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core.dispatch import LocalComm, VirtualGroup
+from repro_torch.core.dispatch import DistComm, LocalComm, VirtualGroup
 from repro_torch.core.moe_layer import MoEBlockSpec
 from repro_torch.core.router import SkewKey
 from repro_torch.models import transformer as T
@@ -43,17 +47,25 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _normal(shape, scale: float, gen: torch.Generator, device,
-            dtype) -> torch.Tensor:
+            dtype, keep: Optional[slice] = None) -> torch.Tensor:
     """N(0, scale^2) draws in f32, cast to ``dtype`` a slab at a time so the
-    f32 transient stays bounded at full width."""
-    out = torch.empty(shape, dtype=dtype, device=device)
+    f32 transient stays bounded at full width.  ``keep`` cuts axis 1 of
+    each slab once drawn (one EP rank's expert rows): the kept values are
+    the whole draw's, and the generator advances as for the whole."""
+    kept = list(shape)
+    if keep is not None:
+        kept[1] = len(range(shape[1])[keep])
+    out = torch.empty(kept, dtype=dtype, device=device)
     inner = math.prod(shape[1:])
     step = max(1, (1 << 28) // max(inner, 1))
     for i in range(0, shape[0], step):
         rows = min(step, shape[0] - i)
-        out[i:i + rows] = (torch.randn((rows,) + tuple(shape[1:]),
-                                       generator=gen, device=device)
-                           * scale).to(dtype)
+        slab = torch.randn((rows,) + tuple(shape[1:]), generator=gen,
+                           device=device)
+        if keep is not None:
+            slab = slab[:, keep]
+        out[i:i + rows] = (slab * scale).to(dtype)
+        del slab
     return out
 
 
@@ -72,7 +84,10 @@ class Model:
     # ------------------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random parameters at the JAX init's scales (the two frameworks'
-        generators differ: tests convert JAX weights instead, convert.py)."""
+        generators differ: tests convert JAX weights instead, convert.py).
+        On a ``DistComm`` rank the expert leaves hold this rank's rows
+        only, with exactly the values the rank-major init gives them: each
+        leaf is drawn a layer slab at a time and cut as it is drawn."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d, H, Hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -80,9 +95,15 @@ class Model:
         Vp = cfg.padded_vocab
         pattern, n, lead = T.layer_pattern(cfg)
         s_d = (2.0 / d) ** 0.5
+        own = self.comm.ranks_here if isinstance(self.comm, DistComm) \
+            else None
 
-        def nrm(shape, scale, dtype=dt):
-            return _normal(shape, scale, gen, dev, dtype)
+        def nrm(shape, scale, dtype=dt, per_rank=None):
+            """``per_rank``: the leaf's rows on axis 1 are expert rows,
+            ``per_rank`` a rank (cut to this process's under DistComm)."""
+            keep = (None if own is None or per_rank is None else
+                    slice(own[0] * per_rank, (own[-1] + 1) * per_rank))
+            return _normal(shape, scale, gen, dev, dtype, keep)
 
         def zeros(shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -109,22 +130,26 @@ class Model:
                 p["mlp"] = ffn((n,), cfg.d_ff)
                 return p
             topo = self.moe_spec.topo
-            rows = topo.num_ranks * topo.experts_per_rank
+            epr = topo.experts_per_rank
+            rows = topo.num_ranks * epr
             f = cfg.moe.d_ff_expert
             p["moe"] = {"router": nrm((n, d, topo.padded_experts), 0.02,
                                       torch.float32),
-                        "w_in": nrm((n, rows, d, f), s_d),
-                        "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5)}
+                        "w_in": nrm((n, rows, d, f), s_d, per_rank=epr),
+                        "w_out": nrm((n, rows, f, d), (2.0 / f) ** 0.5,
+                                     per_rank=epr)}
             if self.moe_spec.act == "silu":    # gated experts
-                p["moe"]["w_gate"] = nrm((n, rows, d, f), s_d)
+                p["moe"]["w_gate"] = nrm((n, rows, d, f), s_d,
+                                         per_rank=epr)
             R = cfg.moe.num_replica_slots
             if R:
                 # replica slots start empty (ids -1, never scheduled);
                 # serve/rebalance.py copies hot experts' rows into them
+                ranks = topo.num_ranks if own is None else len(own)
                 for name in ("in", "out", "gate"):
                     if f"w_{name}" in p["moe"]:
                         p["moe"][f"w_rep_{name}"] = torch.zeros(
-                            (n, topo.num_ranks * R)
+                            (n, ranks * R)
                             + tuple(p["moe"][f"w_{name}"].shape[2:]),
                             dtype=dt, device=dev)
             if cfg.moe.num_shared_experts:
@@ -205,7 +230,7 @@ class Model:
         ``last_index`` (default C - 1); pad tokens past it are kept out of
         MoE routing and capacity.  ``pos`` and ``last_index`` are ints or
         0-d device tensors; with tensors (and ``skew_assign``
-        [n_moe_layers, G, t_slice, k] in place of the skew key, as in
+        [n_moe_layers, n, t_slice, k] in place of the skew key, as in
         ``decode_step``) the chunk reads no host value, so the serve
         engine's captured chunk replays at any position.
         ``moe_replica_ids`` [G, R] names the experts in the replica slots
@@ -240,9 +265,10 @@ class Model:
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
         window: [B], or a scalar on the slab.  ``moe_policy`` overrides the
         decode spec's scheduling policy (and its foreign slots) for this
-        step.  ``skew_assign`` [n_moe_layers, G, t_slice, k] replaces the
-        skew key's draws with ones made beforehand (``run_stack``): the
-        serve engine's captured step reads no generator.
+        step.  ``skew_assign`` [n_moe_layers, n, t_slice, k] replaces the
+        skew key's draws with ones made beforehand, one row for each rank
+        this process runs (``run_stack``): the serve engine's captured
+        step reads no generator.
         ``moe_replica_ids`` [G, R] (-1 = empty) names the experts in the
         replica slots, ``moe_residency_ids`` [G, W] (-1 pads) each rank's
         resident working set (``moe_layer.moe_block``); ``moe_layer_diags``
@@ -294,11 +320,16 @@ def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
 
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
                 batch: int, seq_len: int, device=None,
-                ep_degree: int = 1) -> Model:
+                ep_degree: int = 1, comm=None) -> Model:
     """The port's model for a decoder-only dense/MoE ``cfg`` at expert-
-    parallel degree ``ep_degree`` (G ranks on the one device when G > 1).
-    ``device`` defaults to CUDA and raises when no GPU is present."""
+    parallel degree ``ep_degree``: G ranks on the one device when G > 1
+    (``VirtualGroup``), or, given ``comm`` (a ``DistComm`` of G
+    processes), this process's rank.  ``device`` defaults to CUDA and
+    raises when no GPU is present."""
     dev = resolve_device(device)
+    if comm is not None and comm.size != ep_degree:
+        raise ValueError(f"a communicator of {comm.size} ranks for EP "
+                         f"degree {ep_degree}")
     unsupported = [
         (not cfg.is_moe or cfg.family != "moe", f"family {cfg.family!r}"),
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
@@ -326,6 +357,8 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         moe_spec, tokens_local=batch, block_m=128,
         moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
             _decode_foreign_slots(moe_spec, cfg.moe.policy))))
-    comm = LocalComm() if ep_degree == 1 else VirtualGroup(ep_degree, dev)
+    if comm is None:
+        comm = (LocalComm() if ep_degree == 1
+                else VirtualGroup(ep_degree, dev))
     return Model(cfg=cfg, device=dev, moe_spec=moe_spec,
                  moe_spec_decode=moe_spec_decode, comm=comm)

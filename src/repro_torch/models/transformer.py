@@ -94,13 +94,15 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
     h = norm(x, p["norm2"], cfg.norm)
     if kind == "dense":
         return x + mlp(h, p["mlp"], cfg.act), {}
+    # the shared experts run while the block's foreign fetch is in flight
+    # (paper §4.3); the block adds them last, moe_y + shared
+    shared = ((lambda: mlp(h, p["shared_mlp"], cfg.act))
+              if "shared_mlp" in p else None)
     y, mdiag = moe_block(h, p["moe"], spec=moe_spec, comm=comm,
                          skew_key=skew_key, valid_mask=valid_mask,
                          skew_assign=skew_assign,
                          replica_ids=moe_replica_ids,
-                         residency_ids=moe_residency_ids)
-    if "shared_mlp" in p:
-        y = y + mlp(h, p["shared_mlp"], cfg.act)
+                         residency_ids=moe_residency_ids, shared=shared)
     # collapse the leading batch-group axis only
     return x + y, {k: v.mean(dim=0) for k, v in mdiag.items()}
 
@@ -119,8 +121,9 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
     skew) is folded with each layer's index (``moe_layer_keys``);
-    ``skew_assign`` [n_moe_layers, G, t_slice, k] holds assignments drawn
-    beforehand on those keys, one slice per MoE layer in order.
+    ``skew_assign`` [n_moe_layers, n, t_slice, k] holds assignments drawn
+    beforehand on those keys, one slice per MoE layer in order, one row
+    per rank this process runs (``moe_block``).
     ``moe_replica_ids`` [G, R] and ``moe_residency_ids`` [G, W] are the
     serving-time placement tables every MoE block reads
     (``moe_layer.moe_block``).  Returns (x, cache, diags averaged over the

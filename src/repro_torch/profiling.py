@@ -8,7 +8,10 @@ Per step: the wall time under the profiler (and, from ``untraced_ms``,
 without it), the device's busy time (the CUDA kernels' own times,
 graph-replayed kernels included) and idle share, host launches
 (``cudaLaunchKernel`` and its variants, and ``cudaGraphLaunch``), and
-host-device copies and synchronisations.
+host-device copies and synchronisations; and, by CUDA stream
+(``streams``), the work beside the main stream: the MoE block's foreign
+fetch runs on a side stream, so its device time and how much of it ran
+beside the main stream's kernels are read here.
 """
 from __future__ import annotations
 
@@ -60,6 +63,79 @@ def summarize(prof, label: str, wall_s: float, n_steps: int,
     }
 
 
+def _union(spans):
+    """Sorted, merged [start, end) intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys) -> float:
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def streams(prof, n_steps: int, top: int = 4) -> Dict[str, Any]:
+    """The device work by CUDA stream: the main stream is the one with
+    the most kernel time; the rest (in the MoE block, the foreign fetch's
+    side stream) give ``side_ms_per_step``, their kernels' time,
+    ``side_overlap_ms_per_step``, the part of it that ran while a main
+    stream kernel ran too, ``union_busy_ms_per_step``, the time anything
+    ran, ``concurrent_ms_per_step``, the kernel time beyond that union
+    (what ran beside other work, whichever streams the trace names), and
+    the side streams' top kernels by name."""
+    import torch
+    by_stream: Dict[int, list] = {}
+    names: Dict[int, Dict[str, float]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA \
+                or e.duration_ns() <= 0:
+            continue
+        sid = e.device_resource_id()
+        by_stream.setdefault(sid, []).append(
+            (e.start_ns(), e.start_ns() + e.duration_ns()))
+        per = names.setdefault(sid, {})
+        per[e.name()] = per.get(e.name(), 0.0) + e.duration_ns()
+    if not by_stream:
+        return {"streams": 0}
+    total = {s: sum(b - a for a, b in v) for s, v in by_stream.items()}
+    main = max(total, key=total.get)
+    side = [iv for s, v in by_stream.items() if s != main for iv in v]
+    main_u, side_u = _union(by_stream[main]), _union(side)
+    all_u = _union(by_stream[main] + side)
+    side_names: Dict[str, float] = {}
+    for s, per in names.items():
+        if s != main:
+            for k, v in per.items():
+                side_names[k] = side_names.get(k, 0.0) + v
+    ms = 1e-6 / n_steps
+    return {
+        "streams": len(by_stream),
+        "main_ms_per_step": total[main] * ms,
+        "side_ms_per_step": sum(total[s] for s in total if s != main) * ms,
+        "side_overlap_ms_per_step": _overlap(main_u, side_u) * ms,
+        "union_busy_ms_per_step": sum(b - a for a, b in all_u) * ms,
+        "concurrent_ms_per_step":
+            (sum(total.values()) - sum(b - a for a, b in all_u)) * ms,
+        "side_top_kernels_ms_per_step": [
+            (k[:60], v * ms) for k, v in sorted(
+                side_names.items(), key=lambda kv: -kv[1])[:top]],
+    }
+
+
 def profile_steps(fn: Callable[[], Any], n_steps: int,
                   label: str) -> Dict[str, Any]:
     """``fn`` called ``n_steps`` times under the profiler, synchronised."""
@@ -73,7 +149,8 @@ def profile_steps(fn: Callable[[], Any], n_steps: int,
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return summarize(prof, label, wall, n_steps)
+    return {**summarize(prof, label, wall, n_steps),
+            "streams": streams(prof, n_steps)}
 
 
 def untraced_ms(fn: Callable[[], Any], n_steps: int) -> float:

@@ -43,6 +43,19 @@ steps' scheduling policy, and a model with synthetic router skew draws
 its routing from the ``skew_seed`` key streams (``StepCore``).
 ``report()["load_balance"]`` holds the per-rank and per-expert loads.
 
+Across processes (a model over ``dispatch.DistComm``, one EP rank a
+process) every process runs the same engine on the same requests in
+lockstep: the collectives inside the steps need every rank at the same
+chunk and step.  Each process has its own clock, so at every engine step
+rank 0's clock reading is broadcast and every rank admits on it; the
+rest of the engine's decisions (chunks, preemption, EOS) follow from the
+admissions and the replicated tokens.  The report is each process's;
+rank 0's is the one to read, as the JAX block reports rank 0's
+diagnostics, and ``report()["engine"]["comm"]`` names the communicator,
+its fetch form and whether the entries were captured.  Replica slots and
+tiered residency read other ranks' rows and are not ported across
+processes (ROADMAP item 5): they raise.
+
 On the card the prefill chunk, the decode step and the store's
 scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on the
 slab) are each captured once as a CUDA graph, at ``warmup()`` or at
@@ -89,6 +102,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import round_up
+from repro_torch.core.dispatch import DistComm
 from repro_torch.kernels.paged_attention.ops import largest_block_divisor
 from repro_torch.models import attention as attention_dispatch
 from repro_torch.serve.arrivals import WallClock
@@ -253,6 +267,13 @@ class ServeEngine:
         if ecfg.fused_moe_gmm and not cfg.is_moe:
             raise ValueError("fused_moe_gmm is the grouped-GEMM expert "
                              "FFN kernel; it needs an MoE model")
+        self.dist = model.comm if isinstance(model.comm, DistComm) else None
+        if self.dist is not None and (ecfg.replica_slots > 0
+                                      or ecfg.resident_experts > 0):
+            raise NotImplementedError(
+                "replica_slots and resident_experts across processes "
+                "(DistComm): the replica swap and the host tier read other "
+                "ranks' rows, which needs a collective (ROADMAP item 5)")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -704,9 +725,17 @@ class ServeEngine:
         self._attn_dispatch = attention_dispatch.dispatch_log()
         self._warm_counts = self.jit_counts()
 
+    def _agreed_now(self) -> float:
+        """This tick's clock reading: the engine's own, or across
+        processes rank 0's, which every rank admits on."""
+        now = self.clock.now()
+        if self.dist is not None:
+            now = self.dist.rank0_value(now)
+        return now
+
     def step(self) -> bool:
         """One scheduler tick: admit, prefill chunk(s), decode the batch."""
-        now = self.clock.now()
+        now = self._agreed_now()
         self._admit(now)
         did = self._prefill_work(now)
         did = self._decode_work(now) or did
@@ -771,6 +800,11 @@ class ServeEngine:
             "paged": self.ecfg.paged,
             "role": self.role,
         }
+        if self.dist is not None:
+            rep["engine"]["comm"] = {
+                **self.dist.describe(), "rank": self.dist.rank,
+                "entries": ("captured" if any(self.core.jit_counts().values())
+                            else "eager")}
         if self.ecfg.paged:
             rep["engine"]["kv_block_size"] = self.ecfg.kv_block_size
             rep["engine"]["num_kv_blocks"] = self._alloc.usable_blocks

@@ -44,6 +44,13 @@ There is no fallback: a step that cannot be captured fails.  ``eager()``
 (the counterpart of ``jax.disable_jit()``) runs every entry, the KV
 store's writes included, without the graph, on the same buffers, for
 comparisons on the card.
+
+Across processes (a model over ``dispatch.DistComm``) each process draws
+only its own rank's skewed assignments (``[n_moe_layers, 1, t_slice,
+k]``).  gloo's collectives cannot be captured, nor can the hosted fetch:
+on such a communicator an entry asked to capture raises, and the engine
+runs inside ``eager()``; NCCL with the dense fetch is captured as on one
+rank.
 """
 from __future__ import annotations
 
@@ -124,8 +131,10 @@ class Entry:
     launches nothing, so the wrappers' launch counts are put back and
     each replay adds the launches the capture recorded."""
 
-    def __init__(self, fn: Callable, device: torch.device):
+    def __init__(self, fn: Callable, device: torch.device,
+                 refuse: Optional[str] = None):
         self.fn, self.device = fn, device
+        self.refuse = refuse          # why this entry cannot be captured
         self.graph = None
         self._args: Tuple = ()
         self._out = None
@@ -139,6 +148,10 @@ class Entry:
         if self.device.type != "cuda" or _eager:
             return self.fn(*args)
         if self.graph is None:
+            if self.refuse:
+                raise RuntimeError(f"cannot capture this entry: "
+                                   f"{self.refuse}; run it inside "
+                                   f"stepcore.eager()")
             return self._capture(*args)
         if any(a is not b for a, b in zip(args, self._args)):
             raise RuntimeError("a captured entry reads the tensors it was "
@@ -194,6 +207,8 @@ class StepCore:
         self.bps = blocks_per_slot if ecfg.paged else 0
         G = model.moe_spec_decode.topo.num_ranks if cfg.is_moe else 1
         self.G, self.R = G, ecfg.replica_slots
+        # the ranks whose skewed assignments this process draws
+        self.ranks_here = getattr(model.comm, "ranks_here", (0,))
         self.W = ecfg.resident_experts // G
         n_rep, n_res = G * self.R, G * self.W
         # decode: tokens | positions | active | replica table | residency
@@ -211,8 +226,8 @@ class StepCore:
             G = model.moe_spec_decode.topo.num_ranks
             self._moe_keys = moe_layer_keys(cfg)
 
-            def draws(tokens):            # one slice a rank, as moe_block
-                return torch.zeros((len(self._moe_keys), G,
+            def draws(tokens):      # one slice a rank here, as moe_block
+                return torch.zeros((len(self._moe_keys), len(self.ranks_here),
                                     round_up(max(tokens, G), G) // G,
                                     moe.num_experts_per_tok),
                                    dtype=torch.int32, device=dev)
@@ -238,9 +253,14 @@ class StepCore:
         self._layouts: Dict[str, list] = {}    # packed diagnostics, by entry
         self._last_packed = "decode"
         # the lambdas look the step up at each call (tests wrap it)
-        self.decode_entry = Entry(lambda p, pool: self._step(p, pool), dev)
+        comm = model.comm
+        refuse = (None if getattr(comm, "capturable", True) else
+                  f"the MoE blocks' communicator ({comm.describe()}) "
+                  f"cannot be captured")
+        self.decode_entry = Entry(lambda p, pool: self._step(p, pool), dev,
+                                  refuse)
         self.prefill_entry = Entry(
-            lambda p, scratch: self._prefill_step(p, scratch), dev)
+            lambda p, scratch: self._prefill_step(p, scratch), dev, refuse)
         self._pf_packed: Optional[torch.Tensor] = None
         self._pf_logits: Optional[torch.Tensor] = None   # the last chunk's
         self.logits: Optional[torch.Tensor] = None  # the last decode's
@@ -355,8 +375,9 @@ class StepCore:
 
     def _predraw(self, idx: int, entry: str = "decode") -> None:
         """The skewed assignments of the ``idx``-th call of ``entry`` into
-        its static buffer: for MoE layer m and rank g, the draws
-        ``route_skewed`` makes on ``key / idx / layer / rank``."""
+        its static buffer: for MoE layer m and each rank g this process
+        runs, the draws ``route_skewed`` makes on ``key / idx / layer /
+        rank``."""
         if not self.skew:
             return
         t0 = time.perf_counter()
@@ -368,8 +389,8 @@ class StepCore:
         T, k = buf.shape[2], buf.shape[3]
         for m, layer in enumerate(self._moe_keys):
             lk = key.fold_in(layer)
-            for g in range(buf.shape[1]):
-                buf[m, g].copy_(skew_draw(lk.fold_in(g).generator(self.device),
+            for i, g in enumerate(self.ranks_here):
+                buf[m, i].copy_(skew_draw(lk.fold_in(g).generator(self.device),
                                           self._probs, T, k))
         self.predraw_s[entry] += time.perf_counter() - t0
         self.predraw_calls[entry] += 1

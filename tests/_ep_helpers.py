@@ -3,6 +3,7 @@ G > 1 runs in a subprocess with fake host devices (the main pytest
 process keeps one device, see conftest.py) and hands its arrays over
 through an npz file."""
 import os
+import socket
 import subprocess
 import sys
 import textwrap
@@ -17,6 +18,7 @@ from repro_torch.core import prefetch as TP
 from repro_torch.core.moe_layer import SCALAR_DIAGS, VECTOR_DIAGS
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+TESTS = os.path.dirname(os.path.abspath(__file__))
 
 
 def run_jax(body: str, out_path, *, devices: int = 4, timeout: int = 300):
@@ -35,6 +37,31 @@ def run_jax(body: str, out_path, *, devices: int = 4, timeout: int = 300):
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     with np.load(out_path) as z:
         return {k: z[k] for k in z.files}
+
+
+def run_gloo(script: str, args_of_rank, *, world: int = 4,
+             timeout: int = 240) -> None:
+    """Run ``script`` in ``world`` processes that form a gloo group on
+    ``localhost`` (argv: rank, port, then ``args_of_rank(rank)``); every
+    rank must exit 0."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), port,
+                               *args_of_rank(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r}:\n{errs[r][-4000:]}"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -391,13 +418,16 @@ def record_sampling(eng, width, skew_draws=None):
 def keyed_replay(rec):
     """``StepCore`` methods (``_predraw``, ``_draw_noise``) that copy the
     JAX engine's skew draws and noise of the same call index (``rec``,
-    from ``record_sampling``) into the static buffers; a call JAX did not
-    make (the port's warmup) leaves them as they are."""
+    from ``record_sampling``) into the static buffers (the draws of the
+    ranks the step core runs: all of them, or one process's own under
+    ``DistComm``); a call JAX did not make (the port's warmup) leaves
+    them as they are."""
     def predraw(core, idx, entry="decode"):
         d = rec["draws"][entry].get(str(idx))
         if d is not None:
             buf = core._pf_skew if entry == "prefill_chunk" else core._skew
-            buf.copy_(torch.tensor(d, dtype=torch.int32))
+            buf.copy_(torch.tensor(d, dtype=torch.int32)[
+                :, list(core.ranks_here)])
 
     def draw_noise(core, idx):
         n = rec["noise"].get(str(idx))

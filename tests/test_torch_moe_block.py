@@ -171,8 +171,8 @@ def test_fetch_foreign_weights_g1_matches_jax(dtype):
         mesh=mesh, in_specs=(P("model"), P()), out_specs=P(),
         check_vma=False)
     ref = fn(jnp.asarray(w).astype(jd), jnp.asarray(fids))
-    out = TD.run(TD.LocalComm(), TP.fetch_foreign_weights(
-        torch.from_numpy(w).to(td), torch.from_numpy(fids), 0, tt))
+    out = TP.join(TD.run(TD.LocalComm(), TP.fetch_foreign_weights(
+        torch.from_numpy(w).to(td), torch.from_numpy(fids), 0, tt)))
     np.testing.assert_array_equal(out.float().numpy(),
                                   np.asarray(ref, np.float32))
     assert not out[1].any()
@@ -181,13 +181,18 @@ def test_fetch_foreign_weights_g1_matches_jax(dtype):
 class _CaptureComm:
     """Rank ``rank`` of a G-rank group whose all-to-all hands back the
     outbox untouched (stacked on a source axis of one), so a test can
-    assemble the real all-to-all across ranks."""
+    assemble the real all-to-all across ranks; its fetch is the dense
+    form (``DistComm(fetch="dense")``'s) on that all-to-all."""
 
     def __init__(self, rank, size):
         self.rank, self.size = rank, size
 
     def all_to_all(self, x):
         return x[None]
+
+    def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0):
+        return TD.Fetched(TD.dense_fetch(w_local, fids_all, me, topo,
+                                         self.all_to_all, fetch_chunk))
 
 
 @pytest.mark.parametrize("G,E", [(4, 8), (4, 2)])
@@ -206,7 +211,7 @@ def test_fetch_foreign_weights_multirank_oracle(G, E):
     for g in range(G):
         w_local = torch.from_numpy(w_global[tt.slot_map[g]])
         outboxes.append(TD.run(_CaptureComm(g, G), TP.fetch_foreign_weights(
-            w_local, fids_t, g, tt)))                     # [G_dst, K, d, f]
+            w_local, fids_t, g, tt)).rows)                # [G_dst, K, d, f]
     for me in range(G):
         got = sum(ob[me] for ob in outboxes).numpy()
         for kk in range(K):
