@@ -166,7 +166,39 @@ Phases, each of which must pass (any failure exits non-zero):
      line each; phase 7's
      harmoeny run also serves its windows captured with the dense fetch
      on the compute stream, whose tokens must equal the gather's).
-     Gate: the eager trace puts the fetch on a stream of its own.
+     Gate: the eager trace puts the fetch on a stream of its own;
+  11. mixtral-8x7b at full width (d 4096, 32 q / 8 kv heads of 128, 8
+     experts of f 14,336 top-2, vocab 32,000, bf16), cut to 8 of its 32
+     layers (the full depth's ~87 GiB of weights do not fit the card),
+     weights drawn once: (a) G = 1, paged, the window of 4096 not binding
+     (8 requests of 256-1024 prompt tokens and 32 new; the ``[mixtral]``
+     line, with ``pattern_serve``'s gates: every entry captured,
+     ``moe_gmm`` once a layer a step, ``paged_attention`` once a layer a
+     chunk and a step); (b) the window binding: paged, 2 prompts of 4,600
+     with 32 new tokens (``kv_block_size`` 16, chunk 512: rings of 4,096
+     positions, chains of 256 blocks allocated whole; ``decode_ring`` and
+     the chunk under the window run their plain torch forms, so neither
+     launches ``paged_attention``), and the slab clamped to the window, 1
+     prompt of 4,000 with 200 new tokens, so that decode wraps it; each
+     stream held step by step against ``launch.steps``' one-shot windowed
+     oracle on the same weights, fed the engine's tokens: each step's
+     token against the oracle's argmax and the engine's logits row
+     against the oracle's, before the wrap and after it, gated in bf16 on
+     the share of agreeing steps and the median logits error after the
+     wrap (``RING_GATES``: the kernels and the oracle's plain attention
+     round differently and flip some tokens' experts); after (c), both
+     rings again on the same 8 layers cast to f32, where every step's
+     token must be the oracle's argmax (up to near ties) and every
+     logits row within ``RING_GATES``' bound of the oracle's; (c) G = 4 on
+     virtual ranks under 0.9 skew, harmoeny, 4 requests (phase 4b's
+     ``[ep]`` line, plus the hosted gather's bytes: 8 rows x 3 matrices
+     of 117 MB a layer and call); gates: drops 0, units moved; (d) reduced
+     mixtral in f32 (window 64), prompts past the window, slab and paged,
+     G = 1 and 4: the card's greedy streams equal the CPU's.  Phase 2
+     holds ``moe_gmm`` at (a)'s decode and prefill-chunk dispatches and
+     ``paged_attention`` at its decode (GQA rep 4) and prefill chunk.
+     ``python3 chip_smoke.py --only-mixtral`` runs phase 1, those parity
+     cases and phase 11 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -2659,6 +2691,457 @@ def dist_gloo_path(cfg, spec, ref):
     return summary
 
 
+# ----------------------------------------------------------------------
+# phase 11: mixtral-8x7b, its sliding window as slab and paged rings
+# ----------------------------------------------------------------------
+# full width (d 4096, 32 q / 8 kv heads of 128, 8 experts of f 14336
+# top-2, vocab 32,000, bf16), cut in depth: 32 layers are ~87 GiB of
+# weights, which do not fit the card's 80 GB; 8 layers are ~22 GiB
+MIXTRAL_LAYERS = 8
+# (a) G = 1, paged, the window (4096) not binding: bps * bs = 1280
+MIX_A = dict(slots=8, n_requests=8, prompt_lens=(256, 1025), new_tokens=32,
+             max_seq_len=1024 + 32, prefill_chunk=256, block_size=16)
+# (b) the ring binding: paged, chains of M / bs = 256 blocks; the slab
+# clamped to the window, which decode wraps
+MIX_RING = dict(slots=2, prompt_len=4600, new_tokens=32, prefill_chunk=512,
+                block_size=16)
+MIX_SLAB = dict(slots=1, prompt_len=4000, new_tokens=200, prefill_chunk=512)
+# (c) G = 4 on virtual ranks under 0.9 skew, harmoeny
+MIX_EP = dict(slots=4, n_requests=4, max_seq_len=256, prefill_chunk=32,
+              block_size=16, new_tokens=8)
+
+
+def mixtral_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("mixtral-8x7b").replace(num_layers=MIXTRAL_LAYERS)
+
+
+def _cast_(tree, dtype):
+    """Cast a parameter tree's floating leaves to ``dtype`` in place, one
+    leaf at a time, so that the old and new copies of the whole tree are
+    never held together."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _cast_(v, dtype)
+        elif v.is_floating_point():
+            tree[k] = None
+            tree[k] = v.to(dtype)
+            del v
+
+
+def mixtral_kernel_parity(mix):
+    """Phase 2's mixtral cases at (a)'s shapes: ``moe_gmm`` at the decode
+    dispatch (8 slots x top-2 over 8 experts) and at a prefill chunk's
+    (256 tokens), each a seeded draw, M each step's c_total; and
+    ``paged_attention`` at the decode (GQA rep 4 over chains up to the
+    pool's end) and the prefill chunk over the slab scratch."""
+    import numpy as np
+    import torch
+    from repro_torch.core.moe_layer import MoEBlockSpec
+    from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    out = {"moe_gmm": [], "paged_attention": []}
+    E, K = mix.moe.num_experts, mix.moe.num_foreign_slots
+    bf = torch.bfloat16
+    draw = np.random.default_rng(22)
+    for label, tokens in (("mixtral_decode", MIX_A["slots"]),
+                          ("mixtral_prefill_chunk", MIX_A["prefill_chunk"])):
+        spec = MoEBlockSpec(moe=mix.moe, d_model=mix.d_model,
+                            tokens_local=tokens, block_m=128)
+        units = draw.integers(0, E, tokens * mix.moe.num_experts_per_tok)
+        sizes = np.bincount(units, minlength=E).tolist() + [0] * K
+        out["moe_gmm"].append(moe_gmm_case(
+            label, sizes, M=spec.c_total, n_local=E, d=mix.d_model,
+            f=mix.moe.d_ff_expert, block_m=128, dtype=bf, seed=23,
+            time_it=True))
+        torch.cuda.empty_cache()
+    heads = dict(H=mix.num_heads, Hkv=mix.num_kv_heads,
+                 hd=mix.resolved_head_dim, softcap=0.0, dtype=bf,
+                 time_it=True)
+    C, L, B = MIX_A["prefill_chunk"], MIX_A["max_seq_len"], MIX_A["slots"]
+    s_pad = -(-L // C) * C
+    bs = MIX_A["block_size"]
+    lengths = [1] + [257 + (L - 257) * i // (B - 2) for i in range(B - 1)]
+    out["paged_attention"].append(paged_attention_case(
+        "mixtral_decode", B=B, S=1, bs=bs, lengths=lengths,
+        n_blocks=s_pad // bs, seed=24, **heads))
+    bs_slab = largest_block_divisor(s_pad)
+    out["paged_attention"].append(paged_attention_case(
+        "mixtral_prefill_chunk", B=1, S=C, bs=bs_slab, lengths=[768 + C],
+        n_blocks=s_pad // bs_slab, slab=True, seed=25, **heads))
+    # (b)'s slab: the last 512-token chunk over the window-clamped slab
+    C, W = MIX_SLAB["prefill_chunk"], mix.sliding_window
+    bs_slab = largest_block_divisor(W)
+    out["paged_attention"].append(paged_attention_case(
+        "mixtral_slab_ring_chunk", B=1, S=C, bs=bs_slab, lengths=[W],
+        n_blocks=W // bs_slab, slab=True, seed=26, **heads))
+    for name, recs in out.items():
+        for r in recs:
+            log(f"[parity] {name} {json.dumps(r)}")
+    return out
+
+
+def _serve_streams(model, params, ecfg, reqs):
+    """Warm ``ServeEngine`` up (every entry captured), serve ``reqs`` with
+    the launch counts reset; (streams, report, launches, wall s, peak
+    GiB, KV stats, logits rows).  Each request's logits rows are the
+    ones its tokens were taken from: its last prefill chunk's, then its
+    slot's row of every decode step (copies on the card of the captured
+    entries' output buffers, made after each replay)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, params, ecfg)
+    eng.warmup()
+    outputs, rows = {}, {}
+    orig = eng._finish
+    core, V = eng.core, model.cfg.vocab_size
+
+    def capture(st, now):
+        outputs[st.req.rid] = list(st.output)
+        orig(st, now)
+    eng._finish = capture
+
+    def prefill(*args, orig=core.prefill):
+        out = orig(*args)
+        rows[eng.front.pf.req.rid] = [
+            core._pf_logits[0, :V].to(torch.float32, copy=True)]
+        return out
+
+    def decode(*args, orig=core.decode):
+        out = orig(*args)
+        for s in np.nonzero(eng.active)[0]:
+            rows[eng.front.state_by_slot[s].req.rid].append(
+                core.logits[s, :V].to(torch.float32, copy=True))
+        return out
+    core.prefill, core.decode = prefill, decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    stats = eng.kv.stats()
+    del eng
+    return (outputs, rep, launches, wall,
+            torch.cuda.max_memory_allocated() / 2**30, stats, rows)
+
+
+def windowed_oracle(cfg, params, prompt, forced):
+    """``launch.steps``' one-shot windowed path on the engine's stream
+    ``forced``: the whole prompt on a slab clamped to the window (its
+    tail rolled to the ring slots), then slab ring decode steps fed the
+    engine's tokens (teacher forcing, so that each step is held on the
+    engine's own history).  Returns each step's logits row, recorded from
+    the model calls the steps make."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, batch=1, seq_len=len(prompt))
+    rows = []
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            rows.append(out[0][0, :cfg.vocab_size].float())
+            return out
+        return call
+    model.prefill = recording(model.prefill)
+    model.decode_step = recording(model.decode_step)
+    _, caches, pos, _ = make_prefill_step(
+        model, s_max=len(prompt) + len(forced))(
+        params, {"tokens": torch.as_tensor(prompt[None],
+                                           device=model.device)})
+    step = make_decode_step(model)
+    for t in forced[:-1]:
+        tok = torch.tensor([[t]], dtype=torch.int32, device=model.device)
+        _, caches, pos, _ = step(params, tok, caches, pos)
+    return rows
+
+
+def oracle_agreement(stream, rows, eng_rows, wrap_at):
+    """Step by step, whether the engine's token is the oracle's argmax on
+    the same history, and where not, the oracle's logit gap between its
+    top token and the engine's, relative to its largest logit (phase 7's
+    near-tie measure); and each step's logits error, the largest
+    difference between the engine's logits row and the oracle's relative
+    to the oracle's largest logit.  Both are read before and after the
+    step whose write first wraps the ring (``wrap_at``; 0 when the prompt
+    wrapped it)."""
+    import statistics
+    agree, gaps, errs = [], [], []
+    for i, (t, r, e) in enumerate(zip(stream, rows, eng_rows)):
+        top, scale = int(r.argmax()), float(r.abs().max())
+        agree.append(top == t)
+        errs.append(float((e - r).abs().max()) / scale)
+        if top != t:
+            gaps.append({"step": i, "engine": t, "oracle": top,
+                         "logits_gap_rel": float(r[top] - r[t]) / scale})
+    if len(errs) != len(stream):
+        raise AssertionError(f"{len(errs)} logits rows for {len(stream)} "
+                             f"tokens")
+    after, err_after = agree[wrap_at:], errs[wrap_at:]
+    return {"steps": len(agree), "agree": sum(agree),
+            "agree_after_wrap": sum(after), "steps_after_wrap": len(after),
+            "stream_equal": all(agree), "disagreements": gaps,
+            "logits_err_max": max(errs),
+            "logits_err_median": statistics.median(errs),
+            "logits_err_max_before_wrap": max(errs[:wrap_at], default=None),
+            "logits_err_median_after_wrap": statistics.median(err_after)}
+
+
+# (b)'s hold on the windowed oracle, by dtype; logits errors are relative
+# to the oracle's largest logit (PERF.md's findings hold the readings
+# the bounds were set from).  f32: every step's token is the oracle's
+# argmax up to near ties, and the median logits error after the wrap is
+# small: ~2e-5 a request, ~1e-3 where a prompt token's router sits on a
+# near tie (4e-6 of its logit) that summation order flips, which moves
+# every later row a little and can flip a decode token's experts (one
+# row wholly different); so the median, not the largest, is bounded.
+# bf16, where the kernels and the oracle's plain attention round apart
+# and more tokens' experts flip: a floor on the share of steps after the
+# wrap that take the oracle's token (0.69-0.94 read) and a bound on the
+# median logits error after the wrap (0.020-0.085 read)
+RING_GATES = {"float32": {"near_tie": 1e-3,
+                          "logits_err_median_after_wrap": 1e-2},
+              "bfloat16": {"agree_after_wrap": 0.5,
+                           "logits_err_median_after_wrap": 0.25}}
+
+
+def ring_gate_failures(dtype, agreement):
+    """The ways ``oracle_agreement``'s readings miss ``RING_GATES``."""
+    g, bad = RING_GATES[dtype], []
+    for rid, ag in agreement.items():
+        if "near_tie" in g and any(d["logits_gap_rel"] > g["near_tie"]
+                                   for d in ag["disagreements"]):
+            bad.append(f"request {rid}: a token leaves the oracle's beyond "
+                       f"a near tie ({g['near_tie']})")
+        share = ag["agree_after_wrap"] / ag["steps_after_wrap"]
+        if share < g.get("agree_after_wrap", 0.0):
+            bad.append(f"request {rid}: {share:.3f} of the steps after the "
+                       f"wrap agree < {g['agree_after_wrap']}")
+        med = ag["logits_err_median_after_wrap"]
+        if med > g["logits_err_median_after_wrap"]:
+            bad.append(f"request {rid}: median logits error after the wrap "
+                       f"{med} > {g['logits_err_median_after_wrap']}")
+    return bad
+
+
+def ring_serve(mix, params, tag, *, paged):
+    """(b): the ring binding.  Paged: 2 prompts of 4600 past the window,
+    M = 4096, whole chains of 256 blocks; slab: a prompt of 4000 on the
+    clamped slab with 200 new tokens, so that decode wraps.  Each stream
+    is held step by step against ``windowed_oracle`` on its own history,
+    tokens and logits rows (``oracle_agreement``); the misses of
+    ``RING_GATES`` are returned in the line's ``gate_failures`` for the
+    caller to raise once both pools have run.  The gates of the pool's
+    dispatch and launches raise here."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, engine_config_for
+    shape = MIX_RING if paged else MIX_SLAB
+    n, L, new = shape["slots"], shape["prompt_len"], shape["new_tokens"]
+    ecfg = engine_config_for(
+        mix, max_slots=n, prompt_len=L, max_new_tokens=new,
+        prefill_chunk=shape["prefill_chunk"], paged=paged,
+        kv_block_size=shape.get("block_size", 16))
+    model = build_model(mix, batch=n, seq_len=ecfg.max_seq_len)
+    rng = np.random.default_rng(31 + paged)
+    reqs = [Request(rid=i, tokens=rng.integers(0, mix.vocab_size, (L,)),
+                    max_new_tokens=new) for i in range(n)]
+    outputs, rep, launches, wall, peak, stats, eng_rows = _serve_streams(
+        model, params, ecfg, reqs)
+    t0 = time.perf_counter()
+    wrap_at = max(0, mix.sliding_window - L)      # decode step that wraps
+    agreement = {}
+    for r in reqs:
+        rows = windowed_oracle(mix, params, r.tokens, outputs[r.rid])
+        agreement[r.rid] = oracle_agreement(outputs[r.rid], rows,
+                                            eng_rows[r.rid], wrap_at)
+        del rows
+    del eng_rows
+    oracle_s = time.perf_counter() - t0
+    steps = rep["decode_steps"] + rep["prefill_chunks"]
+    dispatch = {b: d["fused"] for b, d in rep["attention_dispatch"].items()}
+    line = {"model": f"{mix.name} ({mix.num_layers} of 32 layers)",
+            "dtype": mix.dtype, "pool": stats["kind"],
+            "window": mix.sliding_window,
+            "requests": rep["n_requests"], "prompt_len": L,
+            "tokens_out": rep["total_new_tokens"],
+            "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+            "tpot_p90_s": rep["tpot"]["p90"], "wall_s": wall,
+            "oracle_s": oracle_s, "peak_mem_gib": peak,
+            "decode_steps": rep["decode_steps"],
+            "prefill_chunks": rep["prefill_chunks"], "state_pool": stats,
+            "kv_capacity": rep["engine"]["kv_capacity"],
+            "attention_dispatch": dispatch, "launches": launches,
+            "oracle": agreement,
+            "gate_failures": ring_gate_failures(mix.dtype, agreement)}
+    log(f"[{tag}] {json.dumps(line)}")
+    check_one_capture(tag, rep)
+    if rep["n_requests"] != n or any(len(outputs[r.rid]) != new
+                                     for r in reqs):
+        raise AssertionError(f"[{tag}] not every request finished its "
+                             f"{new} tokens")
+    want_launch = {"moe_gmm": mix.num_layers * steps,
+                   "paged_attention": 0 if paged
+                   else mix.num_layers * rep["prefill_chunks"],
+                   "flash_attention": 0,
+                   "schedule": mix.num_layers * steps}
+    if launches != want_launch:
+        raise AssertionError(f"[{tag}] launches {launches} != {want_launch}")
+    if paged:
+        if not (stats["window_ring"] and stats["ring_full_chain"]
+                and stats["ring_tokens"] == 4096
+                and stats["blocks_per_slot"] == 256):
+            raise AssertionError(f"[{tag}] the ring did not engage: {stats}")
+        want_dispatch = {"prefill_continue": False, "decode_ring": False}
+    else:
+        if rep["engine"]["kv_capacity"] != mix.sliding_window:
+            raise AssertionError(f"[{tag}] slab not clamped to the window")
+        want_dispatch = {"prefill_continue": True, "decode_slab": False}
+    if dispatch != want_dispatch:
+        raise AssertionError(f"[{tag}] dispatch {dispatch} != "
+                             f"{want_dispatch}")
+    return line
+
+
+def raise_ring_failures(lines):
+    bad = [f"[{tag}] {f}" for tag, line in lines.items()
+           for f in line["gate_failures"]]
+    if bad:
+        raise AssertionError("(b)'s rings leave the windowed oracle: "
+                             + "; ".join(bad))
+
+
+def mixtral_ep_serve(mix, params):
+    """(c): G = 4 on ``VirtualGroup(4)`` under 0.9 skew with harmoeny
+    (phase 4b's ``ep_serve``), plus the hosted gather's bytes: each call
+    of a layer gathers G x K rows of each expert matrix."""
+    rec = ep_serve(mix, params, "harmoeny", seed=0, **MIX_EP)
+    K = mix.moe.num_foreign_slots
+    row_bytes = mix.d_model * mix.moe.d_ff_expert * 2
+    per_call = EP_DEGREE * K * 3 * row_bytes
+    calls = mix.num_layers * (rec["decode_steps"] + rec["prefill_chunks"])
+    rec.update(model=f"{mix.name} ({MIXTRAL_LAYERS} of 32 layers)",
+               fetch_rows_per_layer_call=EP_DEGREE * K * 3,
+               fetch_row_mb=row_bytes / 1e6,
+               fetch_bytes_per_layer_call=per_call,
+               fetch_bytes_total=per_call * calls)
+    log(f"[mixtral-ep] {json.dumps(rec)}")
+    if any(v != 0 for ph in rec["drops"].values() for v in ph):
+        raise AssertionError(f"[mixtral-ep] dropped units: {rec['drops']}")
+    if rec["moved_units_per_layer_decode"] <= 0:
+        raise AssertionError("[mixtral-ep] harmoeny moved no unit at decode")
+    if rec["launches"]["moe_gmm"] != EP_DEGREE * calls:
+        raise AssertionError(f"[mixtral-ep] moe_gmm launched "
+                             f"{rec['launches']['moe_gmm']} times, not "
+                             f"{EP_DEGREE * calls}")
+    return rec
+
+
+def small_mixtral_reference_check(*, ep_degree, paged, seed=0) -> None:
+    """(d): reduced mixtral-8x7b in f32 (window 64) with learned routing
+    (q = 1 at G = 4), prompts past the window (paged: the ring) or up to
+    it with decode wrapping the clamped slab: the card's greedy streams
+    equal the CPU plain versions'."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, ServeEngine, VirtualClock, \
+        engine_config_for
+    cfg = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           q_tokens=1))
+    L, new = (100, 8) if paged else (64, 16)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(rng.integers(40, L)),))
+               for _ in range(4)]
+    params = build_model(cfg, batch=3, seq_len=L, device="cpu",
+                         ep_degree=ep_degree).init(seed)
+    streams, ring = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, batch=3, seq_len=L, device=dev,
+                            ep_degree=ep_degree)
+        ecfg = engine_config_for(cfg, max_slots=3, prompt_len=L,
+                                 max_new_tokens=new, prefill_chunk=16,
+                                 paged=paged, kv_block_size=16)
+        eng = ServeEngine(model, _to(params, dev), ecfg,
+                          clock=VirtualClock(0.1), device=dev)
+        out = {}
+        orig = eng._finish
+
+        def capture(st, now, out=out, orig=orig):
+            out[st.req.rid] = list(st.output)
+            orig(st, now)
+        eng._finish = capture
+        rep = eng.run([Request(rid=i, tokens=p, max_new_tokens=new)
+                       for i, p in enumerate(prompts)])
+        streams[dev] = out
+        ring[dev] = rep["state_pool"].get("window_ring", False)
+    pool = "paged" if paged else "slab"
+    if streams["cpu"] != streams["cuda"] or ring["cuda"] != paged:
+        raise AssertionError(f"small mixtral reference (G = {ep_degree}, "
+                             f"{pool}): card streams {streams['cuda']} != "
+                             f"cpu streams {streams['cpu']} (ring "
+                             f"{ring})")
+    log(f"[reference] reduced mixtral-8x7b f32, window 64, G = {ep_degree}, "
+        f"{pool}{' (ring)' if paged else ' (clamped, decode wraps)'}: "
+        f"{len(prompts)} greedy streams on the card equal the CPU "
+        f"plain-version streams")
+
+
+def mixtral_path():
+    """Phase 11: full-width mixtral-8x7b cut to ``MIXTRAL_LAYERS`` layers,
+    weights drawn once for (a)-(c); then (d).  Returns the summaries."""
+    import torch
+    from repro_torch.models.model import build_model
+    mix = mixtral_config()
+    log(f"[mixtral] {mix.name} cut to {MIXTRAL_LAYERS} of 32 layers: the "
+        f"full depth's ~87 GiB of bf16 weights do not fit the card's 80 GB")
+    t0 = time.perf_counter()
+    params = build_model(mix, batch=MIX_A["slots"],
+                         seq_len=MIX_A["max_seq_len"]).init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[mixtral] {n_params / 1e9:.2f} B parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    out = {"serve": pattern_serve(mix, params, "mixtral", paged=True,
+                                  seed=0, **MIX_A)}
+    out["ring_paged"] = ring_serve(mix, params, "mixtral-ring", paged=True)
+    out["ring_slab"] = ring_serve(mix, params, "mixtral-ring-slab",
+                                  paged=False)
+    raise_ring_failures({"mixtral-ring": out["ring_paged"],
+                         "mixtral-ring-slab": out["ring_slab"]})
+    out["ep"] = mixtral_ep_serve(mix, params)
+    # the same rings on the same 8 layers and weights in f32: the one
+    # change is the precision, which tells bf16 rounding (the kernels and
+    # the oracle's plain attention round apart, and some tokens' top-2
+    # experts flip) from a fault of the 8-layer path.  The bf16 weights go
+    # as the f32 ones come (44.2 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cast_(params, torch.float32)
+    f32 = mix.replace(dtype="float32")
+    out["ring_paged_f32"] = ring_serve(f32, params, "mixtral-ring-f32",
+                                       paged=True)
+    out["ring_slab_f32"] = ring_serve(f32, params, "mixtral-ring-slab-f32",
+                                      paged=False)
+    raise_ring_failures({"mixtral-ring-f32": out["ring_paged_f32"],
+                         "mixtral-ring-slab-f32": out["ring_slab_f32"]})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ep_degree in (1, EP_DEGREE):
+        for paged in (False, True):
+            small_mixtral_reference_check(ep_degree=ep_degree, paged=paged)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2711,9 +3194,18 @@ def main() -> int:
     whole = dict(batch=4, prompt_len=1024, s_max=1024 + 64, new_tokens=32)
 
     elapsed("built")
+    if "--only-mixtral" in sys.argv[1:]:
+        # a shorter run for work on phase 11: its parity cases and the
+        # phase itself, without the kernels line and the result line
+        mixtral_kernel_parity(mixtral_config())
+        mixtral_path()
+        elapsed("phase 11")
+        return 0
     # --- phase 2: kernel parity ------------------------------------------
     parity = kernel_parity(cfg, moon, switch, flash_batch=whole["batch"],
                            flash_len=whole["prompt_len"], **shape)
+    for name, recs in mixtral_kernel_parity(mixtral_config()).items():
+        parity[name] += recs
 
     elapsed("phase 2")
     # --- phase 3/4: the serve path + small reference ----------------------
@@ -2794,6 +3286,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist = dist_gloo_path(cfg, spec, dist_ref)
     elapsed("phase 10")
+    # --- phase 11: mixtral-8x7b and its window rings ------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = mixtral_path()
+    elapsed("phase 11")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -2821,7 +3318,19 @@ def main() -> int:
                 f"dist_gloo_qwen15_moe_a27b_ep{EP_DEGREE}_per_process":
                     [rec[name] for rec in dist["launches"]],
                 f"dist_reference_qwen15_moe_a27b_ep{EP_DEGREE}_virtual":
-                    dist["reference_launches"][name]},
+                    dist["reference_launches"][name],
+                f"serve_mixtral_8x7b_{MIXTRAL_LAYERS}of32_paged":
+                    mixtral["serve"]["launches"][name],
+                f"ring_mixtral_8x7b_{MIXTRAL_LAYERS}of32_paged":
+                    mixtral["ring_paged"]["launches"][name],
+                f"ring_mixtral_8x7b_{MIXTRAL_LAYERS}of32_slab":
+                    mixtral["ring_slab"]["launches"][name],
+                f"ring_mixtral_8x7b_{MIXTRAL_LAYERS}of32_f32_paged":
+                    mixtral["ring_paged_f32"]["launches"][name],
+                f"ring_mixtral_8x7b_{MIXTRAL_LAYERS}of32_f32_slab":
+                    mixtral["ring_slab_f32"]["launches"][name],
+                f"serve_mixtral_8x7b_{MIXTRAL_LAYERS}of32_ep{EP_DEGREE}"
+                f"_harmoeny": mixtral["ep"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -7,9 +7,11 @@ of the PyTorch port's paths (random weights, bf16):
     python3 scripts/profile_torch_serve.py --path ep [--decode-steps 4]
     python3 scripts/profile_torch_serve.py --path prefill [--decode-steps 4]
     python3 scripts/profile_torch_serve.py --eager [--arch ...] [--slab]
+    python3 scripts/profile_torch_serve.py --arch mixtral-8x7b --layers 8
 
 ``serve`` (the default): a full-width model (``--arch``, default
-qwen15-moe-a27b; also moonshot-v1-16b-a3b or switch128) in
+qwen15-moe-a27b; also moonshot-v1-16b-a3b, switch128 or mixtral-8x7b,
+whose 32 layers do not fit one card: ``--layers`` cuts the depth) in
 ``ServeEngine`` with 4 slots, on the paged KV pool or, with ``--slab``,
 on the slab (the engine's default); traces the first 32-token prefill
 chunk of a request (and the second, untraced), then, with every slot
@@ -58,6 +60,9 @@ def main() -> int:
                     default="serve")
     ap.add_argument("--arch", default="qwen15-moe-a27b",
                     help="the serve path's model")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve / ep paths: the model's first N layers "
+                         "(0: the config's depth)")
     ap.add_argument("--slab", action="store_true",
                     help="serve path: the slab KV pool instead of the "
                          "paged one")
@@ -78,7 +83,8 @@ def main() -> int:
     for policy in policies:
         for eager in modes:
             profile_serve(args.decode_steps, arch=args.arch,
-                          paged=not args.slab, eager=eager,
+                          layers=args.layers, paged=not args.slab,
+                          eager=eager,
                           ep_degree=4 if policy else 1,
                           policy=policy or "harmoeny")
             gc.collect()                   # the engine holds cycles
@@ -147,15 +153,17 @@ def profile_prefill(decode_steps: int) -> int:
 
 def profile_serve(decode_steps: int, ep_degree: int = 1,
                   policy: str = "harmoeny", arch: str = "qwen15-moe-a27b",
-                  paged: bool = True, eager: bool = False) -> int:
+                  layers: int = 0, paged: bool = True,
+                  eager: bool = False) -> int:
     import contextlib
     from repro_torch.serve import stepcore
     with stepcore.eager() if eager else contextlib.nullcontext():
-        return _profile_serve(decode_steps, ep_degree, policy, arch, paged,
-                              "_eager" if eager else "_captured")
+        return _profile_serve(decode_steps, ep_degree, policy, arch, layers,
+                              paged, "_eager" if eager else "_captured")
 
 
-def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
+def _profile_serve(decode_steps, ep_degree, policy, arch, layers, paged,
+                   mode):
     import dataclasses
     import numpy as np
     import torch
@@ -164,6 +172,8 @@ def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
     from repro_torch.models.model import build_model
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     if ep_degree > 1:             # chip_smoke.py phase 4b's skewed routing
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, policy=policy, router_skew=0.9, q_tokens=1))
@@ -173,7 +183,8 @@ def _profile_serve(decode_steps, ep_degree, policy, arch, paged, mode):
     eng = ServeEngine(model, params, EngineConfig(
         max_slots=slots, max_seq_len=288, prefill_chunk=chunk,
         paged=paged, kv_block_size=16))
-    tag = f"_{cfg.name}_{'paged' if paged else 'slab'}"
+    tag = f"_{cfg.name}{f'_{layers}layers' if layers else ''}" \
+        f"_{'paged' if paged else 'slab'}"
     if ep_degree > 1:
         tag += f"_ep{ep_degree}_{policy}"
     tag += mode

@@ -7,6 +7,14 @@ On the card (the default), full width, random bf16 weights from seed 0:
       --paged --batch 8 --requests 24 --rate 8 --prompt-len 128 --gen 32 \\
       --temperature 0.8 --top-k 50 --top-p 0.9
 
+The archs are the port's registry: qwen15-moe-a27b, moonshot-v1-16b-a3b,
+switch128 and mixtral-8x7b, whose sliding window the engine serves as
+JAX does (the slab clamped to the window; ``--paged`` pools wrap it in
+ring buffers), e.g. on the CPU at reduced size:
+  serve(build_parser().parse_args(["--arch", "mixtral-8x7b", "--reduced",
+      "--paged", "--prompt-len", "80", "--prefill-chunk", "16"]),
+      device="cpu")
+
 The flags are the JAX CLI's.  One closed batch of ``--batch`` prompts is
 the default; ``--requests N --rate R`` opens the loop with N Poisson
 arrivals at R req/s, admitted into freed decode slots as earlier requests
@@ -35,10 +43,11 @@ lockstep, and only rank 0 prints and writes the report.
 ``--fused-attention`` and ``--fused-moe`` are accepted as in JAX: on the
 card the hand-written kernels run whatever they say, and the report
 gives what ran (True on the card, False on the CPU, where the plain
-versions run).  Not ported yet, and refused with ``NotImplementedError``:
-``--replicas > 1``, ``--disaggregate``, ``--prefix-sharing``,
-``--speculative-k`` and any arch outside the port's registry (ROADMAP
-item 7); ``--data-par > 1`` raises as in JAX.
+versions run); a window ring refuses ``--fused-attention`` as the JAX
+engine does.  Not ported yet, and refused with ``NotImplementedError``:
+``--replicas > 1``, ``--disaggregate``, ``--prefix-sharing`` and
+``--speculative-k`` (ROADMAP item 7), and any arch outside the port's
+registry (items 8-9); ``--data-par > 1`` raises as in JAX.
 
 ``serve(args, device=..., params=...)`` runs on the card unless the
 caller asks for the CPU, on weights drawn from seed 0 unless the caller
@@ -165,7 +174,7 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--arch {args.arch}: not in the port's registry "
             f"{sorted(REGISTRY)}; the other models come with ROADMAP "
-            f"items 7-9")
+            f"items 8-9")
     for flag, on in (("--replicas", getattr(args, "replicas", 1) > 1),
                      ("--disaggregate", getattr(args, "disaggregate", False)),
                      ("--prefix-sharing", args.prefix_sharing),

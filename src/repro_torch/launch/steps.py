@@ -9,7 +9,11 @@ ported yet).
         token, caches, pos, _ = decode_step(params, token, caches, pos)
 
 Greedy: each step returns the argmax token [B, 1] int32 (ties to the
-lower id, as ``jnp.argmax``).  The slab caches are updated in place.
+lower id, as ``jnp.argmax``).  The slab caches are updated in place.  On
+a sliding-window model this is the one-shot windowed path: the slab is
+clamped to the window, the prefill keeps the prompt's window tail at its
+ring slots, and each decode step writes at its position modulo the
+clamped slab's length.
 """
 from __future__ import annotations
 

@@ -3,17 +3,20 @@
 Port of ``repro/models/model.py`` for decoder-only MoE stacks: MoE
 layers after optional leading dense layers (qwen15-moe-a27b,
 moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
-GELU MLPs (switch128).  The returned ``Model`` exposes:
+GELU MLPs (switch128), with full or sliding-window attention
+(mixtral-8x7b).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
   prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
-                skew_assign, moe_replica_ids)  -> (logits, caches, pos + C, diags)
+                skew_assign, moe_replica_ids, fused_attention)
+                                               -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
               block_size, moe_policy, skew_assign, moe_replica_ids,
-              moe_residency_ids, moe_layer_diags)
+              moe_residency_ids, moe_layer_diags, fused_attention)
                                                -> (logits, caches, pos + S, diags)
-  init_cache(batch, s_max, device)             -> slab K/V caches
-  init_paged_cache(num_blocks, block_size, s_ref, seq_axes)
+  init_cache(batch, s_max, device, clamp_window)
+                                               -> slab K/V caches
+  init_paged_cache(num_blocks, block_size, s_ref, seq_axes, clamp_window)
                                                -> the physical paged K/V pool
 Caches are updated in place.  Everything lives on ``model.device``: CUDA
 unless the caller passes ``device="cpu"``.  At expert-parallel degree
@@ -170,27 +173,36 @@ class Model:
             params["lm_head"] = nrm((Vp, d), 0.02)
         return params
 
-    def init_cache(self, b: int, s_max: int, device=None) -> Dict[str, Any]:
+    def init_cache(self, b: int, s_max: int, device=None,
+                   clamp_window: bool = True) -> Dict[str, Any]:
         """Slab K/V caches on ``model.device``, or on ``device`` when given
-        (the serve engine probes leaf shapes on the ``meta`` device)."""
+        (the serve engine probes leaf shapes on the ``meta`` device).  A
+        sliding-window model's leaves hold min(s_max, window) positions
+        unless ``clamp_window`` is False."""
         return {"stack": T.init_stack_cache(self.cfg, b, s_max, self.dtype,
-                                            device or self.device)}
+                                            device or self.device,
+                                            clamp_window)}
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          s_ref: Optional[int] = None,
-                         seq_axes: Any = None) -> Dict[str, Any]:
+                         seq_axes: Any = None,
+                         clamp_window: bool = True) -> Dict[str, Any]:
         """A batch-1 physical pool: each leaf of ``init_cache(1, s_ref)``
         (``s_ref`` default: one block) with its KV-length axis resized to
         ``num_blocks * block_size`` positions, addressed through block
         tables.  ``seq_axes`` skips re-discovery when the caller (the
-        serve engine) holds them."""
+        serve engine) holds them; ``clamp_window=False`` builds the pool
+        over unclamped leaves (the serve engine's sliding-window rings)."""
         from repro_torch.serve.paging import make_paged_pool
         from repro_torch.serve.slots import discover_seq_axes
         s = s_ref or block_size
+
+        def ic(b, s_max, device=None):
+            return self.init_cache(b, s_max, device, clamp_window)
         if seq_axes is None:
-            seq_axes = discover_seq_axes(self.init_cache, s)
-        return make_paged_pool(self.init_cache, s, seq_axes, num_blocks,
-                               block_size, device=self.device)
+            seq_axes = discover_seq_axes(ic, s)
+        return make_paged_pool(ic, s, seq_axes, num_blocks, block_size,
+                               device=self.device)
 
     # ------------------------------------------------------------------
     def _vocab_w(self, params):
@@ -207,7 +219,9 @@ class Model:
                 skew_key: Optional[SkewKey] = None):
         """A whole prompt ``batch["tokens"]`` [B, S] on a fresh slab cache
         of ``s_max`` positions (default S + 64): attention through the
-        flash kernel, K/V into the cache prefix [0, S).  Returns (logits
+        flash kernel (``chunked_attention`` under a sliding window), K/V
+        into the cache prefix [0, S) (a window-clamped cache keeps the
+        window's tail at its ring slots).  Returns (logits
         [B, Vp] at the last position, caches, pos = S as a 0-d int32
         tensor, diags).  Runs with the build-time MoE spec."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
@@ -224,7 +238,8 @@ class Model:
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos,
                       last_index=None, skew_key: Optional[SkewKey] = None,
                       skew_assign: Optional[torch.Tensor] = None,
-                      moe_replica_ids: Optional[torch.Tensor] = None):
+                      moe_replica_ids: Optional[torch.Tensor] = None,
+                      fused_attention: Optional[bool] = None):
         """Chunked-prefill continuation: tokens [Bc, C] appended to the slab
         ``caches`` at position ``pos`` (all rows share it).  Logits at
         ``last_index`` (default C - 1); pad tokens past it are kept out of
@@ -234,7 +249,9 @@ class Model:
         ``decode_step``) the chunk reads no host value, so the serve
         engine's captured chunk replays at any position.
         ``moe_replica_ids`` [G, R] names the experts in the replica slots
-        (``moe_layer.moe_block``)."""
+        (``moe_layer.moe_block``).  ``fused_attention`` (the serve
+        engine's ``fused_paged_attention``) makes the chunk strict: a
+        branch without a kernel raises ``FusedPathUnavailable``."""
         Bc, C = tokens.shape
         spec = dataclasses.replace(self.moe_spec, tokens_local=Bc * C)
         vmask = None
@@ -247,7 +264,8 @@ class Model:
             h, params["stack"], self.cfg, cache=caches["stack"],
             cache_len=pos + C, q_offset=pos, moe_spec=spec, comm=self.comm,
             skew_key=skew_key, continue_prefill=True, valid_mask=vmask,
-            skew_assign=skew_assign, moe_replica_ids=moe_replica_ids)
+            skew_assign=skew_assign, moe_replica_ids=moe_replica_ids,
+            strict=bool(fused_attention))
         h_last = (h[:, -1] if last_index is None
                   else h.index_select(1, last.long())[:, 0])
         return self._head(params, h_last), caches, pos + C, diags
@@ -259,7 +277,8 @@ class Model:
                     skew_assign: Optional[torch.Tensor] = None,
                     moe_replica_ids: Optional[torch.Tensor] = None,
                     moe_residency_ids: Optional[torch.Tensor] = None,
-                    moe_layer_diags: bool = False):
+                    moe_layer_diags: bool = False,
+                    fused_attention: Optional[bool] = None):
         """token [B, S] against the paged pool (``block_table`` given; S > 1
         is a multi-query window) or, with S = 1, the slab caches of
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
@@ -273,8 +292,10 @@ class Model:
         replica slots, ``moe_residency_ids`` [G, W] (-1 pads) each rank's
         resident working set (``moe_layer.moe_block``); ``moe_layer_diags``
         adds ``expert_load_layers`` to the diagnostics
-        (``transformer.run_stack``).  Reads no device value on the host.  Returns logits [B, Vp] at the last position
-        when S == 1, else [B, S, Vp]."""
+        (``transformer.run_stack``); ``fused_attention`` makes a paged
+        step strict, as in ``prefill_chunk``.  Reads no device value on
+        the host.  Returns logits [B, Vp] at the last position when
+        S == 1, else [B, S, Vp]."""
         B, S = token.shape
         if S > 1 and block_table is None:
             raise NotImplementedError(
@@ -299,7 +320,8 @@ class Model:
             block_size=block_size, skew_assign=skew_assign,
             moe_replica_ids=moe_replica_ids,
             moe_residency_ids=moe_residency_ids,
-            moe_layer_diags=moe_layer_diags)
+            moe_layer_diags=moe_layer_diags,
+            strict=bool(fused_attention) and block_table is not None)
         if S == 1:
             logits = self._head(params, h[:, -1])
         else:
@@ -335,8 +357,8 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
          "encoder-decoder / prefix-embedding models"),
         (cfg.rope_theta <= 0, "absolute position embeddings"),
-        (cfg.sliding_window > 0 or cfg.global_attn_every > 0,
-         "sliding-window attention"),
+        (cfg.global_attn_every > 0,
+         "local and global attention layers"),
         (cfg.attn_logit_softcap > 0, "attention logit softcap"),
         (cfg.post_norm, "post-norm layers"),
         (cfg.name.startswith("gemma"), "gemma embedding scaling"),

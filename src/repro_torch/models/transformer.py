@@ -60,10 +60,16 @@ def layer_slice(tree: Any, i: int) -> Any:
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
-                     device) -> Dict[str, Any]:
+                     device, clamp_window: bool = True) -> Dict[str, Any]:
     """Stacked K/V caches [n_steps, batch, s_max, Hkv, hd] per pattern slot,
-    plus a list of [batch, s_max, Hkv, hd] caches for the lead layers."""
+    plus a list of [batch, s_max, Hkv, hd] caches for the lead layers.  A
+    sliding-window model's caches hold min(s_max, window) positions, a ring
+    buffer; ``clamp_window=False`` keeps every leaf at ``s_max`` (the
+    serve engine's paged mode, where the window is enforced by ring-index
+    arithmetic and masks, not by storage)."""
     pattern, n_steps, lead = layer_pattern(cfg)
+    if clamp_window and cfg.sliding_window and not cfg.global_attn_every:
+        s_max = min(s_max, cfg.sliding_window)
     shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
 
     def one(lead_shape=()):
@@ -80,7 +86,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      cache_len, moe_spec: MoEBlockSpec, comm, skew_key,
                      continue_prefill: bool, valid_mask, block_table,
-                     block_size: int, skew_assign=None, moe_replica_ids=None,
+                     block_size: int, strict: bool,
+                     skew_assign=None, moe_replica_ids=None,
                      moe_residency_ids=None):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
     experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
@@ -89,7 +96,7 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
-        block_table=block_table, block_size=block_size)
+        block_table=block_table, block_size=block_size, strict=strict)
     x = x + h
     h = norm(x, p["norm2"], cfg.norm)
     if kind == "dense":
@@ -116,7 +123,7 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               skew_assign: Optional[torch.Tensor] = None,
               moe_replica_ids: Optional[torch.Tensor] = None,
               moe_residency_ids: Optional[torch.Tensor] = None,
-              moe_layer_diags: bool = False
+              moe_layer_diags: bool = False, strict: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
@@ -129,12 +136,13 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
     (``moe_layer.moe_block``).  Returns (x, cache, diags averaged over the
     MoE layers); ``moe_layer_diags`` adds ``expert_load_layers``
     [n_moe_layers, Ep], each MoE layer's expert loads before the mean,
-    which the tiered-residency manager reads."""
+    which the tiered-residency manager reads.  ``strict`` goes to every
+    ``attention_block``."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
               comm=comm, continue_prefill=continue_prefill,
               valid_mask=valid_mask, block_table=block_table,
-              block_size=block_size)
+              block_size=block_size, strict=strict)
     moe_kw = dict(moe_replica_ids=moe_replica_ids,
                   moe_residency_ids=moe_residency_ids)
     for i in range(lead):

@@ -35,6 +35,14 @@ table, and every MoE layer the grouped expert FFN, whatever
 are accepted for the JAX engine's sake, and ``report()`` gives what ran
 (True on the card, False on the CPU, where the plain versions run).
 
+A sliding-window model (mixtral-8x7b) is served as JAX serves it: on the
+slab every layer's cache is clamped to the window and decode wraps it; on
+the paged pool, where the window binds over a slot's chain, each chain is
+a fixed ring of round_up(window, kv_block_size) positions allocated whole
+at admission (``kvstore``), and a chunk wider than the ring or the fused
+paged kernel is refused with the JAX engine's messages
+(``check_window_ring``).
+
 ``report()`` has every section and key the JAX engine's has for the same
 ``EngineConfig``, plus ``engine.device``.
 A model built at expert-parallel degree G > 1 runs its MoE blocks over G
@@ -219,6 +227,32 @@ class EngineConfig:
         return self
 
 
+def check_window_ring(cfg, ecfg) -> None:
+    """A paged pool serves a window that binds over a slot's chain as a
+    ring buffer: refuse a chunk wider than the ring and the fused paged
+    kernel, with the JAX engine's messages.  (The JAX engine's other ring
+    blockers, prefix sharing, speculative verify and split roles, are
+    fields ``EngineConfig`` does not take yet; they come with ROADMAP
+    item 7.)"""
+    w = cfg.sliding_window or 0
+    bs, C = ecfg.kv_block_size, ecfg.prefill_chunk
+    s_pad = round_up(ecfg.max_seq_len, C)       # the JAX paged_pool_len
+    if not (ecfg.paged and 0 < w <= -(-s_pad // bs) * bs):
+        return
+    M = round_up(w, bs)
+    blockers = []
+    if C > M:
+        blockers.append(f"prefill_chunk {C} > ring {M} tokens (a chunk "
+                        f"must never self-overlap a ring slot; shrink "
+                        f"prefill_chunk)")
+    if ecfg.fused_paged_attention:
+        blockers.append("the fused paged kernel has no ring arithmetic")
+    if blockers:
+        raise ValueError(f"{cfg.name} (sliding_window={w}) serves paged "
+                         f"through the window ring buffer, which rejects: "
+                         + "; ".join(blockers))
+
+
 def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       max_new_tokens: int, prefill_chunk: int = 0,
                       eos_id: Optional[int] = None, skew_seed: int = 0,
@@ -233,12 +267,24 @@ def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
                       rebalance_interval: int = 0, replica_slots: int = 0,
                       resident_experts: int = 0,
                       prefetch_policy: str = "predictive") -> EngineConfig:
-    """Serving shapes from a workload: the pool covers prompt + generation
-    and the prefill chunk divides the padded prompt (the JAX function's
-    keywords; the port builds no sliding-window model, so its window
-    checks never apply)."""
+    """Serving shapes from a workload (the JAX function's keywords and
+    checks): the pool covers prompt + generation, the prefill chunk
+    divides the padded prompt, and a sliding window bounds the padded
+    prompt on the slab (its cache is clamped to the window) or the chunk
+    on the paged pool (one chunk must fit the ring)."""
     chunk = prefill_chunk or min(max(prompt_len, 1), 32)
+    window = cfg.sliding_window or 0
     pad = round_up(prompt_len, chunk)
+    if window and not paged and pad > window:
+        raise ValueError(
+            f"padded prompt {pad} exceeds the sliding window {window}; "
+            f"slab chunked prefill must fit the window-clamped KV cache "
+            f"(the paged ring buffer lifts this — pass paged=True)")
+    if window and paged and chunk > round_up(window, kv_block_size):
+        raise ValueError(
+            f"prefill_chunk {chunk} exceeds the sliding-window ring of "
+            f"{round_up(window, kv_block_size)} tokens; one chunk must "
+            f"never self-overlap a ring slot — shrink prefill_chunk")
     return EngineConfig(
         max_slots=max_slots, max_seq_len=max(prompt_len + max_new_tokens, pad),
         prefill_chunk=chunk, eos_id=eos_id, skew_seed=skew_seed, role=role,
@@ -267,6 +313,7 @@ class ServeEngine:
         if ecfg.fused_moe_gmm and not cfg.is_moe:
             raise ValueError("fused_moe_gmm is the grouped-GEMM expert "
                              "FFN kernel; it needs an MoE model")
+        check_window_ring(cfg, ecfg)
         self.dist = model.comm if isinstance(model.comm, DistComm) else None
         if self.dist is not None and (ecfg.replica_slots > 0
                                       or ecfg.resident_experts > 0):
@@ -463,6 +510,10 @@ class ServeEngine:
     def _ensure_decode_blocks(self) -> None:
         """Every active slot's chain must cover its write position before a
         decode step; grow oldest requests first."""
+        if self.kv.ring_full_chain:
+            # every KV leaf wraps the fixed ring: chains were allocated
+            # whole at admission and never grow
+            return
         order = sorted(np.nonzero(self.active)[0],
                        key=lambda s: self.front.state_by_slot[s].admit_seq)
         for s in order:
@@ -493,7 +544,7 @@ class ServeEngine:
             self.core.prefill(self.params, chunk, self.kv.scratch, start,
                               n - 1, self._chunk_idx, self._replica_ids)
             self._chunk_idx += 1
-            self.kv.after_chunk(st.req.rid, start)
+            self.kv.after_chunk(st.req.rid, start, start + n)
             st.prefill_pos += n
             if st.prefill_done:
                 self.kv.on_prefill_done(st.slot)
@@ -570,11 +621,11 @@ class ServeEngine:
     def _attn_kv_bytes(self, span: int) -> int:
         """Analytic attention-read bytes of one decode step whose deepest
         read a row is ``pos + span`` (the JAX engine's model): the kernel
-        reads each row's live block-rounded chain; the plain version
-        every row's whole logical view."""
+        reads each row's live block-rounded chain; the plain version, and
+        the ring gather, every row's whole logical view."""
         bs = self.ecfg.kv_block_size
         if self.ecfg.paged:
-            if self._fused:
+            if self._fused and not self.kv.ring:
                 lens = self.pos[self.active] + span
                 toks = int(np.sum(-(-lens // bs) * bs))
             else:
@@ -587,8 +638,11 @@ class ServeEngine:
         """Analytic attention-read bytes of one prefill chunk whose
         deepest position is ``upto``: the kernel stops at the
         slab-block-rounded frontier on the paged pool (the JAX engine's
-        model); otherwise the whole scratch."""
-        if self.ecfg.paged and self._fused:
+        model); the plain version, which a window binding over the
+        scratch takes, reads the whole scratch."""
+        w = self.cfg.sliding_window
+        if self.ecfg.paged and self._fused and (w == 0
+                                                or w >= self.kv.s_pad):
             toks = -(-upto // self._slab_bs) * self._slab_bs
         else:
             toks = self.kv.s_pad

@@ -15,10 +15,21 @@ leading dense layers' leaves ``[B, S, Hkv, hd]`` sit beside stacked ones
 delegates every pool or allocator touch here.
 
 The write is compiled once, as JAX jits ``write_blocks`` / ``write_slot``
-(``stepcore.Entry``): it reads the block-table row and chunk start, or
-the slot, from a static int32 device buffer filled from pinned memory,
-and on the card it is captured as its own CUDA graph at ``warm()`` (or
-its first use) and replayed after.
+(``stepcore.Entry``): it reads the block-table row, the chunk start and
+the end of its real tokens, or the slot, from a static int32 device
+buffer filled from pinned memory, and on the card it is captured as its
+own CUDA graph at ``warm()`` (or its first use) and replayed after.
+
+Sliding-window models are served paged as ring buffers, as in JAX: the
+pool and scratch are built over the unclamped cache (chunked prefill
+attends through the full-length scratch, where the window is a mask), and
+each window-clamped leaf gets the ring modulus M = round_up(window,
+block_size) (``ring_mods``, constants of the captured write): logical
+position p lives at ring slot p % M of the slot's chain, in the prefill
+scatter and in the decode write and gather.  When every KV leaf is
+windowed the chain itself shrinks to M / block_size blocks, allocated
+whole at admission (``ring_full_chain``).  On the slab a windowed leaf is
+clamped to the window and decode wraps it (``attention.decode_slab``).
 """
 from __future__ import annotations
 
@@ -29,8 +40,9 @@ import numpy as np
 from repro_torch.configs.base import round_up
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
                                       blocks_for_tokens, write_chunk_blocks)
-from repro_torch.serve.slots import (discover_batch_axes, discover_seq_axes,
-                                     min_kv_capacity, write_slot)
+from repro_torch.serve.slots import (leaf_shapes, discover_batch_axes,
+                                     discover_seq_axes, min_kv_capacity,
+                                     write_slot)
 from repro_torch.serve.stepcore import Entry, Staged
 
 
@@ -43,10 +55,30 @@ class KVOwner:
         self.seq_axes = discover_seq_axes(model.init_cache, ecfg.max_seq_len)
         self.alloc = None
         self.block_table = None
+        self.ring = self.ring_full_chain = False
+        self.ring_mod = 0
         if self.paged:
             bs = ecfg.kv_block_size
             self.s_pad = s_pad
             self.blocks_per_slot = blocks_for_tokens(s_pad, bs)
+            # ring discovery: a leaf is windowed iff clamping changes its
+            # KV length at s_pad; with every leaf windowed the whole chain
+            # shrinks to M
+            window = model.cfg.sliding_window
+            M = round_up(window, bs) if window else 0
+            clamped = leaf_shapes(model.init_cache, 1, s_pad)
+            full = leaf_shapes(lambda b, s, device: model.init_cache(
+                b, s, device, clamp_window=False), 1, s_pad)
+            self.ring_mods = [M if ax >= 0 and c[ax] != f[ax] else 0
+                              for c, f, ax in zip(clamped, full,
+                                                  self.seq_axes)]
+            n_seq = sum(ax >= 0 for ax in self.seq_axes)
+            n_ring = sum(m > 0 for m in self.ring_mods)
+            self.ring = n_ring > 0
+            self.ring_mod = M if self.ring else 0
+            self.ring_full_chain = self.ring and n_ring == n_seq
+            if self.ring_full_chain:
+                self.blocks_per_slot = M // bs
             usable = ecfg.num_kv_blocks or B * self.blocks_per_slot
             if usable < self.blocks_per_slot:
                 raise ValueError(
@@ -57,8 +89,9 @@ class KVOwner:
                                        NULL_BLOCK, np.int32)
             self.kv_capacity = s_pad
             self.pool = model.init_paged_cache(self.alloc.num_blocks, bs,
-                                               s_pad, seq_axes=self.seq_axes)
-            self.scratch = model.init_cache(1, s_pad)
+                                               s_pad, seq_axes=self.seq_axes,
+                                               clamp_window=False)
+            self.scratch = model.init_cache(1, s_pad, clamp_window=False)
         else:
             self.s_pad = ecfg.max_seq_len
             self.blocks_per_slot = 0
@@ -68,8 +101,10 @@ class KVOwner:
                 model.init_cache, ecfg.max_seq_len, self.seq_axes)
             self.pool = model.init_cache(B, ecfg.max_seq_len)
             self.scratch = model.init_cache(1, ecfg.max_seq_len)
-        # paged: block-table row | chunk start; slab: the slot
-        self._in = Staged(self.blocks_per_slot + 1, self.device)
+        # paged: block-table row | chunk start | end of its real tokens;
+        # slab: the slot
+        self._in = Staged(self.blocks_per_slot + 2 if self.paged else 1,
+                          self.device)
         self.write = Entry(lambda pool, scratch: self._write(pool, scratch),
                            self.device)
 
@@ -83,6 +118,10 @@ class KVOwner:
         resource."""
         if not self.paged:
             return 0
+        if self.ring_full_chain:
+            # every leaf wraps the same fixed ring: the chain is whole or
+            # nothing, whatever the prompt's length
+            return self.blocks_per_slot
         return blocks_for_tokens(round_up(len(tokens),
                                           self.ecfg.prefill_chunk),
                                  self.ecfg.kv_block_size)
@@ -97,11 +136,12 @@ class KVOwner:
             chain = self.alloc.alloc_chain(rid, n_fresh)
             assert chain is not None          # gated by can_admit
 
-    def after_chunk(self, rid: int, start: int) -> None:
-        """The scratch holds a finished chunk at ``start``: paged, scatter
-        it into ``rid``'s blocks (the slab commits once, at the end)."""
+    def after_chunk(self, rid: int, start: int, valid_to: int) -> None:
+        """The scratch holds a finished chunk at ``start`` whose real
+        tokens end at ``valid_to``: paged, scatter it into ``rid``'s blocks
+        (the slab commits once, at the end)."""
         if self.paged:
-            self._stage_write(np.append(self.bt_row(rid), start))
+            self._stage_write(np.append(self.bt_row(rid), [start, valid_to]))
 
     def on_prefill_done(self, slot: int) -> None:
         """The scratch holds a whole prefill: on the slab, copy it into
@@ -119,8 +159,10 @@ class KVOwner:
 
     def covers(self, rid: int, pos: int) -> bool:
         """Whether ``rid``'s storage holds a write at position ``pos``
-        (always on the slab, whose rows are ``max_seq_len`` long)."""
-        return (not self.paged or len(self.alloc.chain(rid))
+        (always on the slab, whose rows are ``max_seq_len`` long, and on a
+        whole ring chain, which wraps)."""
+        return (not self.paged or self.ring_full_chain
+                or len(self.alloc.chain(rid))
                 * self.ecfg.kv_block_size > pos)
 
     def extend(self, rid: int, slot: int) -> bool:
@@ -152,7 +194,7 @@ class KVOwner:
             self.on_prefill_done(0)
             return None
         self._stage_write(np.append(np.full((self.blocks_per_slot,),
-                                            NULL_BLOCK, np.int32), 0))
+                                            NULL_BLOCK, np.int32), [0, 0]))
         return np.full_like(self.block_table, NULL_BLOCK)
 
     def release(self, rid: int, slot: int) -> None:
@@ -174,12 +216,16 @@ class KVOwner:
     def stats(self) -> Dict[str, Any]:
         if not self.paged:
             return {"kind": "slab", "slots": self.ecfg.max_slots}
-        return {"kind": "paged",
-                "kv_block_size": self.ecfg.kv_block_size,
-                "blocks_per_slot": self.blocks_per_slot,
-                "usable_blocks": self.alloc.usable_blocks,
-                "blocks_in_use": self.alloc.blocks_in_use,
-                "window_ring": False}     # no sliding-window model here
+        out = {"kind": "paged",
+               "kv_block_size": self.ecfg.kv_block_size,
+               "blocks_per_slot": self.blocks_per_slot,
+               "usable_blocks": self.alloc.usable_blocks,
+               "blocks_in_use": self.alloc.blocks_in_use,
+               "window_ring": self.ring}
+        if self.ring:
+            out["ring_tokens"] = self.ring_mod
+            out["ring_full_chain"] = self.ring_full_chain
+        return out
 
     def jit_counts(self) -> Dict[str, int]:
         """The captured write, by the JAX engine's name."""
@@ -196,9 +242,10 @@ class KVOwner:
         holds."""
         d = self._in.dev
         if self.paged:
-            write_chunk_blocks(pool, scratch, d[:-1], d[-1],
+            write_chunk_blocks(pool, scratch, d[:-2], d[-2],
                                chunk=self.ecfg.prefill_chunk,
                                block_size=self.ecfg.kv_block_size,
-                               seq_axes=self.seq_axes)
+                               seq_axes=self.seq_axes,
+                               ring_mods=self.ring_mods, valid_to=d[-1])
         else:
             write_slot(pool, scratch, d, self.batch_axes)

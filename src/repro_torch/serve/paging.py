@@ -1,9 +1,9 @@
 """Paged KV pool: block allocator + block-table plumbing for the engine.
 
 Port of ``repro/serve/paging.py`` without the prefix index (no sharing,
-no copy-on-write) and without sliding-window rings.  Physical KV memory
-is a pool of fixed-size blocks; every request owns a chain of blocks that
-grows with its sequence, and a static ``[max_slots, max_blocks_per_slot]`` block table maps each slot's
+no copy-on-write).  Physical KV memory is a pool of fixed-size blocks;
+every request owns a chain of blocks that grows with its sequence, and a
+static ``[max_slots, max_blocks_per_slot]`` block table maps each slot's
 logical blocks to physical ones.  Physical block 0 is the *null block*:
 unallocated table entries point at it, so reads and writes through a
 partly filled table stay in bounds — reads are masked by each row's
@@ -13,7 +13,8 @@ Layout discovery is shared with the slab pool (``serve/slots.py``): cache
 leaves differ in where their KV-length axis sits (stacked layers
 ``[n_steps, batch, positions, Hkv, hd]``, leading dense layers ``[batch,
 positions, Hkv, hd]``), so the pool and the chunk scatter work leaf by
-leaf over the discovered axes.
+leaf over the discovered axes.  Sliding-window leaves are paged as rings
+(``write_chunk_blocks``' ``ring_mods``; the engine's store, ``kvstore``).
 """
 from __future__ import annotations
 
@@ -127,13 +128,30 @@ def map_kv_leaves(fn: Callable[[torch.Tensor, int], torch.Tensor],
     return walk(cache)
 
 
+def assert_pageable(init_cache: Callable[..., Any], s_ref: int,
+                    seq_axes: Sequence[int]) -> None:
+    """Every cache leaf must expose a full-length KV axis at ``s_ref``:
+    a leaf clamped below it cannot be addressed through a block table,
+    and is refused with its shape."""
+    leaves = kv_leaves(init_cache(1, s_ref, device="meta"))
+    for leaf, ax in zip(leaves, seq_axes):
+        if leaf.shape[ax] != s_ref:
+            raise NotImplementedError(
+                f"cache leaf {tuple(leaf.shape)} is not pageable: its "
+                f"KV-length axis is clamped below s_max={s_ref}; page "
+                f"window-clamped leaves via the unclamped cache + "
+                f"ring_mods")
+
+
 def make_paged_pool(init_cache: Callable[..., Any], s_ref: int,
                     seq_axes: Sequence[int], num_blocks: int,
                     block_size: int, *, device) -> Any:
     """Physical paged pool on ``device``: each cache leaf of
     ``init_cache(1, s_ref)`` with its KV-length axis resized to
     ``num_blocks * block_size`` positions, built structurally from the
-    leaves' shapes (probed on the ``meta`` device)."""
+    leaves' shapes (probed on the ``meta`` device), so that a window clamp
+    inside ``init_cache`` can never silently truncate the pool."""
+    assert_pageable(init_cache, s_ref, seq_axes)
     P = num_blocks * block_size
 
     def build(leaf, i):
@@ -145,7 +163,9 @@ def make_paged_pool(init_cache: Callable[..., Any], s_ref: int,
 
 def write_chunk_blocks(pool: Any, scratch: Any, bt_row: torch.Tensor,
                        start, *, chunk: int, block_size: int,
-                       seq_axes: Sequence[int]) -> Any:
+                       seq_axes: Sequence[int],
+                       ring_mods: Optional[Sequence[int]] = None,
+                       valid_to=None) -> Any:
     """Scatter scratch positions ``[start, start + chunk)`` into the paged
     pool through one slot's block-table row (in place), each leaf along
     its own KV-length axis ``seq_axes[i]``.  ``start`` is an int or a 0-d
@@ -153,12 +173,28 @@ def write_chunk_blocks(pool: Any, scratch: Any, bt_row: torch.Tensor,
     ``bt_row`` covers the chunk-rounded sequence, so the padding of a
     partial final chunk lands in the slot's own blocks, as garbage past
     its length that decode overwrites before it is read; entries still on
-    the null block write into discarded space."""
+    the null block write into discarded space.
+
+    ``ring_mods`` (one int a leaf, constants of a captured write) gives a
+    sliding-window leaf its ring modulus M = round_up(window, block_size)
+    (0 for a full-length leaf): logical position p lands at ring slot
+    p % M of the chain.  ``valid_to`` (an int or a 0-d device tensor) is
+    the end of the chunk's real tokens: on a ring leaf a pad position past
+    it would wrap onto a slot still inside the window, so its write goes
+    to the null block instead."""
     dev = bt_row.device
     log = (torch.as_tensor(start, device=dev).reshape(()).long()
            + torch.arange(chunk, device=dev))
-    phys = bt_row.long()[log // block_size] * block_size + log % block_size
-    for p, s, ax in zip(kv_leaves(pool), kv_leaves(scratch), seq_axes):
+    bt = bt_row.long()
+    for i, (p, s, ax) in enumerate(zip(kv_leaves(pool), kv_leaves(scratch),
+                                       seq_axes)):
+        mod = ring_mods[i] if ring_mods is not None else 0
+        lg = log % mod if mod else log
+        phys = bt[lg // block_size] * block_size + lg % block_size
+        if mod and valid_to is not None:
+            pad = log >= torch.as_tensor(valid_to, device=dev).reshape(())
+            phys = torch.where(pad, NULL_BLOCK * block_size
+                               + lg % block_size, phys)
         src = s.index_select(ax, log).movedim(ax, 0)
         p.movedim(ax, 0)[phys] = src.to(p.dtype)
     return pool

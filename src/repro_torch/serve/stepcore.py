@@ -261,6 +261,9 @@ class StepCore:
                                   refuse)
         self.prefill_entry = Entry(
             lambda p, scratch: self._prefill_step(p, scratch), dev, refuse)
+        # the JAX engine's fused_paged_attention makes its chunks and paged
+        # steps strict: a branch without a kernel raises
+        self._fused_attn = True if ecfg.fused_paged_attention else None
         self._pf_packed: Optional[torch.Tensor] = None
         self._pf_logits: Optional[torch.Tensor] = None   # the last chunk's
         self.logits: Optional[torch.Tensor] = None  # the last decode's
@@ -316,7 +319,8 @@ class StepCore:
         rep = d[C + 2:].view(self.G, self.R) if self.R else None
         logits, _, _, diags = self.model.prefill_chunk(
             params, d[:C].view(1, C), scratch, d[C], d[C + 1],
-            skew_assign=self._pf_skew, moe_replica_ids=rep)
+            skew_assign=self._pf_skew, moe_replica_ids=rep,
+            fused_attention=self._fused_attn)
         packed = torch.cat([sample_tokens(logits).float(),
                             self._pack(diags, "prefill_chunk")])
         return packed, logits
@@ -413,7 +417,8 @@ class StepCore:
         kw = {}
         if self.bps:
             kw = dict(block_table=d[self._bt_at:].view(B, self.bps),
-                      block_size=self.ecfg.kv_block_size)
+                      block_size=self.ecfg.kv_block_size,
+                      fused_attention=self._fused_attn)
         if self.R:
             kw["moe_replica_ids"] = d[self._rep_at:self._res_at].view(
                 self.G, self.R)

@@ -75,6 +75,76 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, gated, sizes, f, bm,
                                atol=_tol(dtype), rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize("tokens", [8, 256], ids=["decode", "chunk"])
+def test_moe_gmm_kernel_matches_plain_at_mixtral_width(cuda, tokens):
+    """mixtral-8x7b's experts (d 4096, f 14,336, gated) at its serve
+    dispatches: 8 decode slots or a 256-token chunk, top-2 of 8 experts
+    (a seeded draw), two empty foreign groups, bf16."""
+    from repro_torch.kernels.moe_gmm import ops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d, f, E, K, bm = 4096, 14336, 8, 2, 128
+    units = torch.randint(0, E, (2 * tokens,), generator=g, device=cuda)
+    sizes = torch.cat([torch.bincount(units, minlength=E),
+                       torch.zeros(K, dtype=torch.long, device=cuda)])
+    padded = ((sizes + bm - 1) // bm) * bm
+    M = int(padded.sum()) + bm
+    x = torch.zeros((M, d), dtype=torch.bfloat16, device=cuda)
+    off = 0
+    for s, p in zip(sizes.tolist(), padded.tolist()):
+        x[off:off + s] = (torch.randn((s, d), generator=g, device=cuda)
+                          * 0.5).to(torch.bfloat16)
+        off += p
+
+    def w(n, a, b):
+        return (torch.randn((n, a, b), generator=g, device=cuda)
+                * (2.0 / a) ** 0.5).to(torch.bfloat16)
+    w_in, w_gate, w_out = w(E, d, f), w(E, d, f), w(E, f, d)
+    foreign = (w(K, d, f), w(K, f, d), w(K, d, f))
+    tg = ops.tile_group_map(padded.to(torch.int32), M // bm, bm)
+    kw = dict(w_gate=w_gate, act="silu", block_m=bm, foreign=foreign,
+              live_rows=ops.live_row_count(padded.to(torch.int32), M))
+    n0 = ops.moe_gmm.launches
+    got = ops.moe_gmm(x, w_in, w_out, tg, **kw)
+    ref = ops.moe_gmm_plain(x, w_in, w_out, tg, **kw)
+    torch.cuda.synchronize()
+    assert ops.moe_gmm.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("S,bs", [(1, 16), (256, 128)],
+                         ids=["decode", "chunk"])
+def test_paged_attention_kernel_matches_plain_at_mixtral_heads(cuda, S, bs):
+    """mixtral-8x7b's attention (32 q heads over 8 kv heads of 128: GQA
+    rep 4) in bf16: decode over shuffled chains up to 1,056 positions,
+    and a 256-token chunk over the slab-as-pool view."""
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(6)
+    H, Hkv, hd, n_blocks = 32, 8, 128, 1280 // bs
+    lengths = [S, 257, 640, 1056] if S == 1 else [1024]
+    B = len(lengths)
+    num_phys = 1 + B * n_blocks
+    perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+    table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+    for b, L in enumerate(lengths):
+        nb = -(-L // bs)
+        table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(torch.int32)
+    P = num_phys * bs
+    k = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).bfloat16()
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).bfloat16()
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n0 = ops.paged_attention.launches
+    got = ops.paged_attention(q, k, v, table, cl, block_size=bs)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, block_size=bs)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
 @settings(max_examples=400, deadline=None,
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(G=st.sampled_from([1, 2, 4, 8]), E=st.integers(1, 128),

@@ -175,7 +175,7 @@ def test_prefill_decode_consistency(models):
 
 
 @pytest.mark.parametrize("change", [
-    {"sliding_window": 64}, {"attn_logit_softcap": 30.0},
+    {"global_attn_every": 2}, {"attn_logit_softcap": 30.0},
     {"post_norm": True}])
 def test_build_model_rejects_unported_patterns(change):
     cfg = get_config("moonshot-v1-16b-a3b").reduced()

@@ -6,12 +6,13 @@ Its ``ENGINE_FLAGS`` rows are JAX's; the same argv parses to the same
 flag.  Then the whole CLI: ``repro.launch.serve.main`` runs in one JAX
 subprocess on four emulated host devices, once an argv (greedy and
 sampled, slab and paged, at ``--model-par`` 1 and 4, with replica slots,
-with tiered residency, and from a ``--trace`` file), recording each run's weights, streams, noise
-and skew draws and writing its report (``--out``).  The port's
-``serve(args, device="cpu", params=...)`` on the converted weights,
-replaying the JAX draws by call index, must give the same per-request
-token streams, and every section of its report the JAX report's keys
-(``engine.device`` is the port's own key).  The request generators give
+with tiered residency, from a ``--trace`` file, and on reduced
+mixtral-8x7b, paged through its window ring), recording each run's
+weights, streams, noise and skew draws and writing its report
+(``--out``).  The port's ``serve(args, device="cpu", params=...)`` on
+the converted weights, replaying the JAX draws by call index, must give
+the same per-request token streams, and every section of its report the
+JAX report's keys (``engine.device`` is the port's own key).  The request generators give
 the reference's requests exactly."""
 import dataclasses
 import json
@@ -45,6 +46,11 @@ CELLS = {
     "ep4_residency": EP + ["--resident-experts", "4",
                            "--prefetch-policy", "on_demand"],
     "g1_trace": PAGED + SAMPLED + ["--trace", "{dir}/trace.json"],
+    # reduced mixtral (window 64) paged with prompts past the window: the
+    # window ring buffer
+    "mixtral_ring": ["--arch", "mixtral-8x7b", "--paged", "--prompt-len",
+                     "80", "--kv-block-size", "16", "--prefill-chunk", "16",
+                     "--requests", "3"],
 }
 # the trace cell's records: explicit tokens and drawn prompts, all at t=0
 TRACE = [{"prompt_len": 5, "max_new_tokens": 4},
@@ -98,7 +104,7 @@ def test_same_argv_same_engine_config(argv, monkeypatch):
     (["--disaggregate"], "--disaggregate"),
     (["--paged", "--prefix-sharing"], "--prefix-sharing"),
     (["--paged", "--speculative-k", "2"], "--speculative-k"),
-    (["--arch", "mixtral-8x7b"], "--arch"),
+    (["--arch", "mamba2-2.7b"], "--arch"),
     (["--data-par", "2"], "--data-par")])
 def test_unported_flags_raise_naming_the_flag(extra, flag):
     args = TCLI.build_parser().parse_args(BASE + extra)
@@ -248,6 +254,10 @@ def test_cli_streams_and_report_schema_equal_jax(jax_cli, cell, monkeypatch):
     assert len(streams) == rep["n_requests"] == jrep["n_requests"]
     if cell == "g1_trace":
         assert sorted(len(v) for v in streams.values()) == [3, 4, 6]
+    if cell == "mixtral_ring":
+        assert rep["state_pool"] == {**jrep["state_pool"]}
+        assert rep["state_pool"]["window_ring"]
+        assert rep["state_pool"]["ring_full_chain"]
     if "--temperature" in CELLS[cell]:
         assert rec["noise"]
     if "--skew" in CELLS[cell]:
