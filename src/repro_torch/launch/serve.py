@@ -21,7 +21,14 @@ arrivals at R req/s, admitted into freed decode slots as earlier requests
 finish; ``--trace FILE`` replays arrival records instead.  ``--paged``
 swaps the slab KV pool for the paged block-table pool (block-aware
 admission, preemption by recompute); ``--temperature`` / ``--top-k`` /
-``--top-p`` switch greedy decoding to truncated sampling.
+``--top-p`` switch greedy decoding to truncated sampling.  On the paged
+pool ``--prefix-sharing`` makes it a prefix cache (radix index,
+copy-on-write blocks, LRU eviction; ``--shared-prefix-len N`` gives the
+synthetic prompts a common first N tokens), and ``--speculative-k K``
+verifies up to K self-drafted tokens a decode step, e.g. on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15-moe-a27b \\
+      --paged --prefix-sharing --shared-prefix-len 512 --prompt-len 576 \\
+      --gen 32 --requests 8 --speculative-k 4
 ``--model-par G`` builds the model at expert-parallel degree G: G
 virtual ranks on the one card (``VirtualGroup``), where ``--skew`` and
 ``--policy`` / ``--moe-policy`` show the schedule's balance.  The report
@@ -43,10 +50,10 @@ lockstep, and only rank 0 prints and writes the report.
 ``--fused-attention`` and ``--fused-moe`` are accepted as in JAX: on the
 card the hand-written kernels run whatever they say, and the report
 gives what ran (True on the card, False on the CPU, where the plain
-versions run); a window ring refuses ``--fused-attention`` as the JAX
-engine does.  Not ported yet, and refused with ``NotImplementedError``:
-``--replicas > 1``, ``--disaggregate``, ``--prefix-sharing`` and
-``--speculative-k`` (ROADMAP item 7), and any arch outside the port's
+versions run); a window ring refuses ``--fused-attention``,
+``--prefix-sharing`` and ``--speculative-k`` as the JAX engine does.  Not
+ported yet, and refused with ``NotImplementedError``: ``--replicas > 1``
+and ``--disaggregate`` (ROADMAP item 7), and any arch outside the port's
 registry (items 8-9); ``--data-par > 1`` raises as in JAX.
 
 ``serve(args, device=..., params=...)`` runs on the card unless the
@@ -96,7 +103,8 @@ ENGINE_FLAGS = [
     ("--kv-blocks", "num_kv_blocks",
      dict(help="usable KV blocks (0 = worst case: slab parity)")),
     ("--prefix-sharing", "prefix_sharing",
-     dict(help="prefix-sharing KV cache (not ported yet: raises)")),
+     dict(help="prefix-sharing KV cache: copy-on-write blocks, radix "
+               "prefix index, LRU eviction (needs --paged)")),
     ("--fused-attention", "fused_paged_attention",
      dict(help="the JAX CLI's fused-attention switch (needs --paged); on "
                "the card the hand-written paged_attention kernel runs "
@@ -106,7 +114,9 @@ ENGINE_FLAGS = [
                "the card the hand-written moe_gmm kernel runs whatever "
                "it says, and the report gives what ran")),
     ("--speculative-k", "speculative_k",
-     dict(help="speculative decoding (not ported yet: k > 0 raises)")),
+     dict(help="speculative decoding: verify up to k self-drafted tokens "
+               "per decode step in one static [B, k+1] forward (needs "
+               "--paged; greedy streams stay token-identical)")),
     ("--speculative-policy", "speculative_policy",
      dict(help="draft proposer (ngram = prompt-lookup self-drafting)")),
     ("--temperature", "temperature",
@@ -176,14 +186,11 @@ def check_ported(args) -> None:
             f"{sorted(REGISTRY)}; the other models come with ROADMAP "
             f"items 8-9")
     for flag, on in (("--replicas", getattr(args, "replicas", 1) > 1),
-                     ("--disaggregate", getattr(args, "disaggregate", False)),
-                     ("--prefix-sharing", args.prefix_sharing),
-                     ("--speculative-k", args.speculative_k > 0)):
+                     ("--disaggregate", getattr(args, "disaggregate", False))):
         if on:
             raise NotImplementedError(
-                f"{flag}: not ported yet (fleets, disaggregated roles, "
-                f"prefix sharing and speculative decoding are ROADMAP "
-                f"item 7)")
+                f"{flag}: not ported yet (fleets and disaggregated roles "
+                f"are ROADMAP item 7)")
     if args.data_par > 1:
         raise NotImplementedError(
             "the serving engine shards the model/expert axis only; "
@@ -370,6 +377,13 @@ def _print_report(args, engine, rep, streams, launches):
               f"preemptions={rep['preemptions']}  "
               f"max_concurrency={rep['max_occupancy']}  "
               f"fused_attention={eng_rep['fused_paged_attention']}")
+    if args.prefix_sharing:
+        hit = rep.get("prefix_hit_rate")
+        print(f"[serve] prefix cache: "
+              f"hit_rate={hit if hit is None else f'{hit:.2f}'}  "
+              f"cow_copies={rep['cow_copies']}  "
+              f"evictions={rep['evictions']}  "
+              f"resume_cached_tokens={rep['resume_cached_tokens']}")
     if args.resident_experts and "residency" in rep:
         res = rep["residency"]
         hr = res.get("hit_rate")
@@ -379,6 +393,14 @@ def _print_report(args, engine, rep, streams, launches):
               f"swaps={res['swaps']} prefetches={res['prefetches']}  "
               f"stall={res['stall_units']:.4f}s  "
               f"staged={res['bytes_staged'] / 1e6:.1f} MB")
+    if args.speculative_k and "speculative" in rep:
+        sp = rep["speculative"]
+        acc = sp["acceptance_rate"]
+        print(f"[serve] speculative k={args.speculative_k} "
+              f"policy={args.speculative_policy}: "
+              f"acceptance={acc if acc is None else f'{acc:.2f}'}  "
+              f"tokens/step={sp['tokens_per_step']:.2f}  "
+              f"steps/token={sp['steps_per_committed_token']:.2f}")
     print(f"[serve] jit entries {rep['jit_entries']} "
           f"recompiled_after_warmup={rep.get('recompiled_after_warmup')}")
     # the port's own line: what ran where, and what came out

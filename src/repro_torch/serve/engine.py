@@ -20,7 +20,20 @@ with decode steps of the whole slot batch through ``model.decode_step``.
   scattered into the request's blocks, chains grow as decode advances,
   blocks return the moment a request finishes, and when the allocator
   runs dry the youngest block holder is preempted and later recomputed
-  (prompt plus committed tokens re-prefilled).
+  (prompt plus committed tokens re-prefilled).  With ``prefix_sharing``
+  the pool is a prefix cache, as in JAX: admission maps each request's
+  longest radix-indexed token prefix into its chain with refcount bumps
+  and prefills only the uncached tail (the cached prefix is gathered into
+  the scratch first: the ``prefix_tail`` phase), shared blocks are
+  copy-on-write (a full-prompt hit, and any decode write into a shared
+  block, copies it first), and dead indexed blocks stay on an LRU list
+  until allocation pressure evicts them.  With ``speculative_k = k > 0``
+  every decode step is the ``[B, k + 1]`` verify step: up to k tokens a
+  slot drafted on the host (``serve/speculative.py``) are scored in one
+  forward, and the accepted prefix plus one token from the verify logits
+  is committed (1 to k + 1 tokens a step; greedy streams equal plain
+  decoding's, sampled ones draw on the JAX engine's host generator in
+  its order).
 
 The engine keeps the scheduling state and leaves every pool-specific
 write to the store, so neither mode forks the step loop.  Decoding is
@@ -64,10 +77,12 @@ its fetch form and whether the entries were captured.  Replica slots and
 tiered residency read other ranks' rows and are not ported across
 processes (ROADMAP item 5): they raise.
 
-On the card the prefill chunk, the decode step and the store's
-scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on the
-slab) are each captured once as a CUDA graph, at ``warmup()`` or at
-first use, and replayed at every call after (``StepCore``, ``KVOwner``).
+On the card the prefill chunk, the decode (or verify) step and the
+store's scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on
+the slab), and with prefix sharing the store's prefix gather and block
+copy (``gather_prefix``, ``copy_block``), are each captured once as a
+CUDA graph, at ``warmup()`` or at first use, and replayed at every call
+after (``StepCore``, ``KVOwner``).
 A chunk costs one copy to the host and one stream sync, which reads its
 first token and diagnostics.  ``report()["jit_entries"]`` counts the
 captured entries and, after ``warmup()``, ``recompiled_after_warmup``
@@ -123,6 +138,8 @@ from repro_torch.serve.residency import (PREFETCH_POLICIES,
                                          ExpertResidencyManager,
                                          TierCostModel)
 from repro_torch.serve.sampling import sample_np
+from repro_torch.serve.speculative import (greedy_verify, make_proposer,
+                                           rejection_verify)
 from repro_torch.serve.statestore import make_state_store
 from repro_torch.serve.stepcore import StepCore
 
@@ -132,9 +149,9 @@ ENGINE_ROLES = ("unified", "prefill", "decode")
 @dataclass(frozen=True)
 class EngineConfig:
     """Static serving shapes: every field of the JAX engine's, with its
-    defaults and its validation.  ``role != "unified"``,
-    ``prefix_sharing`` and ``speculative_k > 0`` are not ported yet:
-    setting one raises ``NotImplementedError``."""
+    defaults and its validation.  ``role != "unified"`` is not ported yet
+    and raises ``NotImplementedError``; ``prefix_sharing`` and
+    ``speculative_k > 0`` need the paged pool, as in JAX."""
     max_slots: int = 4          # decode batch width (concurrent requests)
     max_seq_len: int = 128      # logical KV length (prompt + generation)
     prefill_chunk: int = 32     # prompt tokens consumed per prefill call
@@ -150,9 +167,13 @@ class EngineConfig:
     # kernels run whatever they say (report() gives what ran)
     fused_paged_attention: bool = False
     fused_moe_gmm: bool = False
-    prefix_sharing: bool = False        # not ported
-    speculative_k: int = 0              # not ported
-    speculative_policy: str = "ngram"
+    # --- prefix sharing (paged only) ---
+    prefix_sharing: bool = False
+    # --- speculative decoding (paged only) ---
+    # k > 0: each decode step verifies up to k self-drafted tokens in one
+    # static-shape [B, k + 1] forward (serve/speculative.py)
+    speculative_k: int = 0
+    speculative_policy: str = "ngram"   # draft proposer (make_proposer)
     # --- sampling (0 temperature = greedy) ---
     temperature: float = 0.0
     top_k: int = 0              # 0 = full vocab when temperature > 0
@@ -184,26 +205,29 @@ class EngineConfig:
         if self.role not in ENGINE_ROLES:
             raise ValueError(f"unknown engine role {self.role!r}; choose "
                              f"one of {ENGINE_ROLES}")
-        if self.speculative_k < 0:
-            raise ValueError("speculative_k must be >= 0")
-        unported = {
-            "role": self.role != "unified",
-            "prefix_sharing": self.prefix_sharing,
-            "speculative_k": self.speculative_k > 0,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
+        if self.role != "unified":
             raise NotImplementedError(
-                f"EngineConfig fields not ported yet: {bad} (the port serves "
-                f"the unified role from a slab or paged pool, without prefix "
-                f"sharing or speculative decoding; ROADMAP item 7)")
+                f"EngineConfig field not ported yet: role={self.role!r} "
+                f"(the port serves the unified role; prefill/decode roles "
+                f"and their KV handoff are ROADMAP item 7)")
         if self.paged and self.kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
         if self.num_kv_blocks < 0:
-            raise ValueError("num_kv_blocks must be >= 0")
+            raise ValueError("num_kv_blocks must be >= 0 (0 = slab-parity "
+                             "worst case)")
+        if self.prefix_sharing and not self.paged:
+            raise ValueError("prefix_sharing requires the paged KV pool "
+                             "(EngineConfig.paged=True)")
         if self.fused_paged_attention and not self.paged:
             raise ValueError("fused_paged_attention is the paged decode "
                              "kernel; it requires EngineConfig.paged=True")
+        if self.speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0")
+        if self.speculative_k > 0 and not self.paged:
+            raise ValueError("speculative decoding verifies through the "
+                             "paged KV pool (rollback rides the block "
+                             "machinery); it requires EngineConfig."
+                             "paged=True")
         if self.temperature < 0 or self.top_k < 0:
             raise ValueError("temperature and top_k must be >= 0")
         if not 0.0 < self.top_p <= 1.0:
@@ -227,16 +251,30 @@ class EngineConfig:
         return self
 
 
+def paged_pool_len(max_seq_len: int, prefill_chunk: int,
+                   prefix_sharing: bool, speculative_k: int = 0) -> int:
+    """Chunk-padded logical pool length of the paged engine (the JAX
+    function).  Prefix sharing pads one extra chunk: its prefill restarts
+    (a block boundary, or ``prompt_len - 1`` on a full hit) are not
+    chunk-aligned, so the final padded chunk can spill one chunk past the
+    plain bound.  Speculative decoding pads ``speculative_k`` tokens: a
+    verify step writes all k + 1 window positions, so a slot one token
+    short of ``max_seq_len`` still writes k positions past it, which must
+    land inside its own chain."""
+    return round_up(max_seq_len, prefill_chunk) \
+        + (prefill_chunk if prefix_sharing else 0) + speculative_k
+
+
 def check_window_ring(cfg, ecfg) -> None:
     """A paged pool serves a window that binds over a slot's chain as a
-    ring buffer: refuse a chunk wider than the ring and the fused paged
-    kernel, with the JAX engine's messages.  (The JAX engine's other ring
-    blockers, prefix sharing, speculative verify and split roles, are
-    fields ``EngineConfig`` does not take yet; they come with ROADMAP
-    item 7.)"""
+    ring buffer: refuse a chunk wider than the ring, speculative verify,
+    prefix sharing and the fused paged kernel, with the JAX engine's
+    messages.  (The JAX engine's split-role blocker is left to
+    ``EngineConfig``, which refuses every role but ``unified``.)"""
     w = cfg.sliding_window or 0
     bs, C = ecfg.kv_block_size, ecfg.prefill_chunk
-    s_pad = round_up(ecfg.max_seq_len, C)       # the JAX paged_pool_len
+    s_pad = paged_pool_len(ecfg.max_seq_len, C, ecfg.prefix_sharing,
+                           ecfg.speculative_k)
     if not (ecfg.paged and 0 < w <= -(-s_pad // bs) * bs):
         return
     M = round_up(w, bs)
@@ -245,6 +283,12 @@ def check_window_ring(cfg, ecfg) -> None:
         blockers.append(f"prefill_chunk {C} > ring {M} tokens (a chunk "
                         f"must never self-overlap a ring slot; shrink "
                         f"prefill_chunk)")
+    if ecfg.speculative_k > 0:
+        blockers.append("speculative verify is multi-query; the ring "
+                        "gather is single-query")
+    if ecfg.prefix_sharing:
+        blockers.append("prefix sharing keys blocks by content, but a ring "
+                        "slot's content depends on absolute sequence length")
     if ecfg.fused_paged_attention:
         blockers.append("the fused paged kernel has no ring arithmetic")
     if blockers:
@@ -333,9 +377,15 @@ class ServeEngine:
         self._fused = dev.type == "cuda"
         B, C = ecfg.max_slots, ecfg.prefill_chunk
         # paged: prefill writes whole padded chunks, so chains cover the
-        # chunk-rounded logical length (the slab scratch is max_seq_len)
-        self.kv = make_state_store(model, ecfg,
-                                   s_pad=round_up(ecfg.max_seq_len, C))
+        # chunk-rounded logical length, one chunk more with prefix sharing
+        # and k positions more with speculation (paged_pool_len; the slab
+        # scratch is max_seq_len)
+        self.kv = make_state_store(model, ecfg, s_pad=paged_pool_len(
+            ecfg.max_seq_len, C, ecfg.prefix_sharing, ecfg.speculative_k))
+        self._spec = ecfg.speculative_k > 0
+        self._sharing = ecfg.prefix_sharing
+        self._proposer = (make_proposer(ecfg.speculative_policy)
+                          if self._spec else None)
         self.core = StepCore(model, ecfg,
                              blocks_per_slot=self.kv.blocks_per_slot)
         self.front = AdmissionFront(B)
@@ -351,6 +401,9 @@ class ServeEngine:
         self.active = np.zeros((B,), bool)       # slot in the decode batch
         self._step_idx = 0
         self._chunk_idx = 0
+        # allocator lifetime counters at window start (report() deltas)
+        self._evict0 = 0
+        self._cow0 = 0
         self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
         self._warm_counts: Optional[Dict[str, int]] = None
         attention_dispatch.reset_dispatch_log()
@@ -381,6 +434,7 @@ class ServeEngine:
         self._residency_ids: Optional[np.ndarray] = None
         self._pending_stage = None        # decision applied next step start
         self._residency_stages = 0        # stages dispatched
+        self._res_base: Optional[Dict[str, float]] = None
         self._host_tier: Optional[HostTier] = None
         self.stage_log: List[Dict[str, Any]] = []
         if ecfg.resident_experts > 0:
@@ -439,7 +493,7 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # admission (block-aware in paged mode; preempted requests first)
     # ------------------------------------------------------------------
-    def _place(self, st: RequestState, n_fresh: int) -> None:
+    def _place(self, st: RequestState, plan) -> None:
         front = self.front
         slot = front.free_slots.popleft()
         st.slot = slot
@@ -448,8 +502,26 @@ class ServeEngine:
         front.admit_seq += 1
         front.state_by_slot[slot] = st
         front.slot_history.append((st.req.rid, slot))
-        st.prefill_pos = 0                # no prefix sharing: start at 0
-        self.kv.place(st.req.rid, n_fresh)
+        self.kv.place(st.req.rid, plan)
+        if self.ecfg.paged:
+            start, shared, _, cow_last = plan
+            if cow_last:
+                # full-prompt hit: the last position's recompute writes into
+                # the final shared block, so this chain gets a private copy
+                ok = self._cow_block(st, len(shared) - 1)
+                assert ok                 # the copy was gated too
+            st.prefill_pos = start
+            # nothing to gather when no cached prefix was mapped
+            st.prefix_loaded = start == 0
+            if st.n_preempted == 0:
+                st.cached_prefix_tokens = start
+            elif self._sharing:
+                self.metrics.resume_cached_tokens += start
+            if st.resumed and start >= st.prefill_len:
+                # full-sequence hit on recompute: every committed position
+                # is cached, and the pending last token decodes next step
+                self._activate(st, st.prefill_len, st.output[-1])
+                return
         front.pf_queue.append(st)
 
     def _activate(self, st: RequestState, pos: int, tok: int) -> None:
@@ -489,38 +561,81 @@ class ServeEngine:
         st.slot = -1
         st.status = RequestStatus.QUEUED
         st.prefill_pos = 0
+        st.prefix_loaded = False
         st.n_preempted += 1
         front.resume.append(st)
         self.metrics.preemptions += 1
 
-    def _grow_chain(self, st: RequestState) -> bool:
-        """Extend ``st``'s chain by one block, preempting the youngest
-        holder while the allocator is dry.  False if ``st`` itself was the
-        youngest and got preempted."""
+    def _reclaim_until(self, st: RequestState, op):
+        """Run allocator ``op`` (None while the pool is dry), preempting
+        the youngest block holder between attempts.  The op's result, or
+        None if ``st`` itself was preempted to make room."""
         while True:
-            if self.kv.extend(st.req.rid, st.slot):
-                return True
+            res = op()
+            if res is not None:
+                return res
             victim = self._youngest_holder()
             if victim is None:
                 raise RuntimeError("KV allocator dry with no block holders")
             self._preempt(victim)
             if victim is st:
-                return False
+                return None
+
+    def _cow_block(self, st: RequestState, j: int) -> bool:
+        """Give ``st`` a private copy of logical block ``j`` before a write
+        would change it (the allocator's ``cow``, then the captured block
+        copy), preempting younger holders while the pool is dry.  False
+        if ``st`` itself was preempted to make room."""
+        res = self._reclaim_until(st, lambda: self._alloc.cow(st.req.rid, j))
+        if res is None:
+            return False
+        old, new = res
+        self.kv.copy(old, new)
+        if st.slot >= 0 and self.active[st.slot]:
+            self.kv.block_table[st.slot, j] = new
+        return True
+
+    def _grow_chain(self, st: RequestState) -> bool:
+        """Extend ``st``'s chain by one block, preempting the youngest
+        holder while the allocator is dry.  False if ``st`` itself was the
+        youngest and got preempted."""
+        return self._reclaim_until(
+            st, lambda: self.kv.extend(st.req.rid, st.slot) or None) \
+            is not None
 
     def _ensure_decode_blocks(self) -> None:
-        """Every active slot's chain must cover its write position before a
-        decode step; grow oldest requests first."""
+        """Before a decode step every active slot's chain must cover its
+        write range ``[pos, pos + speculative_k]`` (a verify step writes
+        all k + 1 window positions; plain decode is k = 0), and with
+        prefix sharing every block in that range must be private to the
+        chain (copy-on-write: a shared block is immutable, and a rejected
+        draft's garbage must never land in another chain's prefix).  Grow
+        oldest requests first."""
         if self.kv.ring_full_chain:
             # every KV leaf wraps the fixed ring: chains were allocated
             # whole at admission and never grow
             return
+        bs = self.ecfg.kv_block_size
+        span = self.ecfg.speculative_k
         order = sorted(np.nonzero(self.active)[0],
                        key=lambda s: self.front.state_by_slot[s].admit_seq)
         for s in order:
             if not self.active[s]:        # preempted earlier in this pass
                 continue
             st = self.front.state_by_slot[s]
-            while not self.kv.covers(st.req.rid, self.pos[s]):
+            last = int(self.pos[s]) + span    # deepest position written
+            if self._sharing:
+                preempted = False
+                for j in range(int(self.pos[s]) // bs, last // bs + 1):
+                    chain = self._alloc.chain(st.req.rid)
+                    if j < len(chain) \
+                            and self._alloc.refcount(chain[j]) > 1:
+                        if not self._cow_block(st, j):
+                            preempted = True  # st itself evicted for room
+                            break
+                if preempted:
+                    continue
+            while not self.kv.covers(st.req.rid, last):
                 if not self._grow_chain(st):
                     break
 
@@ -541,6 +656,12 @@ class ServeEngine:
             chunk = np.zeros((1, C), np.int32)
             chunk[0, :n] = seq[start:start + n]
             t0 = time.perf_counter()
+            if self._sharing and start > 0 and not st.prefix_loaded:
+                # mid-prompt restart off a cached prefix: the uncached
+                # tail's attention reads the prefix K/V from the scratch,
+                # so gather it out of the shared blocks first
+                self.kv.gather(st.req.rid, start)
+                st.prefix_loaded = True
             self.core.prefill(self.params, chunk, self.kv.scratch, start,
                               n - 1, self._chunk_idx, self._replica_ids)
             self._chunk_idx += 1
@@ -550,11 +671,20 @@ class ServeEngine:
                 self.kv.on_prefill_done(st.slot)
             # one copy and one sync: the chunk's writes are done too
             first, packed = self.core.prefill_result()
+            if self._sharing:
+                # every block fully covered by committed K/V joins the
+                # prefix index (keyed on its token-id chain)
+                self._alloc.commit_prefix(st.req.rid, seq[:st.prefill_pos])
             self.metrics.record_step(
                 self.core.unpack(packed, "prefill_chunk"), 0,
                 phase="prefill")
-            self.metrics.record_phase("prefill", n, time.perf_counter() - t0,
-                                      self._prefill_kv_bytes(start + n))
+            # prefix_tail: the request restarted mid-sequence off a cache
+            # hit, so its chunks attend a deeper window than a plain
+            # prefill of the same tail
+            self.metrics.record_phase(
+                ("prefix_tail" if self._sharing
+                 and (st.cached_prefix_tokens or 0) > 0 else "prefill"),
+                n, time.perf_counter() - t0, self._prefill_kv_bytes(start + n))
             did = True
             if st.prefill_done:
                 if st.resumed:
@@ -583,6 +713,8 @@ class ServeEngine:
         return did
 
     def _decode_work(self, now: float) -> bool:
+        if self._spec:
+            return self._speculative_decode_work(now)
         self._ensure_decode_blocks()
         if not self.active.any():
             return False
@@ -595,27 +727,122 @@ class ServeEngine:
         dt = time.perf_counter() - t0
         now = self.clock.now()       # post-sync: token times include compute
         n_active = int(self.active.sum())
-        diags = self.core.unpack(packed, "decode")
-        layer_loads = diags.pop("expert_load_layers", None)
-        self.metrics.record_step(diags, n_active, phase="decode")
+        self._record_decode(packed, n_active)
         self.metrics.record_phase("decode", n_active, dt,
                                   self._attn_kv_bytes(1))
-        self._observe_load(diags)
-        self._observe_residency(layer_loads)
-        occ = self.kv.occupancy()
-        if occ is not None:
-            self.metrics.record_kv(*occ)
         for s in np.nonzero(self.active)[0]:
             st = self.front.state_by_slot[s]
             self.pos[s] += 1
             t = int(nxt[s])
             st.output.append(t)
+            if self._sharing and self.pos[s] % self.ecfg.kv_block_size == 0:
+                # this step's write just filled a block: index it so later
+                # prompts extending this sequence can hit
+                self._commit_output(st, int(self.pos[s]))
             eos = self._eos_id(st.req)
             if (eos is not None and t == eos) \
                     or st.n_generated >= st.req.max_new_tokens:
                 self._finish(st, now)
             else:
                 self.tok[s] = t
+        return True
+
+    def _record_decode(self, packed: np.ndarray, n_active: int) -> None:
+        """A decode or verify step's diagnostics, expert loads and block
+        occupancy into the metrics and the placement managers."""
+        diags = self.core.unpack(packed, "decode")
+        layer_loads = diags.pop("expert_load_layers", None)
+        self.metrics.record_step(diags, n_active, phase="decode")
+        self._observe_load(diags)
+        self._observe_residency(layer_loads)
+        occ = self.kv.occupancy()
+        if occ is not None:
+            self.metrics.record_kv(*occ)
+
+    def _commit_output(self, st: RequestState, upto: int) -> None:
+        """Index the full blocks of ``st``'s prompt and committed output up
+        to position ``upto`` in the prefix cache."""
+        full = np.concatenate([st.req.tokens, np.asarray(st.output,
+                                                         np.int32)])
+        self._alloc.commit_prefix(st.req.rid, full[:upto])
+
+    def _speculative_decode_work(self, now: float) -> bool:
+        """One speculative decode step: draft up to k tokens a slot on the
+        host, verify them all in one static ``[B, k + 1]`` forward
+        against the paged pool, and commit the accepted prefix plus one
+        token from the verify logits.  Rejected positions' K/V writes are
+        rolled back by masking: they sit past the committed length, each
+        is rewritten with real K/V before ``pos`` reaches it, and the CoW
+        guard of ``_ensure_decode_blocks`` keeps them out of shared
+        blocks."""
+        self._ensure_decode_blocks()
+        if not self.active.any():
+            return False
+        self._apply_pending_stage()
+        B, k = self.ecfg.max_slots, self.ecfg.speculative_k
+        bs = self.ecfg.kv_block_size
+        toks = np.zeros((B, k + 1), np.int32)
+        draft_len = np.zeros((B,), np.int32)
+        for s in np.nonzero(self.active)[0]:
+            st = self.front.state_by_slot[s]
+            toks[s, 0] = self.tok[s]
+            # never draft past the generation budget: the step commits up
+            # to draft_len + 1 tokens
+            cap = min(k, st.req.max_new_tokens - st.n_generated - 1)
+            if cap > 0:
+                ctx = np.concatenate([st.req.tokens,
+                                      np.asarray(st.output, np.int32)])
+                d = self._proposer.propose(ctx, cap)
+                toks[s, 1:1 + len(d)] = d
+                draft_len[s] = len(d)
+        t0 = time.perf_counter()
+        logits, packed = self.core.decode(
+            self.params, toks, self.kv.pool, self.pos,
+            self.kv.decode_table(), self.active, self._step_idx,
+            self._replica_ids, self._residency_ids)
+        dt = time.perf_counter() - t0
+        now = self.clock.now()   # post-sync: token times include compute
+        n_active = int(self.active.sum())
+        self._record_decode(packed, n_active)
+        # the verify window reads each active row's chain up to pos + k + 1
+        verify_bytes = self._attn_kv_bytes(k + 1)
+        self.metrics.spec_steps += 1
+        self.metrics.spec_slot_steps += n_active
+        total_commit = 0
+        e = self.ecfg
+        for s in np.nonzero(self.active)[0]:
+            st = self.front.state_by_slot[s]
+            drafts = toks[s, 1:1 + int(draft_len[s])].tolist()
+            if self.core.sample:
+                n_acc, nxt = rejection_verify(
+                    logits[s], drafts, self.core.samp_rng,
+                    temperature=e.temperature, top_k=e.top_k, top_p=e.top_p)
+            else:
+                n_acc, nxt = greedy_verify(logits[s], drafts)
+            self.metrics.spec_drafted += len(drafts)
+            self.metrics.spec_accepted += n_acc
+            old_pos = int(self.pos[s])
+            eos = self._eos_id(st.req)
+            finished = False
+            n_commit = 0
+            for t in drafts[:n_acc] + [nxt]:
+                st.output.append(int(t))
+                n_commit += 1
+                if (eos is not None and t == eos) \
+                        or st.n_generated >= st.req.max_new_tokens:
+                    finished = True
+                    break
+            self.pos[s] += n_commit
+            self.metrics.spec_committed += n_commit
+            total_commit += n_commit
+            if self._sharing and self.pos[s] // bs > old_pos // bs:
+                # crossed a block boundary: index every newly full block
+                self._commit_output(st, int(self.pos[s]))
+            if finished:
+                self._finish(st, now)
+            else:
+                self.tok[s] = st.output[-1]
+        self.metrics.record_phase("verify", total_commit, dt, verify_bytes)
         return True
 
     def _attn_kv_bytes(self, span: int) -> int:
@@ -753,11 +980,12 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Run one prefill chunk, the store's write and one decode step on
-        dummy data, so the first request's TTFT does not include building
-        the kernels, first-call set-up or, on the card, capturing the
-        three entries.  Writes land in the null block (paged) or in slot
-        0 and the scratch (slab), so the engine must be idle."""
+        """Run one prefill chunk, the store's write (with prefix sharing its
+        gather and copy too) and one decode or verify step on dummy data,
+        so the first request's TTFT does not include building the kernels,
+        first-call set-up or, on the card, capturing the entries.  Writes
+        land in the null block (paged) or in slot 0 and the scratch
+        (slab), so the engine must be idle."""
         if self.has_work() or any(st is not None
                                   for st in self.front.state_by_slot):
             raise RuntimeError("warmup() must run on an idle engine")
@@ -768,7 +996,11 @@ class ServeEngine:
                           self._replica_ids)
         table = self.kv.warm()
         self.core.prefill_result()
-        self.core.decode(self.params, self.tok, self.kv.pool, self.pos,
+        # speculative: the decode entry is the [B, k + 1] verify step
+        warm_tok = (np.zeros((self.ecfg.max_slots,
+                              self.ecfg.speculative_k + 1), np.int32)
+                    if self._spec else self.tok)
+        self.core.decode(self.params, warm_tok, self.kv.pool, self.pos,
                          table, self.active, 2 ** 31 - 1,
                          self._replica_ids, self._residency_ids)
         if self._rebalancer is not None:
@@ -823,10 +1055,34 @@ class ServeEngine:
                                    f"with work remaining")
         return self.report()
 
+    def reset_metrics(self) -> None:
+        """Fresh metrics for a new measurement window (the JAX method):
+        slot state, captured entries, the prefix cache and warmup status
+        are kept, the allocator's and residency counters are re-based and
+        the clock is re-zeroed.  The engine must have nothing in
+        flight."""
+        if self._in_flight():
+            raise RuntimeError("cannot reset metrics while work is in flight")
+        self.metrics = ServeMetrics()
+        self.front.slot_history.clear()
+        if self.ecfg.paged:
+            self._evict0 = self._alloc.evictions
+            self._cow0 = self._alloc.cow_copies
+        if self._residency is not None:
+            self._res_base = self._residency.counters()
+        self.clock.reset()
+
+    def probe_prefix(self, tokens) -> int:
+        """Longest cached-prefix match for ``tokens`` in this engine's
+        prefix index, in tokens (0 without prefix sharing); a pure lookup
+        that never perturbs the LRU order."""
+        return self.kv.probe_prefix(tokens)
+
     def jit_counts(self) -> Dict[str, int]:
         """Every captured entry, by the JAX engine's names: the step
-        core's, the store's write, the replica swap and the residency
-        stage (never captured: 0)."""
+        core's, the store's write (and with prefix sharing its gather and
+        copy), the replica swap and the residency stage (never captured:
+        0)."""
         counts = {**self.core.jit_counts(), **self.kv.jit_counts()}
         if self._rebalancer is not None:
             counts["replica_swap"] = self._swap.captures
@@ -839,8 +1095,18 @@ class ServeEngine:
         (plus ``device``, the port's own key), ``attention_dispatch``
         with ``attention_fallbacks``, ``jit_entries`` and, after
         ``warmup()``, ``recompiled_after_warmup``."""
+        if self.ecfg.paged:
+            self.metrics.evictions = self._alloc.evictions - self._evict0
+            self.metrics.cow_copies = self._alloc.cow_copies - self._cow0
         if self._residency is not None:
-            self.metrics.residency = self._residency.counters()
+            # window counters: lifetime minus the reset_metrics snapshot
+            cur = self._residency.counters()
+            base = self._res_base or {}
+            win = {k: cur[k] - base.get(k, 0)
+                   for k in cur if k != "hit_rate"}
+            win["hit_rate"] = (win["hits"] / win["lookups"]
+                               if win["lookups"] else None)
+            self.metrics.residency = win
         rep = self.metrics.report()
         rep["state_pool"] = {**self.kv.stats(),
                              "preemptions": self.metrics.preemptions}
@@ -866,6 +1132,9 @@ class ServeEngine:
             rep["engine"]["prefix_sharing"] = self.ecfg.prefix_sharing
             rep["engine"]["fused_paged_attention"] = self._fused
             rep["engine"]["speculative_k"] = self.ecfg.speculative_k
+            if self._spec:
+                rep["engine"]["speculative_policy"] = \
+                    self.ecfg.speculative_policy
         if self.cfg.is_moe:
             rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
                                            or self.cfg.moe.policy)

@@ -38,17 +38,18 @@ class AdmissionFront:
                     or active_any)
 
     # ------------------------------------------------------------------
-    def admit(self, now: float, *, plan_fn: Callable[[object], int],
-              can_admit_fn: Callable[[int], bool],
-              place_fn: Callable[[RequestState, int], None]) -> None:
+    def admit(self, now: float, *, plan_fn: Callable[[object, bool], tuple],
+              can_admit_fn: Callable[[tuple], bool],
+              place_fn: Callable[[RequestState, tuple], None]) -> None:
         """Fill free slots: preempted recompute first (oldest first), then
         arrivals in queue order.  Admission is gated on the block plan
-        (fresh blocks needed) for each candidate; the loop stops at the
-        first candidate that does not fit, preserving FIFO fairness."""
+        (``plan_fn(tokens, resumed)``: the shared prefix and the fresh
+        blocks needed) for each candidate; the loop stops at the first
+        candidate that does not fit, preserving FIFO fairness."""
         while self.free_slots:
             if self.resume:
                 st = self.resume[0]
-                plan = plan_fn(st.prefill_tokens)
+                plan = plan_fn(st.prefill_tokens, st.resumed)
                 if not can_admit_fn(plan):
                     return
                 self.resume.popleft()
@@ -57,7 +58,7 @@ class AdmissionFront:
             req = self.queue.peek_ready(now)
             if req is None:
                 return
-            plan = plan_fn(req.tokens)
+            plan = plan_fn(req.tokens, False)
             if not can_admit_fn(plan):
                 return
             self.queue.pop_ready(now)

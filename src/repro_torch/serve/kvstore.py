@@ -1,6 +1,7 @@
 """KV ownership for the serving engine (port of ``repro/serve/kvstore.py``'s
-``KVOwner``, slab and paged, with no prefix sharing and no handoff): the
-token-indexed implementation of ``statestore.SequenceStateStore``.
+``KVOwner``, slab and paged, with prefix sharing and without the handoff
+of split roles): the token-indexed implementation of
+``statestore.SequenceStateStore``.
 
 ``KVOwner`` owns where K/V lives and the batch-1 prefill scratch.  On the
 slab (``EngineConfig.paged=False``, the default) the pool is
@@ -20,6 +21,15 @@ the end of its real tokens, or the slot, from a static int32 device
 buffer filled from pinned memory, and on the card it is captured as its
 own CUDA graph at ``warm()`` (or its first use) and replayed after.
 
+With ``prefix_sharing`` the allocator keeps its radix prefix index and
+copy-on-write refcounts (``paging.BlockAllocator(prefix_cache=True)``),
+admission plans map each request's longest cached prefix into its chain
+(``plan``), and two more entries are captured the same way: the prefix
+gather into the scratch (``gather_prefix``: the chain row and the prefix
+length in its static buffer) and the block copy of copy-on-write
+(``copy_block``: source and destination), so one graph each serves every
+prefix length and every block.
+
 Sliding-window models are served paged as ring buffers, as in JAX: the
 pool and scratch are built over the unclamped cache (chunked prefill
 attends through the full-length scratch, where the window is a mask), and
@@ -33,13 +43,15 @@ clamped to the window and decode wraps it (``attention.decode_slab``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.configs.base import round_up
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
-                                      blocks_for_tokens, write_chunk_blocks)
+                                      blocks_for_tokens, copy_block,
+                                      gather_prefix_blocks,
+                                      write_chunk_blocks)
 from repro_torch.serve.slots import (leaf_shapes, discover_batch_axes,
                                      discover_seq_axes, min_kv_capacity,
                                      write_slot)
@@ -50,6 +62,7 @@ class KVOwner:
     def __init__(self, model, ecfg, *, s_pad: int):
         self.ecfg = ecfg
         self.paged = ecfg.paged
+        self.sharing = ecfg.prefix_sharing
         self.device = model.device
         B = ecfg.max_slots
         self.seq_axes = discover_seq_axes(model.init_cache, ecfg.max_seq_len)
@@ -84,7 +97,8 @@ class KVOwner:
                 raise ValueError(
                     f"num_kv_blocks={usable} cannot hold even one "
                     f"worst-case request ({self.blocks_per_slot} blocks)")
-            self.alloc = BlockAllocator(usable + 1, bs)   # +1: null block
+            self.alloc = BlockAllocator(usable + 1, bs,   # +1: null block
+                                        prefix_cache=self.sharing)
             self.block_table = np.full((B, self.blocks_per_slot),
                                        NULL_BLOCK, np.int32)
             self.kv_capacity = s_pad
@@ -107,34 +121,94 @@ class KVOwner:
                           self.device)
         self.write = Entry(lambda pool, scratch: self._write(pool, scratch),
                            self.device)
+        if self.sharing:
+            # the gather: chain row | prefix length; the copy: src | dst
+            self._gather_in = Staged(self.blocks_per_slot + 1, self.device)
+            self._copy_in = Staged(2, self.device)
+            self.gather_entry = Entry(
+                lambda pool, scratch: self._gather(pool, scratch),
+                self.device)
+            self.copy_entry = Entry(lambda pool: self._copy(pool),
+                                    self.device)
 
     # ------------------------------------------------------------------
     # SequenceStateStore protocol (serve/statestore.py)
     # ------------------------------------------------------------------
-    def plan(self, tokens) -> int:
-        """Fresh blocks a (re)prefill over ``tokens`` needs: paged, the
-        chunk-padded prefill writes (no prefix sharing, so every block is
-        fresh); none on the slab, where a free slot is the only
+    def plan(self, tokens, resumed: bool
+             ) -> Tuple[int, List[int], int, bool]:
+        """Admission plan for a (re)prefill over ``tokens`` (the JAX
+        store's ``share_plan``): ``(start, shared_blocks, n_fresh,
+        cow_last)``.  ``shared_blocks`` is the longest indexed prefix at
+        block granularity (empty without prefix sharing), and ``start`` the
+        offset prefill resumes from, normally the end of that prefix.  On a
+        full-sequence hit a fresh request still needs the last position's
+        logits, so it restarts at ``len - 1``, whose write lands in the
+        last shared block, which must be copied first (``cow_last``); a
+        resumed request needs no logits, so a full hit skips its prefill.
+        ``n_fresh`` counts the fresh blocks covering the chunk-padded
+        prefill writes.  The slab needs no blocks: a free slot is its only
         resource."""
         if not self.paged:
-            return 0
+            return 0, [], 0, False
+        C, bs = self.ecfg.prefill_chunk, self.ecfg.kv_block_size
+        L = len(tokens)
         if self.ring_full_chain:
             # every leaf wraps the same fixed ring: the chain is whole or
-            # nothing, whatever the prompt's length
-            return self.blocks_per_slot
-        return blocks_for_tokens(round_up(len(tokens),
-                                          self.ecfg.prefill_chunk),
-                                 self.ecfg.kv_block_size)
+            # nothing, whatever the prompt's length (sharing is refused for
+            # windowed models: a ring slot's contents depend on the
+            # sequence's absolute length)
+            return 0, [], self.blocks_per_slot, False
+        shared = self.alloc.match_prefix(tokens) if self.sharing else []
+        P = len(shared) * bs
+        cow_last = False
+        if P >= L:                         # full hit (only when L % bs == 0)
+            start = L if resumed else L - 1
+            cow_last = not resumed
+        else:
+            start = P
+        cover = start + (round_up(L - start, C) if L > start else 0)
+        n_fresh = max(blocks_for_tokens(cover, bs), len(shared)) \
+            - len(shared)
+        return start, shared, n_fresh, cow_last
 
-    def can_admit(self, n_fresh: int) -> bool:
-        return not self.paged or self.alloc.can_allocate(n_fresh)
+    def can_admit(self, plan) -> bool:
+        start, shared, n_fresh, cow_last = plan
+        return not self.paged or self.alloc.can_allocate(
+            n_fresh + int(cow_last), shared)
 
-    def place(self, rid: int, n_fresh: int) -> None:
-        """Reserve admitted request ``rid``'s storage: its chain of
-        ``n_fresh`` blocks (paged; the slab row is the slot itself)."""
+    def place(self, rid: int, plan) -> None:
+        """Reserve admitted request ``rid``'s storage: its chain, the
+        plan's shared prefix blocks followed by its fresh ones (paged; the
+        slab row is the slot itself)."""
         if self.paged:
-            chain = self.alloc.alloc_chain(rid, n_fresh)
+            _, shared, n_fresh, _ = plan
+            chain = self.alloc.alloc_chain(rid, n_fresh, shared=shared)
             assert chain is not None          # gated by can_admit
+
+    def probe_prefix(self, tokens) -> int:
+        """Longest cached-prefix match in ``tokens``, in tokens (0 without
+        prefix sharing): a pure lookup that leaves the LRU order as it
+        is."""
+        if not self.sharing:
+            return 0
+        return len(self.alloc.match_prefix(tokens, touch=False)) \
+            * self.ecfg.kv_block_size
+
+    def gather(self, rid: int, n_tokens: int) -> None:
+        """Load ``rid``'s first ``n_tokens`` cached positions from its
+        chain into the scratch (one captured gather)."""
+        h = self._gather_in.fill()
+        h[:-1] = self.bt_row(rid)
+        h[-1] = n_tokens
+        self._gather_in.push()
+        self.gather_entry(self.pool, self.scratch)
+
+    def copy(self, src: int, dst: int) -> None:
+        """Copy block ``src`` onto block ``dst`` (one captured copy): the
+        device half of ``BlockAllocator.cow``."""
+        self._copy_in.fill()[:] = (src, dst)
+        self._copy_in.push()
+        self.copy_entry(self.pool)
 
     def after_chunk(self, rid: int, start: int, valid_to: int) -> None:
         """The scratch holds a finished chunk at ``start`` whose real
@@ -187,14 +261,20 @@ class KVOwner:
     def warm(self) -> Optional[np.ndarray]:
         """Run the scratch-to-pool write once where no request reads it
         (the null block; row 0 of an idle slab), which on the card
-        captures it, and return the block
-        table a warm-up decode step should read (all null; None on the
-        slab)."""
+        captures it, and with prefix sharing the gather (through an
+        all-null row, masked to 0 tokens) and the copy (the null block
+        onto itself); return the block table a warm-up decode step should
+        read (all null; None on the slab)."""
         if not self.paged:
             self.on_prefill_done(0)
             return None
-        self._stage_write(np.append(np.full((self.blocks_per_slot,),
-                                            NULL_BLOCK, np.int32), [0, 0]))
+        null_row = np.full((self.blocks_per_slot,), NULL_BLOCK, np.int32)
+        self._stage_write(np.append(null_row, [0, 0]))
+        if self.sharing:
+            self._gather_in.fill()[:] = np.append(null_row, [0])
+            self._gather_in.push()
+            self.gather_entry(self.pool, self.scratch)
+            self.copy(NULL_BLOCK, NULL_BLOCK)
         return np.full_like(self.block_table, NULL_BLOCK)
 
     def release(self, rid: int, slot: int) -> None:
@@ -228,9 +308,14 @@ class KVOwner:
         return out
 
     def jit_counts(self) -> Dict[str, int]:
-        """The captured write, by the JAX engine's name."""
-        return {("write_blocks" if self.paged else "write_slot"):
-                self.write.captures}
+        """The captured write (and with prefix sharing the gather and the
+        copy), by the JAX engine's names."""
+        counts = {("write_blocks" if self.paged else "write_slot"):
+                  self.write.captures}
+        if self.sharing:
+            counts["gather_prefix"] = self.gather_entry.captures
+            counts["copy_block"] = self.copy_entry.captures
+        return counts
 
     def _stage_write(self, values: np.ndarray) -> None:
         self._in.fill()[:] = values
@@ -249,3 +334,16 @@ class KVOwner:
                                ring_mods=self.ring_mods, valid_to=d[-1])
         else:
             write_slot(pool, scratch, d, self.batch_axes)
+
+    def _gather(self, pool, scratch) -> None:
+        """The prefix gather on its static buffer: what the graph holds."""
+        d = self._gather_in.dev
+        gather_prefix_blocks(pool, scratch, d[:-1], d[-1], s_pad=self.s_pad,
+                             block_size=self.ecfg.kv_block_size,
+                             seq_axes=self.seq_axes)
+
+    def _copy(self, pool) -> None:
+        """The block copy on its static buffer: what the graph holds."""
+        d = self._copy_in.dev
+        copy_block(pool, d[0], d[1], block_size=self.ecfg.kv_block_size,
+                   seq_axes=self.seq_axes)

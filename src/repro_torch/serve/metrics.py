@@ -7,14 +7,18 @@ arrival_time.  Per step: active decode slots, paged KV-block occupancy,
 the MoE block's scalar schedule diagnostics and its vector ones (per-rank
 and per-expert loads), from which ``report()["load_balance"]`` is
 derived, and each phase's tokens, wall seconds and analytic attention
-KV bytes (``record_phase``, the ``phases`` section).  The ``residency``
-section (hits, misses, lookups, swaps, prefetches, stall_units,
-bytes_staged, hit_rate) is the tiered-residency manager's counters, which
-the engine sets; it is absent with residency off.  The prefix-sharing
-counters (``cow_copies``, ``evictions``, ``resume_cached_tokens``,
-``prefix_hit_rate``) are the JAX report's keys; the port shares no
-prefix, so they stay 0.  ``report()`` is JSON-safe on an empty window
-(percentiles over no requests come back as None).
+KV bytes (``record_phase``, the ``phases`` section: prefill,
+prefix_tail, decode and verify).  The ``residency`` section (hits,
+misses, lookups, swaps, prefetches, stall_units, bytes_staged, hit_rate)
+is the tiered-residency manager's counters, which the engine sets; it is
+absent with residency off.  The prefix-sharing counters (``cow_copies``,
+``evictions`` and ``resume_cached_tokens``, which the engine sets, and
+``prefix_hit_rate``, the share of prompt tokens served from the cache at
+first admission) and the ``speculative`` section (verify steps,
+slot-steps, drafted, accepted and committed tokens, acceptance rate,
+tokens per slot-step, slot-steps per committed token) are the JAX
+report's.  ``report()`` is JSON-safe on an empty window (percentiles over
+no requests come back as None).
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ class RequestRecord:
     admitted_time: float
     first_token_time: float
     finish_time: float
-    cached_prefix_tokens: int = 0   # no prefix sharing in the port: 0
+    cached_prefix_tokens: int = 0   # prompt tokens served from the prefix
+    #                                 cache at first admission
 
     @property
     def ttft(self) -> float:
@@ -92,12 +97,18 @@ class ServeMetrics:
         self.kv_blocks_in_use: List[int] = []
         self.kv_blocks_total = 0
         self.preemptions = 0
-        # the JAX report's prefix-sharing counters (no sharing here: 0)
-        self.cow_copies = 0
-        self.evictions = 0
-        self.resume_cached_tokens = 0
-        # per phase (prefill / decode): tokens, wall seconds around the
-        # synced call, analytic attention KV bytes, calls
+        # --- prefix sharing (paged) ---
+        self.cow_copies = 0                     # copy-on-write block copies
+        self.evictions = 0                      # cached prefixes evicted
+        self.resume_cached_tokens = 0           # prefill skipped on resume
+        # --- speculative decoding ---
+        self.spec_steps = 0                     # verify steps run
+        self.spec_slot_steps = 0                # active-slot verify passes
+        self.spec_drafted = 0                   # draft tokens proposed
+        self.spec_accepted = 0                  # draft tokens accepted
+        self.spec_committed = 0                 # tokens committed by verify
+        # per phase (prefill / prefix_tail / decode / verify): tokens, wall
+        # seconds around the synced call, analytic attention KV bytes, calls
         self.phase_tokens: Dict[str, int] = {}
         self.phase_seconds: Dict[str, float] = {}
         self.phase_kv_bytes: Dict[str, int] = {}
@@ -151,7 +162,8 @@ class ServeMetrics:
             n_generated=st.n_generated, arrival_time=st.req.arrival_time,
             admitted_time=st.admitted_time,
             first_token_time=st.first_token_time,
-            finish_time=st.finish_time)
+            finish_time=st.finish_time,
+            cached_prefix_tokens=st.cached_prefix_tokens or 0)
         self.requests.append(rec)
         return rec
 
@@ -194,6 +206,9 @@ class ServeMetrics:
         if self.moe_diags:
             rep["moe"] = {k: float(np.mean(v))
                           for k, v in self.moe_diags.items()}
+        spec = self._speculative_section()
+        if spec:
+            rep["speculative"] = spec
         phases = self._phases_section()
         if phases:
             rep["phases"] = phases
@@ -203,6 +218,26 @@ class ServeMetrics:
         if lb:
             rep["load_balance"] = lb
         return _json_safe(rep)
+
+    def _speculative_section(self) -> Optional[Dict[str, Any]]:
+        """The JAX report's speculative section; per slot, so that plain
+        decode reads one slot-step a committed token."""
+        if not self.spec_steps:
+            return None
+        return {
+            "steps": self.spec_steps,
+            "slot_steps": self.spec_slot_steps,
+            "drafted": self.spec_drafted,
+            "accepted": self.spec_accepted,
+            "committed_tokens": self.spec_committed,
+            "acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else None),
+            "tokens_per_step": (self.spec_committed / self.spec_slot_steps
+                                if self.spec_slot_steps else None),
+            "steps_per_committed_token": (
+                self.spec_slot_steps / self.spec_committed
+                if self.spec_committed else None),
+        }
 
     def _phases_section(self) -> Optional[Dict[str, Any]]:
         if not self.phase_steps:

@@ -68,6 +68,10 @@ class RequestState:
     admitted_time: float = 0.0           # slot reserved / prefill started
     first_token_time: float = 0.0        # last prefill chunk done (TTFT point)
     finish_time: float = 0.0
+    # --- prefix sharing ---
+    cached_prefix_tokens: Optional[int] = None  # prefill skipped at first
+    #                                             admission via a cache hit
+    prefix_loaded: bool = False          # cached prefix gathered to scratch
 
     @property
     def n_generated(self) -> int:

@@ -29,19 +29,20 @@ class SequenceStateStore(Protocol):
     kv_capacity: int
     alloc: Any
 
-    def plan(self, tokens) -> int:
-        """Fresh blocks a (re)prefill over ``tokens`` needs."""
+    def plan(self, tokens, resumed: bool) -> Tuple[int, list, int, bool]:
+        """Admission plan for a (re)prefill over ``tokens``: (start,
+        shared prefix blocks, fresh blocks, copy the last shared block)."""
         ...
 
-    def can_admit(self, n_fresh: int) -> bool:
-        """Whether the store can allocate ``n_fresh`` blocks right now."""
+    def can_admit(self, plan) -> bool:
+        """Whether the store can take ``plan``'s blocks right now."""
         ...
 
-    def place(self, rid: int, n_fresh: int) -> None:
+    def place(self, rid: int, plan) -> None:
         """Reserve an admitted request's storage."""
         ...
 
-    def after_chunk(self, rid: int, start: int) -> None:
+    def after_chunk(self, rid: int, start: int, valid_to: int) -> None:
         """The scratch holds a finished prefill chunk at ``start``."""
         ...
 

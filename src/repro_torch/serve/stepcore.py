@@ -5,6 +5,15 @@ chunk's tokens, start and last index; the batch vectors of a decode step:
 tokens, per-row positions, active mask, and on the paged pool the block
 table) as host values, and gets host tokens back.
 
+With ``speculative_k = k > 0`` (paged only) the decode entry is the
+``[B, k + 1]`` *verify* step instead, as in JAX: window position 0 of
+each row is its committed last token, 1..k its drafts, and the step
+hands back the logits ``[B, k + 1, Vp]`` at every window position (as
+float32, in the same one copy to pinned host memory as the MoE
+diagnostics); acceptance and sampling run on the host
+(``serve/speculative.py``), so the verify step draws no Gumbel noise.
+It is still one captured graph under the ``decode`` key.
+
 Both entries are compiled once, as JAX jits them (``Entry``): on the
 card, an entry's first call (``ServeEngine.warmup``, or the first chunk
 or step of a ``run`` without it) runs it eagerly on a side stream and
@@ -205,18 +214,22 @@ class StepCore:
         self.pf_key, self.dec_key = base.fold_in(0), base.fold_in(1)
         B, C = self.B, self.C = ecfg.max_slots, ecfg.prefill_chunk
         self.bps = blocks_per_slot if ecfg.paged else 0
+        # the verify window: k + 1 query positions a row
+        self.spec = ecfg.paged and ecfg.speculative_k > 0
+        S = self.S = ecfg.speculative_k + 1 if self.spec else 1
         G = model.moe_spec_decode.topo.num_ranks if cfg.is_moe else 1
         self.G, self.R = G, ecfg.replica_slots
         # the ranks whose skewed assignments this process draws
         self.ranks_here = getattr(model.comm, "ranks_here", (0,))
         self.W = ecfg.resident_experts // G
         n_rep, n_res = G * self.R, G * self.W
-        # decode: tokens | positions | active | replica table | residency
-        # table | block table; prefill chunk: tokens | start | last |
-        # replica table
-        self._rep_at = 3 * B
-        self._res_at = 3 * B + n_rep
-        self._bt_at = 3 * B + n_rep + n_res
+        # decode: tokens [B, S] | positions | active | replica table |
+        # residency table | block table; prefill chunk: tokens | start |
+        # last | replica table
+        self._pos_at = B * S
+        self._rep_at = B * S + 2 * B
+        self._res_at = self._rep_at + n_rep
+        self._bt_at = self._res_at + n_res
         self._dec_in = Staged(self._bt_at + B * self.bps, dev)
         self._pf_in = Staged(C + 2 + n_rep, dev)
         self._h_out: Dict[int, torch.Tensor] = {}
@@ -231,21 +244,24 @@ class StepCore:
                                     round_up(max(tokens, G), G) // G,
                                     moe.num_experts_per_tok),
                                    dtype=torch.int32, device=dev)
-            self._skew, self._pf_skew = draws(B), draws(C)
+            self._skew, self._pf_skew = draws(B * S), draws(C)
             self._probs = skew_probs(moe.num_experts,
                                      model.moe_spec_decode.topo.padded_experts,
                                      moe.router_skew,
                                      moe.router_skew_experts, dev)
-        # sampling: the decode step's Gumbel noise [B, candidates] and the
-        # host twin's generator for first tokens (the JAX engine's seed)
+        # sampling: the decode step's Gumbel noise [B, candidates] (none for
+        # the verify step, whose tokens are drawn on the host) and the host
+        # twin's generator for first tokens and verify draws (the JAX
+        # engine's seed)
         self.sample = ecfg.temperature > 0
         self._noise: Optional[torch.Tensor] = None
         self.samp_rng: Optional[np.random.Generator] = None
         if self.sample:
+            self.samp_rng = np.random.default_rng(ecfg.skew_seed + 101)
+        if self.sample and not self.spec:
             self._noise = torch.zeros(
                 (B, noise_width(cfg.padded_vocab, ecfg.top_k)),
                 dtype=torch.float32, device=dev)
-            self.samp_rng = np.random.default_rng(ecfg.skew_seed + 101)
         # host seconds spent on skew draws (by entry) and on the decode
         # step's sampling noise ("noise"), and calls
         self.predraw_s = {"decode": 0.0, "prefill_chunk": 0.0, "noise": 0.0}
@@ -356,12 +372,14 @@ class StepCore:
         on the slab at each row's own position, with the replica table
         [G, R] and the residency table [G, W].  Returns the next tokens
         [B] (greedy, or sampled on this step's noise) and the packed MoE
-        diagnostics (``unpack``), on the host."""
-        B = self.B
+        diagnostics (``unpack``), on the host.  With speculation on,
+        ``tok`` is the verify window [B, k + 1] and the first value is the
+        window's logits [B, k + 1, Vp] (float32) instead."""
+        B, S = self.B, self.S
         h = self._dec_in.fill()
-        h[:B] = np.asarray(tok).reshape(B)
-        h[B:2 * B] = pos
-        h[2 * B:3 * B] = active
+        h[:B * S] = np.asarray(tok).reshape(B * S)
+        h[B * S:B * S + B] = pos
+        h[B * S + B:self._rep_at] = active
         if self.R:
             h[self._rep_at:self._res_at] = np.asarray(replica_ids).reshape(-1)
         if self.W:
@@ -371,10 +389,13 @@ class StepCore:
             h[self._bt_at:] = np.asarray(block_table).reshape(-1)
         self._dec_in.push()
         self._predraw(step_idx, "decode")
-        if self.sample:
+        if self._noise is not None:
             self._draw_noise(step_idx)
         packed, self.logits = self.decode_entry(params, pool)
         packed = self._to_host(packed)
+        if self.spec:
+            n = self.logits.numel()
+            return packed[:n].reshape(self.logits.shape), packed[n:]
         return packed[:B].astype(np.int32), packed[B:]
 
     def _predraw(self, idx: int, entry: str = "decode") -> None:
@@ -412,8 +433,9 @@ class StepCore:
         self.predraw_calls["noise"] += 1
 
     def _step(self, params, pool):
-        """The decode step on the static buffers: what the graph holds."""
-        B, d = self.B, self._dec_in.dev
+        """The decode (or verify) step on the static buffers: what the
+        graph holds."""
+        B, S, d = self.B, self.S, self._dec_in.dev
         kw = {}
         if self.bps:
             kw = dict(block_table=d[self._bt_at:].view(B, self.bps),
@@ -426,10 +448,16 @@ class StepCore:
             kw.update(moe_layer_diags=True,
                       moe_residency_ids=d[self._res_at:self._bt_at].view(
                           self.G, self.W))
+        pos = d[self._pos_at:self._pos_at + B]
         logits, _, _, diags = self.model.decode_step(
-            params, d[:B].view(B, 1), pool, d[B:2 * B],
-            active_mask=d[2 * B:3 * B].to(torch.bool),
+            params, d[:B * S].view(B, S), pool, pos,
+            active_mask=d[self._pos_at + B:self._rep_at].to(torch.bool),
             moe_policy=self.ecfg.moe_policy, skew_assign=self._skew, **kw)
+        if self.spec:
+            # no sampling in the verify step: its logits go to the host
+            packed = torch.cat([logits.float().reshape(-1),
+                                self._pack(diags, "decode")])
+            return packed, logits
         e = self.ecfg
         nxt = sample_tokens(logits, self._noise, temperature=e.temperature,
                             top_k=e.top_k, top_p=e.top_p)

@@ -168,20 +168,31 @@ def test_engine_config_defaults_equal_jax():
     ("rebalance_interval", 2), ("resident_experts", 4),
     ("moe_policy", "fastest"), ("temperature", -1.0), ("top_p", 0.0)])
 def test_unported_engine_fields_raise(field, value):
-    """Fields not ported yet raise NotImplementedError; ``moe_policy`` is
-    ported and, as in the JAX engine, an unknown policy is a ValueError.
-    The serving-time expert placement fields and the sampling fields are
-    ported too and validate as the JAX engine's: an interval without
-    replica slots, a negative temperature or a top_p of 0 is a ValueError
-    naming the field, a legal value is kept."""
+    """``role`` is not ported yet and raises NotImplementedError;
+    ``moe_policy`` is ported and, as in the JAX engine, an unknown policy
+    is a ValueError.  The serving-time expert placement fields, the
+    sampling fields, ``prefix_sharing`` and ``speculative_k`` are ported
+    and validate as the JAX engine's: an interval without replica slots, a
+    negative temperature, a top_p of 0, or prefix sharing or speculation
+    on the slab is the JAX ValueError, word for word, and a legal value
+    is kept (sharing and speculation on the paged pool)."""
     if field in ("replica_slots", "rebalance_interval", "resident_experts",
-                 "temperature", "top_p"):
+                 "temperature", "top_p", "prefix_sharing",
+                 "speculative_k"):
         from repro.serve import EngineConfig as JEngineConfig
         try:
             JEngineConfig(**{field: value})
-        except ValueError:
-            with pytest.raises(ValueError, match=field):
-                EngineConfig(**{field: value})
+        except ValueError as jerr:
+            if field in ("prefix_sharing", "speculative_k"):
+                with pytest.raises(ValueError) as err:
+                    EngineConfig(**{field: value})
+                assert str(err.value) == str(jerr)
+                for cls in (EngineConfig, JEngineConfig):
+                    assert getattr(cls(**{field: value}, paged=True),
+                                   field) == value
+            else:
+                with pytest.raises(ValueError, match=field):
+                    EngineConfig(**{field: value})
         else:
             assert getattr(EngineConfig(**{field: value}), field) == value
         return

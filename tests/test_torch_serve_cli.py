@@ -6,14 +6,17 @@ Its ``ENGINE_FLAGS`` rows are JAX's; the same argv parses to the same
 flag.  Then the whole CLI: ``repro.launch.serve.main`` runs in one JAX
 subprocess on four emulated host devices, once an argv (greedy and
 sampled, slab and paged, at ``--model-par`` 1 and 4, with replica slots,
-with tiered residency, from a ``--trace`` file, and on reduced
-mixtral-8x7b, paged through its window ring), recording each run's
+with tiered residency, from a ``--trace`` file, on reduced mixtral-8x7b,
+paged through its window ring, with the prefix cache and with the
+speculative verify step), recording each run's
 weights, streams, noise and skew draws and writing its report
 (``--out``).  The port's ``serve(args, device="cpu", params=...)`` on
 the converted weights, replaying the JAX draws by call index, must give
 the same per-request token streams, and every section of its report the
-JAX report's keys (``engine.device`` is the port's own key).  The request generators give
-the reference's requests exactly."""
+JAX report's keys (``engine.device`` is the port's own key), and with
+``--prefix-sharing`` or ``--speculative-k`` the prefix counters and the
+``speculative`` section the JAX report's values.  The request generators
+give the reference's requests exactly."""
 import dataclasses
 import json
 import sys
@@ -30,7 +33,8 @@ from repro_torch.serve import engine as TE
 from repro_torch.serve import stepcore as TSC
 
 from _ep_helpers import (FLATTEN_SRC, SAMPLING_RECORD_SRC,  # noqa: F401
-                         keyed_replay, one_torch_thread, run_jax, unflatten)
+                         keyed_replay, one_torch_thread, unflatten)
+from test_torch_prefix import run_jax_side_by_side
 
 BASE = ["--arch", "qwen15-moe-a27b", "--reduced", "--batch", "3",
         "--prompt-len", "12", "--gen", "6", "--seed", "1"]
@@ -51,6 +55,11 @@ CELLS = {
     "mixtral_ring": ["--arch", "mixtral-8x7b", "--paged", "--prompt-len",
                      "80", "--kv-block-size", "16", "--prefill-chunk", "16",
                      "--requests", "3"],
+    # the prefix cache (every prompt shares its first 8 tokens) and the
+    # speculative verify step
+    "g1_prefix": PAGED + ["--prefix-sharing", "--shared-prefix-len", "8",
+                          "--requests", "4"],
+    "g1_speculative": PAGED + ["--speculative-k", "3", "--requests", "4"],
 }
 # the trace cell's records: explicit tokens and drawn prompts, all at t=0
 TRACE = [{"prompt_len": 5, "max_new_tokens": 4},
@@ -106,17 +115,45 @@ def test_same_argv_same_engine_config(argv, monkeypatch):
     (["--paged", "--speculative-k", "2"], "--speculative-k"),
     (["--arch", "mamba2-2.7b"], "--arch"),
     (["--data-par", "2"], "--data-par")])
-def test_unported_flags_raise_naming_the_flag(extra, flag):
+def test_unported_flags_raise_naming_the_flag(extra, flag, capsys):
+    """What the port does not serve raises, naming the flag (fleets and
+    split roles naming ROADMAP item 7); ``--prefix-sharing`` and
+    ``--speculative-k`` are ported and serve, printing the JAX CLI's
+    lines."""
     args = TCLI.build_parser().parse_args(BASE + extra)
-    with pytest.raises(NotImplementedError, match=flag):
+    if flag in ("--prefix-sharing", "--speculative-k"):
+        rep = TCLI.serve(args, device="cpu")
+        out = capsys.readouterr().out
+        assert rep["n_requests"] == 3
+        if flag == "--prefix-sharing":
+            assert rep["engine"]["prefix_sharing"] is True
+            assert "[serve] prefix cache: hit_rate=" in out
+            assert set(rep["jit_entries"]) >= {"gather_prefix",
+                                               "copy_block"}
+        else:
+            assert rep["engine"]["speculative_k"] == 2
+            assert "[serve] speculative k=2 policy=ngram" in out
+            assert rep["speculative"]["steps"] > 0
+        return
+    with pytest.raises(NotImplementedError, match=flag) as err:
         TCLI.serve(args, device="cpu")
+    if flag in ("--replicas", "--disaggregate"):
+        assert "ROADMAP item 7" in str(err.value)
 
 
 def test_engine_config_unported_fields_name_the_item():
-    for kw in (dict(role="decode", paged=True), dict(prefix_sharing=True),
-               dict(speculative_k=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    """``role`` is still item 7's; prefix sharing and speculation are
+    ported, and on the slab each is the JAX engine's ValueError."""
+    from repro.serve import EngineConfig as JEngineConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        TE.EngineConfig(role="decode", paged=True)
+    for kw in (dict(prefix_sharing=True), dict(speculative_k=1)):
+        with pytest.raises(ValueError) as jerr:
+            JEngineConfig(**kw)
+        with pytest.raises(ValueError) as err:
             TE.EngineConfig(**kw)
+        assert str(err.value) == str(jerr.value)
+        assert TE.EngineConfig(**kw, paged=True).paged
 
 
 # ----------------------------------------------------------------------
@@ -208,12 +245,13 @@ def _argv(cell, tmp):
 
 @pytest.fixture(scope="module")
 def jax_cli(tmp_path_factory):
+    """The JAX CLI's cells, in three subprocesses side by side."""
     tmp = tmp_path_factory.mktemp("cli")
     (tmp / "trace.json").write_text(json.dumps(TRACE))
-    cells = {name: _argv(name, tmp) for name in CELLS}
-    body = (f"import numpy as np\nCELLS = {cells!r}\n"
-            f"DIR = {str(tmp)!r}\n" + JAX_BODY)
-    flat = run_jax(body, tmp / "cli.npz", timeout=900)
+    names = list(CELLS)
+    bodies = [f"CELLS = { {n: _argv(n, tmp) for n in names[i::3]}!r}\n"
+              f"DIR = {str(tmp)!r}\n" + JAX_BODY for i in range(3)]
+    flat = run_jax_side_by_side(bodies, tmp, devices=4, timeout=900)
     return tmp, flat
 
 
@@ -258,6 +296,18 @@ def test_cli_streams_and_report_schema_equal_jax(jax_cli, cell, monkeypatch):
         assert rep["state_pool"] == {**jrep["state_pool"]}
         assert rep["state_pool"]["window_ring"]
         assert rep["state_pool"]["ring_full_chain"]
+    if cell == "g1_prefix":
+        for key in ("prefix_hit_rate", "cow_copies", "evictions",
+                    "resume_cached_tokens"):
+            assert rep[key] == jrep[key], key
+        assert rep["prefix_hit_rate"] > 0
+        assert [r["cached_prefix_tokens"] for r in rep["requests"]] \
+            == [r["cached_prefix_tokens"] for r in jrep["requests"]]
+        assert rep["phases"].keys() == jrep["phases"].keys()
+    if cell == "g1_speculative":
+        assert rep["speculative"] == jrep["speculative"]
+        assert rep["phases"]["verify"]["tokens"] \
+            == jrep["phases"]["verify"]["tokens"]
     if "--temperature" in CELLS[cell]:
         assert rec["noise"]
     if "--skew" in CELLS[cell]:

@@ -395,15 +395,15 @@ def test_ring_chains_never_grow(swa):
 ], ids=["speculative", "sharing", "fused", "role"])
 def test_ring_blockers_rejected(swa, kw, frag):
     """The JAX engine refuses each blocker at construction.
-    ``fused_paged_attention`` reaches the port's engine, which refuses it
-    with JAX's message word for word; the other three fields are not
-    ported (item 7), so the port's ``EngineConfig`` refuses them, naming
-    the field."""
+    ``fused_paged_attention``, ``speculative_k`` and ``prefix_sharing``
+    reach the port's engine, which refuses each with JAX's message word
+    for word; ``role`` is not ported (item 7), so the port's
+    ``EngineConfig`` refuses it, naming the field."""
     model, params, (mesh, jm, jp) = swa
     with pytest.raises(ValueError, match=frag) as jerr:
         JEngine(jm, jp, jax_ecfg(JSWA, **_kw(**kw)), mesh=mesh,
                 clock=JClock(0.5))
-    if "fused_paged_attention" in kw:
+    if "role" not in kw:
         with pytest.raises(ValueError, match=frag) as err:
             _engine(model, params, **kw)
         assert str(err.value) == str(jerr.value)
