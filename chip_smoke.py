@@ -251,7 +251,39 @@ Phases, each of which must pass (any failure exits non-zero):
      ``paged_attention`` at (b)'s verify window and (a)'s prefix-tail
      chunk and ``moe_gmm`` at the verify step's 20 tokens.  ``python3
      chip_smoke.py --only-prefix-spec`` runs phase 1, those parity cases
-     and phase 12 alone, and prints no result.
+     and phase 12 alone, and prints no result;
+  13. engine roles and the fleet, right after phase 12's bf16 round on its
+     weights (full-width qwen15-moe-a27b, every engine paged with prefix
+     sharing, 4 slots, 16-token blocks, chunk 32, strict): (a) a
+     prefill-role and a decode-role engine behind a ``FleetRouter`` at
+     G = 1, joined by the KV handoff, serving phase 12 (a)'s 8 prompts
+     (576-640 tokens sharing their first 512, all at t = 0, 32 new)
+     against a unified engine on the same weights and requests; a
+     ``[fleet-disagg]`` line: TTFT p50/p90 and TPOT p50 of the fleet and
+     the unified engine, per replica routed, finished and steps, the
+     handoffs moved, bytes and pending, per record its bytes, the
+     export's ms and GB/s (one copy a leaf into pinned memory and a sync),
+     the import's ms and GB/s with its write replays, the npz wire form's
+     round trip of one record, peak memory; gates: every budget, moved 8
+     and pending 0, the prefill replica finishes 0 and the decode replica
+     8, streams equal to the unified engine's token for token, the npz
+     round trip bit-exact, one capture of each entry on every engine and
+     nothing captured again, each kernel once a layer a chunk on the
+     prefill side (prefix-tail chunks included) and a step on the decode
+     side; (b) two unified replicas with prefix sharing, 12 Poisson
+     requests (two groups of 6 at 0.5 req/s each, each group sharing its
+     own first 512 tokens, 16 new), once under ``round_robin`` and once
+     under ``prefix_affinity`` (weight 1.0); a ``[fleet]`` line each: per
+     replica routed, affinity hits and hit tokens, the aggregate prefix
+     hit rate, TTFT p50/p90, TPOT p50, prefill chunks; gates: every
+     budget, affinity hits under ``prefix_affinity`` and a hit rate at
+     least ``round_robin``'s, one capture of each entry on each replica,
+     each request's stream equal across the policies; (c) reduced
+     qwen15-moe-a27b in f32 on a ``VirtualClock``, G = 1 and 4 (learned
+     routes): the disaggregated pair and two ``prefix_affinity``
+     replicas, card streams, routing decisions and handoff counters equal
+     the CPU's.  ``python3 chip_smoke.py --only-fleet`` runs phase 1 and
+     phase 13 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -3945,14 +3977,16 @@ def prefix_spec_round(cfg, params, dtype, out, *, prefix=True):
     return pairs, forced
 
 
-def prefix_spec_path():
+def prefix_spec_path(fleet=False):
     """Phase 12: full-width qwen15-moe-a27b on the paged pool with prefix
     sharing (a) and speculative decoding (b) at G = 1, and speculative
     decoding on four virtual EP ranks (c), on one set of weights drawn
     once; where a bf16 stream parts from its reference, the same pairs in
     f32, whose streams may part only at near ties and whose teacher-forced
     rows must hold ``FORCED_GATES``' f32 bounds, and only then the bf16
-    rows theirs; then (d).  Returns the lines."""
+    rows theirs; then (d).  With ``fleet``, phase 13's (a) and (b) run on
+    the bf16 weights right after phase 12's bf16 round, and its (c) after
+    (d).  Returns the lines."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
@@ -3966,6 +4000,11 @@ def prefix_spec_path():
     out = {}
     pairs, forced = prefix_spec_round(cfg, params, "bfloat16", out)
     out["streams_bfloat16"], out["forced_bfloat16"] = pairs, forced
+    if fleet:
+        # phase 13 on the same bf16 weights, before any f32 rerun casts them
+        t0 = time.perf_counter()
+        out["fleet"] = fleet_path(cfg.replace(dtype="bfloat16"), params)
+        out["fleet_s"] = time.perf_counter() - t0
     if not any(pairs.values()) and all(
             f["agree"] == f["positions"] for by_rid in forced.values()
             for f in by_rid.values()):
@@ -3996,6 +4035,8 @@ def prefix_spec_path():
     torch.cuda.empty_cache()
     for ep_degree in (1, EP_DEGREE):
         small_prefix_spec_reference_check(ep_degree)
+        if fleet:
+            small_fleet_reference_check(ep_degree)
     return out
 
 
@@ -4059,6 +4100,440 @@ def small_prefix_spec_reference_check(ep_degree, seed: int = 0) -> None:
         f"{sp['prefix_hit_rate']:.3f})")
 
 
+# ----------------------------------------------------------------------
+# phase 13: engine roles and the fleet
+# ----------------------------------------------------------------------
+# (a): phase 12 (a)'s 8 prompts of 576-640 tokens sharing their first 512,
+# all at t = 0, 32 new tokens: a prefill-role and a decode-role engine
+# against one unified engine
+FLEET_A = dict(n_requests=8, prompt_lens=(576, 640), shared=512,
+               new_tokens=32)
+# (b): 12 Poisson requests in two groups of 6, each group sharing its own
+# first 512 tokens, 16 new, over two unified replicas
+FLEET_B = dict(groups=2, per_group=6, prompt_lens=(576, 640), shared=512,
+               new_tokens=16, rate=0.5)
+FLEET_POLICIES = ("round_robin", "prefix_affinity")
+
+
+def fleet_engines(cfg, params, roles, *, prompt_len, new_tokens, clock,
+                  ep_degree=1, device="cuda", **kw):
+    """One engine a role, all on one model and one set of weights, on one
+    clock, paged with prefix sharing (``_ps_engine_cfg``'s shapes)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+    model = build_model(cfg, batch=PS["slots"], seq_len=prompt_len,
+                        ep_degree=ep_degree, device=device)
+    return [ServeEngine(model, params, _ps_engine_cfg(
+        cfg, prompt_len=prompt_len, new_tokens=new_tokens, role=role,
+        prefix_sharing=True, **kw), clock=clock, device=device)
+        for role in roles]
+
+
+def _per_engine_launches(eng):
+    """Attribute the kernels' launches to ``eng``: its step core's prefill
+    chunks and decode steps add their launches to the returned dict."""
+    from repro_torch.serve.stepcore import kernel_launches
+    counts = {name: 0 for name in REPLACES}
+    core = eng.core
+    for name in ("prefill", "decode"):
+        def counted(*args, orig=getattr(core, name), **kw):
+            before = kernel_launches()
+            out = orig(*args, **kw)
+            for k, v in kernel_launches().items():
+                counts[k] += v - before[k]
+            return out
+        setattr(core, name, counted)
+    return counts
+
+
+def _streams(engines):
+    out = {}
+    for eng in engines:
+        def capture(st, now, finish=eng._finish):
+            out[st.req.rid] = list(st.output)
+            finish(st, now)
+        eng._finish = capture
+    return out
+
+
+def fleet_serve(engines, reqs, *, policy="load", router=True):
+    """Warm every engine up, then serve ``reqs`` through a ``FleetRouter``
+    over ``engines`` (or, without ``router``, the one engine's own
+    ``run``).  Returns the streams, the report, each engine's launches,
+    wall s and peak GiB."""
+    import torch
+    from repro_torch.serve import FleetRouter
+    for eng in engines:
+        eng.warmup()
+    streams = _streams(engines)
+    launches = [_per_engine_launches(eng) for eng in engines]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if router:
+        rep = FleetRouter(engines, policy=policy).run(reqs)
+    else:
+        rep = engines[0].run(reqs)
+    torch.cuda.synchronize()
+    return {"outputs": streams, "rep": rep, "launches": launches,
+            "wall_s": time.perf_counter() - t0,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _parts(ref, other):
+    """Where ``other``'s streams part from ``ref``'s: by request, the first
+    differing position and both tokens."""
+    out = {}
+    for rid, want in ref.items():
+        got = other.get(rid) or []
+        if got != want:
+            i = next((j for j, (a, b) in enumerate(zip(want, got))
+                      if a != b), min(len(want), len(got)))
+            out[rid] = {"step": i,
+                        "reference": want[i] if i < len(want) else None,
+                        "other": got[i] if i < len(got) else None}
+    return out
+
+
+def _fleet_entry_gate(tag, reps):
+    for i, rep in enumerate(reps):
+        if rep["jit_entries"] != PREFIX_ENTRIES \
+                or rep.get("recompiled_after_warmup") is not False:
+            raise AssertionError(
+                f"[{tag}] replica {i}: jit_entries {rep['jit_entries']}, "
+                f"recompiled_after_warmup "
+                f"{rep.get('recompiled_after_warmup')}")
+
+
+def _timed_handoffs(pf, dec):
+    """Time each export (its one copy a leaf to pinned memory and its
+    sync) and each import (the copy into the import scratch and the write
+    replays, synced after), count the replays, and keep the first
+    record."""
+    import torch
+    recs, kept = [], []
+    export, imp, stage = pf.kv.export_kv, dec.kv.import_kv, \
+        dec.kv._stage_import
+
+    def timed_export(pad_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = export(pad_len)
+        ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(t.numel() * t.element_size() for t in kv)
+        recs.append({"pad_len": pad_len, "kv_bytes": nbytes,
+                     "export_ms": ms, "export_gb_s": nbytes / ms / 1e6})
+        return kv
+
+    def timed_import(kv, pad_len, bt_row):
+        torch.cuda.synchronize()
+        n0 = calls[0]
+        t0 = time.perf_counter()
+        imp(kv, pad_len, bt_row)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(t.numel() * t.element_size() for t in kv)
+        rec = next(r for r in recs if "import_ms" not in r
+                   and r["pad_len"] == pad_len)
+        rec.update({"import_ms": ms, "import_gb_s": nbytes / ms / 1e6,
+                    "write_replays": calls[0] - n0})
+
+    calls = [0]
+
+    def counted_stage(values):
+        calls[0] += 1
+        stage(values)
+
+    def popped(orig=pf.pop_handoffs):
+        out = orig()
+        if out and not kept:
+            kept.append(out[0])
+        return out
+    pf.kv.export_kv, dec.kv.import_kv = timed_export, timed_import
+    dec.kv._stage_import = counted_stage
+    pf.pop_handoffs = popped
+    return recs, kept
+
+
+def _npz_round_trip(rec):
+    """The wire form's round trip of one full-width record: ms each way,
+    the blob's bytes, and whether every leaf comes back bit-equal."""
+    import torch
+    from repro_torch.serve import HandoffRecord
+    t0 = time.perf_counter()
+    blob = rec.to_npz_bytes()
+    t1 = time.perf_counter()
+    back = HandoffRecord.from_npz_bytes(blob)
+    t2 = time.perf_counter()
+    exact = (back.nbytes == rec.nbytes and len(back.kv) == len(rec.kv)
+             and all(a.dtype == b.dtype and a.shape == b.shape
+                     and torch.equal(a.reshape(-1).view(torch.uint8),
+                                     b.reshape(-1).view(torch.uint8))
+                     for a, b in zip(rec.kv, back.kv))
+             and back.output == rec.output and back.pos == rec.pos)
+    return {"to_npz_ms": (t1 - t0) * 1e3, "from_npz_ms": (t2 - t1) * 1e3,
+            "blob_bytes": len(blob), "record_bytes": rec.nbytes,
+            "bit_exact": exact}
+
+
+def _spread(xs):
+    import statistics
+    return {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+
+
+def fleet_disagg(cfg, params):
+    """(a): the unified engine, then the prefill-role and decode-role pair,
+    on the same weights and requests; the ``[fleet-disagg]`` line and its
+    gates."""
+    import torch
+    from repro_torch.serve import WallClock, poisson_requests
+    a = FLEET_A
+    tag = f"fleet-disagg {cfg.dtype}"
+
+    def reqs():
+        return poisson_requests(
+            a["n_requests"], rate=0.0, vocab_size=cfg.vocab_size,
+            prompt_len=a["prompt_lens"][1], max_new_tokens=a["new_tokens"],
+            seed=0, prompt_len_range=a["prompt_lens"],
+            shared_prefix_len=a["shared"])
+    shape = dict(prompt_len=a["prompt_lens"][1], new_tokens=a["new_tokens"])
+    uni = fleet_serve(fleet_engines(cfg, params, ["unified"],
+                                    clock=WallClock(), **shape), reqs(),
+                      router=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pf, dec = fleet_engines(cfg, params, ["prefill", "decode"],
+                            clock=WallClock(), **shape)
+    recs, kept = _timed_handoffs(pf, dec)
+    run = fleet_serve([pf, dec], reqs())
+    npz = _npz_round_trip(kept[0])
+    del pf, dec, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    fl, urep = run["rep"]["fleet"], uni["rep"]
+    reps = run["rep"]["replica_reports"]
+    line = {
+        "model": cfg.name, "dtype": cfg.dtype, "requests": a["n_requests"],
+        "ttft_p50_s": fl["aggregate"]["ttft"]["p50"],
+        "ttft_p90_s": fl["aggregate"]["ttft"]["p90"],
+        "tpot_p50_s": fl["aggregate"]["tpot"]["p50"],
+        "ttft_p50_s_unified": urep["ttft"]["p50"],
+        "ttft_p90_s_unified": urep["ttft"]["p90"],
+        "tpot_p50_s_unified": urep["tpot"]["p50"],
+        "replicas": [{k: r[k] for k in ("role", "routed", "n_requests",
+                                         "steps")} for r in fl["replicas"]],
+        "handoffs": fl["handoffs"],
+        "record_bytes": _spread([r["kv_bytes"] for r in recs]),
+        "export_ms": _spread([r["export_ms"] for r in recs]),
+        "export_gb_s": _spread([r["export_gb_s"] for r in recs]),
+        "import_ms": _spread([r.get("import_ms", 0.0) for r in recs]),
+        "import_gb_s": _spread([r.get("import_gb_s", 0.0) for r in recs]),
+        "write_replays": sorted({r.get("write_replays") for r in recs}),
+        "npz": npz,
+        "peak_mem_gib": run["peak_mem_gib"],
+        "peak_mem_gib_unified": uni["peak_mem_gib"],
+        "wall_s": run["wall_s"], "wall_s_unified": uni["wall_s"],
+        "prefill_chunks": [rep["prefill_chunks"] for rep in reps],
+        "prefill_chunks_unified": urep["prefill_chunks"],
+        "decode_steps": [rep["decode_steps"] for rep in reps],
+        "launches": run["launches"],
+        "prefix_hit_rate": fl["aggregate"]["prefix_hit_rate"],
+        "prefix_hit_rate_unified": urep["prefix_hit_rate"],
+    }
+    log(f"[fleet-disagg] {json.dumps(line)}")
+    _check_budgets(tag, run["outputs"], reqs(), cfg.vocab_size)
+    _check_budgets(f"{tag} unified", uni["outputs"], reqs(),
+                   cfg.vocab_size)
+    if fl["handoffs"]["moved"] != a["n_requests"] \
+            or fl["handoffs"]["pending"] != 0:
+        raise AssertionError(f"[{tag}] handoffs {fl['handoffs']}")
+    if [r["n_requests"] for r in fl["replicas"]] != [0, a["n_requests"]]:
+        raise AssertionError(f"[{tag}] finished by replica "
+                             f"{[r['n_requests'] for r in fl['replicas']]}")
+    if not npz["bit_exact"]:
+        raise AssertionError(f"[{tag}] the npz round trip is not exact")
+    if any(r.get("write_replays") != r["pad_len"] // PS["prefill_chunk"]
+           for r in recs):
+        raise AssertionError(f"[{tag}] import write replays {recs}")
+    _fleet_entry_gate(tag, reps + [urep])
+    for i, rep in enumerate(reps):
+        _launch_gate(f"{tag} replica {i}", cfg, run["launches"][i],
+                     rep["prefill_chunks"] + rep["decode_steps"])
+    _launch_gate(f"{tag} unified", cfg, uni["launches"][0],
+                 urep["prefill_chunks"] + urep["decode_steps"])
+    if reps[1]["prefill_chunks"] or reps[0]["decode_steps"]:
+        raise AssertionError(f"[{tag}] the decode side prefilled or the "
+                             f"prefill side decoded")
+    if "prefix_tail" not in reps[0].get("phases", {}):
+        raise AssertionError(f"[{tag}] no prefix-tail chunk ran")
+    return line, _parts(uni["outputs"], run["outputs"])
+
+
+def fleet_requests(cfg):
+    """(b)'s two groups: a ``poisson_requests`` stream each (seeds from
+    ``split_seeds``), each sharing its own first 512 tokens, merged."""
+    from repro_torch.serve import merge_requests, poisson_requests, \
+        split_seeds
+    b = FLEET_B
+    return merge_requests(*[poisson_requests(
+        b["per_group"], rate=b["rate"], vocab_size=cfg.vocab_size,
+        prompt_len=b["prompt_lens"][1], max_new_tokens=b["new_tokens"],
+        seed=s, prompt_len_range=b["prompt_lens"],
+        shared_prefix_len=b["shared"], rid_base=100 * g)
+        for g, s in enumerate(split_seeds(13, b["groups"]))])
+
+
+def fleet_policies(cfg, params):
+    """(b): two unified replicas with prefix sharing, once a routing
+    policy; a ``[fleet]`` line each and the gates."""
+    import torch
+    from repro_torch.serve import WallClock
+    b = FLEET_B
+    runs, lines = {}, {}
+    for policy in FLEET_POLICIES:
+        tag = f"fleet {policy} {cfg.dtype}"
+        engines = fleet_engines(cfg, params, ["unified", "unified"],
+                                clock=WallClock(),
+                                prompt_len=b["prompt_lens"][1],
+                                new_tokens=b["new_tokens"])
+        run = fleet_serve(engines, fleet_requests(cfg), policy=policy)
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        fl = run["rep"]["fleet"]
+        reps = run["rep"]["replica_reports"]
+        routing = fl["routing"]
+        hits = [[d["matched_tokens"] for d in routing["decisions"]
+                 if d["replica"] == i] for i in range(len(reps))]
+        line = {
+            "model": cfg.name, "dtype": cfg.dtype, "policy": policy,
+            "requests": routing["routed"],
+            "routed": routing["per_replica"],
+            "affinity_hits": [sum(m > 0 for m in h) for h in hits],
+            "affinity_hit_tokens": [sum(h) for h in hits],
+            "prefix_hit_rate": fl["aggregate"]["prefix_hit_rate"],
+            "cached_prefix_tokens": {r["rid"]: r["cached_prefix_tokens"]
+                                     for rep in reps
+                                     for r in rep["requests"]},
+            "ttft_p50_s": fl["aggregate"]["ttft"]["p50"],
+            "ttft_p90_s": fl["aggregate"]["ttft"]["p90"],
+            "tpot_p50_s": fl["aggregate"]["tpot"]["p50"],
+            "prefill_chunks": [rep["prefill_chunks"] for rep in reps],
+            "decode_steps": [rep["decode_steps"] for rep in reps],
+            "ticks": fl["ticks"], "wall_s": run["wall_s"],
+            "peak_mem_gib": run["peak_mem_gib"],
+        }
+        log(f"[fleet] {json.dumps(line)}")
+        _check_budgets(tag, run["outputs"], fleet_requests(cfg),
+                       cfg.vocab_size)
+        _fleet_entry_gate(tag, reps)
+        for i, rep in enumerate(reps):
+            _launch_gate(f"{tag} replica {i}", cfg, run["launches"][i],
+                         rep["prefill_chunks"] + rep["decode_steps"])
+        runs[policy], lines[policy] = run, line
+    aff, rr = lines["prefix_affinity"], lines["round_robin"]
+    if sum(aff["affinity_hits"]) == 0:
+        raise AssertionError("[fleet] no affinity hit under prefix_affinity")
+    if aff["prefix_hit_rate"] < rr["prefix_hit_rate"]:
+        raise AssertionError(f"[fleet] prefix_affinity's hit rate "
+                             f"{aff['prefix_hit_rate']} < round_robin's "
+                             f"{rr['prefix_hit_rate']}")
+    return lines, _parts(runs["round_robin"]["outputs"],
+                         runs["prefix_affinity"]["outputs"]), \
+        {p: run["launches"] for p, run in runs.items()}
+
+
+def fleet_path(cfg, params):
+    """Phase 13 (a) and (b) on full-width bf16 weights: the lines, and the
+    streams held equal (the fleet's to the unified engine's, and across
+    the routing policies)."""
+    t0 = time.perf_counter()
+    disagg, parts_a = fleet_disagg(cfg, params)
+    t_a = time.perf_counter()
+    policies, parts_b, launches_b = fleet_policies(cfg, params)
+    log(f"[time] phase 13: (a) {t_a - t0:.1f} s, (b) "
+        f"{time.perf_counter() - t_a:.1f} s")
+    parts = {"disaggregated against unified": parts_a,
+             "prefix_affinity against round_robin": parts_b}
+    log("[fleet] streams: " + json.dumps(
+        {name: (p or "equal") for name, p in parts.items()}))
+    if any(parts.values()):
+        raise AssertionError(f"[fleet] streams part: {parts}")
+    launches = {"fleet_disagg_prefill": disagg["launches"][0],
+                "fleet_disagg_decode": disagg["launches"][1]}
+    for policy, by_replica in launches_b.items():
+        for i, counts in enumerate(by_replica):
+            launches[f"fleet_{policy}_replica{i}"] = counts
+    return {"disagg": disagg, "policies": policies, "launches": launches}
+
+
+def small_fleet_reference_check(ep_degree, seed: int = 0) -> None:
+    """(c): reduced qwen15-moe-a27b in f32 (learned routes, q = 1 at
+    G = 4), prompts sharing their first 8 tokens, on a ``VirtualClock``:
+    the disaggregated pair and two ``prefix_affinity`` replicas; the
+    card's streams, routing decisions and handoff counters equal the
+    CPU's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (FleetRouter, ServeEngine, VirtualClock,
+                                   engine_config_for, poisson_requests)
+    cfg = get_config("qwen15-moe-a27b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           q_tokens=1))
+    L, gen = 10, 6
+    params = build_model(cfg, batch=2, seq_len=L, device="cpu",
+                         ep_degree=ep_degree).init(seed)
+    found = {}
+    for roles, policy in ((("prefill", "decode"), "load"),
+                          (("unified", "unified"), "prefix_affinity")):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, batch=2, seq_len=L, device=dev,
+                                ep_degree=ep_degree)
+            clock = VirtualClock(0.5)
+            engines = [ServeEngine(model, _to(params, dev), engine_config_for(
+                cfg, max_slots=2, prompt_len=L, max_new_tokens=gen,
+                prefill_chunk=4, paged=True, kv_block_size=4,
+                prefix_sharing=True, role=role), clock=clock, device=dev)
+                for role in roles]
+            out = _streams(engines)
+            rep = FleetRouter(engines, policy=policy).run(poisson_requests(
+                6, rate=2.0, vocab_size=cfg.vocab_size, prompt_len=L,
+                max_new_tokens=gen, seed=11, shared_prefix_len=8))
+            fl = rep["fleet"]
+            res[dev] = (out, fl["routing"]["decisions"], fl["handoffs"],
+                        [r["handoffs"] for r in fl["replicas"]],
+                        fl["aggregate"]["prefix_hit_rate"])
+        if res["cpu"] != res["cuda"]:
+            raise AssertionError(
+                f"small fleet reference (G = {ep_degree}, {roles}, "
+                f"{policy}): card {res['cuda']} != cpu {res['cpu']}")
+        found[policy] = res["cuda"]
+    log(f"[reference] reduced qwen15-moe-a27b f32 at G = {ep_degree}, the "
+        f"disaggregated pair ({found['load'][2]['moved']} handoffs) and "
+        f"two prefix_affinity replicas (hit rate "
+        f"{found['prefix_affinity'][4]:.3f}): card streams, routing "
+        f"decisions and handoff counters equal the CPU's")
+
+
+def fleet_only_path():
+    """``--only-fleet``: phase 13 on weights drawn as phase 12 draws
+    them."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen15-moe-a27b")
+    params = build_model(cfg, batch=PS["slots"], seq_len=704).init(0)
+    out = fleet_path(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ep_degree in (1, EP_DEGREE):
+        small_fleet_reference_check(ep_degree)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4111,6 +4586,12 @@ def main() -> int:
     whole = dict(batch=4, prompt_len=1024, s_max=1024 + 64, new_tokens=32)
 
     elapsed("built")
+    if "--only-fleet" in sys.argv[1:]:
+        # a shorter run for work on phase 13: the phase alone, on weights
+        # of its own, without the kernels line and the result line
+        fleet_only_path()
+        elapsed("phase 13")
+        return 0
     if "--only-prefix-spec" in sys.argv[1:]:
         # a shorter run for work on phase 12: its parity cases and the
         # phase itself, without the kernels line and the result line
@@ -4217,11 +4698,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixtral = mixtral_path()
     elapsed("phase 11")
-    # --- phase 12: prefix sharing and speculative decoding -----------------
+    # --- phases 12-13: prefix sharing, speculative decoding; the fleet -----
     gc.collect()
     torch.cuda.empty_cache()
-    prefix_spec = prefix_spec_path()
-    elapsed("phase 12")
+    prefix_spec = prefix_spec_path(fleet=True)
+    elapsed("phases 12-13")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -4263,7 +4744,9 @@ def main() -> int:
                 f"serve_mixtral_8x7b_{MIXTRAL_LAYERS}of32_ep{EP_DEGREE}"
                 f"_harmoeny": mixtral["ep"]["launches"][name],
                 **{f"prefix_spec_qwen15_moe_a27b_{run}": rec[name]
-                   for run, rec in prefix_spec["launches"].items()}},
+                   for run, rec in prefix_spec["launches"].items()},
+                **{f"{run}_qwen15_moe_a27b": rec[name]
+                   for run, rec in prefix_spec["fleet"]["launches"].items()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

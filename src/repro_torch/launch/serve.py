@@ -35,6 +35,20 @@ virtual ranks on the one card (``VirtualGroup``), where ``--skew`` and
 gives per-request TTFT/TPOT percentiles, decode tokens/s and the
 HarMoEny schedule diagnostics (moved units, drops, load balance).
 
+``--replicas N`` serves through a fleet of N engine replicas behind a
+``FleetRouter`` (virtual replicas, as in JAX: one model and one set of
+weights, an engine and a KV pool each, one shared clock), routed by
+``--routing-policy`` load / prefix_affinity / round_robin
+(``--affinity-weight``); ``--disaggregate`` makes the first half of them
+prefill-role and the rest decode-role engines, joined by the KV handoff
+(needs ``--paged``).  With ``--model-par G`` every replica is a
+``VirtualGroup(G)`` engine on the one shared model.  The JAX CLI's
+``[fleet]`` lines give the aggregate and per-replica metrics, routing and
+handoffs, e.g. on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15-moe-a27b \\
+      --paged --replicas 2 --disaggregate --prompt-len 576 --gen 32 \\
+      --requests 8
+
 Across processes, one EP rank each, the launcher's environment takes the
 place of JAX's device mesh:
   torchrun --nproc-per-node G -m repro_torch.launch.serve ... --model-par G
@@ -51,10 +65,11 @@ lockstep, and only rank 0 prints and writes the report.
 card the hand-written kernels run whatever they say, and the report
 gives what ran (True on the card, False on the CPU, where the plain
 versions run); a window ring refuses ``--fused-attention``,
-``--prefix-sharing`` and ``--speculative-k`` as the JAX engine does.  Not
-ported yet, and refused with ``NotImplementedError``: ``--replicas > 1``
-and ``--disaggregate`` (ROADMAP item 7), and any arch outside the port's
-registry (items 8-9); ``--data-par > 1`` raises as in JAX.
+``--prefix-sharing``, ``--speculative-k`` and ``--disaggregate`` as the
+JAX engine does.  Not ported yet, and refused with
+``NotImplementedError``: any arch outside the port's registry (items
+8-9), and a fleet under a launcher (item 5); ``--data-par > 1`` raises
+as in JAX.
 
 ``serve(args, device=..., params=...)`` runs on the card unless the
 caller asks for the CPU, on weights drawn from seed 0 unless the caller
@@ -63,7 +78,8 @@ prints the JAX CLI's ``[serve]`` lines, then one of its own,
 ``[serve] device {...}``: the device, peak device memory, each kernel's
 launches over the run, the tokens that came out (count, smallest and
 largest id, lengths) and the host ms of the sampling noise and skew
-pre-draws.
+pre-draws.  A fleet prints the JAX CLI's ``[fleet]`` lines and
+``[fleet] device {...}``, the same over every replica.
 """
 from __future__ import annotations
 
@@ -82,7 +98,8 @@ from repro_torch.convert import shard_params
 from repro_torch.core.dispatch import DistComm
 from repro_torch.core.topology import static_opt_placement
 from repro_torch.models.model import build_model
-from repro_torch.serve import (EngineConfig, ServeEngine, engine_config_for,
+from repro_torch.serve import (ROUTING_POLICIES, EngineConfig, FleetRouter,
+                               ServeEngine, WallClock, engine_config_for,
                                load_trace, poisson_requests)
 from repro_torch.serve import stepcore
 from repro_torch.serve.stepcore import kernel_launches
@@ -185,12 +202,6 @@ def check_ported(args) -> None:
             f"--arch {args.arch}: not in the port's registry "
             f"{sorted(REGISTRY)}; the other models come with ROADMAP "
             f"items 8-9")
-    for flag, on in (("--replicas", getattr(args, "replicas", 1) > 1),
-                     ("--disaggregate", getattr(args, "disaggregate", False))):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet (fleets and disaggregated roles "
-                f"are ROADMAP item 7)")
     if args.data_par > 1:
         raise NotImplementedError(
             "the serving engine shards the model/expert axis only; "
@@ -224,11 +235,12 @@ def config_from_args(args):
     return cfg.replace(moe=moe)
 
 
-def _engine_cfg(args, cfg, prompt_len, gen):
+def _engine_cfg(args, cfg, prompt_len, gen, role="unified"):
     return engine_config_for(
         cfg, max_slots=args.batch, prompt_len=prompt_len,
         max_new_tokens=gen, skew_seed=args.seed + 1,
-        moe_policy=args.moe_policy or None, **engine_overrides(args))
+        moe_policy=args.moe_policy or None, role=role,
+        **engine_overrides(args))
 
 
 def process_group_comm(args, device):
@@ -281,9 +293,47 @@ def build_serving_engine(args, cfg=None, *, prompt_len=None, gen=None,
     return cfg, ServeEngine(model, params, ecfg, device=device)
 
 
+def build_fleet(args, cfg=None, *, prompt_len=None, gen=None,
+                device="cuda", params=None):
+    """``--replicas`` virtual replicas behind a ``FleetRouter``: one model
+    at expert-parallel degree ``--model-par`` and one set of weights, an
+    engine (and KV pool) each, one shared wall clock.  ``--disaggregate``
+    makes the first ``replicas // 2`` engines prefill-role and the rest
+    decode-role (it needs ``--paged``)."""
+    cfg = cfg if cfg is not None else config_from_args(args)
+    prompt_len = prompt_len or args.prompt_len
+    gen = gen or args.gen
+    if args.disaggregate:
+        if args.replicas < 2:
+            raise ValueError("--disaggregate needs --replicas >= 2 "
+                             "(at least one prefill + one decode engine)")
+        if not args.paged:
+            raise ValueError("--disaggregate hands KV off through the "
+                             "paged block machinery; add --paged")
+        n_pf = max(1, args.replicas // 2)
+        roles = ["prefill"] * n_pf + ["decode"] * (args.replicas - n_pf)
+    else:
+        roles = ["unified"] * args.replicas
+    ecfgs = [_engine_cfg(args, cfg, prompt_len, gen, role) for role in roles]
+    model = build_model(cfg, batch=args.batch, seq_len=prompt_len,
+                        device=device, ep_degree=args.model_par)
+    if params is None:
+        params = model.init(0)
+    clock = WallClock()
+    engines = [ServeEngine(model, params, ecfg, clock=clock, device=device)
+               for ecfg in ecfgs]
+    return cfg, FleetRouter(engines, policy=args.routing_policy,
+                            affinity_weight=args.affinity_weight)
+
+
 def serve(args, *, device="cuda", params=None):
     cfg = config_from_args(args)
     comm, device = process_group_comm(args, device)
+    fleet = args.replicas > 1 or args.disaggregate
+    if fleet and comm is not None:
+        raise NotImplementedError(
+            "--replicas / --disaggregate under a launcher: a fleet of "
+            "engines across processes is not ported (ROADMAP item 5)")
     lead = comm is None or comm.rank == 0         # prints, writes the report
     if args.trace:
         requests = load_trace(args.trace, vocab_size=cfg.vocab_size)
@@ -296,6 +346,9 @@ def serve(args, *, device="cuda", params=None):
             prompt_len=args.prompt_len, max_new_tokens=args.gen,
             seed=args.seed, shared_prefix_len=args.shared_prefix_len)
         prompt_len, gen = args.prompt_len, args.gen
+    if fleet:
+        return serve_fleet(args, cfg, requests, prompt_len, gen,
+                           device=device, params=params)
     cfg, engine = build_serving_engine(args, cfg, prompt_len=prompt_len,
                                        gen=gen, device=device, params=params,
                                        comm=comm)
@@ -329,6 +382,80 @@ def _serve_run(engine, requests):
     rep = engine.run(requests)
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     return rep, streams, launches
+
+
+def serve_fleet(args, cfg, requests, prompt_len, gen, *, device="cuda",
+                params=None):
+    """Warm every replica up, serve ``requests`` through the fleet, print
+    the JAX CLI's ``[fleet]`` lines and the port's ``[fleet] device``
+    line, and write the report to ``--out``."""
+    cfg, fleet = build_fleet(args, cfg, prompt_len=prompt_len, gen=gen,
+                             device=device, params=params)
+    fleet.warmup()                     # capture outside the TTFT window
+    streams = {}
+    for eng in fleet.engines:
+        def record(st, now, finish=eng._finish):
+            streams[st.req.rid] = list(st.output)
+            finish(st, now)
+        eng._finish = record
+    dev = fleet.engines[0].device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = kernel_launches()
+    rep = fleet.run(requests)
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    fl = rep["fleet"]
+    agg, routing, hand = fl["aggregate"], fl["routing"], fl["handoffs"]
+    ttft, tpot = agg["ttft"], agg["tpot"]
+    print(f"[fleet] arch={args.arch} replicas={fl['n_replicas']} "
+          f"policy={routing['policy']} "
+          f"disaggregated={fl['disaggregated']} "
+          f"requests={agg['n_requests']} rate={args.rate}")
+    print(f"[fleet] TTFT p50 {ttft['p50'] * 1e3:.1f} ms  "
+          f"p99 {ttft['p99'] * 1e3:.1f} ms   "
+          f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms   "
+          f"decode {agg['throughput_tok_s']:.1f} tok/s   "
+          f"goodput {agg['goodput_req_s']:.2f} req/s")
+    hit = routing["affinity_hit_rate"]
+    print(f"[fleet] routing: per_replica={routing['per_replica']}  "
+          f"affinity_hits={routing['affinity_hits']} "
+          f"(rate={hit if hit is None else f'{hit:.2f}'}, "
+          f"{routing['affinity_hit_tokens']} cached tokens)")
+    if fl["disaggregated"]:
+        print(f"[fleet] handoffs: moved={hand['moved']} "
+              f"bytes={hand['bytes'] / 2 ** 20:.2f} MiB "
+              f"pending={hand['pending']}")
+    for r in fl["replicas"]:
+        rt = r["ttft"]["p50"]
+        print(f"[fleet]   replica {r['index']} role={r['role']:8s} "
+              f"routed={r['routed']:3d} finished={r['n_requests']:3d} "
+              f"steps={r['steps']:4d} "
+              f"ttft_p50={'-' if rt is None else f'{rt * 1e3:.1f}ms'}")
+    recompiled = [bool(rr.get("recompiled_after_warmup"))
+                  for rr in rep["replica_reports"]]
+    print(f"[fleet] recompiled_after_warmup={recompiled}")
+    toks = [t for out in streams.values() for t in out]
+    print("[fleet] device " + json.dumps({
+        "device": (torch.cuda.get_device_name(dev) if cuda else str(dev)),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if cuda else None),
+        "launches": launches,
+        "jit_entries": [rr["jit_entries"] for rr in rep["replica_reports"]],
+        "tokens": {"count": len(toks), "min": min(toks, default=None),
+                   "max": max(toks, default=None),
+                   "per_request": sorted({len(o) for o in streams.values()}),
+                   "streams_sha256": hashlib.sha256(json.dumps(
+                       sorted(streams.items()), default=int).encode()
+                   ).hexdigest()}}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rep, f, indent=2)
+        print(f"[fleet] report -> {args.out}")
+    for eng in fleet.engines:
+        eng.close()
+    return rep
 
 
 def _print_report(args, engine, rep, streams, launches):
@@ -462,15 +589,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="synthetic prompts share their first K tokens")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind a fleet router (> 1 is "
-                         "not ported yet)")
+                    help="engine replicas behind the fleet router (> 1 "
+                         "enables fleet mode; virtual replicas share one "
+                         "model and one set of weights)")
     ap.add_argument("--routing-policy", default="load",
-                    choices=["load", "prefix_affinity", "round_robin"],
-                    help="fleet routing (with --replicas > 1)")
+                    choices=list(ROUTING_POLICIES),
+                    help="fleet routing: load = least queued+KV tokens, "
+                         "prefix_affinity = load minus cached-prefix "
+                         "match (needs --prefix-sharing to matter), "
+                         "round_robin = baseline")
     ap.add_argument("--affinity-weight", type=float, default=1.0,
-                    help="prefix-affinity routing weight (fleet only)")
+                    help="tokens of load one cached prefix token offsets "
+                         "under prefix_affinity routing")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="prefill/decode engine roles (not ported yet)")
+                    help="split the fleet into prefill-role and decode-"
+                         "role engines linked by KV handoff (needs "
+                         "--paged and --replicas >= 2)")
     ap.add_argument("--trace", default="",
                     help="JSON trace file of arrival records")
     ap.add_argument("--out", default="", help="write the report JSON here")

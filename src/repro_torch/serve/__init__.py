@@ -7,7 +7,10 @@ from repro_torch.serve.arrivals import (AdmissionQueue, VirtualClock,
                                         split_seeds, trace_requests)
 from repro_torch.serve.engine import (ENGINE_ROLES, EngineConfig, ServeEngine,
                                       engine_config_for)
-from repro_torch.serve.metrics import RequestRecord, ServeMetrics, percentiles
+from repro_torch.serve.fleet import ROUTING_POLICIES, FleetRouter
+from repro_torch.serve.kvstore import HandoffRecord
+from repro_torch.serve.metrics import (RequestRecord, ServeMetrics,
+                                       aggregate_fleet, percentiles)
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
                                       blocks_for_tokens, copy_block,
                                       gather_prefix_blocks,
@@ -20,10 +23,12 @@ from repro_torch.serve.speculative import (DraftProposer, NGramProposer,
                                            rejection_verify)
 
 __all__ = ["AdmissionQueue", "BlockAllocator", "DraftProposer",
-           "ENGINE_ROLES", "EngineConfig", "NGramProposer", "NULL_BLOCK",
+           "ENGINE_ROLES", "EngineConfig", "FleetRouter", "HandoffRecord",
+           "NGramProposer", "NULL_BLOCK", "ROUTING_POLICIES",
            "Request", "RequestRecord", "RequestState", "RequestStatus",
            "ServeEngine", "ServeMetrics", "VirtualClock", "WallClock",
-           "blocks_for_tokens", "bursty_requests", "copy_block",
+           "aggregate_fleet", "blocks_for_tokens", "bursty_requests",
+           "copy_block",
            "engine_config_for", "gather_prefix_blocks", "greedy_verify",
            "load_trace", "long_context_requests", "make_proposer",
            "merge_requests", "nucleus_mask", "percentiles",

@@ -235,6 +235,11 @@ class AdmissionQueue:
     def __len__(self) -> int:
         return len(self._heap)
 
+    def queued_tokens(self) -> int:
+        """Total prompt tokens waiting in the queue (arrived or not): the
+        fleet router's measure of committed-but-unserved work."""
+        return sum(r.prompt_len for _, _, r in self._heap)
+
     def next_arrival(self) -> Optional[float]:
         return self._heap[0][0] if self._heap else None
 

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine (port of ``repro/serve/engine.py``,
-unified role, slab or paged KV pool).
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``:
+the unified, prefill and decode roles, slab or paged KV pool).
 
 ``ServeEngine`` composes three parts, as in the JAX package:
 ``AdmissionFront`` (arrival queue, free slots, prefill pipeline, preempted
@@ -56,6 +56,25 @@ at admission (``kvstore``), and a chunk wider than the ring or the fused
 paged kernel is refused with the JAX engine's messages
 (``check_window_ring``).
 
+Engine roles (``EngineConfig.role``; the split roles need the paged
+pool), as in JAX:
+
+* ``unified`` (the default): prefill and decode on one engine.
+* ``prefill``: admission and chunked prefill only.  When a prefill
+  finishes (its first token sampled) the request is exported as a
+  ``kvstore.HandoffRecord`` (its K/V, committed tokens and timestamps),
+  its blocks are released (indexed prefixes stay cached) and the record
+  waits for ``pop_handoffs()``.
+* ``decode``: takes work only through ``import_handoff(record)``, which
+  scatters the record's K/V into its own pool (``KVOwner.import_kv``) and
+  puts the request in the decode batch where the exporter left it; greedy
+  streams equal a unified engine's.  A preempted request still recomputes
+  here, through the engine's own prefill.
+
+``serve/fleet.py`` drives several engines off one clock
+(``step(now, wait_when_idle=False)``) and scores them by ``load_stats()``
+and ``probe_prefix()``.
+
 ``report()`` has every section and key the JAX engine's has for the same
 ``EngineConfig``, plus ``engine.device``.
 A model built at expert-parallel degree G > 1 runs its MoE blocks over G
@@ -75,7 +94,8 @@ rank 0's is the one to read, as the JAX block reports rank 0's
 diagnostics, and ``report()["engine"]["comm"]`` names the communicator,
 its fetch form and whether the entries were captured.  Replica slots and
 tiered residency read other ranks' rows and are not ported across
-processes (ROADMAP item 5): they raise.
+processes (ROADMAP item 5): they raise, and so does a fleet of such
+engines (``FleetRouter``), which the JAX package has no lockstep for.
 
 On the card the prefill chunk, the decode (or verify) step and the
 store's scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on
@@ -116,7 +136,7 @@ Serving-time expert placement (paper §4.2-4.3, MoE models at G > 1):
 from __future__ import annotations
 
 import time
-from collections import Counter
+from collections import Counter, deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -130,7 +150,9 @@ from repro_torch.kernels.paged_attention.ops import largest_block_divisor
 from repro_torch.models import attention as attention_dispatch
 from repro_torch.serve.arrivals import WallClock
 from repro_torch.serve.frontend import AdmissionFront
+from repro_torch.serve.kvstore import HandoffRecord
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.paging import blocks_for_tokens
 from repro_torch.serve.placement import HostTier, ReplicaSwap, expert_leaves
 from repro_torch.serve.rebalance import ExpertRebalancer
 from repro_torch.serve.request import Request, RequestState, RequestStatus
@@ -149,8 +171,7 @@ ENGINE_ROLES = ("unified", "prefill", "decode")
 @dataclass(frozen=True)
 class EngineConfig:
     """Static serving shapes: every field of the JAX engine's, with its
-    defaults and its validation.  ``role != "unified"`` is not ported yet
-    and raises ``NotImplementedError``; ``prefix_sharing`` and
+    defaults and its validation: the split roles, ``prefix_sharing`` and
     ``speculative_k > 0`` need the paged pool, as in JAX."""
     max_slots: int = 4          # decode batch width (concurrent requests)
     max_seq_len: int = 128      # logical KV length (prompt + generation)
@@ -158,7 +179,9 @@ class EngineConfig:
     chunks_per_step: int = 1    # prefill chunks interleaved per engine step
     eos_id: Optional[int] = None
     skew_seed: int = 0          # synthetic router-skew + sampling key stream
-    role: str = "unified"       # prefill / decode roles: not ported
+    # "unified" serves prefill + decode; "prefill" exports finished
+    # prefills as HandoffRecords; "decode" imports them (paged only)
+    role: str = "unified"
     # --- KV pool: one slab row per slot, or paged blocks ---
     paged: bool = False
     kv_block_size: int = 16     # tokens per physical KV block
@@ -205,11 +228,10 @@ class EngineConfig:
         if self.role not in ENGINE_ROLES:
             raise ValueError(f"unknown engine role {self.role!r}; choose "
                              f"one of {ENGINE_ROLES}")
-        if self.role != "unified":
-            raise NotImplementedError(
-                f"EngineConfig field not ported yet: role={self.role!r} "
-                f"(the port serves the unified role; prefill/decode roles "
-                f"and their KV handoff are ROADMAP item 7)")
+        if self.role != "unified" and not self.paged:
+            raise ValueError(
+                "prefill/decode engine roles hand KV off through the paged "
+                "block machinery; they require EngineConfig.paged=True")
         if self.paged and self.kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
         if self.num_kv_blocks < 0:
@@ -268,9 +290,8 @@ def paged_pool_len(max_seq_len: int, prefill_chunk: int,
 def check_window_ring(cfg, ecfg) -> None:
     """A paged pool serves a window that binds over a slot's chain as a
     ring buffer: refuse a chunk wider than the ring, speculative verify,
-    prefix sharing and the fused paged kernel, with the JAX engine's
-    messages.  (The JAX engine's split-role blocker is left to
-    ``EngineConfig``, which refuses every role but ``unified``.)"""
+    prefix sharing, the fused paged kernel and the split roles, with the
+    JAX engine's messages."""
     w = cfg.sliding_window or 0
     bs, C = ecfg.kv_block_size, ecfg.prefill_chunk
     s_pad = paged_pool_len(ecfg.max_seq_len, C, ecfg.prefix_sharing,
@@ -291,6 +312,9 @@ def check_window_ring(cfg, ecfg) -> None:
                         "slot's content depends on absolute sequence length")
     if ecfg.fused_paged_attention:
         blockers.append("the fused paged kernel has no ring arithmetic")
+    if ecfg.role != "unified":
+        blockers.append("KV handoff replays absolute-position scatters, "
+                        "not ring writes")
     if blockers:
         raise ValueError(f"{cfg.name} (sliding_window={w}) serves paged "
                          f"through the window ring buffer, which rejects: "
@@ -406,6 +430,12 @@ class ServeEngine:
         self._cow0 = 0
         self._attn_dispatch: Optional[List[Dict[str, Any]]] = None
         self._warm_counts: Optional[Dict[str, int]] = None
+        # the prefill-to-decode handoff (split roles)
+        self._handoffs_out: deque = deque()      # exported, awaiting pickup
+        self.handoffs_exported = 0
+        self.handoffs_imported = 0
+        self.handoff_bytes_out = 0
+        self.handoff_bytes_in = 0
         attention_dispatch.reset_dispatch_log()
         self._init_placement(params)
 
@@ -469,8 +499,17 @@ class ServeEngine:
     def _eos_id(self, req: Request) -> Optional[int]:
         return req.eos_id if req.eos_id is not None else self.ecfg.eos_id
 
+    @property
+    def queue(self):
+        """The arrival queue (the fleet router reads its next arrival)."""
+        return self.front.queue
+
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
+        if self.role == "decode":
+            raise ValueError(
+                "decode-role engine takes work via import_handoff(), not "
+                "submit(); route arrivals to a prefill or unified engine")
         L, C = req.prompt_len, self.ecfg.prefill_chunk
         if round_up(L, C) > self.kv.kv_capacity:
             raise ValueError(
@@ -488,7 +527,11 @@ class ServeEngine:
         return bool(len(self.front.queue) or self._in_flight())
 
     def _in_flight(self) -> bool:
-        return self.front.in_flight(bool(self.active.any()))
+        """Admitted work whose timestamps live on the current clock:
+        prefills, decodes, preempted requests and exported but unclaimed
+        handoffs."""
+        return self.front.in_flight(bool(self.active.any())) \
+            or bool(self._handoffs_out)
 
     # ------------------------------------------------------------------
     # admission (block-aware in paged mode; preempted requests first)
@@ -707,6 +750,11 @@ class ServeEngine:
                 if (eos is not None and first == eos) \
                         or st.n_generated >= st.req.max_new_tokens:
                     self._finish(st, now)
+                elif self.role == "prefill":
+                    # the request leaves this engine here: the scratch
+                    # still holds its whole committed K/V, so export it
+                    # before the next chunk overwrites it
+                    self._export_handoff(st)
                 else:
                     self._activate(st, L, first)
                 front.pf = None
@@ -1019,9 +1067,17 @@ class ServeEngine:
             now = self.dist.rank0_value(now)
         return now
 
-    def step(self) -> bool:
-        """One scheduler tick: admit, prefill chunk(s), decode the batch."""
-        now = self._agreed_now()
+    def step(self, now: Optional[float] = None, *,
+             wait_when_idle: bool = True) -> bool:
+        """One scheduler tick: admit, prefill chunk(s), decode the batch.
+        ``now`` lets a fleet router drive several replicas off one clock
+        reading a tick (each ``clock.now()`` advances a ``VirtualClock``,
+        so reads of their own would skew the replicas' time);
+        ``wait_when_idle=False`` leaves the idle wait to the router, which
+        knows every replica's next arrival.  Returns whether any prefill
+        or decode work ran."""
+        if now is None:
+            now = self._agreed_now()
         self._admit(now)
         did = self._prefill_work(now)
         did = self._decode_work(now) or did
@@ -1031,7 +1087,7 @@ class ServeEngine:
                 and self._step_idx % self.ecfg.rebalance_interval == 0 \
                 and self._rebalancer.steps_observed > 0:
             self._rebalance_now()
-        if not did:
+        if not did and wait_when_idle:
             nxt = self.front.queue.next_arrival()
             if nxt is not None:
                 self.clock.wait(min(max(nxt - now, 0.0), 0.01))
@@ -1071,6 +1127,120 @@ class ServeEngine:
         if self._residency is not None:
             self._res_base = self._residency.counters()
         self.clock.reset()
+
+    # ------------------------------------------------------------------
+    # prefill-to-decode handoff (split roles; serve/kvstore.py)
+    # ------------------------------------------------------------------
+    def _export_handoff(self, st: RequestState) -> None:
+        """Package a finished prefill as a ``HandoffRecord`` and release
+        its slot and blocks.  The scratch still holds the request's whole
+        committed K/V (a gathered cached prefix included); indexed prefix
+        blocks stay on the cached-free list, so this engine's prefix cache
+        keeps serving later arrivals."""
+        C = self.ecfg.prefill_chunk
+        pad = round_up(st.prefill_len, C)
+        rec = HandoffRecord(
+            rid=st.req.rid, prompt_tokens=st.req.tokens.copy(),
+            output=list(st.output), pos=st.prefill_len, pad_len=pad,
+            prefill_chunk=C, max_new_tokens=st.req.max_new_tokens,
+            eos_id=st.req.eos_id, kv=self.kv.export_kv(pad),
+            cached_prefix_tokens=int(st.cached_prefix_tokens or 0),
+            arrival_time=st.req.arrival_time,
+            admitted_time=st.admitted_time,
+            first_token_time=st.first_token_time)
+        self._handoffs_out.append(rec)
+        self.handoffs_exported += 1
+        self.handoff_bytes_out += rec.nbytes
+        st.status = RequestStatus.HANDED_OFF
+        s = st.slot
+        self.front.state_by_slot[s] = None
+        self.front.free_slots.append(s)
+        self.kv.release(st.req.rid, s)
+
+    def pop_handoffs(self) -> List[HandoffRecord]:
+        """Drain the exported records (prefill role; the fleet router moves
+        them to a decode-role engine)."""
+        out = list(self._handoffs_out)
+        self._handoffs_out.clear()
+        return out
+
+    def import_handoff(self, rec: HandoffRecord) -> bool:
+        """Adopt a handed-off request: a slot and a block chain, the
+        record's K/V scattered into this pool, and the request in the
+        decode batch at the exporter's committed position.  False (the
+        record untouched, to retry later) while no slot or too few blocks
+        are free; raises when the record can never fit this engine."""
+        if not self.ecfg.paged:
+            raise RuntimeError("import_handoff needs the paged KV pool")
+        C, bs = self.ecfg.prefill_chunk, self.ecfg.kv_block_size
+        if rec.prefill_chunk != C:
+            raise ValueError(
+                f"handoff was prefilled with chunk {rec.prefill_chunk}, "
+                f"this engine uses {C}; the import replays the exporter's "
+                f"chunk-aligned scatters, so the two must match")
+        L = len(rec.prompt_tokens)
+        if L + rec.max_new_tokens > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"handoff {rec.rid}: prompt {L} + max_new "
+                f"{rec.max_new_tokens} exceeds max_seq_len "
+                f"{self.ecfg.max_seq_len}")
+        if rec.pad_len > self.kv.kv_capacity:
+            raise ValueError(
+                f"handoff {rec.rid}: padded prefill {rec.pad_len} exceeds "
+                f"the per-layer KV capacity {self.kv.kv_capacity}")
+        front = self.front
+        if not front.free_slots:
+            return False
+        n_blocks = blocks_for_tokens(rec.pad_len, bs)
+        if not self._alloc.can_allocate(n_blocks, []):
+            return False
+        req = Request(rid=rec.rid, tokens=rec.prompt_tokens,
+                      max_new_tokens=rec.max_new_tokens,
+                      arrival_time=rec.arrival_time, eos_id=rec.eos_id)
+        st = RequestState(req=req, slot=-1,
+                          admitted_time=rec.admitted_time,
+                          first_token_time=rec.first_token_time,
+                          output=list(rec.output), prefill_pos=rec.pos,
+                          cached_prefix_tokens=rec.cached_prefix_tokens)
+        slot = front.free_slots.popleft()
+        st.slot = slot
+        st.admit_seq = front.admit_seq
+        front.admit_seq += 1
+        front.state_by_slot[slot] = st
+        front.slot_history.append((req.rid, slot))
+        chain = self._alloc.alloc_chain(req.rid, n_blocks)
+        assert chain is not None          # gated by can_allocate above
+        self.kv.import_kv(rec.kv, rec.pad_len, self.kv.bt_row(req.rid))
+        if self._sharing:
+            # the imported K/V is bit-equal to a local prefill's, so its
+            # full blocks are worth indexing here too
+            self._alloc.commit_prefix(req.rid, st.prefill_tokens[:rec.pos])
+        self.handoffs_imported += 1
+        self.handoff_bytes_in += rec.nbytes
+        self._activate(st, rec.pos, st.output[-1])
+        return True
+
+    # ------------------------------------------------------------------
+    # fleet routing probes (serve/fleet.py)
+    # ------------------------------------------------------------------
+    def load_stats(self) -> Dict[str, Any]:
+        """The scheduler state the fleet router scores replicas by: no
+        device read, no allocator change."""
+        if self.ecfg.paged:
+            kv_tokens = self._alloc.blocks_in_use * self.ecfg.kv_block_size
+            kv_util = (self._alloc.blocks_in_use
+                       / max(self._alloc.usable_blocks, 1))
+        else:
+            kv_tokens = int(self.pos.sum())
+            kv_util = float(self.active.sum()) / self.ecfg.max_slots
+        return {
+            "queued_tokens": self.front.queued_tokens(),
+            "kv_tokens": int(kv_tokens),
+            "kv_utilization": float(kv_util),
+            "active_slots": int(self.active.sum()),
+            "free_slots": len(self.front.free_slots),
+            "pending_handoffs": len(self._handoffs_out),
+        }
 
     def probe_prefix(self, tokens) -> int:
         """Longest cached-prefix match for ``tokens`` in this engine's
@@ -1135,6 +1305,15 @@ class ServeEngine:
             if self._spec:
                 rep["engine"]["speculative_policy"] = \
                     self.ecfg.speculative_policy
+        if self.role != "unified" or self.handoffs_exported \
+                or self.handoffs_imported:
+            rep["engine"]["handoffs"] = {
+                "exported": self.handoffs_exported,
+                "imported": self.handoffs_imported,
+                "bytes_out": self.handoff_bytes_out,
+                "bytes_in": self.handoff_bytes_in,
+                "pending": len(self._handoffs_out),
+            }
         if self.cfg.is_moe:
             rep["engine"]["moe_policy"] = (self.ecfg.moe_policy
                                            or self.cfg.moe.policy)

@@ -7,6 +7,11 @@ preempted-recompute queue.  It runs the admission loop — preempted
 requests first, then arrivals in order, each gated by the caller's
 block-reservation plan — but delegates *placement* (slot assignment, KV
 chain allocation) back to the engine, which knows the pool.
+
+A fleet router reads a replica's load here without touching its device
+state: ``queued_tokens()`` totals the prefill work parked at the front
+(queued prompts, reserved-but-unprefilled tails, preempted recompute),
+the router's half of the load score.
 """
 from __future__ import annotations
 
@@ -36,6 +41,17 @@ class AdmissionFront:
         Preempted requests hold timestamps too."""
         return bool(self.pf is not None or self.pf_queue or self.resume
                     or active_any)
+
+    def queued_tokens(self) -> int:
+        """Prefill tokens waiting at this front: queued prompts plus the
+        unconsumed tails of reserved, in-flight and preempted prefills."""
+        total = self.queue.queued_tokens()
+        pending = list(self.pf_queue) + list(self.resume)
+        if self.pf is not None:
+            pending.append(self.pf)
+        for st in pending:
+            total += max(st.prefill_len - st.prefill_pos, 0)
+        return total
 
     # ------------------------------------------------------------------
     def admit(self, now: float, *, plan_fn: Callable[[object, bool], tuple],

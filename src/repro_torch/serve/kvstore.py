@@ -1,6 +1,6 @@
-"""KV ownership for the serving engine (port of ``repro/serve/kvstore.py``'s
-``KVOwner``, slab and paged, with prefix sharing and without the handoff
-of split roles): the token-indexed implementation of
+"""KV ownership for the serving engine (port of ``repro/serve/kvstore.py``:
+``KVOwner``, slab and paged, with prefix sharing, and the prefill-to-decode
+handoff's ``HandoffRecord``): the token-indexed implementation of
 ``statestore.SequenceStateStore``.
 
 ``KVOwner`` owns where K/V lives and the batch-1 prefill scratch.  On the
@@ -40,22 +40,121 @@ scatter and in the decode write and gather.  When every KV leaf is
 windowed the chain itself shrinks to M / block_size blocks, allocated
 whole at admission (``ring_full_chain``).  On the slab a windowed leaf is
 clamped to the window and decode wraps it (``attention.decode_slab``).
+
+**Handoff** (paged, split engine roles): a prefill-role engine exports a
+finished prefill as a ``HandoffRecord``, each scratch leaf's positions
+``[0, pad_len)`` with the KV-length axis moved first, in ``kv_leaves``
+order (JAX's ``jax.tree.leaves`` order), as host tensors (``export_kv``:
+one device-to-host copy a leaf into pinned memory and one sync, outside
+every graph).  A decode-role engine imports it (``import_kv``) by
+replaying the chunk scatter of ``write_blocks`` over ``[0, pad_len)``,
+chunk by chunk, as JAX does; the scatter reads an import scratch of its
+own through a captured write of its own, so that an import never
+overwrites the live scratch, where a preempted request's recompute may be
+partway through its chunks.  ``jit_entries["write_blocks"]`` keeps JAX's
+value: each of the two write graphs is captured once.
 """
 from __future__ import annotations
 
+import io
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import round_up
 from repro_torch.serve.paging import (NULL_BLOCK, BlockAllocator,
                                       blocks_for_tokens, copy_block,
-                                      gather_prefix_blocks,
+                                      gather_prefix_blocks, kv_leaves,
                                       write_chunk_blocks)
 from repro_torch.serve.slots import (leaf_shapes, discover_batch_axes,
                                      discover_seq_axes, min_kv_capacity,
                                      write_slot)
 from repro_torch.serve.stepcore import Entry, Staged
+
+# the wire form's dtype names (numpy's, as JAX's ``str(a.dtype)`` writes
+# them; bfloat16 is read here without ``ml_dtypes``)
+WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+               "float16": torch.float16}
+_WIRE_NAMES = {v: k for k, v in WIRE_DTYPES.items()}
+
+
+@dataclass
+class HandoffRecord:
+    """One finished prefill handed from a prefill-role engine to a
+    decode-role one (the JAX record, field for field): its KV and its
+    committed request state.
+
+    ``kv`` holds each scratch leaf's positions ``[0, pad_len)`` with the
+    KV-length axis moved first, as host tensors in ``kv_leaves`` order;
+    ``pad_len`` is the chunk-rounded committed length, so the importer
+    replays the scatters a unified engine would have made.  ``output``
+    carries every committed token (one, the first, from the prefill
+    role), and the timestamps ride along so that the decode side's
+    completion record keeps the true TTFT."""
+    rid: int
+    prompt_tokens: np.ndarray
+    output: List[int]
+    pos: int                       # committed KV length (prefill_len)
+    pad_len: int                   # chunk-rounded slice length of ``kv``
+    prefill_chunk: int             # chunk size the exporter prefilled with
+    max_new_tokens: int
+    eos_id: Optional[int]
+    kv: List[torch.Tensor] = field(default_factory=list)
+    cached_prefix_tokens: int = 0
+    arrival_time: float = 0.0
+    admitted_time: float = 0.0
+    first_token_time: float = 0.0
+
+    @property
+    def nbytes(self) -> int:
+        """Wire size of the KV payload and the tokens (JAX's count)."""
+        return int(sum(t.numel() * t.element_size() for t in self.kv)) \
+            + self.prompt_tokens.nbytes + 4 * len(self.output)
+
+    def to_npz_bytes(self) -> bytes:
+        """JAX's wire form: one npz blob, each KV leaf as raw bytes beside
+        its dtype name and shape (npz's own headers cannot describe
+        bfloat16)."""
+        buf = io.BytesIO()
+        header = np.asarray([self.rid, self.pos, self.pad_len,
+                             self.prefill_chunk, self.max_new_tokens,
+                             -1 if self.eos_id is None else self.eos_id,
+                             self.cached_prefix_tokens], np.int64)
+        times = np.asarray([self.arrival_time, self.admitted_time,
+                            self.first_token_time], np.float64)
+        payload = {f"kv_{i}": t.contiguous().reshape(-1).view(
+            torch.uint8).numpy() for i, t in enumerate(self.kv)}
+        np.savez(buf, header=header, times=times,
+                 prompt=self.prompt_tokens,
+                 output=np.asarray(self.output, np.int64),
+                 kv_dtypes=np.asarray([_WIRE_NAMES[t.dtype]
+                                       for t in self.kv]),
+                 kv_shapes=np.asarray([",".join(map(str, t.shape))
+                                       for t in self.kv]),
+                 **payload)
+        return buf.getvalue()
+
+    @classmethod
+    def from_npz_bytes(cls, blob: bytes) -> "HandoffRecord":
+        z = np.load(io.BytesIO(blob))
+        h = z["header"]
+        kv = []
+        for i, (dt, shp) in enumerate(zip(z["kv_dtypes"], z["kv_shapes"])):
+            shape = tuple(int(s) for s in str(shp).split(",") if s)
+            kv.append(torch.frombuffer(bytearray(z[f"kv_{i}"].tobytes()),
+                                       dtype=WIRE_DTYPES[str(dt)])
+                      .reshape(shape))
+        return cls(rid=int(h[0]), prompt_tokens=z["prompt"].astype(np.int32),
+                   output=[int(t) for t in z["output"]], pos=int(h[1]),
+                   pad_len=int(h[2]), prefill_chunk=int(h[3]),
+                   max_new_tokens=int(h[4]),
+                   eos_id=None if int(h[5]) < 0 else int(h[5]),
+                   kv=kv, cached_prefix_tokens=int(h[6]),
+                   arrival_time=float(z["times"][0]),
+                   admitted_time=float(z["times"][1]),
+                   first_token_time=float(z["times"][2]))
 
 
 class KVOwner:
@@ -105,7 +204,9 @@ class KVOwner:
             self.pool = model.init_paged_cache(self.alloc.num_blocks, bs,
                                                s_pad, seq_axes=self.seq_axes,
                                                clamp_window=False)
-            self.scratch = model.init_cache(1, s_pad, clamp_window=False)
+            self._new_scratch = lambda: model.init_cache(
+                1, s_pad, clamp_window=False)
+            self.scratch = self._new_scratch()
         else:
             self.s_pad = ecfg.max_seq_len
             self.blocks_per_slot = 0
@@ -121,6 +222,12 @@ class KVOwner:
                           self.device)
         self.write = Entry(lambda pool, scratch: self._write(pool, scratch),
                            self.device)
+        # the handoff's import: a scratch and a captured write of its own,
+        # built with a decode-role engine (or at a first import)
+        self.import_scratch = None
+        self.import_entry: Optional[Entry] = None
+        if self.paged and ecfg.role == "decode":
+            self._import_target()
         if self.sharing:
             # the gather: chain row | prefix length; the copy: src | dst
             self._gather_in = Staged(self.blocks_per_slot + 1, self.device)
@@ -261,15 +368,18 @@ class KVOwner:
     def warm(self) -> Optional[np.ndarray]:
         """Run the scratch-to-pool write once where no request reads it
         (the null block; row 0 of an idle slab), which on the card
-        captures it, and with prefix sharing the gather (through an
-        all-null row, masked to 0 tokens) and the copy (the null block
-        onto itself); return the block table a warm-up decode step should
-        read (all null; None on the slab)."""
+        captures it, and so the import's write where there is one, and
+        with prefix sharing the gather (through an all-null row, masked to
+        0 tokens) and the copy (the null block onto itself); return the
+        block table a warm-up decode step should read (all null; None on
+        the slab)."""
         if not self.paged:
             self.on_prefill_done(0)
             return None
         null_row = np.full((self.blocks_per_slot,), NULL_BLOCK, np.int32)
         self._stage_write(np.append(null_row, [0, 0]))
+        if self.import_entry is not None:
+            self._stage_import(np.append(null_row, [0, 0]))
         if self.sharing:
             self._gather_in.fill()[:] = np.append(null_row, [0])
             self._gather_in.push()
@@ -307,11 +417,77 @@ class KVOwner:
             out["ring_full_chain"] = self.ring_full_chain
         return out
 
+    # ------------------------------------------------------------------
+    # prefill-to-decode handoff (paged only; see HandoffRecord)
+    # ------------------------------------------------------------------
+    def export_kv(self, pad_len: int) -> List[torch.Tensor]:
+        """The scratch's positions ``[0, pad_len)``, KV-length axis first,
+        on the host: after a finished chunked prefill the scratch holds
+        the request's whole committed K/V (a gathered cached prefix
+        included), so this is the handoff's payload.  One copy a leaf into
+        pinned memory, then one sync."""
+        cuda = self.device.type == "cuda"
+        out = []
+        for leaf, ax in zip(kv_leaves(self.scratch), self.seq_axes):
+            src = leaf.movedim(ax, 0)[:pad_len]
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
+            host.copy_(src, non_blocking=cuda)
+            out.append(host)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def import_kv(self, kv: List[torch.Tensor], pad_len: int,
+                  bt_row: np.ndarray) -> None:
+        """Scatter a handoff record's KV into this pool through ``bt_row``:
+        the record is copied into the import scratch, and the import's
+        captured write replays the chunk scatter of ``write_blocks`` over
+        ``[0, pad_len)``, chunk by chunk, as JAX's import does.  The K/V
+        written is bit-equal to the exporter's, and the live scratch is
+        left as it is."""
+        C = self.ecfg.prefill_chunk
+        leaves = list(kv_leaves(self.scratch))
+        if len(kv) != len(leaves):
+            raise ValueError(
+                f"handoff record has {len(kv)} KV leaves; this engine's "
+                f"cache has {len(leaves)} — the two roles must serve the "
+                f"same model")
+        for leaf, ax, rec in zip(leaves, self.seq_axes, kv):
+            shp = list(leaf.shape)
+            seq_len = shp.pop(ax)
+            want = (pad_len, *shp)
+            if pad_len > seq_len or tuple(rec.shape) != want:
+                raise ValueError(
+                    f"handoff KV leaf shape {tuple(rec.shape)} does not "
+                    f"match this engine's cache slice {want} "
+                    f"(leaf {tuple(leaf.shape)}, seq axis {ax})")
+        target = self._import_target()
+        for dst, ax, rec in zip(kv_leaves(target), self.seq_axes, kv):
+            dst.movedim(ax, 0)[:pad_len].copy_(torch.as_tensor(rec),
+                                               non_blocking=True)
+        for start in range(0, pad_len, C):
+            self._stage_import(np.append(bt_row, [start, pad_len]))
+
+    def _import_target(self):
+        """The import scratch, built with its staged buffer and its write
+        entry at first use."""
+        if self.import_scratch is None:
+            self.import_scratch = self._new_scratch()
+            self._imp_in = Staged(self.blocks_per_slot + 2, self.device)
+            self.import_entry = Entry(
+                lambda pool, scratch: self._import_write(pool, scratch),
+                self.device)
+        return self.import_scratch
+
     def jit_counts(self) -> Dict[str, int]:
         """The captured write (and with prefix sharing the gather and the
-        copy), by the JAX engine's names."""
-        counts = {("write_blocks" if self.paged else "write_slot"):
-                  self.write.captures}
+        copy), by the JAX engine's names.  ``write_blocks`` counts the
+        captures of each of its graphs, the live scratch's and, where
+        there is one, the import's: 1 when each was captured once."""
+        writes = self.write.captures
+        if self.import_entry is not None:
+            writes = max(writes, self.import_entry.captures)
+        counts = {("write_blocks" if self.paged else "write_slot"): writes}
         if self.sharing:
             counts["gather_prefix"] = self.gather_entry.captures
             counts["copy_block"] = self.copy_entry.captures
@@ -322,18 +498,31 @@ class KVOwner:
         self._in.push()
         self.write(self.pool, self.scratch)
 
+    def _stage_import(self, values: np.ndarray) -> None:
+        self._imp_in.fill()[:] = values
+        self._imp_in.push()
+        self.import_entry(self.pool, self.import_scratch)
+
     def _write(self, pool, scratch) -> None:
         """The scratch-to-pool write on the static buffer: what the graph
         holds."""
-        d = self._in.dev
         if self.paged:
-            write_chunk_blocks(pool, scratch, d[:-2], d[-2],
-                               chunk=self.ecfg.prefill_chunk,
-                               block_size=self.ecfg.kv_block_size,
-                               seq_axes=self.seq_axes,
-                               ring_mods=self.ring_mods, valid_to=d[-1])
+            self._write_blocks(pool, scratch, self._in.dev)
         else:
-            write_slot(pool, scratch, d, self.batch_axes)
+            write_slot(pool, scratch, self._in.dev, self.batch_axes)
+
+    def _import_write(self, pool, scratch) -> None:
+        """The import's write on its static buffer: what its graph holds."""
+        self._write_blocks(pool, scratch, self._imp_in.dev)
+
+    def _write_blocks(self, pool, scratch, d) -> None:
+        """The chunk scatter, reading the block-table row, the chunk start
+        and the end of its real tokens from ``d``."""
+        write_chunk_blocks(pool, scratch, d[:-2], d[-2],
+                           chunk=self.ecfg.prefill_chunk,
+                           block_size=self.ecfg.kv_block_size,
+                           seq_axes=self.seq_axes,
+                           ring_mods=self.ring_mods, valid_to=d[-1])
 
     def _gather(self, pool, scratch) -> None:
         """The prefix gather on its static buffer: what the graph holds."""

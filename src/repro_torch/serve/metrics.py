@@ -19,15 +19,32 @@ slot-steps, drafted, accepted and committed tokens, acceptance rate,
 tokens per slot-step, slot-steps per committed token) are the JAX
 report's.  ``report()`` is JSON-safe on an empty window (percentiles over
 no requests come back as None).
+
+A section that a report carries only sometimes attaches through one
+rule, JAX's section convention: a section function returns the
+section's dict, or a falsy value to leave it out (``section``); the
+fleet router's ``fleet`` section attaches so.  ``aggregate_fleet`` pools
+several engines' reports into the fleet's latency aggregates.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.serve.request import RequestState
+
+
+# a report section's provider: () -> the section dict, or falsy to omit
+SectionFn = Callable[[], Optional[Dict[str, Any]]]
+
+
+def section(rep: Dict[str, Any], name: str, fn: SectionFn) -> None:
+    """Attach ``fn()`` to ``rep`` under ``name`` iff it is not empty."""
+    sec = fn()
+    if sec:
+        rep[name] = sec
 
 
 def percentiles(xs, ps=(50, 90, 99)) -> Dict[str, float]:
@@ -286,3 +303,36 @@ class ServeMetrics:
                     sec[f"{drop}_total"] = float(np.sum(vals))
             out[phase] = sec
         return out
+
+
+def aggregate_fleet(reports: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Pool several engines' ``report()`` dicts into the fleet's latency
+    aggregates, from the per-request rows each carries, whatever the
+    engines' roles: in a disaggregated fleet the decode engines hold the
+    completion records (a handoff carries the true arrival and first-token
+    times across), so nothing is counted twice.  The replicas must share
+    one clock: only then are their timestamps comparable."""
+    rows = [r for rep in reports for r in rep.get("requests", ())]
+    total_new = sum(r["n_generated"] for r in rows)
+    finishes = [r["arrival_time"] + r["e2e"] for r in rows]
+    span = (max(finishes) - min(r["arrival_time"] for r in rows)
+            if rows else 0.0)
+    prompt = sum(r["prompt_len"] for r in rows)
+    agg: Dict[str, Any] = {
+        "n_requests": len(rows),
+        "total_new_tokens": total_new,
+        "ttft": percentiles(r["ttft"] for r in rows),
+        "tpot": percentiles(r["tpot"] for r in rows
+                            if r["n_generated"] > 1),
+        "e2e": percentiles(r["e2e"] for r in rows),
+        "queue_delay": percentiles(r["queue_delay"] for r in rows),
+        "throughput_tok_s": total_new / span if span > 0
+        else float("nan"),
+        # finished requests a second of fleet wall time
+        "goodput_req_s": len(rows) / span if span > 0 else float("nan"),
+        "preemptions": sum(rep.get("preemptions", 0) for rep in reports),
+        "prefix_hit_rate": (
+            sum(r["cached_prefix_tokens"] for r in rows) / prompt
+            if prompt else None),
+    }
+    return _json_safe(agg)

@@ -19,6 +19,9 @@ class RequestStatus(enum.Enum):
     PREFILL = "prefill"      # slot reserved, prompt chunks being consumed
     DECODE = "decode"        # in the decode batch, emitting tokens
     FINISHED = "finished"    # EOS or max_new_tokens reached
+    HANDED_OFF = "handed_off"  # prefill-role engine exported the KV +
+    #                            first token; a decode-role engine owns
+    #                            the request from here
 
 
 @dataclass

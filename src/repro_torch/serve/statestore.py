@@ -88,6 +88,16 @@ class SequenceStateStore(Protocol):
         """The store's compiled entries (captured graphs), by name."""
         ...
 
+    def export_kv(self, pad_len: int) -> list:
+        """A finished prefill's state, positions ``[0, pad_len)``, as host
+        tensors (the prefill role's handoff payload; paged only)."""
+        ...
+
+    def import_kv(self, kv: list, pad_len: int, bt_row: np.ndarray) -> None:
+        """Write a handoff record's state into this pool through
+        ``bt_row`` (the decode role's import; paged only)."""
+        ...
+
 
 def make_state_store(model, ecfg, *, s_pad: int) -> SequenceStateStore:
     """The state store for ``model``: ``KVOwner`` in whichever of its two

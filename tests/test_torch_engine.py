@@ -168,22 +168,20 @@ def test_engine_config_defaults_equal_jax():
     ("rebalance_interval", 2), ("resident_experts", 4),
     ("moe_policy", "fastest"), ("temperature", -1.0), ("top_p", 0.0)])
 def test_unported_engine_fields_raise(field, value):
-    """``role`` is not ported yet and raises NotImplementedError;
-    ``moe_policy`` is ported and, as in the JAX engine, an unknown policy
-    is a ValueError.  The serving-time expert placement fields, the
-    sampling fields, ``prefix_sharing`` and ``speculative_k`` are ported
-    and validate as the JAX engine's: an interval without replica slots, a
-    negative temperature, a top_p of 0, or prefix sharing or speculation
-    on the slab is the JAX ValueError, word for word, and a legal value
-    is kept (sharing and speculation on the paged pool)."""
+    """Every field is ported and validates as the JAX engine's:
+    ``moe_policy``'s unknown policy is a ValueError; an interval without
+    replica slots, a negative temperature, a top_p of 0, or a split role,
+    prefix sharing or speculation on the slab is the JAX ValueError, word
+    for word, and a legal value is kept (the split roles, sharing and
+    speculation on the paged pool)."""
     if field in ("replica_slots", "rebalance_interval", "resident_experts",
                  "temperature", "top_p", "prefix_sharing",
-                 "speculative_k"):
+                 "speculative_k", "role"):
         from repro.serve import EngineConfig as JEngineConfig
         try:
             JEngineConfig(**{field: value})
         except ValueError as jerr:
-            if field in ("prefix_sharing", "speculative_k"):
+            if field in ("prefix_sharing", "speculative_k", "role"):
                 with pytest.raises(ValueError) as err:
                     EngineConfig(**{field: value})
                 assert str(err.value) == str(jerr)
@@ -196,9 +194,7 @@ def test_unported_engine_fields_raise(field, value):
         else:
             assert getattr(EngineConfig(**{field: value}), field) == value
         return
-    exc = ValueError if field == "moe_policy" else NotImplementedError
-    with pytest.raises(exc, match=field):
+    with pytest.raises(ValueError, match=field):
         EngineConfig(**{field: value})
-    if field == "moe_policy":
-        for policy in ("harmoeny", "round_robin", "even_split", "static_opt"):
-            assert EngineConfig(moe_policy=policy).moe_policy == policy
+    for policy in ("harmoeny", "round_robin", "even_split", "static_opt"):
+        assert EngineConfig(moe_policy=policy).moe_policy == policy

@@ -344,7 +344,10 @@ def jax_cases(tmp_path_factory, case_g, groups, extra_src="", devices=1,
 def run_jax_side_by_side(bodies, tmp, *, devices=1, timeout=600):
     """Run each of ``bodies`` (each writes ``OUT``, an npz path) in a JAX
     subprocess of its own with ``devices`` emulated host devices, all
-    side by side; returns the npz files' entries merged."""
+    side by side; returns the npz files' entries merged.  Each process
+    writes its output to a file of its own: a pipe left unread while
+    another process is waited on would fill and stall its writer (XLA's
+    cache loads log at length)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.abspath(SRC) + os.pathsep
                + os.environ.get("PYTHONPATH", ""),
@@ -352,20 +355,21 @@ def run_jax_side_by_side(bodies, tmp, *, devices=1, timeout=600):
                           f"{devices} --xla_cpu_multi_thread_eigen=false"))
     running = []
     for i, body in enumerate(bodies):
-        out = tmp / f"side{i}.npz"
+        out, log = tmp / f"side{i}.npz", tmp / f"side{i}.log"
         code = f"import numpy as np\nOUT = {str(out)!r}\n" + body
-        running.append((out, subprocess.Popen(
-            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)))
+        with open(log, "w") as f:
+            running.append((out, log, subprocess.Popen(
+                [sys.executable, "-c", code], env=env, stdout=f,
+                stderr=subprocess.STDOUT)))
     flat = {}
     try:
-        for out, proc in running:
-            _, err = proc.communicate(timeout=timeout)
-            assert proc.returncode == 0, err[-4000:]
+        for out, log, proc in running:
+            proc.wait(timeout=timeout)
+            assert proc.returncode == 0, log.read_text()[-4000:]
             with np.load(out) as z:
                 flat.update({k: z[k] for k in z.files})
     finally:
-        for _, proc in running:
+        for _, _, proc in running:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

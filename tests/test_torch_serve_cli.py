@@ -3,20 +3,25 @@ package's (``repro.launch.serve``).
 
 Its ``ENGINE_FLAGS`` rows are JAX's; the same argv parses to the same
 ``EngineConfig``; unported flags raise ``NotImplementedError`` naming the
-flag.  Then the whole CLI: ``repro.launch.serve.main`` runs in one JAX
-subprocess on four emulated host devices, once an argv (greedy and
-sampled, slab and paged, at ``--model-par`` 1 and 4, with replica slots,
-with tiered residency, from a ``--trace`` file, on reduced mixtral-8x7b,
-paged through its window ring, with the prefix cache and with the
-speculative verify step), recording each run's
-weights, streams, noise and skew draws and writing its report
-(``--out``).  The port's ``serve(args, device="cpu", params=...)`` on
-the converted weights, replaying the JAX draws by call index, must give
-the same per-request token streams, and every section of its report the
-JAX report's keys (``engine.device`` is the port's own key), and with
+flag, and ``--replicas`` / ``--disaggregate`` serve a fleet, printing the
+JAX CLI's ``[fleet]`` lines.  Then the whole CLI:
+``repro.launch.serve.main`` runs in JAX subprocesses on four emulated
+host devices, once an argv (greedy and sampled, slab and paged, at
+``--model-par`` 1 and 4, with replica slots, with tiered residency, from
+a ``--trace`` file, on reduced mixtral-8x7b, paged through its window
+ring, with the prefix cache, with the speculative verify step, and two
+fleets: two ``prefix_affinity`` replicas with the prefix cache, and a
+disaggregated prefill/decode pair), recording each run's weights,
+streams, noise and skew draws and writing its report (``--out``).  The
+port's ``serve(args, device="cpu", params=...)`` on the converted
+weights, replaying the JAX draws by call index, must give the same
+per-request token streams, and every section of its report the JAX
+report's keys (``engine.device`` is the port's own key), and with
 ``--prefix-sharing`` or ``--speculative-k`` the prefix counters and the
-``speculative`` section the JAX report's values.  The request generators
-give the reference's requests exactly."""
+``speculative`` section the JAX report's values; a fleet's ``fleet``
+section has the JAX section's keys, routing decisions, per-replica
+counts, handoffs moved and pending and aggregate request count.  The
+request generators give the reference's requests exactly."""
 import dataclasses
 import json
 import sys
@@ -60,6 +65,14 @@ CELLS = {
     "g1_prefix": PAGED + ["--prefix-sharing", "--shared-prefix-len", "8",
                           "--requests", "4"],
     "g1_speculative": PAGED + ["--speculative-k", "3", "--requests", "4"],
+    # fleets: two prefix-affinity replicas on the prefix cache, and a
+    # prefill-role engine handing off to a decode-role one
+    "fleet_affinity": PAGED + ["--replicas", "2", "--routing-policy",
+                               "prefix_affinity", "--prefix-sharing",
+                               "--shared-prefix-len", "8", "--requests",
+                               "6"],
+    "fleet_disagg": PAGED + ["--replicas", "2", "--disaggregate",
+                             "--requests", "5"],
 }
 # the trace cell's records: explicit tokens and drawn prompts, all at t=0
 TRACE = [{"prompt_len": 5, "max_new_tokens": 4},
@@ -110,17 +123,34 @@ def test_same_argv_same_engine_config(argv, monkeypatch):
 
 @pytest.mark.parametrize("extra,flag", [
     (["--replicas", "2"], "--replicas"),
-    (["--disaggregate"], "--disaggregate"),
+    (["--disaggregate", "--replicas", "2", "--paged"], "--disaggregate"),
     (["--paged", "--prefix-sharing"], "--prefix-sharing"),
     (["--paged", "--speculative-k", "2"], "--speculative-k"),
     (["--arch", "mamba2-2.7b"], "--arch"),
     (["--data-par", "2"], "--data-par")])
 def test_unported_flags_raise_naming_the_flag(extra, flag, capsys):
-    """What the port does not serve raises, naming the flag (fleets and
-    split roles naming ROADMAP item 7); ``--prefix-sharing`` and
-    ``--speculative-k`` are ported and serve, printing the JAX CLI's
-    lines."""
+    """What the port does not serve raises, naming the flag;
+    ``--prefix-sharing`` and ``--speculative-k`` are ported and serve,
+    printing the JAX CLI's lines, and so do ``--replicas`` and
+    ``--disaggregate``, printing its ``[fleet]`` lines."""
     args = TCLI.build_parser().parse_args(BASE + extra)
+    if flag in ("--replicas", "--disaggregate"):
+        rep = TCLI.serve(args, device="cpu")
+        out = capsys.readouterr().out
+        fl = rep["fleet"]
+        assert fl["aggregate"]["n_requests"] == 3
+        assert fl["disaggregated"] is (flag == "--disaggregate")
+        lines = ["[fleet] arch=qwen15-moe-a27b replicas=2 ",
+                 "[fleet] TTFT p50 ", "[fleet] routing: per_replica=",
+                 "[fleet]   replica 0 role=", "[fleet]   replica 1 role=",
+                 "[fleet] recompiled_after_warmup=[False, False]"]
+        if flag == "--disaggregate":
+            lines.append("[fleet] handoffs: moved=3 ")
+            assert [r["role"] for r in fl["replicas"]] \
+                == ["prefill", "decode"]
+        for line in lines:
+            assert line in out, line
+        return
     if flag in ("--prefix-sharing", "--speculative-k"):
         rep = TCLI.serve(args, device="cpu")
         out = capsys.readouterr().out
@@ -135,19 +165,16 @@ def test_unported_flags_raise_naming_the_flag(extra, flag, capsys):
             assert "[serve] speculative k=2 policy=ngram" in out
             assert rep["speculative"]["steps"] > 0
         return
-    with pytest.raises(NotImplementedError, match=flag) as err:
+    with pytest.raises(NotImplementedError, match=flag):
         TCLI.serve(args, device="cpu")
-    if flag in ("--replicas", "--disaggregate"):
-        assert "ROADMAP item 7" in str(err.value)
 
 
 def test_engine_config_unported_fields_name_the_item():
-    """``role`` is still item 7's; prefix sharing and speculation are
-    ported, and on the slab each is the JAX engine's ValueError."""
+    """The split roles, prefix sharing and speculation are ported, and on
+    the slab each is the JAX engine's ValueError, word for word."""
     from repro.serve import EngineConfig as JEngineConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        TE.EngineConfig(role="decode", paged=True)
-    for kw in (dict(prefix_sharing=True), dict(speculative_k=1)):
+    for kw in (dict(prefix_sharing=True), dict(speculative_k=1),
+               dict(role="decode"), dict(role="prefill")):
         with pytest.raises(ValueError) as jerr:
             JEngineConfig(**kw)
         with pytest.raises(ValueError) as err:
@@ -231,8 +258,11 @@ ServeEngine.__init__ = recording_init
 out = {}
 for name, argv in CELLS.items():
     sys.argv = ["serve"] + argv + ["--out", os.path.join(DIR, name + ".json")]
+    n0 = len(made)
     S.main()
     rec, params = made[-1]
+    for other, _ in made[n0:-1]:        # a fleet's other engines
+        rec["streams"].update(other["streams"])
     out.update(flatten(jax.device_get(params), name + "/params/"))
     out[name + "/rec"] = np.array(json.dumps(rec))
 np.savez(OUT, **out)
@@ -289,6 +319,27 @@ def test_cli_streams_and_report_schema_equal_jax(jax_cli, cell, monkeypatch):
     params = to_torch(unflatten(flat, f"{cell}/params"), device="cpu")
     rep = TCLI.serve(args, device="cpu", params=params)
     assert streams == rec["streams"]
+    if cell.startswith("fleet"):
+        fl, jfl = rep["fleet"], jrep["fleet"]
+        assert _key_paths(fl) == _key_paths(jfl)
+        for key in ("decisions", "per_replica"):
+            assert fl["routing"][key] == jfl["routing"][key], key
+        for key in ("moved", "pending"):
+            assert fl["handoffs"][key] == jfl["handoffs"][key], key
+        assert fl["aggregate"]["n_requests"] \
+            == jfl["aggregate"]["n_requests"] == len(streams)
+        assert [r["routed"] for r in fl["replicas"]] \
+            == [r["routed"] for r in jfl["replicas"]]
+        for mine, theirs in zip(rep["replica_reports"],
+                                jrep["replica_reports"]):
+            assert _key_paths(mine) - _key_paths(theirs) == PORT_ONLY
+            assert _key_paths(theirs) - _key_paths(mine) == set()
+            assert mine["recompiled_after_warmup"] is False
+        if cell == "fleet_disagg":
+            assert fl["handoffs"]["moved"] == len(streams)
+            assert [r["n_requests"] for r in fl["replicas"]] \
+                == [0, len(streams)]
+        return
     assert len(streams) == rep["n_requests"] == jrep["n_requests"]
     if cell == "g1_trace":
         assert sorted(len(v) for v in streams.values()) == [3, 4, 6]

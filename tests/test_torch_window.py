@@ -394,22 +394,17 @@ def test_ring_chains_never_grow(swa):
     (dict(role="prefill"), "handoff"),
 ], ids=["speculative", "sharing", "fused", "role"])
 def test_ring_blockers_rejected(swa, kw, frag):
-    """The JAX engine refuses each blocker at construction.
-    ``fused_paged_attention``, ``speculative_k`` and ``prefix_sharing``
-    reach the port's engine, which refuses each with JAX's message word
-    for word; ``role`` is not ported (item 7), so the port's
-    ``EngineConfig`` refuses it, naming the field."""
+    """The JAX engine refuses each blocker at construction, and so does
+    the port's, with JAX's message word for word:
+    ``fused_paged_attention``, ``speculative_k``, ``prefix_sharing`` and
+    a split role (the handoff replays absolute-position scatters)."""
     model, params, (mesh, jm, jp) = swa
     with pytest.raises(ValueError, match=frag) as jerr:
         JEngine(jm, jp, jax_ecfg(JSWA, **_kw(**kw)), mesh=mesh,
                 clock=JClock(0.5))
-    if "role" not in kw:
-        with pytest.raises(ValueError, match=frag) as err:
-            _engine(model, params, **kw)
-        assert str(err.value) == str(jerr.value)
-    else:
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            engine_config_for(SWA, **_kw(**kw))
+    with pytest.raises(ValueError, match=frag) as err:
+        _engine(model, params, **kw)
+    assert str(err.value) == str(jerr.value)
 
 
 def test_chunk_wider_than_ring_rejected(swa):
