@@ -284,6 +284,38 @@ Phases, each of which must pass (any failure exits non-zero):
      replicas, card streams, routing decisions and handoff counters equal
      the CPU's.  ``python3 chip_smoke.py --only-fleet`` runs phase 1 and
      phase 13 alone, and prints no result.
+  14. tensor-parallel MoE, and SSM and hybrid serving through the slotted
+     state store (after phase 13): (a) phase 11's full-width mixtral-8x7b
+     cut to 8 of 32 layers on ``VirtualGroup(16)``: 8 experts < 16 ranks,
+     so every rank holds a 896-wide d_ff slice of every expert
+     (``convert.tp_rows``), runs ``moe_gmm`` on it over all the units, and
+     the slices' outputs are summed; paged, 4 slots, 4 prompts of 256-512
+     tokens, 16 new, greedy; against one rank (G = 1) on the same weights
+     (each expert leaf re-laid out in place between the runs); ``[tp]``
+     lines (TTFT/TPOT p50, peak memory, launches, the parting and the
+     rows' errors where the histories agree), the replica and residency
+     refusals (JAX's messages), and the same on a 2-layer cut in f32
+     (``TP_GATES``: partings only at near ties, rows within 1e-3; bf16 a
+     bound on the median); gates: one capture of each entry, ``moe_gmm``
+     once a rank a layer a call and ``schedule`` never under
+     tensor-parallel MoE.  (b) mamba2-2.7b (64 layers) and (c) zamba2-7b
+     (81 layers, hd 112, 13 groups of 6 around one shared attention block
+     and a tail of 3) at full width and depth: the slot pool, 4 slots, 8
+     prompts of 128-1024 tokens (none a multiple of the chunk), chunk 256,
+     32 new, greedy; each engine's rows held against the one-shot
+     ``prefill`` + ``decode_step`` oracle fed its tokens (``SSM_GATES``);
+     a decode step with every slot decoding traced (busy, wall, idle, top
+     kernels) and the SSD recurrence's device ms a layer and its share of
+     the busy time; then on the same weights in f32 (16 new), with a
+     second engine that preempts request 0 after 3 tokens; ``[mamba2]`` /
+     ``[zamba2]`` lines; gates: every budget, ``jit_entries``
+     ``{"prefill_chunk": 1, "decode": 1, "write_slot": 1}`` and nothing
+     captured again, scratch resets equal to prefills, the resumed stream
+     equal to the unpreempted one, and no launch of ``paged_attention``,
+     ``flash_attention``, ``moe_gmm`` or ``schedule`` (the JAX path
+     reaches no kernel there either).  ``python3 chip_smoke.py
+     --only-ssm`` runs phase 1, phase 2's tensor-parallel ``moe_gmm``
+     cases and phase 14 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -623,6 +655,11 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
 
 
 EP_DEGREE = 4
+# phases 4b, 7 (at G = 4) and 8 run qwen15-moe-a27b at full width cut to
+# 12 of its 24 layers: the eager G = 4 runs and their traces
+# scale with the depth, and the whole script has to stay inside its
+# 1200 s with phase 14 added
+EP_LAYERS = 12
 
 
 def ep_moe_config(cfg, policy="harmoeny", replica_slots=0):
@@ -4534,6 +4571,501 @@ def fleet_only_path():
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 14: tensor-parallel MoE (E < G); SSM and hybrid serving through
+# the slotted state store
+# ----------------------------------------------------------------------
+# (a) mixtral-8x7b (phase 11's 8-of-32-layer cut) on 16 virtual ranks: 8
+# experts < 16 ranks, so every rank holds a 896-wide d_ff slice of every
+# expert; paged, 4 slots, 4 prompts of 256-512 tokens, 16 new, greedy
+TP_DEGREE = 16
+TP_A = dict(slots=4, n_requests=4, prompt_lens=(256, 513), new_tokens=16,
+            prefill_chunk=256, block_size=16)
+TP_F32_LAYERS = 2            # the f32 hold's shallower cut
+# (b) mamba2-2.7b and (c) zamba2-7b at full width and depth: the slot pool,
+# 4 slots, 8 prompts of 128-1024 tokens (none a multiple of the chunk),
+# chunk 256, 32 new (16 in the f32 round), greedy
+SSM_A = dict(slots=4, n_requests=8, prompt_lens=(128, 1025), new_tokens=32,
+             f32_new_tokens=16, prefill_chunk=256)
+SSM_ENTRIES = {"prefill_chunk": 1, "decode": 1, "write_slot": 1}
+# the holds, by dtype, on logits errors relative to the reference's
+# largest logit.  (a): the tensor-parallel engine against the one-rank
+# engine on the same weights, over the positions both have the same
+# history (up to and at the first parting); f32: a parting only at a
+# near tie, and every such row close (read: every stream equal, rows
+# within 5.0e-6 on an H100); bf16 (each rank's partial output
+# rounds to bf16 before the sum, top-2 routing on random weights
+# amplifies it, and the streams part within 0-4 tokens at gaps of
+# 0.005-0.14 of the largest logit): a bound on the median, 2.5x the
+# largest read (0.096-0.39), beside the block check below.  (b)/(c): the engine's rows against the one-shot oracle fed
+# the engine's tokens (``oracle_agreement``), the ring gates' measures
+# (read on an H100: f32 every token, median errors 9.2e-6-2.1e-5;
+# bf16 mamba2 every token at ~2e-7, zamba2 0.81-0.97 of the tokens and
+# medians 0.040-0.062, its chunks' attention and the oracle's whole
+# prompt rounding apart)
+TP_GATES = {"float32": {"near_tie": 1e-3, "logits_err_max": 1e-3},
+            "bfloat16": {"logits_err_median": 1.0}}
+# bf16 on one layer's block, where both routes are the same (f32 router
+# logits on the same input): the tensor-parallel output against one
+# rank's, relative to its largest value (the kernels' bf16 tolerance)
+TP_BLOCK_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSM_GATES = {"float32": {"near_tie": 1e-3,
+                         "logits_err_median_after_wrap": 1e-2},
+             "bfloat16": {"agree_after_wrap": 0.5,
+                          "logits_err_median_after_wrap": 0.25}}
+
+
+def tp_kernel_parity(mix):
+    """Phase 2's cases at one tensor-parallel rank of 16 (a): ``moe_gmm`` on
+    every expert's 896-wide d_ff slice, the block-aligned buffer of all
+    the units (top-2 of 8, a seeded draw) at (a)'s decode (4 slots) and
+    at a 256-token chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import round_up
+    E, k = mix.moe.num_experts, mix.moe.num_experts_per_tok
+    f = mix.moe.d_ff_expert // TP_DEGREE
+    draw = np.random.default_rng(141)
+    out = {"moe_gmm": []}
+    for label, tokens in (("tp16_decode", TP_A["slots"]),
+                          ("tp16_prefill_chunk", TP_A["prefill_chunk"])):
+        units = draw.integers(0, E, tokens * k)
+        sizes = np.bincount(units, minlength=E).tolist()
+        out["moe_gmm"].append(moe_gmm_case(
+            label, sizes, M=round_up(tokens * k, 128) + E * 128, n_local=E,
+            d=mix.d_model, f=f, block_m=128, dtype=torch.bfloat16, seed=142,
+            time_it=True))
+        torch.cuda.empty_cache()
+    for r in out["moe_gmm"]:
+        log(f"[parity] moe_gmm {json.dumps(r)}")
+    return out
+
+
+def _phase14_requests(cfg, spec, seed, new_tokens=None, not_multiple=0):
+    """``spec``'s requests, seeded, all at t = 0: prompt lengths drawn in
+    ``prompt_lens``, moved off multiples of ``not_multiple``."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    lo, hi = spec["prompt_lens"]
+    reqs = []
+    for i in range(spec["n_requests"]):
+        n = int(rng.integers(lo, hi))
+        if not_multiple and n % not_multiple == 0:
+            n -= 1
+        reqs.append(Request(rid=i, tokens=rng.integers(
+            0, cfg.vocab_size, (n,)).astype(np.int32),
+            max_new_tokens=new_tokens or spec["new_tokens"]))
+    return reqs
+
+
+def common_rows(ref, ref_rows, other, other_rows):
+    """Two engines' rows where their histories agree (every position up to
+    and at the first parting): by request, the positions, and the largest
+    and median logits error relative to the reference's largest logit."""
+    import statistics
+    out = {}
+    for rid, want in ref.items():
+        got = other[rid]
+        n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 len(want) - 1)
+        errs = [float((e - r).abs().max()) / float(r.abs().max())
+                for r, e in zip(ref_rows[rid][:n + 1], other_rows[rid])]
+        out[rid] = {"positions": len(errs), "equal": got == want,
+                    "logits_err_max": max(errs),
+                    "logits_err_median": statistics.median(errs)}
+    return out
+
+
+def tp_gate_failures(dtype, parts, rows):
+    g, bad = TP_GATES[dtype], []
+    for rid, p in parts.items():
+        if "near_tie" in g and (p.get("gap_rel") is None
+                                or p["gap_rel"] > g["near_tie"]):
+            bad.append(f"request {rid}: parts from the one-rank stream "
+                       f"beyond a near tie ({p})")
+    for rid, r in rows.items():
+        for key in ("logits_err_max", "logits_err_median"):
+            if key in g and r[key] > g[key]:
+                bad.append(f"request {rid}: {key} {r[key]} > {g[key]}")
+    return bad
+
+
+def tp_serve(mix, params, ep_degree, tag, reqs):
+    """(a)'s traffic on ``params`` at EP degree ``ep_degree`` (tensor-
+    parallel when 8 experts < ``ep_degree``): the summary and the rows."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import engine_config_for
+    ecfg = engine_config_for(
+        mix, max_slots=TP_A["slots"], prompt_len=TP_A["prompt_lens"][1],
+        max_new_tokens=TP_A["new_tokens"],
+        prefill_chunk=TP_A["prefill_chunk"], paged=True,
+        kv_block_size=TP_A["block_size"])
+    model = build_model(mix, batch=TP_A["slots"], seq_len=ecfg.max_seq_len,
+                        ep_degree=ep_degree)
+    outputs, rep, launches, wall, peak, _, rows = _serve_streams(
+        model, params, ecfg, reqs)
+    _check_budgets(tag, outputs, reqs, mix.vocab_size)
+    if rep["jit_entries"] != {"prefill_chunk": 1, "decode": 1,
+                              "write_blocks": 1} \
+            or rep["recompiled_after_warmup"]:
+        raise AssertionError(f"[{tag}] entries {rep['jit_entries']}, "
+                             f"recompiled {rep['recompiled_after_warmup']}")
+    steps = rep["decode_steps"] + rep["prefill_chunks"]
+    want = ep_degree * mix.num_layers * steps
+    if launches["moe_gmm"] != want or launches["schedule"] != (
+            0 if ep_degree > mix.moe.num_experts else want):
+        raise AssertionError(f"[{tag}] launches {launches}: moe_gmm should "
+                             f"run {want} times (ranks x layers x calls)")
+    summary = {"model": f"{mix.name} ({mix.num_layers} of 32 layers)",
+               "dtype": mix.dtype, "ep_degree": ep_degree,
+               "tp_mode": model.moe_spec.tp_mode,
+               "requests": len(reqs),
+               "ttft_p50_s": rep["ttft"]["p50"],
+               "tpot_p50_s": rep["tpot"]["p50"], "wall_s": wall,
+               "peak_mem_gib": peak, "decode_steps": rep["decode_steps"],
+               "prefill_chunks": rep["prefill_chunks"],
+               "launches": launches,
+               "rank_load_decode": rep["load_balance"]["decode"][
+                   "rank_load_mean"][:2],
+               "drops": [rep["load_balance"][ph][k]
+                         for ph in ("decode", "prefill")
+                         for k in ("send_drops_total", "dest_drops_total")]}
+    return summary, outputs, rows, model
+
+
+def tp_round(mix, params, dtype_tag, reqs):
+    """One rank, then 16 tensor-parallel ranks on the same weights (each
+    expert leaf re-laid out as the ranks' d_ff slices, ``convert.tp_rows``,
+    one leaf at a time); the parting and the rows' errors, held by
+    ``TP_GATES``."""
+    import torch
+    from repro_torch.convert import tp_rows
+    g1, ref, ref_rows, _ = tp_serve(mix, params, 1, f"tp-g1-{dtype_tag}",
+                                    reqs)
+    first = {n: w[0].clone() for n, w in
+             params["stack"]["blocks"]["sub0"]["moe"].items()}
+    for layer in params["stack"]["blocks"].values():
+        moe = layer["moe"]
+        for name in ("w_in", "w_out", "w_gate"):
+            w = moe.pop(name)
+            moe[name] = tp_rows(w, TP_DEGREE, name)
+            del w
+        torch.cuda.empty_cache()
+    tp, out, rows, model = tp_serve(mix, params, TP_DEGREE,
+                                    f"tp-{dtype_tag}", reqs)
+    parts = parting(ref, out, ref_rows)
+    errs = common_rows(ref, ref_rows, out, rows)
+    bad = tp_gate_failures(mix.dtype, parts, errs)
+    block_err = tp_block_check(mix, first, {
+        n: w[0] for n, w in params["stack"]["blocks"]["sub0"]["moe"].items()})
+    if block_err > TP_BLOCK_TOL[mix.dtype]:
+        bad.append(f"layer 0's block: tensor-parallel against one rank "
+                   f"{block_err} > {TP_BLOCK_TOL[mix.dtype]}")
+    return {"g1": g1, "tp": tp, "equal_streams": sum(
+        out[r] == ref[r] for r in ref), "parts": parts, "rows": errs,
+        "block_err": block_err, "failures": bad}, model
+
+
+def tp_block_check(mix, layer_g1, layer_tp):
+    """Layer 0's MoE block on one 256-token input at G = 1 and on 16
+    tensor-parallel ranks (the same router, so the same routes): the
+    largest difference relative to the one-rank output's largest value."""
+    import dataclasses
+    import torch
+    from repro_torch.core.dispatch import VirtualGroup
+    from repro_torch.core.moe_layer import MoEBlockSpec, moe_block
+    g = torch.Generator(device="cuda").manual_seed(144)
+    x = torch.randn((1, TP_A["prefill_chunk"], mix.d_model), generator=g,
+                    device="cuda").to(layer_g1["w_in"].dtype)
+    spec = MoEBlockSpec(moe=mix.moe, d_model=mix.d_model,
+                        tokens_local=x.shape[1], act="silu")
+    y1, _ = moe_block(x, layer_g1, spec=spec)
+    y16, _ = moe_block(x, layer_tp, spec=dataclasses.replace(
+        spec, ep_degree=TP_DEGREE, tp_mode=True),
+        comm=VirtualGroup(TP_DEGREE))
+    return float((y16.float() - y1.float()).abs().max()
+                 / y1.float().abs().max())
+
+
+def tp_path():
+    """Phase 14 (a): full-width mixtral cut to 8 layers on 16 virtual
+    ranks, against one rank on the same weights; the replica and
+    residency refusals; the f32 hold on a 2-layer cut."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+    mix = mixtral_config()
+    reqs = _phase14_requests(mix, TP_A, seed=140)
+    t0 = time.perf_counter()
+    params = build_model(mix, batch=TP_A["slots"], seq_len=8).init(0)
+    torch.cuda.synchronize()
+    log(f"[tp] {mix.name} cut to {MIXTRAL_LAYERS} of 32 layers, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B parameters "
+        f"drawn in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    out, model = tp_round(mix, params, "bf16", reqs)
+    refusals = {}
+    for field in ("replica_slots", "resident_experts"):
+        try:
+            ServeEngine(model, params, EngineConfig(**{field: 2}))
+        except ValueError as e:
+            refusals[field] = str(e)
+    out["refusals"] = refusals
+    if set(refusals) != {"replica_slots", "resident_experts"} or not all(
+            "needs expert-parallel MoE" in m for m in refusals.values()):
+        raise AssertionError(f"[tp] placement not refused: {refusals}")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = mix.replace(num_layers=TP_F32_LAYERS, dtype="float32")
+    params = build_model(f32, batch=TP_A["slots"], seq_len=8).init(0)
+    out["f32"], model = tp_round(f32, params, "f32", reqs)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key in ("g1", "tp"):
+        for rnd in (out, out["f32"]):
+            log(f"[tp] {json.dumps(rnd[key])}")
+    log(f"[tp] hold: {json.dumps({k: out[k] for k in ('equal_streams', 'parts', 'rows', 'block_err', 'refusals')})}")
+    log(f"[tp] f32 hold: {json.dumps({k: out['f32'][k] for k in ('equal_streams', 'parts', 'rows', 'block_err')})}")
+    bad = out["failures"] + out["f32"]["failures"]
+    if bad:
+        raise AssertionError("[tp] " + "; ".join(bad))
+    return out
+
+
+def ssm_oracle(model, params, reqs, streams, s_max):
+    """The model's one-shot ``prefill`` of each whole prompt, then
+    ``decode_step``s of all the requests batched, each row fed its
+    engine's tokens (``streams``) at its own position: one logits row a
+    token (float32), by request."""
+    import torch
+    from repro_torch.serve.slots import discover_batch_axes, write_slot
+    V, B = model.cfg.vocab_size, len(reqs)
+    caches = model.init_cache(B, s_max)
+    axes = discover_batch_axes(model.init_cache, s_max)
+    rows, pos = {}, []
+    for b, r in enumerate(reqs):
+        tokens = torch.as_tensor(r.tokens, device="cuda")[None]
+        logits, one, p, _ = model.prefill(params, {"tokens": tokens},
+                                          s_max=s_max)
+        rows[r.rid] = [logits[0, :V].float()]
+        write_slot(caches, one, b, axes)
+        pos.append(int(p))
+        del one
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    n = len(streams[reqs[0].rid])
+    for i in range(n - 1):
+        tok = torch.tensor([[streams[r.rid][i]] for r in reqs],
+                           dtype=torch.int32, device="cuda")
+        logits, caches, pos, _ = model.decode_step(params, tok, caches, pos)
+        for b, r in enumerate(reqs):
+            rows[r.rid].append(logits[b, :V].float())
+    return rows
+
+
+def ssd_decode_ms(cfg, batch):
+    """Device ms of one mamba layer's SSD recurrence at a decode step
+    (``mamba_block``'s L = 1 branch, from dA to y) at ``batch`` rows."""
+    import torch
+    from repro_torch.models.mamba2 import mamba_dims
+    dm = mamba_dims(cfg)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xh = torch.randn((batch, dm.n_heads, dm.head_dim), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    dt = torch.rand((batch, dm.n_heads), generator=g, device="cuda")
+    A = -torch.rand((dm.n_heads,), generator=g, device="cuda")
+    Bs, Cs = (torch.randn((batch, dm.state), generator=g, device="cuda")
+              for _ in range(2))
+    st = torch.randn((batch, dm.n_heads, dm.head_dim, dm.state),
+                     generator=g, device="cuda")
+
+    def step():
+        dA = torch.exp(dt * A[None, :])
+        xdt = xh.float() * dt[:, :, None]
+        ssm = st * dA[:, :, None, None] + torch.einsum("bhp,bn->bhpn", xdt,
+                                                       Bs)
+        return torch.einsum("bhpn,bn->bhp", ssm, Cs)
+    return device_ms(step, 20)
+
+
+def ssm_round(cfg, params, tag, reqs, *, preempt, timing):
+    """One round of (b) or (c) on ``params``: the engine serves ``reqs``
+    (every entry captured), its rows held against the one-shot oracle fed
+    its tokens; with ``preempt`` a second engine serves the first two
+    requests and preempts request 0 after 3 tokens (its stream must be
+    the unpreempted one); with ``timing`` a decode step with every slot
+    decoding, traced and untraced, and the SSD recurrence's share."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine, engine_config_for
+    ecfg = engine_config_for(cfg, max_slots=SSM_A["slots"],
+                             prompt_len=SSM_A["prompt_lens"][1] - 1,
+                             max_new_tokens=SSM_A["new_tokens"],
+                             prefill_chunk=SSM_A["prefill_chunk"])
+    model = build_model(cfg, batch=SSM_A["slots"], seq_len=ecfg.max_seq_len)
+    outputs, rep, launches, wall, peak, stats, rows = _serve_streams(
+        model, params, ecfg, reqs)
+    _check_budgets(tag, outputs, reqs, cfg.vocab_size)
+    t0 = time.perf_counter()
+    oracle = ssm_oracle(model, params, reqs, outputs, ecfg.max_seq_len)
+    agreement = {r.rid: oracle_agreement(outputs[r.rid], oracle[r.rid],
+                                         rows[r.rid], 0) for r in reqs}
+    del oracle
+    oracle_s = time.perf_counter() - t0
+    bad = []
+    g = SSM_GATES[cfg.dtype]
+    for rid, ag in agreement.items():
+        if "near_tie" in g and any(d["logits_gap_rel"] > g["near_tie"]
+                                   for d in ag["disagreements"]):
+            bad.append(f"request {rid}: a token leaves the oracle's beyond "
+                       f"a near tie")
+        if ag["agree_after_wrap"] / ag["steps_after_wrap"] \
+                < g.get("agree_after_wrap", 0.0):
+            bad.append(f"request {rid}: agreeing share below "
+                       f"{g['agree_after_wrap']}")
+        if ag["logits_err_median_after_wrap"] \
+                > g["logits_err_median_after_wrap"]:
+            bad.append(f"request {rid}: median logits error "
+                       f"{ag['logits_err_median_after_wrap']}")
+    if rep["jit_entries"] != SSM_ENTRIES or rep["recompiled_after_warmup"]:
+        bad.append(f"entries {rep['jit_entries']}, recompiled "
+                   f"{rep['recompiled_after_warmup']}")
+    if stats["scratch_resets"] != len(reqs):
+        bad.append(f"{stats['scratch_resets']} scratch resets for "
+                   f"{len(reqs)} prefills")
+    if any(launches[k] for k in ("paged_attention", "flash_attention",
+                                 "moe_gmm", "schedule")):
+        bad.append(f"a kernel ran on the recurrent path: {launches}")
+    out = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "requests": len(reqs),
+           "prompt_lens": [len(r.tokens) for r in reqs],
+           "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+           "wall_s": wall, "oracle_s": oracle_s, "peak_mem_gib": peak,
+           "decode_steps": rep["decode_steps"],
+           "prefill_chunks": rep["prefill_chunks"], "state_pool": stats,
+           "jit_entries": rep["jit_entries"], "launches": launches,
+           "attention_dispatch": rep.get("attention_dispatch"),
+           "agreement": {rid: {k: ag[k] for k in (
+               "steps", "agree", "logits_err_max", "logits_err_median")}
+               for rid, ag in agreement.items()},
+           "disagreements": {rid: ag["disagreements"][:2]
+                             for rid, ag in agreement.items()
+                             if ag["disagreements"]}}
+    if preempt:
+        eng = ServeEngine(model, params, ecfg)
+        eng.warmup()
+        got = {}
+        orig = eng._finish
+
+        def cap(st, now):
+            got[st.req.rid] = list(st.output)
+            orig(st, now)
+        eng._finish = cap
+        for r in reqs[:2]:
+            eng.submit(r)
+        done = False
+        while eng.has_work():
+            eng.step()
+            st = next((eng.front.state_by_slot[s]
+                       for s in np.nonzero(eng.active)[0]
+                       if eng.front.state_by_slot[s].req.rid == 0), None)
+            if not done and st is not None and len(st.output) >= 3:
+                eng._preempt(st)
+                done = True
+        rep2 = eng.report()
+        out["preempt"] = {"preempted": done,
+                          "preemptions": rep2["state_pool"]["preemptions"],
+                          "scratch_resets":
+                              rep2["state_pool"]["scratch_resets"],
+                          "equal": got.get(0) == outputs[0],
+                          "entries": rep2["jit_entries"],
+                          "recompiled": rep2["recompiled_after_warmup"]}
+        if got.get(0) != outputs[0]:
+            out["preempt"]["parting"] = parting({0: outputs[0]},
+                                                {0: got.get(0)},
+                                                {0: rows[0]})
+        if not (done and rep2["state_pool"]["preemptions"] == 1
+                and got.get(0) == outputs[0]
+                and rep2["state_pool"]["scratch_resets"] == 3
+                and rep2["jit_entries"] == SSM_ENTRIES
+                and not rep2["recompiled_after_warmup"]):
+            bad.append(f"preemption: {out['preempt']}")
+        del eng
+    if timing:
+        eng = ServeEngine(model, params, ecfg)
+        eng.warmup()
+        t = step_timing(eng, cfg, _phase14_requests(
+            cfg, {**SSM_A, "n_requests": SSM_A["slots"]}, seed=150,
+            not_multiple=SSM_A["prefill_chunk"]), tag)
+        n_mamba = cfg.num_layers
+        ssd = ssd_decode_ms(cfg, SSM_A["slots"])
+        t["ssd_ms_per_layer"] = ssd
+        t["ssd_share_of_busy"] = ssd * n_mamba / t["busy_ms"]
+        out["decode_step"] = t
+        del eng
+    if stats["kind"] != "slot":
+        bad.append(f"state pool {stats}")
+    if bad:
+        raise AssertionError(f"[{tag}] " + "; ".join(bad))
+    del model
+    return out
+
+
+def ssm_path():
+    """Phase 14 (b) and (c): mamba2-2.7b and zamba2-7b at full width and
+    depth through the slotted state store, in bf16 (with a decode step's
+    timing) and then in f32 on the same weights (with the preemption)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch, tag in (("mamba2-2.7b", "mamba2"), ("zamba2-7b", "zamba2")):
+        cfg = get_config(arch)
+        reqs = _phase14_requests(cfg, SSM_A, seed=143,
+                                 not_multiple=SSM_A["prefill_chunk"])
+        t0 = time.perf_counter()
+        params = build_model(cfg, batch=SSM_A["slots"], seq_len=8).init(0)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        gib = sum(t.numel() * t.element_size()
+                  for t in _leaves(params)) / 2**30
+        log(f"[{tag}] {arch} at full width and depth ({cfg.num_layers} "
+            f"layers): {n / 1e9:.3f} B parameters, {gib:.2f} GiB of bf16 "
+            f"weights, drawn in {time.perf_counter() - t0:.1f} s")
+        rec = {"params_b": n / 1e9, "weights_gib": gib,
+               "bf16": ssm_round(cfg, params, tag, reqs, preempt=False,
+                                 timing=True)}
+        log(f"[{tag}] {json.dumps(rec['bf16'])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _cast_(params, torch.float32)
+        f32 = cfg.replace(dtype="float32")
+        reqs32 = _phase14_requests(f32, SSM_A, seed=143,
+                                   new_tokens=SSM_A["f32_new_tokens"],
+                                   not_multiple=SSM_A["prefill_chunk"])
+        rec["f32"] = ssm_round(f32, params, f"{tag}-f32", reqs32,
+                               preempt=True, timing=False)
+        log(f"[{tag}-f32] {json.dumps(rec['f32'])}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = rec
+    return out
+
+
+def ssm_tp_path():
+    """Phase 14: (a), then (b) and (c)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"tp": tp_path()}
+    out.update(ssm_path())
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4599,6 +5131,13 @@ def main() -> int:
         prefix_spec_path()
         elapsed("phase 12")
         return 0
+    if "--only-ssm" in sys.argv[1:]:
+        # a shorter run for work on phase 14: its parity cases and the
+        # phase itself, without the kernels line and the result line
+        tp_kernel_parity(mixtral_config())
+        ssm_tp_path()
+        elapsed("phase 14")
+        return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
         # phase itself, without the kernels line and the result line
@@ -4612,6 +5151,8 @@ def main() -> int:
     for name, recs in mixtral_kernel_parity(mixtral_config()).items():
         parity[name] += recs
     for name, recs in prefix_spec_kernel_parity(cfg).items():
+        parity[name] += recs
+    for name, recs in tp_kernel_parity(mixtral_config()).items():
         parity[name] += recs
 
     elapsed("phase 2")
@@ -4631,13 +5172,14 @@ def main() -> int:
 
     elapsed("phases 3-4 (+ 7 on qwen)")
     # --- phase 4b: HarMoEny across 4 virtual EP ranks ----------------------
-    ep, caps, ep_params = ep_path(cfg, seed=0, slots=4, n_requests=4,
+    ep_cfg = cfg.replace(num_layers=EP_LAYERS)
+    ep, caps, ep_params = ep_path(ep_cfg, seed=0, slots=4, n_requests=4,
                                   new_tokens=8, **shape)
     captures += caps
     small_ep_reference_check()
     elapsed("phase 4b (+ 7 on G = 4)")
     # --- phase 8: replica slots and tiered residency on 4b's weights --------
-    placement = placement_path(cfg, ep_params, seed=0, slots=4, **shape)
+    placement = placement_path(ep_cfg, ep_params, seed=0, slots=4, **shape)
     del ep_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4703,6 +5245,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     prefix_spec = prefix_spec_path(fleet=True)
     elapsed("phases 12-13")
+    # --- phase 14: tensor-parallel MoE; SSM and hybrid serving ---------------
+    ssm_tp = ssm_tp_path()
+    elapsed("phase 14")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -4746,7 +5291,16 @@ def main() -> int:
                 **{f"prefix_spec_qwen15_moe_a27b_{run}": rec[name]
                    for run, rec in prefix_spec["launches"].items()},
                 **{f"{run}_qwen15_moe_a27b": rec[name]
-                   for run, rec in prefix_spec["fleet"]["launches"].items()}},
+                   for run, rec in prefix_spec["fleet"]["launches"].items()},
+                **{f"tp_mixtral_8x7b_{layers}of32_{key}_{dt}":
+                   rnd[key]["launches"][name]
+                   for rnd, layers, dt in (
+                       (ssm_tp["tp"], MIXTRAL_LAYERS, "bf16"),
+                       (ssm_tp["tp"]["f32"], TP_F32_LAYERS, "f32"))
+                   for key in ("g1", "tp")},
+                **{f"serve_{arch}_{dt}": ssm_tp[arch][dt]["launches"][name]
+                   for arch in ("mamba2", "zamba2")
+                   for dt in ("bf16", "f32")}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -38,6 +38,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128       # N (dstate)
+    head_dim: int = 64         # P
+    num_heads: int = 0         # derived if 0: expand*d_model // head_dim
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 256      # SSD chunk length
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # dense | moe | ssm | hybrid | audio | vlm
@@ -64,9 +74,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     post_norm: bool = False
 
-    # --- MoE / SSM sub-configs (SSM is not ported: always None here) ---
+    # --- MoE / SSM sub-configs ---
     moe: Optional[MoEConfig] = None
-    ssm: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
 
     # --- enc-dec / multimodal ---
     is_encoder_decoder: bool = False
@@ -107,6 +117,10 @@ class ModelConfig:
                 first_dense_layers=min(self.moe.first_dense_layers, 1),
                 num_foreign_slots=2,
             )
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(
+                self.ssm, state_dim=16, head_dim=16, num_heads=0, chunk_size=32)
         return dataclasses.replace(
             self,
             num_layers=min(self.num_layers, 4),
@@ -124,6 +138,7 @@ class ModelConfig:
             num_prefix_embeddings=min(self.num_prefix_embeddings, 8)
             if self.num_prefix_embeddings else 0,
             moe=moe,
+            ssm=ssm,
             dtype="float32",
         )
 

@@ -4,16 +4,20 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.qwen15_moe_a27b import CONFIG as _qwen
 from repro_torch.configs.switch128 import CONFIG as _switch
+from repro_torch.configs.zamba2_7b import CONFIG as _zamba2
 
 REGISTRY: Dict[str, ModelConfig] = {
     "qwen15-moe-a27b": _qwen,
     "moonshot-v1-16b-a3b": _moonshot,
     "switch128": _switch,
     "mixtral-8x7b": _mixtral,
+    "mamba2-2.7b": _mamba2,
+    "zamba2-7b": _zamba2,
 }
 
 

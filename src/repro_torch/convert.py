@@ -14,6 +14,17 @@ the replica-slot leaves ``w_rep_in`` / ``w_rep_out`` / ``w_rep_gate``
 with ``num_replica_slots`` R; ``expert_shard`` cuts one rank's rows out
 of both in one layer's dict, and ``shard_params`` in a whole stacked
 parameter tree, for ``DistComm``.
+
+Tensor-parallel MoE (E < G; JAX's ``tp_mode``) keeps JAX's plain
+``[E, d, f]`` expert leaves sharded over d_ff; the port lays each rank's
+slice out as rows of its own (``tp_rows``): ``[G * E, d, f / G]`` for
+``w_in`` / ``w_gate`` and ``[G * E, f / G, d]`` for ``w_out``, row
+``g * E + e`` rank g's contiguous slice of expert e, so that
+``VirtualGroup`` and ``DistComm`` cut a rank's weights as they cut
+expert rows and the kernel reads dense tensors.  ``tp_params`` applies it
+to a converted tree.  Mamba leaves and the hybrid's ``groups`` /
+``shared`` / ``tail`` tree keep JAX's layout, and ``MambaState`` caches
+become the port's.
 """
 from __future__ import annotations
 
@@ -24,6 +35,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.attention import AttnCache
+from repro_torch.models.mamba2 import MambaState
+
+_NAMED = {tuple(t._fields): t for t in (AttnCache, MambaState)}
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -44,9 +58,8 @@ def _convert(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        if tuple(tree._fields) == AttnCache._fields:
-            return AttnCache(*(_convert(v, device) for v in tree))
-        return type(tree)(*(_convert(v, device) for v in tree))
+        kind = _NAMED.get(tuple(tree._fields), type(tree))
+        return kind(*(_convert(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
     return _leaf(tree, device)
@@ -87,4 +100,33 @@ def shard_params(params: Any, rank: int, ep_degree: int) -> Any:
                 for k, v in params.items()}
     if isinstance(params, list):
         return [shard_params(v, rank, ep_degree) for v in params]
+    return params
+
+
+def tp_rows(w: torch.Tensor, G: int, name: str) -> torch.Tensor:
+    """A tensor-parallel expert leaf ``[..., E, d, f]`` (``w_in``,
+    ``w_gate``) or ``[..., E, f, d]`` (``w_out``) as G ranks' contiguous
+    d_ff slices side by side: ``[..., G * E, ...]``, row ``g * E + e``
+    holding columns (rows for ``w_out``) ``[g f / G, (g + 1) f / G)`` of
+    expert e, as JAX's ``in_specs`` shard them over the EP axis."""
+    ax = w.ndim - (2 if name == "w_out" else 1)
+    f = w.shape[ax]
+    if f % G:
+        raise ValueError(f"{name}: d_ff {f} does not split over {G} ranks")
+    fs = f // G
+    return torch.cat([w.narrow(ax, g * fs, fs) for g in range(G)],
+                     dim=w.ndim - 3)
+
+
+def tp_params(params: Any, G: int) -> Any:
+    """A converted parameter tree with every MoE block's expert leaves laid
+    out for tensor-parallel MoE over G ranks (``tp_rows``; the router and
+    the rest are shared)."""
+    if isinstance(params, dict):
+        return {k: ({n: (w if n == "router" else tp_rows(w, G, n))
+                     for n, w in v.items()}
+                    if k == "moe" else tp_params(v, G))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [tp_params(v, G) for v in params]
     return params

@@ -31,8 +31,14 @@ schedule, take their groups between the local and foreign ones, and fetch
 nothing for them.  ``residency_ids`` [G, W] (``serve/residency.py``)
 demotes statically placed experts outside a rank's working set to
 foreign destinations in the harmoeny schedule.  Both tables are device
-tensors, so changing them changes values only.  Tensor-parallel MoE
-(E < G) is not ported yet and is rejected.
+tensors, so changing them changes values only.
+
+Tensor-parallel MoE (``spec.tp_mode``, which ``build_model`` sets when
+E < G: mixtral's 8 experts on 16 ranks; ``tp_moe_block``): every rank
+holds a contiguous d_ff slice of every expert, sees every token, runs
+the grouped FFN (``moe_gmm``) on its slice over one block-aligned buffer
+of all the units, and the partial outputs are summed over the ranks
+(``psum``), as JAX's ``tp_moe_block``: no schedule, no fetch, no drops.
 """
 from __future__ import annotations
 
@@ -72,14 +78,13 @@ class MoEBlockSpec:
     cf_pair: float = 2.0
     act: str = "silu"            # expert activation; gated experts carry w_gate
     fetch_chunk: int = 2048      # the dense fetch's last-dim chunk (JAX's)
-
-    def __post_init__(self):
-        if self.moe.num_experts < self.ep_degree:
-            raise NotImplementedError("tensor-parallel MoE (E < EP degree) "
-                                      "is not ported yet")
+    # tensor-parallel MoE: every rank holds a d_ff slice of every expert
+    # (the block's expert rows are rank-major slices, ``tp_moe_block``)
+    tp_mode: bool = False
 
     @property
     def topo(self) -> EPTopology:
+        assert not self.tp_mode, "tensor-parallel MoE has no EP topology"
         return make_topology(self.ep_degree, self.moe.num_experts,
                              placement=self.moe.placement)
 
@@ -252,6 +257,85 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     return y_rep, diag, side_out
 
 
+def tp_layout(assign: torch.Tensor, E: int, block_m: int):
+    """The tensor-parallel block's grouped buffer for expert ids ``assign``
+    [T, k] (JAX's ``tp_moe_block``, op for op): per-expert ``sizes`` [E],
+    their ``padded`` extents (multiples of ``block_m``), each unit's buffer
+    ``row`` [T k] (its expert's group offset plus its rank among the
+    expert's units in token order: a stable sort) and the buffer's rows
+    ``m_pad = round_up(U, block_m) + E block_m``.  No host reads."""
+    ue = assign.reshape(-1).long()
+    U = ue.shape[0]
+    sizes = expert_counts(ue, E)
+    padded = D.round_up_j(sizes, block_m)
+    offsets = torch.cumsum(padded, 0) - padded
+    order = torch.sort(ue, stable=True).indices
+    start = torch.cumsum(sizes, 0) - sizes
+    r_sorted = torch.arange(U, device=ue.device) - start[ue[order]]
+    rank_in_e = torch.empty_like(r_sorted).scatter_(0, order, r_sorted)
+    return sizes, padded, offsets[ue] + rank_in_e, \
+        round_up(U, block_m) + E * block_m
+
+
+def tp_moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
+                 spec: MoEBlockSpec, comm,
+                 skew_key: Optional[SkewKey] = None,
+                 skew_assign: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Tensor-parallel MoE (E < EP degree; JAX's ``tp_moe_block``).  Every
+    rank routes all of x [B, S, d] alike (``route_topk``, or the skew
+    router with ``padded_experts = E`` on ``skew_key`` unfolded by rank,
+    or ``skew_assign`` [1, T, k] drawn beforehand), so the block-aligned
+    grouped buffer of all U = T k units is built once: groups in expert
+    order, each padded to ``block_m`` rows, units stable-sorted by expert.
+    Each rank runs the grouped FFN on its own d_ff slice of every expert
+    (``params``' expert rows are rank-major, row ``g * E + e`` holding
+    rank g's slice of expert e: ``comm.expert_rows``), the partial
+    outputs are summed over the ranks (``psum``) and combined with the
+    gates.  Dead tokens are routed too, as in JAX: nothing is dropped."""
+    moe = spec.moe
+    E, k, bm = moe.num_experts, moe.num_experts_per_tok, spec.block_m
+    B, S_len, d = x.shape
+    dev = x.device
+    flat = x.reshape(B * S_len, d)
+    T = flat.shape[0]
+    if skew_assign is not None:
+        r = route_assigned(skew_assign[0], E)
+    elif skew_key is not None and moe.router_skew > 0:
+        r = route_skewed(skew_key.generator(dev), T, top_k=k, num_experts=E,
+                         padded_experts=E, alpha=moe.router_skew,
+                         n_hot=moe.router_skew_experts)
+    else:
+        r = route_topk(flat, params["router"], top_k=k, num_real_experts=E)
+    U = r.assign.numel()
+    sizes, padded, row, m_pad = tp_layout(r.assign, E, bm)
+    x_units = torch.repeat_interleave(flat, k, dim=0)
+    x_buf = flat.new_zeros((m_pad, d)).index_copy_(0, row, x_units)
+
+    def body(me: int):
+        w = {n: comm.expert_rows(params[n], me, E)
+             for n in ("w_in", "w_out", "w_gate") if n in params}
+        y_part = grouped_ffn(x_buf, w["w_in"], w["w_out"], padded,
+                             w_gate=w.get("w_gate"), act=spec.act,
+                             block_m=bm)
+        return (yield from D.psum(y_part))           # row-parallel
+    y_buf = comm.run_ranks(body)[0]
+    y_units = y_buf[row]
+    y = (y_units.reshape(T, k, d)
+         * r.gates.reshape(T, k, 1).to(y_units.dtype)).sum(dim=1)
+    zero = torch.zeros((1,), dtype=torch.float32, device=dev)
+    diag = {"aux_loss": r.aux_loss[None].float(), "send_drops": zero,
+            "dest_drops": zero, "sched_iters": zero, "moved_units": zero,
+            "max_load_before": zero, "max_load_after": zero,
+            "mean_load": zero,
+            # compute-balanced by construction: every rank holds a d_ff
+            # slice of every unit's expert
+            "rank_load": torch.full((1, spec.ep_degree), U / spec.ep_degree,
+                                    dtype=torch.float32, device=dev),
+            "expert_load": sizes.float()[None, :]}
+    return y.reshape(B, S_len, d).to(x.dtype), diag
+
+
 def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               spec: MoEBlockSpec, comm=None,
               skew_key: Optional[SkewKey] = None,
@@ -286,6 +370,12 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     if comm.size != spec.ep_degree:
         raise ValueError(f"communicator of {comm.size} ranks for a spec of "
                          f"EP degree {spec.ep_degree}")
+    if spec.tp_mode:
+        # capacity-free and compute-balanced: dead tokens cannot drop real
+        # ones, so the mask (and the placement tables) are not needed
+        y, diag = tp_moe_block(x, params, spec=spec, comm=comm,
+                               skew_key=skew_key, skew_assign=skew_assign)
+        return (y if shared is None else y + shared()), diag
     B, S_len, d = x.shape
     flat = x.reshape(B * S_len, d)
     n_valid = flat.shape[0]

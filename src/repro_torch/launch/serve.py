@@ -201,7 +201,7 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--arch {args.arch}: not in the port's registry "
             f"{sorted(REGISTRY)}; the other models come with ROADMAP "
-            f"items 8-9")
+            f"item 9")
     if args.data_par > 1:
         raise NotImplementedError(
             "the serving engine shards the model/expert axis only; "

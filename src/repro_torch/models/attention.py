@@ -83,15 +83,21 @@ def dispatch_log() -> list:
 
 
 def _record_dispatch(branch: str, *, fused: bool, has_kernel: bool = True,
-                     strict: bool = False, reason: str = "") -> None:
+                     strict: bool = False, reason: str = "",
+                     kernels: bool = True) -> None:
     """Log a branch's dispatch.  ``has_kernel`` False: the branch has no
     kernel (``reason`` says why, in the JAX log's words), which ``strict``
-    turns into ``FusedPathUnavailable``, as JAX's ``_record_dispatch``."""
-    if has_kernel and not fused:
+    turns into ``FusedPathUnavailable``, as JAX's ``_record_dispatch``.
+    ``kernels`` False: the caller asked for the plain branches (the
+    hybrid stack's attention, as JAX's ``use_pallas=False``), and the
+    record says it was not requested."""
+    if has_kernel and not fused and kernels:
         reason = "the plain version runs on the CPU"
+    rec = {"branch": branch, "fused": bool(fused), "reason": reason}
+    if not kernels:
+        rec["requested"] = False
     if len(_dispatch_log) < _DISPATCH_LOG_CAP:
-        _dispatch_log.append({"branch": branch, "fused": bool(fused),
-                              "reason": reason})
+        _dispatch_log.append(rec)
     if strict and not has_kernel:
         raise FusedPathUnavailable(
             f"attention_block: use_pallas was explicitly required but the "
@@ -225,12 +231,16 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     cfg: ModelConfig, *, q_offset, cache: AttnCache,
                     cache_len=None, continue_prefill: bool = False,
                     block_table: Optional[torch.Tensor] = None,
-                    block_size: int = 0,
-                    strict: bool = False) -> Tuple[torch.Tensor, AttnCache]:
+                    block_size: int = 0, strict: bool = False,
+                    kernels: bool = True) -> Tuple[torch.Tensor, AttnCache]:
     """Projections + RoPE + attention + out-projection.  ``q_offset`` is an
     int or a 0-d tensor (prefill, slab decode) or a per-row [B] tensor
     (paged or slab decode).  ``strict`` makes a branch without a kernel
-    raise ``FusedPathUnavailable``."""
+    raise ``FusedPathUnavailable``.  ``kernels`` False runs the plain
+    branches on every device (the slab ones only: ``chunked_attention``
+    for a chunk or a whole prompt, ``decode_attention`` for a step), as
+    JAX's ``attention_block`` with ``use_pallas=False``, and logs JAX's
+    reasons."""
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     window = cfg.sliding_window
@@ -243,6 +253,9 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     q = apply_rope(q, off + ar, cfg.rope_theta)
     k = apply_rope(k, off + ar, cfg.rope_theta)
     fused = x.device.type == "cuda"
+    if not kernels and block_table is not None:
+        raise NotImplementedError("the plain attention branches are the "
+                                  "slab's: paged decode runs the kernel")
 
     if continue_prefill and block_table is None:
         # the chunk's start stays on the device (a host int would be baked
@@ -252,7 +265,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         at = start.long() + ar
         cache.k.index_copy_(1, at, k.to(cache.k.dtype))
         cache.v.index_copy_(1, at, v.to(cache.v.dtype))
-        if window == 0 or window >= S_max:
+        if kernels and (window == 0 or window >= S_max):
             bs_slab = largest_block_divisor(S_max)
             nb = S_max // bs_slab
             Hkv, hd = cache.k.shape[2], cache.k.shape[3]
@@ -268,7 +281,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         else:
             _record_dispatch(
                 "prefill_continue", fused=False, has_kernel=False,
-                strict=strict,
+                strict=strict, kernels=kernels,
                 reason=f"binding sliding window {window} < slab {S_max}")
             out = chunked_attention(q, cache.k, cache.v, causal=True,
                                     window=window, softcap=softcap,
@@ -306,13 +319,13 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     elif S > 1:
         # whole prompt: the flash kernel's guards are causal, no window and
         # no softcap; otherwise the chunked reference
-        if window == 0 and softcap == 0.0:
+        if kernels and window == 0 and softcap == 0.0:
             _record_dispatch("prefill_cache", fused=fused)
             out = flash_attention(q, k, v, causal=True)
         else:
             _record_dispatch(
                 "prefill_cache", fused=False, has_kernel=False,
-                strict=strict,
+                strict=strict, kernels=kernels,
                 reason=(f"flash kernel guards failed (causal=True, "
                         f"window={window}, softcap={softcap})"))
             out = chunked_attention(q, k, v, causal=True, window=window,
@@ -342,6 +355,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         cache.v[rows, at] = v[:, 0].to(cache.v.dtype)
         _record_dispatch(
             "decode_slab", fused=False, has_kernel=False, strict=strict,
+            kernels=kernels,
             reason="slab decode has no fused kernel (paged pool required)")
         out = decode_attention(q, cache.k, cache.v,
                                torch.clamp(cl, max=S_max) if ring else cl,

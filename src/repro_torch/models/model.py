@@ -4,7 +4,11 @@ Port of ``repro/models/model.py`` for decoder-only MoE stacks: MoE
 layers after optional leading dense layers (qwen15-moe-a27b,
 moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
 GELU MLPs (switch128), with full or sliding-window attention
-(mixtral-8x7b).  The returned ``Model`` exposes:
+(mixtral-8x7b); and for the SSM (mamba2-2.7b, tied embeddings) and
+hybrid (zamba2-7b: mamba groups around one shared attention block)
+families, whose caches hold fixed-size recurrent state
+(``transformer.run_hybrid``, ``models/mamba2.py``).  The returned
+``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
   prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
@@ -27,6 +31,10 @@ G > 1 the MoE blocks run G ranks in lockstep on that one device
 a G-way model: its expert leaves hold the rank's own ``[n, epr, ...]``
 rows (``convert.shard_params``, or ``init``), everything else is
 replicated, and every process runs the whole stack on the same tokens.
+With fewer experts than ranks (E < G) the MoE blocks are tensor-parallel
+(``MoEBlockSpec.tp_mode``, as JAX's ``build_model`` sets it): each
+expert leaf holds ``[G * E, ...]`` rows, row ``g * E + e`` rank g's
+contiguous d_ff slice of expert e (``convert.tp_rows``).
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch.core.moe_layer import MoEBlockSpec
 from repro_torch.core.router import SkewKey
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import norm
+from repro_torch.models.mamba2 import init_mamba
 from repro_torch.models.losses import logits_head
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -76,8 +85,8 @@ def _normal(shape, scale: float, gen: torch.Generator, device,
 class Model:
     cfg: ModelConfig
     device: torch.device
-    moe_spec: MoEBlockSpec          # prefill chunks (tokens_local per call)
-    moe_spec_decode: MoEBlockSpec   # decode steps
+    moe_spec: Optional[MoEBlockSpec]         # prefill chunks (None: no MoE)
+    moe_spec_decode: Optional[MoEBlockSpec]  # decode steps
     comm: Any = None                # the MoE blocks' EP group
 
     @property
@@ -111,6 +120,14 @@ class Model:
         def zeros(shape):
             return torch.zeros(shape, dtype=torch.float32, device=dev)
 
+        def full(shape, value, dtype):
+            out = torch.empty(shape, dtype=dtype or dt, device=dev)
+            return out.copy_(torch.as_tensor(value).expand(shape))
+
+        def mamba_layer(n=()):
+            return {"mamba": init_mamba(cfg, nrm, full, n),
+                    "norm1": {"scale": zeros(n + (d,))}}
+
         def attn_layer(n=()):
             return {"norm1": {"scale": zeros(n + (d,))},
                     "norm2": {"scale": zeros(n + (d,))},
@@ -131,6 +148,13 @@ class Model:
             p: Dict[str, Any] = attn_layer((n,))
             if kind == "dense":
                 p["mlp"] = ffn((n,), cfg.d_ff)
+                return p
+            if self.moe_spec.tp_mode:
+                p["moe"] = tp_layer()
+                if cfg.moe.num_shared_experts:
+                    p["shared_mlp"] = ffn(
+                        (n,), cfg.moe.num_shared_experts
+                        * cfg.moe.d_ff_expert)
                 return p
             topo = self.moe_spec.topo
             epr = topo.experts_per_rank
@@ -159,11 +183,42 @@ class Model:
                 p["shared_mlp"] = ffn((n,), cfg.moe.num_shared_experts * f)
             return p
 
+        def tp_layer():
+            """Tensor-parallel experts: the values a one-rank init draws,
+            each rank's d_ff slice made contiguous (``convert.tp_rows``),
+            and the router over the E real experts."""
+            from repro_torch.convert import tp_rows
+            G, E, f = self.moe_spec.ep_degree, cfg.moe.num_experts, \
+                cfg.moe.d_ff_expert
+            moe = {"router": nrm((n, d, E), 0.02, torch.float32)}
+            for name, shape, scale in (
+                    ("w_in", (n, E, d, f), s_d),
+                    ("w_out", (n, E, f, d), (2.0 / f) ** 0.5),
+                    ("w_gate", (n, E, d, f), s_d)):
+                if name == "w_gate" and self.moe_spec.act != "silu":
+                    continue
+                w = tp_rows(nrm(shape, scale), G, name)
+                if own is not None:
+                    w = w.narrow(1, own[0] * E, len(own) * E).clone()
+                moe[name] = w
+            return moe
+
+        if cfg.family == "hybrid":
+            per, n_groups, rem = T.hybrid_shape(cfg)
+            stack: Dict[str, Any] = {
+                "groups": mamba_layer((n_groups, per)),
+                "shared": {**attn_layer(), "mlp": ffn((), cfg.d_ff)}}
+            if rem:
+                stack["tail"] = [mamba_layer() for _ in range(rem)]
+        else:
+            stack = {"blocks": {f"sub{j}": (mamba_layer((n,))
+                                            if kind == "mamba"
+                                            else layer(kind))
+                                for j, kind in enumerate(pattern)}}
         params: Dict[str, Any] = {
             "embed": nrm((Vp, d), 0.02),
             "final_norm": {"scale": zeros((d,))},
-            "stack": {"blocks": {f"sub{j}": layer(kind)
-                                 for j, kind in enumerate(pattern)}},
+            "stack": stack,
         }
         if lead:
             params["stack"]["lead"] = [
@@ -178,10 +233,15 @@ class Model:
         """Slab K/V caches on ``model.device``, or on ``device`` when given
         (the serve engine probes leaf shapes on the ``meta`` device).  A
         sliding-window model's leaves hold min(s_max, window) positions
-        unless ``clamp_window`` is False."""
+        unless ``clamp_window`` is False.  The SSM and hybrid families'
+        recurrent state is f32 and fixed-size; the hybrid's attention
+        caches are never clamped."""
+        dev = device or self.device
+        if self.cfg.family == "hybrid":
+            return {"stack": T.init_hybrid_cache(self.cfg, b, s_max,
+                                                 self.dtype, dev)}
         return {"stack": T.init_stack_cache(self.cfg, b, s_max, self.dtype,
-                                            device or self.device,
-                                            clamp_window)}
+                                            dev, clamp_window)}
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          s_ref: Optional[int] = None,
@@ -205,6 +265,25 @@ class Model:
                                device=self.device)
 
     # ------------------------------------------------------------------
+    def _backbone(self, params, h, *, cache, cache_len, q_offset=0,
+                  moe_spec=None, continue_prefill: bool = False,
+                  valid_mask=None, **kw):
+        """The stack of ``cfg.family`` on h [B, S, d]: ``run_hybrid`` (no
+        paged pool: JAX's refusal) or ``run_stack`` with every keyword."""
+        if self.cfg.family == "hybrid":
+            if kw.get("block_table") is not None:
+                raise NotImplementedError(
+                    "paged KV decode supports plain decoder stacks only")
+            return T.run_hybrid(h, params["stack"], self.cfg, cache=cache,
+                                cache_len=cache_len, q_offset=q_offset,
+                                continue_prefill=continue_prefill,
+                                valid_mask=valid_mask)
+        return T.run_stack(h, params["stack"], self.cfg, cache=cache,
+                           cache_len=cache_len, q_offset=q_offset,
+                           moe_spec=moe_spec, comm=self.comm,
+                           continue_prefill=continue_prefill,
+                           valid_mask=valid_mask, **kw)
+
     def _vocab_w(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
 
@@ -229,10 +308,9 @@ class Model:
         caches = self.init_cache(B, s_max or S + 64)
         pos = torch.tensor(S, dtype=torch.int32, device=self.device)
         h = params["embed"][tokens]
-        h, _, diags = T.run_stack(h, params["stack"], self.cfg,
-                                  cache=caches["stack"], cache_len=pos,
-                                  moe_spec=self.moe_spec, comm=self.comm,
-                                  skew_key=skew_key)
+        h, _, diags = self._backbone(params, h, cache=caches["stack"],
+                                     cache_len=pos, moe_spec=self.moe_spec,
+                                     skew_key=skew_key)
         return self._head(params, h[:, -1]), caches, pos, diags
 
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos,
@@ -253,17 +331,18 @@ class Model:
         engine's ``fused_paged_attention``) makes the chunk strict: a
         branch without a kernel raises ``FusedPathUnavailable``."""
         Bc, C = tokens.shape
-        spec = dataclasses.replace(self.moe_spec, tokens_local=Bc * C)
+        spec = (None if self.moe_spec is None else
+                dataclasses.replace(self.moe_spec, tokens_local=Bc * C))
         vmask = None
         if last_index is not None:
             last = torch.as_tensor(last_index, device=self.device).reshape(1)
             vmask = (torch.arange(C, device=self.device)[None, :]
                      <= last).expand(Bc, C)
         h = params["embed"][tokens]
-        h, stack, diags = T.run_stack(
-            h, params["stack"], self.cfg, cache=caches["stack"],
-            cache_len=pos + C, q_offset=pos, moe_spec=spec, comm=self.comm,
-            skew_key=skew_key, continue_prefill=True, valid_mask=vmask,
+        h, stack, diags = self._backbone(
+            params, h, cache=caches["stack"], cache_len=pos + C,
+            q_offset=pos, moe_spec=spec, skew_key=skew_key,
+            continue_prefill=True, valid_mask=vmask,
             skew_assign=skew_assign, moe_replica_ids=moe_replica_ids,
             strict=bool(fused_attention))
         h_last = (h[:, -1] if last_index is None
@@ -303,20 +382,21 @@ class Model:
                 "block_table/block_size")
         new_pos = pos + S
         vmask = None
-        if active_mask is not None:
+        if active_mask is not None and self.cfg.is_moe:
             vmask = active_mask.reshape(-1, 1).expand(B, S)
         spec = self.moe_spec_decode
-        if moe_policy is not None and moe_policy != spec.moe.policy:
+        if spec is not None and moe_policy is not None \
+                and moe_policy != spec.moe.policy:
             spec = dataclasses.replace(spec, moe=dataclasses.replace(
                 spec.moe, policy=moe_policy,
                 num_foreign_slots=_decode_foreign_slots(spec, moe_policy)))
-        if S > 1:
+        if S > 1 and spec is not None:
             spec = dataclasses.replace(spec, tokens_local=spec.tokens_local * S)
         h = params["embed"][token]
-        h, stack, diags = T.run_stack(
-            h, params["stack"], self.cfg, cache=caches["stack"],
-            cache_len=new_pos, q_offset=pos, moe_spec=spec, comm=self.comm,
-            skew_key=skew_key, valid_mask=vmask, block_table=block_table,
+        h, stack, diags = self._backbone(
+            params, h, cache=caches["stack"], cache_len=new_pos,
+            q_offset=pos, moe_spec=spec, skew_key=skew_key,
+            valid_mask=vmask, block_table=block_table,
             block_size=block_size, skew_assign=skew_assign,
             moe_replica_ids=moe_replica_ids,
             moe_residency_ids=moe_residency_ids,
@@ -331,7 +411,10 @@ class Model:
 
 def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
     """Foreign slots at decode: even_split lands every non-local expert,
-    harmoeny keeps the configured K, the static policies need none."""
+    harmoeny keeps the configured K, the static policies need none;
+    tensor-parallel MoE fetches nothing."""
+    if spec.tp_mode:
+        return 0
     topo = spec.topo
     if policy == "even_split":
         return topo.padded_experts - topo.experts_per_rank
@@ -343,17 +426,19 @@ def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
                 batch: int, seq_len: int, device=None,
                 ep_degree: int = 1, comm=None) -> Model:
-    """The port's model for a decoder-only dense/MoE ``cfg`` at expert-
-    parallel degree ``ep_degree``: G ranks on the one device when G > 1
-    (``VirtualGroup``), or, given ``comm`` (a ``DistComm`` of G
-    processes), this process's rank.  ``device`` defaults to CUDA and
-    raises when no GPU is present."""
+    """The port's model for a decoder-only MoE, SSM or hybrid ``cfg`` at
+    expert-parallel degree ``ep_degree``: G ranks on the one device when
+    G > 1 (``VirtualGroup``), or, given ``comm`` (a ``DistComm`` of G
+    processes), this process's rank; with fewer experts than ranks the
+    MoE blocks are tensor-parallel (``tp_mode``).  ``device`` defaults
+    to CUDA and raises when no GPU is present."""
     dev = resolve_device(device)
     if comm is not None and comm.size != ep_degree:
         raise ValueError(f"a communicator of {comm.size} ranks for EP "
                          f"degree {ep_degree}")
     unsupported = [
-        (not cfg.is_moe or cfg.family != "moe", f"family {cfg.family!r}"),
+        (cfg.family not in ("moe", "ssm", "hybrid")
+         or (cfg.family == "moe") != cfg.is_moe, f"family {cfg.family!r}"),
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
          "encoder-decoder / prefix-embedding models"),
         (cfg.rope_theta <= 0, "absolute position embeddings"),
@@ -369,16 +454,19 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     if cfg.act not in ("swiglu", "gelu_mlp"):
         raise NotImplementedError(f"{cfg.name}: {cfg.act} MLPs not ported "
                                   f"yet")
-    moe_spec = MoEBlockSpec(
-        moe=cfg.moe, d_model=cfg.d_model, ep_degree=ep_degree,
-        tokens_local=batch * seq_len,
-        act="silu" if cfg.act == "swiglu" else "gelu",
-        cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m)
-    # decode: one token per sequence, 128-row tiles, K per policy
-    moe_spec_decode = dataclasses.replace(
-        moe_spec, tokens_local=batch, block_m=128,
-        moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
-            _decode_foreign_slots(moe_spec, cfg.moe.policy))))
+    moe_spec = moe_spec_decode = None
+    if cfg.is_moe:
+        moe_spec = MoEBlockSpec(
+            moe=cfg.moe, d_model=cfg.d_model, ep_degree=ep_degree,
+            tokens_local=batch * seq_len,
+            act="silu" if cfg.act == "swiglu" else "gelu",
+            cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m,
+            tp_mode=cfg.moe.num_experts < ep_degree)
+        # decode: one token per sequence, 128-row tiles, K per policy
+        moe_spec_decode = dataclasses.replace(
+            moe_spec, tokens_local=batch, block_m=128,
+            moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
+                _decode_foreign_slots(moe_spec, cfg.moe.policy))))
     if comm is None:
         comm = (LocalComm() if ep_degree == 1
                 else VirtualGroup(ep_degree, dev))

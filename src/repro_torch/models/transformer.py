@@ -1,6 +1,7 @@
-"""Decoder stack for the MoE family (port of
-``repro/models/transformer.py``: ``layer_pattern``, ``run_stack``,
-``init_stack_cache``).
+"""Decoder stacks: the MoE family's and mamba2's, and the zamba2 hybrid
+(port of ``repro/models/transformer.py``: ``layer_pattern``,
+``run_stack``, ``init_stack_cache``, ``init_hybrid_cache``,
+``run_hybrid``).
 
 Parameters stay stacked per layer exactly as in the JAX package
 (``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
@@ -10,7 +11,18 @@ with ``moe_layer_period`` p > 1, p layers of which the one at
 ``moe_layer_offset`` is MoE and the others dense (switch128: ``["dense",
 "moe"]``).  Leading dense layers (moonshot's first layer) are unstacked,
 one dict per layer in ``params["lead"]`` and one ``AttnCache`` per layer
-in ``cache["lead"]``, and run before the stack.
+in ``cache["lead"]``, and run before the stack.  The SSM family's stack
+is one ``"mamba"`` layer a period, whose cache is a ``MambaState`` of
+fixed-size recurrent state (no KV-length axis).
+
+The hybrid (zamba2) runs ``attn_every`` mamba layers a group
+(``params["groups"]`` leaves ``[n_groups, attn_every, ...]``), then one
+attention(+MLP) block whose weights every group shares
+(``params["shared"]``) over a K/V cache of its own a group
+(``cache["attn"]`` ``[n_groups, B, S, Hkv, hd]``), and the remainder
+layers as a tail (``params["tail"]``, a list: zamba2's 81 = 13 x 6 + 3).
+Its attention runs the plain slab branches on every device, as JAX's
+``run_hybrid`` calls ``attention_block`` without ``use_pallas``.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import MoEBlockSpec, moe_block
 from repro_torch.core.router import SkewKey
 from repro_torch.models import attention as A
+from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import mlp, norm
 
 
@@ -29,6 +42,8 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     """(pattern, n_steps, n_lead_dense): layer kinds within one period of
     the stack, the number of periods, and leading unscanned dense layers
     (the MoE family's patterns of the JAX ``layer_pattern``)."""
+    if cfg.family == "ssm":
+        return ["mamba"], cfg.num_layers, 0
     lead = cfg.moe.first_dense_layers if cfg.is_moe else 0
     L = cfg.num_layers - lead
     p = cfg.moe.moe_layer_period if cfg.is_moe else 1
@@ -54,8 +69,8 @@ def layer_slice(tree: Any, i: int) -> Any:
     """Step ``i`` of a stacked parameter / cache tree."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    if isinstance(tree, A.AttnCache):
-        return A.AttnCache(tree.k[i], tree.v[i])
+    if isinstance(tree, tuple):                 # AttnCache, MambaState
+        return type(tree)(*(t[i] for t in tree))
     return tree[i]
 
 
@@ -68,6 +83,9 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
     serve engine's paged mode, where the window is enforced by ring-index
     arithmetic and masks, not by storage)."""
     pattern, n_steps, lead = layer_pattern(cfg)
+    if pattern == ["mamba"]:
+        return {"blocks": {"sub0": M.init_state(batch, cfg, dtype, device,
+                                                lead=(n_steps,))}}
     if clamp_window and cfg.sliding_window and not cfg.global_attn_every:
         s_max = min(s_max, cfg.sliding_window)
     shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -91,8 +109,11 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      moe_residency_ids=None):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
     experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
-    residual.  Returns (x, diagnostics of this layer; none for a dense
-    layer)."""
+    residual; for a ``"mamba"`` layer norm -> mamba block -> residual,
+    the layer's state updated in place.  Returns (x, diagnostics of this
+    layer; none for a dense or mamba layer)."""
+    if kind == "mamba":
+        return _mamba_layer(x, p, cfg, cache, _valid_len(valid_mask)), {}
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
@@ -112,6 +133,21 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                          residency_ids=moe_residency_ids, shared=shared)
     # collapse the leading batch-group axis only
     return x + y, {k: v.mean(dim=0) for k, v in mdiag.items()}
+
+
+def _valid_len(valid_mask):
+    """A chunk's real tokens a row ([B]) from its prefix mask [B, S]."""
+    return None if valid_mask is None else valid_mask.sum(dim=1)
+
+
+def _mamba_layer(x, p, cfg: ModelConfig, state, valid_len):
+    """norm -> mamba block -> residual; ``state`` (a ``MambaState`` of
+    views into the cache) takes the new state in place."""
+    h, new = M.mamba_block(norm(x, p["norm1"], cfg.norm), p["mamba"], cfg,
+                           state=state, valid_len=valid_len)
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return x + h
 
 
 def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
@@ -169,3 +205,62 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
     if moe_layer_diags and "expert_load" in per_step:
         diags["expert_load_layers"] = torch.stack(per_step["expert_load"])
     return x, cache, diags
+
+
+# ----------------------------------------------------------------------
+# zamba2 hybrid: mamba groups + one shared attention(+MLP) block
+# ----------------------------------------------------------------------
+def hybrid_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(layers a group, groups, tail layers)."""
+    per = cfg.attn_every
+    n_groups = cfg.num_layers // per
+    return per, n_groups, cfg.num_layers - n_groups * per
+
+
+def init_hybrid_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
+                      device) -> Dict[str, Any]:
+    """Each mamba layer's state ``[n_groups, per, batch, ...]``, one K/V
+    cache ``[n_groups, batch, s_max, Hkv, hd]`` for each application of
+    the shared attention block, and the tail's states, a list."""
+    per, n_groups, rem = hybrid_shape(cfg)
+    shape = (n_groups, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache: Dict[str, Any] = {
+        "mamba": M.init_state(batch, cfg, dtype, device,
+                              lead=(n_groups, per)),
+        "attn": A.AttnCache(torch.zeros(shape, dtype=dtype, device=device),
+                            torch.zeros(shape, dtype=dtype, device=device))}
+    if rem:
+        cache["tail"] = [M.init_state(batch, cfg, dtype, device)
+                         for _ in range(rem)]
+    return cache
+
+
+def run_hybrid(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
+               cache: Dict[str, Any], cache_len=None, q_offset=0,
+               continue_prefill: bool = False, valid_mask=None
+               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
+    """Run the hybrid stack on x [B, S, d], updating ``cache`` in place:
+    every group's mamba layers, then the shared attention(+MLP) block on
+    the group's own K/V cache (plain slab branches), then the tail.  Pad
+    positions past ``valid_mask``'s prefix stay out of the recurrent
+    state.  Returns (x, cache, {})."""
+    per, n_groups, rem = hybrid_shape(cfg)
+    shared = params["shared"]
+    vlen = _valid_len(valid_mask)
+    for g in range(n_groups):
+        p_grp = layer_slice(params["groups"], g)
+        c_grp = layer_slice(cache["mamba"], g)
+        for i in range(per):
+            x = _mamba_layer(x, layer_slice(p_grp, i), cfg,
+                             layer_slice(c_grp, i), vlen)
+        h, _ = A.attention_block(
+            norm(x, shared["norm1"], cfg.norm), shared["attn"], cfg,
+            q_offset=q_offset, cache=layer_slice(cache["attn"], g),
+            cache_len=cache_len, continue_prefill=continue_prefill,
+            kernels=False)
+        x = x + h
+        x = x + mlp(norm(x, shared["norm2"], cfg.norm), shared["mlp"],
+                    cfg.act)
+    for i in range(rem):
+        x = _mamba_layer(x, params["tail"][i], cfg, cache["tail"][i], vlen)
+    return x, cache, {}

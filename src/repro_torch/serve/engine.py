@@ -382,6 +382,15 @@ class ServeEngine:
             raise ValueError("fused_moe_gmm is the grouped-GEMM expert "
                              "FFN kernel; it needs an MoE model")
         check_window_ring(cfg, ecfg)
+        tp = cfg.is_moe and model.moe_spec.tp_mode
+        if ecfg.replica_slots > 0 and tp:
+            raise ValueError(
+                "hot-expert replication needs expert-parallel MoE "
+                "(num_experts >= the mesh model degree)")
+        if ecfg.resident_experts > 0 and (not cfg.is_moe or tp):
+            raise ValueError(
+                "tiered expert residency needs expert-parallel MoE "
+                "(num_experts >= the mesh model degree)")
         self.dist = model.comm if isinstance(model.comm, DistComm) else None
         if self.dist is not None and (ecfg.replica_slots > 0
                                       or ecfg.resident_experts > 0):
@@ -468,9 +477,6 @@ class ServeEngine:
         self._host_tier: Optional[HostTier] = None
         self.stage_log: List[Dict[str, Any]] = []
         if ecfg.resident_experts > 0:
-            if not cfg.is_moe:
-                raise ValueError("tiered expert residency needs an MoE "
-                                 "model")
             leaves = expert_leaves(params)
             if not leaves:
                 raise ValueError("tiered expert residency found no expert "
@@ -692,6 +698,10 @@ class ServeEngine:
                 if not front.pf_queue:
                     break
                 front.pf = front.pf_queue.popleft()
+                # a recurrent store resets its scratch here: chunked
+                # prefill carries state across a request's chunks, which
+                # a new request must not inherit
+                self.kv.begin_prefill()
             st = front.pf
             seq = st.prefill_tokens
             start, L = st.prefill_pos, st.prefill_len
@@ -1339,11 +1349,15 @@ class ServeEngine:
             # ``requested`` is the config's switch, as in JAX, and a
             # fallback is a record where it was on and the kernel did not run
             req = self.ecfg.fused_paged_attention
+            # (a record of the plain branches a caller asked for, the
+            # hybrid stack's, carries its own requested: False)
             rep["attention_dispatch"] = {
-                d["branch"]: {"fused": d["fused"], "requested": req,
+                d["branch"]: {"fused": d["fused"],
+                              "requested": d.get("requested", req),
                               "reason": d["reason"]} for d in snap}
             rep["attention_fallbacks"] = dict(Counter(
-                d["branch"] for d in snap if req and not d["fused"]))
+                d["branch"] for d in snap
+                if d.get("requested", req) and not d["fused"]))
         rep["jit_entries"] = self.jit_counts()
         if self._warm_counts is not None:
             rep["recompiled_after_warmup"] = \

@@ -241,6 +241,10 @@ class KVOwner:
     # ------------------------------------------------------------------
     # SequenceStateStore protocol (serve/statestore.py)
     # ------------------------------------------------------------------
+    def begin_prefill(self) -> None:
+        """Nothing to reset: a chunk's K/V writes cover every position its
+        attention reads."""
+
     def plan(self, tokens, resumed: bool
              ) -> Tuple[int, List[int], int, bool]:
         """Admission plan for a (re)prefill over ``tokens`` (the JAX

@@ -333,17 +333,18 @@ class BlockAllocator:
 
 
 def kv_leaves(cache: Any) -> Iterator[torch.Tensor]:
-    """Every K/V tensor of a cache tree, in ``jax.tree.leaves`` order:
-    dict keys sorted, lists in order, an ``AttnCache``'s k before v."""
+    """Every state tensor of a cache tree, in ``jax.tree.leaves`` order:
+    dict keys sorted, lists in order, a named tuple's fields in order (an
+    ``AttnCache``'s k before v; a ``MambaState``'s ssm, conv_x, conv_B,
+    conv_C)."""
     if isinstance(cache, dict):
         for k in sorted(cache):
             yield from kv_leaves(cache[k])
     elif isinstance(cache, list):
         for c in cache:
             yield from kv_leaves(c)
-    elif isinstance(cache, AttnCache):
-        yield cache.k
-        yield cache.v
+    elif isinstance(cache, tuple) and hasattr(cache, "_fields"):
+        yield from cache
     else:
         raise TypeError(f"unexpected cache leaf {type(cache)}")
 

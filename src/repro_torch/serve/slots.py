@@ -14,7 +14,9 @@ of every leaf are discovered structurally, as the JAX package does with
 only, no memory) at two batch sizes (resp. two lengths) and the differing
 axis is the one sought.  Axes are lists in ``paging.kv_leaves`` order.
 Sliding-window leaves are clamped to the window, so their KV axis shows
-only at lengths below it (``discover_seq_axes``' second probe).
+only at lengths below it (``discover_seq_axes``' second probe).  A leaf
+whose shape depends on the length at neither probe (an SSM's recurrent
+state) has no KV-length axis and is marked -1.
 """
 from __future__ import annotations
 
@@ -57,24 +59,33 @@ def discover_seq_axes(init_cache: Callable[..., Any],
                       s_max: int) -> List[int]:
     """Per-leaf KV-length-axis indices of ``init_cache`` outputs: the axis
     that differs at lengths ``s_max`` and ``s_max + 1`` or, for a leaf
-    clamped to a sliding window there, at lengths 1 and 2."""
+    clamped to a sliding window there, at lengths 1 and 2; -1 for a leaf
+    that differs at neither."""
     probes = [leaf_shapes(init_cache, 1, s) for s in (s_max, s_max + 1, 1, 2)]
     axes = []
     for hi_a, hi_b, lo_a, lo_b in zip(*probes):
         diffs = _differing(hi_a, hi_b) or _differing(lo_a, lo_b)
-        if len(diffs) != 1:
+        if len(diffs) > 1:
             raise ValueError(f"cannot identify KV-length axis for cache "
                              f"leaf {tuple(lo_a)} vs {tuple(lo_b)}")
-        axes.append(diffs[0])
+        axes.append(diffs[0] if diffs else -1)
     return axes
 
 
 def min_kv_capacity(init_cache: Callable[..., Any], s_max: int,
-                    seq_axes: List[int]) -> int:
+                    seq_axes: List[int], default: int = 0) -> int:
     """Smallest per-layer KV length in the pool (sliding-window leaves
-    clamp to the window, so prefill writes must fit the minimum)."""
-    return min(shape[ax] for shape, ax in
-               zip(leaf_shapes(init_cache, 1, s_max), seq_axes))
+    clamp to the window, so prefill writes must fit the minimum).  Leaves
+    without a KV-length axis impose none; a pool with no such leaf at all
+    (pure SSM state) has capacity ``default`` when given, else raises."""
+    caps = [shape[ax] for shape, ax in
+            zip(leaf_shapes(init_cache, 1, s_max), seq_axes) if ax >= 0]
+    if not caps:
+        if default:
+            return default
+        raise ValueError("no cache leaf depends on s_max; cannot size the "
+                         "KV pool")
+    return min(caps)
 
 
 def write_slot(pool: Any, scratch: Any, slot, batch_axes: List[int]) -> Any:

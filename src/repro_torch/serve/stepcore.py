@@ -217,10 +217,14 @@ class StepCore:
         # the verify window: k + 1 query positions a row
         self.spec = ecfg.paged and ecfg.speculative_k > 0
         S = self.S = ecfg.speculative_k + 1 if self.spec else 1
-        G = model.moe_spec_decode.topo.num_ranks if cfg.is_moe else 1
+        G = model.moe_spec_decode.ep_degree if cfg.is_moe else 1
         self.G, self.R = G, ecfg.replica_slots
-        # the ranks whose skewed assignments this process draws
-        self.ranks_here = getattr(model.comm, "ranks_here", (0,))
+        # the ranks whose skewed assignments this process draws; under
+        # tensor-parallel MoE every rank routes every token on the layer's
+        # own key (None: no rank fold), as JAX's tp_moe_block draws
+        tp = cfg.is_moe and model.moe_spec.tp_mode
+        self.ranks_here = ((None,) if tp else
+                           getattr(model.comm, "ranks_here", (0,)))
         self.W = ecfg.resident_experts // G
         n_rep, n_res = G * self.R, G * self.W
         # decode: tokens [B, S] | positions | active | replica table |
@@ -236,17 +240,17 @@ class StepCore:
         self._skew = self._pf_skew = None
         if self.skew:
             moe = cfg.moe
-            G = model.moe_spec_decode.topo.num_ranks
             self._moe_keys = moe_layer_keys(cfg)
 
             def draws(tokens):      # one slice a rank here, as moe_block
+                t = tokens if tp else round_up(max(tokens, G), G) // G
                 return torch.zeros((len(self._moe_keys), len(self.ranks_here),
-                                    round_up(max(tokens, G), G) // G,
-                                    moe.num_experts_per_tok),
+                                    t, moe.num_experts_per_tok),
                                    dtype=torch.int32, device=dev)
             self._skew, self._pf_skew = draws(B * S), draws(C)
-            self._probs = skew_probs(moe.num_experts,
-                                     model.moe_spec_decode.topo.padded_experts,
+            padded = (moe.num_experts if tp
+                      else model.moe_spec_decode.topo.padded_experts)
+            self._probs = skew_probs(moe.num_experts, padded,
                                      moe.router_skew,
                                      moe.router_skew_experts, dev)
         # sampling: the decode step's Gumbel noise [B, candidates] (none for
@@ -415,7 +419,8 @@ class StepCore:
         for m, layer in enumerate(self._moe_keys):
             lk = key.fold_in(layer)
             for i, g in enumerate(self.ranks_here):
-                buf[m, i].copy_(skew_draw(lk.fold_in(g).generator(self.device),
+                gk = lk if g is None else lk.fold_in(g)
+                buf[m, i].copy_(skew_draw(gk.generator(self.device),
                                           self._probs, T, k))
         self.predraw_s[entry] += time.perf_counter() - t0
         self.predraw_calls[entry] += 1

@@ -9,9 +9,10 @@ JAX CLI's ``[fleet]`` lines.  Then the whole CLI:
 host devices, once an argv (greedy and sampled, slab and paged, at
 ``--model-par`` 1 and 4, with replica slots, with tiered residency, from
 a ``--trace`` file, on reduced mixtral-8x7b, paged through its window
-ring, with the prefix cache, with the speculative verify step, and two
+ring, with the prefix cache, with the speculative verify step, two
 fleets: two ``prefix_affinity`` replicas with the prefix cache, and a
-disaggregated prefill/decode pair), recording each run's weights,
+disaggregated prefill/decode pair, and on reduced mamba2-2.7b and
+zamba2-7b through the slotted state store), recording each run's weights,
 streams, noise and skew draws and writing its report (``--out``).  The
 port's ``serve(args, device="cpu", params=...)`` on the converted
 weights, replaying the JAX draws by call index, must give the same
@@ -73,6 +74,12 @@ CELLS = {
                                "6"],
     "fleet_disagg": PAGED + ["--replicas", "2", "--disaggregate",
                              "--requests", "5"],
+    # the recurrent families through the slotted state store: mamba2 (no
+    # attention) and the zamba2 hybrid (its attention the plain branches)
+    "mamba2": ["--arch", "mamba2-2.7b", "--prefill-chunk", "4",
+               "--requests", "4"],
+    "zamba2": ["--arch", "zamba2-7b", "--prefill-chunk", "4",
+               "--requests", "4"],
 }
 # the trace cell's records: explicit tokens and drawn prompts, all at t=0
 TRACE = [{"prompt_len": 5, "max_new_tokens": 4},
@@ -126,7 +133,7 @@ def test_same_argv_same_engine_config(argv, monkeypatch):
     (["--disaggregate", "--replicas", "2", "--paged"], "--disaggregate"),
     (["--paged", "--prefix-sharing"], "--prefix-sharing"),
     (["--paged", "--speculative-k", "2"], "--speculative-k"),
-    (["--arch", "mamba2-2.7b"], "--arch"),
+    (["--arch", "gemma2-2b"], "--arch"),
     (["--data-par", "2"], "--data-par")])
 def test_unported_flags_raise_naming_the_flag(extra, flag, capsys):
     """What the port does not serve raises, naming the flag;
@@ -250,7 +257,8 @@ def recording_init(self, model, params, ecfg, **kw):
     width = top_k if top_k > 0 else model.cfg.padded_vocab
     G = model.mesh_shape.sizes.get("model", 1)
     draws = (make_skew_draws(model.cfg, model, G)
-             if model.cfg.moe.router_skew > 0 else None)
+             if model.cfg.is_moe and model.cfg.moe.router_skew > 0
+             else None)
     made.append((record_sampling(self, width, draws), params))
 
 
@@ -370,8 +378,16 @@ def test_cli_streams_and_report_schema_equal_jax(jax_cli, cell, monkeypatch):
     for key in ("decode_steps", "prefill_chunks", "preemptions",
                 "max_occupancy", "total_new_tokens"):
         assert rep[key] == jrep[key], key
-    assert rep["attention_dispatch"].keys() == jrep["attention_dispatch"].keys()
-    assert rep["attention_fallbacks"] == jrep["attention_fallbacks"]
+    if cell in ("mamba2", "zamba2"):
+        assert rep["state_pool"] == jrep["state_pool"]
+        assert rep["state_pool"]["kind"] == "slot"
+        assert rep.get("attention_dispatch") \
+            == jrep.get("attention_dispatch")
+    assert ("attention_dispatch" in rep) == (cell != "mamba2")
+    if cell != "mamba2":
+        assert rep["attention_dispatch"].keys() \
+            == jrep["attention_dispatch"].keys()
+    assert rep.get("attention_fallbacks") == jrep.get("attention_fallbacks")
     if "load_balance" in jrep:
         for phase, sec in jrep["load_balance"].items():
             for key, want in sec.items():

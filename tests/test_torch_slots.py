@@ -7,8 +7,10 @@ a device buffer (the captured write's form) and in the host-int form it
 replaced.  Reduced moonshot-v1-16b-a3b carries a
 leading dense layer (leaf ``[B, S, Hkv, hd]`` beside stacked leaves
 ``[n, B, S, Hkv, hd]``), reduced switch128 a stack of dense/MoE periods.
-The store factory refuses the recurrent families, whose slotted store is
-not ported."""
+Reduced mamba2-2.7b and zamba2-7b carry fixed-size recurrent state (no
+KV-length axis: -1, the pool's capacity the default) beside, for the
+hybrid, the shared attention's K/V; ``write_slot`` moves all of it.  The
+store factory refuses the paged pool for them with JAX's message."""
 import types
 
 import jax
@@ -21,6 +23,7 @@ from repro.configs.registry import get_config as jax_config
 from repro.launch.mesh import make_host_mesh
 from repro.models.model import MeshShape
 from repro.models.model import build_model as jax_build
+from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import paging as jpaging
 from repro.serve import slots as jslots
 from repro_torch.configs.registry import get_config
@@ -205,9 +208,69 @@ def test_write_chunk_blocks_device_start_equals_host_forms_and_jax(
             np.testing.assert_array_equal(g, e, err_msg=form)
 
 
+@pytest.fixture(scope="module", params=["mamba2-2.7b", "zamba2-7b"])
+def recurrent_pair(request):
+    arch = request.param
+    jm = jax_build(jax_config(arch).reduced(), JPC(attn_chunk=8), batch=3,
+                   seq_len=S_MAX)
+    tm = build_model(get_config(arch).reduced(), batch=3, seq_len=S_MAX,
+                     device="cpu")
+    return arch, jm, tm
+
+
+def test_recurrent_axes_and_capacity_equal_jax(recurrent_pair):
+    arch, jm, tm = recurrent_pair
+    for fn in (jslots.discover_batch_axes, jslots.discover_seq_axes):
+        port_fn = getattr(slots, fn.__name__)
+        assert port_fn(tm.init_cache, S_MAX) == \
+            jax.tree.leaves(fn(jm.init_cache, S_MAX)), fn.__name__
+    tseq = slots.discover_seq_axes(tm.init_cache, S_MAX)
+    jseq = jslots.discover_seq_axes(jm.init_cache, S_MAX)
+    assert slots.min_kv_capacity(tm.init_cache, S_MAX, tseq, default=40) \
+        == jslots.min_kv_capacity(jm.init_cache, S_MAX, jseq, default=40)
+    assert (-1 in tseq) and ((arch == "zamba2-7b") == (max(tseq) >= 0))
+    if arch == "mamba2-2.7b":
+        with pytest.raises(ValueError, match="cannot size"):
+            slots.min_kv_capacity(tm.init_cache, S_MAX, tseq)
+    shapes = [tuple(t.shape) for t in
+              paging.kv_leaves(tm.init_cache(3, S_MAX, device="meta"))]
+    assert shapes == [leaf.shape for leaf in
+                      jax.tree.leaves(jm.init_cache(3, S_MAX))]
+    dtypes = [str(t.dtype).split(".")[-1] for t in
+              paging.kv_leaves(tm.init_cache(3, S_MAX, device="meta"))]
+    assert dtypes == [str(leaf.dtype) for leaf in
+                      jax.tree.leaves(jm.init_cache(3, S_MAX))]
+
+
+@pytest.mark.parametrize("slot", [0, 2])
+def test_recurrent_write_slot_equals_jax_bit_for_bit(recurrent_pair, slot):
+    _, jm, tm = recurrent_pair
+    pool = _random_like(jm.init_cache(3, S_MAX), 1)
+    scratch = _random_like(jm.init_cache(1, S_MAX), 2)
+    axes = jslots.discover_batch_axes(jm.init_cache, S_MAX)
+    want = jax.device_get(jslots.write_slot(pool, scratch, np.int32(slot),
+                                            axes))
+    tpool = to_torch(pool, device="cpu")
+    slots.write_slot(tpool, to_torch(scratch, device="cpu"),
+                     torch.tensor([slot], dtype=torch.int32),
+                     slots.discover_batch_axes(tm.init_cache, S_MAX))
+    got = _port_leaves(tpool)
+    exp = [np.asarray(x) for x in jax.tree.leaves(want)]
+    assert len(got) == len(exp)
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g, e)
+
+
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_state_store_refuses_recurrent_families(family):
+    """Recurrent state has no KV-length axis to page: the paged pool is
+    refused with the JAX store's message (the slotted store serves these
+    families: tests/test_torch_ssm_engine.py)."""
+    from repro.serve.statestore import make_state_store as jax_store
     model = types.SimpleNamespace(
         cfg=types.SimpleNamespace(name="m", family=family))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        make_state_store(model, EngineConfig(), s_pad=32)
+    with pytest.raises(ValueError) as jerr:
+        jax_store(model, JEngineConfig(paged=True), s_pad=32, ctx=None)
+    with pytest.raises(ValueError, match="recurrent") as err:
+        make_state_store(model, EngineConfig(paged=True), s_pad=32)
+    assert str(err.value) == str(jerr.value)
