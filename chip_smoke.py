@@ -86,9 +86,11 @@ Phases, each of which must pass (any failure exits non-zero):
      CPU.  Phase 2 also holds ``moe_gmm``'s plain form at switch128's
      decode and prefill-chunk dispatches and ``paged_attention`` at its
      head shape against their plain versions;
-  7. eager against captured, on the weights of phases 3, 4b and 6 (qwen
-     at G = 1 paged; qwen at G = 4 under harmoeny and round_robin, skew
-     0.9; moonshot on the slab; switch128 on the slab and paged): the
+  7. eager against captured, on the weights of phases 3, 4b and 6, the
+     deep models cut to their first layers (``depth_cut``: qwen at G = 1
+     paged and moonshot on the slab at 12 layers; qwen at G = 4 under
+     harmoeny and round_robin, skew 0.9, at 6; switch128 on the slab and
+     paged whole): the
      same requests served with every entry eager (``stepcore.eager()``)
      and with the captured ones; then prefill chunks of one long prompt
      (one under ``torch.profiler``, the next 3 without) and a window of
@@ -105,8 +107,8 @@ Phases, each of which must pass (any failure exits non-zero):
      one capture of each entry, none eager;
   8. serving-time expert placement, right after phase 4b on its weights
      (which carry 2 zero replica slots a rank): full-width qwen at EP
-     degree 4 under harmoeny, skew 0.9, q = 1, paged, 3 requests of
-     64-128 prompt tokens and 12 new tokens, served without either
+     degree 4 under harmoeny, skew 0.9, q = 1, paged, 2 requests of
+     32-64 prompt tokens and 8 new tokens, served without either
      mechanism, with hot-expert replica slots (``replica_slots=2,
      rebalance_interval=4``: a captured device gather into the replica
      leaves) and with tiered residency (``resident_experts=32``, W = 8
@@ -154,13 +156,19 @@ Phases, each of which must pass (any failure exits non-zero):
      ``LocalComm`` graph's; (b) four processes on the one card over gloo
      (gloo's collectives tried on CUDA tensors first), each a
      ``DistComm`` rank with the hosted fetch and eager entries holding
-     only its own 15 experts a layer, serving full-width qwen at G = 4
-     under skew 0.9 with harmoeny (2 requests of 64-128 prompt tokens,
-     8 new), against ``VirtualGroup(4)`` eager on the same weights
-     (``[dist]`` lines: each process's peak memory, fetch bytes a call,
-     pre-draw host ms, launches).  Gates: streams and ``load_balance``
-     equal on every rank, drops 0, units moved, launches per process =
-     layers x calls; (c) from phase 7's G = 4 runs, for the decode step
+     only its own 15 experts a layer, serving full-width qwen at G = 4,
+     phase 8's 12 layers, under skew 0.9 with harmoeny: phase 8's runs
+     without either mechanism, with replica slots (the swap fetching
+     each slot's row from the process that hosts it) and with residency
+     under predictive (each process's host tier pinning its own 15 rows
+     and staging only those), held against phase 8's ``VirtualGroup(4)``
+     runs on the same weights (``[dist]`` lines: each process's peak
+     memory, fetch bytes a call, pre-draw host ms, launches, the swaps'
+     bytes and ms, the stages' rows and GB/s).  Gates: streams and
+     ``load_balance`` equal on every rank, the placement tables equal
+     rank 0's, drops 0, units moved, a swap and a stage, each host tier
+     its own 15 rows, launches per process = layers x calls; (c) from
+     phase 7's G = 4 runs, for the decode step
      and the prefill chunk of each policy: wall, busy, idle, the fetch's
      side-stream device ms and how much of it ran beside other kernels,
      against the busy ms of the dense fetch before it (a ``[fetch]``
@@ -180,7 +188,7 @@ Phases, each of which must pass (any failure exits non-zero):
      positions, chains of 256 blocks allocated whole; ``decode_ring`` and
      the chunk under the window run their plain torch forms, so neither
      launches ``paged_attention``), and the slab clamped to the window, 1
-     prompt of 4,000 with 200 new tokens, so that decode wraps it; each
+     prompt of 4,040 with 120 new tokens, so that decode wraps it; each
      stream held step by step against ``launch.steps``' one-shot windowed
      oracle on the same weights, fed the engine's tokens: each step's
      token against the oracle's argmax and the engine's logits row
@@ -218,7 +226,7 @@ Phases, each of which must pass (any failure exits non-zero):
      gather_prefix, copy_block: 1} and nothing captured again, each
      kernel once per layer a chunk (prefix-tail chunks included) and a
      step; (b) speculative decoding at G = 1: 4 prompts of 128 tokens
-     tiling a 16-token motif, 64 new: k = 0 greedy, k = 4 (ngram) greedy,
+     tiling a 16-token motif, 48 new: k = 0 greedy, k = 4 (ngram) greedy,
      k = 4 sampled (temperature 0.8, top-k 50), k = 4 drafting k = 0's own
      tokens with every third window's last draft wrong (random weights do
      not follow the motifs, so the n-gram proposer drafts almost
@@ -316,6 +324,30 @@ Phases, each of which must pass (any failure exits non-zero):
      reaches no kernel there either).  ``python3 chip_smoke.py
      --only-ssm`` runs phase 1, phase 2's tensor-parallel ``moe_gmm``
      cases and phase 14 alone, and prints no result.
+  15. the dense decoders at full width and depth, each drawn from seed 0
+     and freed before the next: mistral-nemo-12b (40 layers, d 5,120, 32
+     q / 8 kv heads of 128: H x hd != d), phi4-mini-3.8b (32 layers, 24 q
+     / 8 kv heads of 128: GQA rep 3, tied embeddings) and stablelm-1.6b
+     (24 layers, 32 heads of 64, LayerNorm); paged, 4 slots, 16-token
+     blocks, chunk 32, 8 prompts of 128-512 tokens (none a multiple of
+     the chunk), 32 new, greedy; phi4-mini also on the slab pool (4
+     requests) and, cast to f32 on the same weights, paged (4 requests,
+     16 new); each engine's rows held against the one-shot oracle fed
+     its tokens (whole-prompt ``prefill`` through ``flash_attention``,
+     then slab decode steps; ``DENSE_GATES``, the SSM phase's measures);
+     ``[nemo]``, ``[phi4]``, ``[phi4-slab]``, ``[phi4-f32]`` and
+     ``[stablelm]`` lines: TTFT and TPOT p50/p90, throughput, peak
+     memory, launches and, with every slot decoding, one captured decode
+     step's wall, busy and idle share; then reduced phi4-mini (slab and
+     paged) and stablelm (paged) in f32, card streams equal to the CPU's.
+     Gates: every budget, one capture of each entry and none after,
+     ``paged_attention`` once a layer a chunk and (paged) a decode step,
+     ``moe_gmm`` and ``schedule`` never, no MoE section in the report,
+     ``flash_attention`` once a layer a prompt in the oracle.  Phase 2
+     holds ``paged_attention`` at phi4-mini's and stablelm's decode and
+     32-query chunk and ``flash_attention`` at phi4-mini's prefill.
+     ``python3 chip_smoke.py --only-dense`` runs phase 1, those parity
+     cases and phase 15 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -1407,6 +1439,30 @@ def check_one_capture(tag, rep):
                              f"{want}, each entry captured once")
 
 
+# phase 7's depth, cut to keep the script inside its time with phase 15:
+# the eager runs and their traces scale with the layers, and what phase 7
+# checks (captured = eager streams, host launches a call) does not depend
+# on the depth
+CAPTURE_LAYERS = 12          # qwen G = 1 (of 24) and moonshot (of 48)
+CAPTURE_EP_LAYERS = 6        # qwen G = 4 (of phase 4b's 12)
+
+
+def depth_cut(cfg, params, n_layers):
+    """``cfg`` and ``params`` cut to their first ``n_layers`` layers (a
+    leading dense layer counts): every stacked leaf a view of its first
+    periods."""
+    from repro_torch.models.transformer import layer_pattern
+    cut = cfg.replace(num_layers=n_layers)
+    _, n_steps, _ = layer_pattern(cut)
+
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:n_steps]
+    stack = dict(params["stack"], blocks=first(params["stack"]["blocks"]))
+    return cut, dict(params, stack=stack)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1570,8 +1626,10 @@ def ep_path(cfg, *, seed, **shape):
         f"{rr['decode_max_mean_ratio']:.3f}; harmoeny drops 0, moved "
         f"{h['moved_units_per_layer_decode']:.3f} units per layer and decode "
         f"step, {h['moe_gmm_foreign_rows']} foreign rows through moe_gmm")
-    # phase 7 on these weights: 2 requests of 32-64 tokens a policy
-    caps = [capture_compare(ep_moe_config(cfg, policy), params,
+    # phase 7 on these weights, cut in depth: 2 requests of 32-64 tokens a
+    # policy
+    cut, cut_params = depth_cut(cfg, params, CAPTURE_EP_LAYERS)
+    caps = [capture_compare(ep_moe_config(cut, policy), cut_params,
                             f"qwen_ep{EP_DEGREE}_{policy}", paged=True,
                             n_requests=2, prompt_lens=(32, 65),
                             new_tokens=shape["new_tokens"],
@@ -1589,6 +1647,20 @@ def ep_path(cfg, *, seed, **shape):
 # ----------------------------------------------------------------------
 PCIE_BYTES_S = 64e9          # PCIe Gen5 x16, one direction (data sheet)
 PLACEMENT_REPLICAS, PLACEMENT_INTERVAL, PLACEMENT_RESIDENT = 2, 4, 32
+# 2 requests of 32-64 prompt tokens and 8 new, few because phase 10 (b)
+# serves three of these runs again, eagerly, across processes, where a
+# step takes 0.6-1.6 s
+PLACEMENT_REQUESTS, PLACEMENT_NEW = 2, 8
+
+
+def placement_requests(cfg, seed, n_requests, new_tokens):
+    """Phase 8's requests (which phase 10 (b) serves again across
+    processes): ``n_requests`` prompts of 32-64 tokens, as JSON."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 8)
+    return [{"rid": i, "tokens": [int(t) for t in rng.integers(
+        0, cfg.vocab_size, (int(rng.integers(32, 65)),))],
+        "max_new_tokens": new_tokens} for i in range(n_requests)]
 
 
 def placement_serve(cfg, params, tag, *, ekw, replica_slots, slots,
@@ -1618,9 +1690,9 @@ def placement_serve(cfg, params, tag, *, ekw, replica_slots, slots,
     eng.warmup()
     warm_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed + 8)
-    reqs = [Request(rid=i, tokens=rng.integers(
-                0, cfg.vocab_size, (int(rng.integers(64, 129)),)),
-                max_new_tokens=new_tokens) for i in range(n_requests)]
+    reqs = [Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
+                    max_new_tokens=r["max_new_tokens"])
+            for r in placement_requests(cfg, seed, n_requests, new_tokens)]
     outputs = {}
     finish = eng._finish
 
@@ -1744,17 +1816,26 @@ def placement_serve(cfg, params, tag, *, ekw, replica_slots, slots,
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, outputs
+    return summary, outputs, _as_json(rep["load_balance"])
+
+
+def _as_json(tree):
+    """``tree`` as a JSON file gives it back (numbers made plain)."""
+    return json.loads(json.dumps(tree, default=lambda o: o.item()
+                                 if hasattr(o, "item") else float(o)))
 
 
 def placement_path(cfg, params, *, seed, slots, max_seq_len, prefill_chunk,
-                   block_size, n_requests=3, new_tokens=12, **_):
+                   block_size, n_requests=PLACEMENT_REQUESTS,
+                   new_tokens=PLACEMENT_NEW, **_):
     """Phase 8 on phase 4b's weights (which carry the replica leaves):
     harmoeny without either mechanism; with hot-expert replica slots; with
     tiered residency under each prefetch policy.  Prints a
     ``[placement]`` line each; gates: streams equal the run without the
     mechanism, one capture of each entry and of the swap, a swap and a
-    stage happened, drops 0."""
+    stage happened, drops 0.  Returns the summaries and, for phase 10
+    (b), each run's requests, engine fields, streams, ``load_balance``
+    and launches."""
     import torch
     shape = dict(slots=slots, n_requests=n_requests, new_tokens=new_tokens,
                  max_seq_len=max_seq_len, prefill_chunk=prefill_chunk,
@@ -1766,10 +1847,14 @@ def placement_path(cfg, params, *, seed, slots, max_seq_len, prefill_chunk,
     for policy in ("predictive", "on_demand", "none"):
         runs[f"residency_{policy}"] = (dict(
             resident_experts=PLACEMENT_RESIDENT, prefetch_policy=policy), 0)
-    out, streams = {}, {}
+    out, streams, refs = {}, {}, {}
     for tag, (ekw, R) in runs.items():
-        out[tag], streams[tag] = placement_serve(
+        out[tag], streams[tag], lb = placement_serve(
             cfg, params, tag, ekw=ekw, replica_slots=R, **shape)
+        refs[tag] = {"ekw": ekw, "replica_slots": R, "load_balance": lb,
+                     "streams": {str(k): [int(t) for t in v]
+                                 for k, v in streams[tag].items()},
+                     "launches": out[tag]["launches"]}
         log(f"[placement] {json.dumps(out[tag])}")
         # the pinned host tier goes back to the system between runs
         torch._C._host_emptyCache()
@@ -1798,7 +1883,7 @@ def placement_path(cfg, params, *, seed, slots, max_seq_len, prefill_chunk,
         f"{res['bound_ms_per_row']:.3f} ms); foreign rows through moe_gmm "
         f"{out['base']['moe_gmm_foreign_rows']} without replicas, "
         f"{out['replicas']['moe_gmm_foreign_rows']} with")
-    return out
+    return out, refs
 
 
 def small_ep_reference_check(seed: int = 0) -> None:
@@ -2398,8 +2483,9 @@ DENSE_FETCH_BUSY_MS = {
 NCCL_ARGV = ["--arch", "qwen15-moe-a27b", "--paged", "--batch", "4",
              "--requests", "4", "--prompt-len", "128", "--gen", "8",
              "--seed", "0"]
-# (b): phase 4b's traffic cut to 2 requests of 8 new tokens
-DIST_REQUESTS, DIST_NEW = 2, 8
+# (b): phase 8's runs without either mechanism, with replica slots and
+# with residency under predictive, served again across processes
+DIST_RUNS = ("base", "replicas", "residency_predictive")
 # an eager step's kernels run on the compute stream and the fetch's side
 # stream (and a copy stream or two); a captured graph's on dozens
 EAGER_STREAMS = 4
@@ -2591,7 +2677,7 @@ def nccl_cli_path(cfg):
 
 
 DIST_WORKER = """
-import json, sys, time
+import gc, json, sys, time
 import numpy as np, torch, torch.distributed as dist
 rank, port, here, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 sys.path.insert(0, here + "/src")
@@ -2624,117 +2710,125 @@ import chip_smoke as CS
 from repro_torch.configs.registry import get_config
 from repro_torch.core.dispatch import DistComm
 from repro_torch.models.model import build_model
-from repro_torch.serve import EngineConfig, ServeEngine, stepcore
+from repro_torch.serve import EngineConfig, Request, ServeEngine, stepcore
 spec = json.load(open(f"{out}/spec.json"))
-cfg = CS.ep_moe_config(get_config("qwen15-moe-a27b"), "harmoeny")
-comm = DistComm(fetch="hosted")
-model = build_model(cfg, batch=spec["slots"], seq_len=spec["max_seq_len"],
-                    ep_degree=4, comm=comm)
-t0 = time.perf_counter()
-params = model.init(spec["seed"])
-torch.cuda.synchronize()
-init_s = time.perf_counter() - t0
-held = torch.cuda.memory_allocated() / 2**30
-ecfg = EngineConfig(**spec["ecfg"])
-from repro_torch.serve import Request
-reqs = [Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
-                max_new_tokens=r["max_new_tokens"]) for r in spec["requests"]]
-streams = {}
-with stepcore.eager():
-    eng = ServeEngine(model, params, ecfg)
-    finish = eng._finish
-    def record(st, now):
-        streams[str(st.req.rid)] = [int(t) for t in st.output]
-        finish(st, now)
-    eng._finish = record
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    read = CS._reset_launches()
+base = get_config("qwen15-moe-a27b").replace(num_layers=spec["layers"])
+result = {"probe": probe, "runs": {}}
+for tag, run in spec["runs"].items():
+    cfg = CS.ep_moe_config(base, "harmoeny", run["replica_slots"])
+    comm = DistComm(fetch="hosted")
+    model = build_model(cfg, batch=spec["slots"],
+                        seq_len=spec["max_seq_len"], ep_degree=4, comm=comm)
     t0 = time.perf_counter()
-    rep = eng.run(reqs)
+    params = model.init(spec["seed"])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-calls = rep["decode_steps"] + rep["prefill_chunks"]
-json.dump({"probe": probe, "streams": streams,
-           "load_balance": rep["load_balance"], "moe": rep["moe"],
-           "comm": rep["engine"]["comm"], "launches": read(),
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() / 2**30
+    reqs = [Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
+                    max_new_tokens=r["max_new_tokens"])
+            for r in spec["requests"]]
+    streams, swaps = {}, []
+    with stepcore.eager():
+        eng = ServeEngine(model, params, EngineConfig(**run["ecfg"]))
+        finish = eng._finish
+        def record(st, now, finish=finish):
+            streams[str(st.req.rid)] = [int(t) for t in st.output]
+            finish(st, now)
+        eng._finish = record
+        if eng._rebalancer is not None:
+            rebalance = eng._rebalance_now
+            def timed_rebalance(rebalance=rebalance, eng=eng, comm=comm):
+                n, sent = eng._replica_swaps, comm.swap_bytes
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rebalance()
+                torch.cuda.synchronize()
+                if eng._replica_swaps > n:
+                    swaps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                  "bytes_sent": comm.swap_bytes - sent})
+            eng._rebalance_now = timed_rebalance
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read = CS._reset_launches()
+        t0 = time.perf_counter()
+        rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls = rep["decode_steps"] + rep["prefill_chunks"]
+    rec = {"streams": streams, "load_balance": rep["load_balance"],
+           "moe": rep["moe"], "comm": rep["engine"]["comm"],
+           "engine": {k: rep["engine"].get(k) for k in (
+               "replica_swaps", "rebalances", "replica_ids",
+               "residency_stages", "residency_ids")},
+           "jit_entries": rep["jit_entries"], "launches": read(),
            "decode_steps": rep["decode_steps"],
            "prefill_chunks": rep["prefill_chunks"],
            "init_s": init_s, "held_gib": held,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "fetch_bytes": comm.fetch_bytes,
            "fetch_mb_per_call": comm.fetch_bytes / 1e6 / max(calls, 1),
+           "swap_bytes": comm.swap_bytes, "swaps": swaps,
            "skew_predraw_host_ms": {e: eng.core.predraw_ms(e)
                                     for e in ("prefill_chunk", "decode")},
-           "tpot_p50_s": rep["tpot"]["p50"], "ttft_p50_s": rep["ttft"]["p50"],
-           "wall_s": wall},
-          open(f"{out}/rank{rank}.json", "w"),
-          default=lambda o: o.item() if hasattr(o, "item") else int(o))
+           "tpot_p50_s": rep["tpot"]["p50"],
+           "ttft_p50_s": rep["ttft"]["p50"], "wall_s": wall}
+    tier = eng._host_tier
+    if tier is not None:
+        rec["host_tier"] = {"row0": tier.row0, "rows": tier.n_rows,
+                            "gb": tier.nbytes / 1e9,
+                            "row_mb": tier.row_bytes / 1e6,
+                            "pin_s": tier.pin_s}
+        rec["stages"] = [dict(s, gb_s=(s["bytes"] / s["ms"] / 1e6
+                                       if s["rows"] else None))
+                         for s in eng.stage_times()]
+    eng.close()
+    del eng, params, model
+    gc.collect()                  # the engine holds reference cycles
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+    result["runs"][tag] = rec
+json.dump(result, open(f"{out}/rank{rank}.json", "w"),
+          default=lambda o: o.item() if hasattr(o, "item") else float(o))
 dist.destroy_process_group()
 """
 
 
-def dist_spec(cfg, *, seed, slots, max_seq_len, prefill_chunk, block_size,
-              **_):
-    """Phase 10 (b)'s requests and engine config: 2 requests of 64-128
-    prompt tokens and 8 new, harmoeny under skew 0.9, paged, eager."""
-    import numpy as np
-    rng = np.random.default_rng(seed + 10)
-    reqs = [{"rid": i, "tokens": [int(t) for t in rng.integers(
-        0, cfg.vocab_size, (int(rng.integers(64, 129)),))],
-        "max_new_tokens": DIST_NEW} for i in range(DIST_REQUESTS)]
-    ecfg = dict(max_slots=slots, max_seq_len=max_seq_len,
-                prefill_chunk=prefill_chunk, paged=True,
-                kv_block_size=block_size, moe_policy="harmoeny",
-                skew_seed=seed)
+def dist_spec(placement_refs, *, seed, slots, max_seq_len, prefill_chunk,
+              block_size, **_):
+    """Phase 10 (b)'s runs: phase 8's ``DIST_RUNS`` at ``EP_LAYERS``
+    layers, their requests and engine fields (harmoeny under skew 0.9,
+    paged; the entries eager across processes)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen15-moe-a27b")
+    runs = {}
+    for tag in DIST_RUNS:
+        ref = placement_refs[tag]
+        ecfg = dict(max_slots=slots, max_seq_len=max_seq_len,
+                    prefill_chunk=prefill_chunk, paged=True,
+                    kv_block_size=block_size, moe_policy="harmoeny",
+                    skew_seed=seed, **ref["ekw"])
+        runs[tag] = {"ecfg": ecfg, "replica_slots": ref["replica_slots"]}
     return {"seed": seed, "slots": slots, "max_seq_len": max_seq_len,
-            "ecfg": ecfg, "requests": reqs}
+            "layers": EP_LAYERS, "runs": runs,
+            "requests": placement_requests(cfg, seed, PLACEMENT_REQUESTS,
+                                           PLACEMENT_NEW)}
 
 
-def dist_reference(cfg, params, spec):
-    """Phase 10 (b)'s reference, on phase 4b's weights: the same requests
-    on ``VirtualGroup(4)`` in one process, every entry eager as the gloo
-    processes run."""
-    import numpy as np
-    import torch
-    from repro_torch.models.model import build_model
-    from repro_torch.serve import EngineConfig, Request, ServeEngine, \
-        stepcore
-    model = build_model(ep_moe_config(cfg, "harmoeny"), batch=spec["slots"],
-                        seq_len=spec["max_seq_len"], ep_degree=EP_DEGREE)
-    streams = {}
-    with stepcore.eager():
-        eng = ServeEngine(model, params, EngineConfig(**spec["ecfg"]))
-        finish = eng._finish
-
-        def record(st, now):
-            streams[str(st.req.rid)] = [int(t) for t in st.output]
-            finish(st, now)
-        eng._finish = record
-        read = _reset_launches()
-        t0 = time.perf_counter()
-        rep = eng.run([Request(rid=r["rid"], tokens=np.asarray(r["tokens"]),
-                               max_new_tokens=r["max_new_tokens"])
-                       for r in spec["requests"]])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return {"streams": streams,
-            "load_balance": json.loads(json.dumps(rep["load_balance"],
-                                                  default=float)),
-            "launches": read(), "wall_s": wall,
-            "tpot_p50_s": rep["tpot"]["p50"]}
-
-
-def dist_gloo_path(cfg, spec, ref):
+def dist_gloo_path(spec, refs):
     """Phase 10 (b): four processes on the one card over gloo, each one
-    ``DistComm`` rank (hosted fetch, entries eager) holding only its own
-    15 experts a layer of the weights phase 4b drew, serving the
-    reference's requests.  First each process tries gloo's collectives on
-    CUDA tensors.  A ``[dist]`` line per process (peak memory, fetch
-    bytes a call, pre-draw host ms, launches) and a gates line.  Gates:
-    every collective takes CUDA tensors; greedy streams and
-    ``load_balance`` equal the ``VirtualGroup(4)`` run's on every rank;
-    drops 0; units moved; each process launched ``moe_gmm`` and
+    ``DistComm`` rank (hosted fetch, entries eager) of qwen15-moe-a27b at
+    ``EP_LAYERS`` layers holding only its own 15 experts a layer of the
+    weights phases 4b and 8 drew, serving phase 8's runs without either
+    mechanism, with replica slots and with residency under predictive.
+    First each process tries gloo's collectives on CUDA tensors.  A
+    ``[dist]`` line per process and run (peak memory, fetch bytes a call,
+    pre-draw host ms, launches; the swaps' bytes and ms; the stages' rows
+    and GB/s and the host tier's rows) and a gates line.  Gates: every
+    collective takes CUDA tensors; greedy streams and ``load_balance``
+    equal phase 8's ``VirtualGroup(4)`` run's on every rank; the replica
+    and residency tables equal on every rank; drops 0; units moved; a
+    swap and a stage took place; each process's host tier holds its own
+    15 rows and stages only those; each process launched ``moe_gmm`` and
     ``schedule`` once per layer and call, not x 4."""
     import socket
     work = os.path.join(HERE, "build", "dist")
@@ -2772,43 +2866,77 @@ def dist_gloo_path(cfg, spec, ref):
                                  f"{errs[r][-4000:]}")
         ranks.append(rec)
     log(f"[dist] gloo on CUDA tensors: {json.dumps(ranks[0]['probe'])}")
-    n_layers = cfg.num_layers
-    for r, rec in enumerate(ranks):
-        line = {k: rec[k] for k in ("comm", "init_s", "held_gib",
-                                    "peak_mem_gib", "fetch_bytes",
-                                    "fetch_mb_per_call",
-                                    "skew_predraw_host_ms", "launches",
-                                    "decode_steps", "prefill_chunks",
-                                    "tpot_p50_s", "ttft_p50_s", "wall_s")}
-        log(f"[dist] rank {r}: {json.dumps(line)}")
-        calls = rec["decode_steps"] + rec["prefill_chunks"]
-        want = {"moe_gmm": n_layers * calls, "schedule": n_layers * calls,
-                "paged_attention": n_layers * calls, "flash_attention": 0}
-        if rec["launches"] != want:
-            raise AssertionError(f"[dist] rank {r}: launches "
-                                 f"{rec['launches']} != {want}")
-        if rec["streams"] != ref["streams"]:
-            raise AssertionError(f"[dist] rank {r}: streams "
-                                 f"{rec['streams']} != VirtualGroup's "
-                                 f"{ref['streams']}")
-        if rec["load_balance"] != ref["load_balance"]:
-            raise AssertionError(f"[dist] rank {r}: load_balance differs "
-                                 f"from VirtualGroup's")
-    lb, moe = ranks[0]["load_balance"], ranks[0]["moe"]
-    drops = sum(lb[ph][k] for ph in ("decode", "prefill")
-                for k in ("send_drops_total", "dest_drops_total"))
-    if drops or moe["decode/moved_units"] <= 0:
-        raise AssertionError(f"[dist] drops {drops}, moved units at decode "
-                             f"{moe['decode/moved_units']}")
-    summary = {"processes": EP_DEGREE, "wall_s": wall,
-               "reference_wall_s": ref["wall_s"],
-               "reference_tpot_p50_s": ref["tpot_p50_s"],
-               "reference_launches": ref["launches"],
-               "decode_max_mean_ratio": lb["decode"]["max_mean_ratio"],
-               "moved_units_decode": moe["decode/moved_units"],
-               "streams": len(ref["streams"]),
-               "peak_mem_gib": [rec["peak_mem_gib"] for rec in ranks],
-               "launches": [rec["launches"] for rec in ranks]}
+    n_layers = spec["layers"]
+    epr = 60 // EP_DEGREE
+    summary = {"processes": EP_DEGREE, "layers": n_layers, "wall_s": wall,
+               "runs": {}}
+    for tag in DIST_RUNS:
+        ref = refs[tag]
+        for r, res in enumerate(ranks):
+            rec = res["runs"][tag]
+            line = {k: rec[k] for k in (
+                "comm", "init_s", "held_gib", "peak_mem_gib", "fetch_bytes",
+                "fetch_mb_per_call", "swap_bytes", "swaps",
+                "skew_predraw_host_ms", "launches", "decode_steps",
+                "prefill_chunks", "tpot_p50_s", "ttft_p50_s", "wall_s")}
+            for k in ("host_tier", "stages"):
+                if k in rec:
+                    line[k] = rec[k]
+            log(f"[dist] {tag} rank {r}: {json.dumps(line)}")
+            calls = rec["decode_steps"] + rec["prefill_chunks"]
+            want = {"moe_gmm": n_layers * calls,
+                    "schedule": n_layers * calls,
+                    "paged_attention": n_layers * calls,
+                    "flash_attention": 0}
+            if rec["launches"] != want:
+                raise AssertionError(f"[dist] {tag} rank {r}: launches "
+                                     f"{rec['launches']} != {want}")
+            if rec["streams"] != ref["streams"]:
+                raise AssertionError(f"[dist] {tag} rank {r}: streams "
+                                     f"{rec['streams']} != VirtualGroup's "
+                                     f"{ref['streams']}")
+            if rec["load_balance"] != ref["load_balance"]:
+                raise AssertionError(f"[dist] {tag} rank {r}: load_balance "
+                                     f"differs from VirtualGroup's")
+            if rec["engine"] != ranks[0]["runs"][tag]["engine"]:
+                raise AssertionError(f"[dist] {tag} rank {r}: placement "
+                                     f"tables differ from rank 0's")
+            if "host_tier" in rec and (
+                    rec["host_tier"]["rows"] != epr
+                    or rec["host_tier"]["row0"] != r * epr):
+                raise AssertionError(f"[dist] {tag} rank {r}: host tier "
+                                     f"{rec['host_tier']}")
+        lb, moe = ranks[0]["runs"][tag]["load_balance"], \
+            ranks[0]["runs"][tag]["moe"]
+        drops = sum(lb[ph][k] for ph in ("decode", "prefill")
+                    for k in ("send_drops_total", "dest_drops_total"))
+        if drops or moe["decode/moved_units"] <= 0:
+            raise AssertionError(f"[dist] {tag}: drops {drops}, moved units "
+                                 f"at decode {moe['decode/moved_units']}")
+        eng0 = ranks[0]["runs"][tag]["engine"]
+        if tag == "replicas" and not eng0["replica_swaps"]:
+            raise AssertionError("[dist] replicas: no swap took place")
+        if tag.startswith("residency"):
+            stages = [res["runs"][tag]["stages"] for res in ranks]
+            if not eng0["residency_stages"] or not any(
+                    s["rows"] for st in stages for s in st):
+                raise AssertionError(f"[dist] {tag}: no stage took place")
+        summary["runs"][tag] = {
+            "streams": len(ref["streams"]),
+            "decode_max_mean_ratio": lb["decode"]["max_mean_ratio"],
+            "moved_units_decode": moe["decode/moved_units"],
+            "tpot_p50_s": [res["runs"][tag]["tpot_p50_s"] for res in ranks],
+            "peak_mem_gib": [res["runs"][tag]["peak_mem_gib"]
+                             for res in ranks],
+            "launches": [res["runs"][tag]["launches"] for res in ranks],
+            "reference_launches": ref["launches"],
+            "swap_bytes": [res["runs"][tag]["swap_bytes"] for res in ranks],
+            "swap_ms": [[s["ms"] for s in res["runs"][tag]["swaps"]]
+                        for res in ranks],
+            "stage_rows": [sum(s["rows"] for s in res["runs"][tag].get(
+                "stages", [])) for res in ranks],
+            "stage_gb_s": [[s["gb_s"] for s in res["runs"][tag].get(
+                "stages", []) if s["gb_s"]] for res in ranks]}
     log(f"[dist] gates held: {json.dumps(summary)}")
     return summary
 
@@ -2827,7 +2955,9 @@ MIX_A = dict(slots=8, n_requests=8, prompt_lens=(256, 1025), new_tokens=32,
 # clamped to the window, which decode wraps
 MIX_RING = dict(slots=2, prompt_len=4600, new_tokens=32, prefill_chunk=512,
                 block_size=16)
-MIX_SLAB = dict(slots=1, prompt_len=4000, new_tokens=200, prefill_chunk=512)
+# (the slab's one-shot oracle decodes eagerly, ~0.15 s a step, so the
+# stream is short: the write wraps at step 56, 64 steps before the end)
+MIX_SLAB = dict(slots=1, prompt_len=4040, new_tokens=120, prefill_chunk=512)
 # (c) G = 4 on virtual ranks under 0.9 skew, harmoeny
 MIX_EP = dict(slots=4, n_requests=4, max_seq_len=256, prefill_chunk=32,
               block_size=16, new_tokens=8)
@@ -3053,8 +3183,8 @@ def ring_gate_failures(dtype, agreement):
 
 def ring_serve(mix, params, tag, *, paged):
     """(b): the ring binding.  Paged: 2 prompts of 4600 past the window,
-    M = 4096, whole chains of 256 blocks; slab: a prompt of 4000 on the
-    clamped slab with 200 new tokens, so that decode wraps.  Each stream
+    M = 4096, whole chains of 256 blocks; slab: a prompt of 4040 on the
+    clamped slab with 120 new tokens, so that decode wraps.  Each stream
     is held step by step against ``windowed_oracle`` on its own history,
     tokens and logits rows (``oracle_agreement``); the misses of
     ``RING_GATES`` are returned in the line's ``gate_failures`` for the
@@ -3272,8 +3402,8 @@ PS = dict(slots=4, prefill_chunk=32, block_size=16)
 # (a): 8 prompts of 576-640 tokens sharing their first 512, 32 new tokens
 PREFIX_A = dict(n_requests=8, prompt_lens=(576, 640), shared=512,
                 new_tokens=32)
-# (b): 4 prompts of 128 tokens, each tiling a 16-token motif, 64 new
-SPEC_B = dict(n_requests=4, prompt_len=128, motif=16, new_tokens=64, k=4,
+# (b): 4 prompts of 128 tokens, each tiling a 16-token motif, 48 new
+SPEC_B = dict(n_requests=4, prompt_len=128, motif=16, new_tokens=48, k=4,
               temperature=0.8, top_k=50, sampled_new_tokens=32)
 # (c): 2 prompts of 64-128 tokens, 8 new, on 4 virtual EP ranks
 SPEC_C = dict(n_requests=2, prompt_lens=(64, 129), new_tokens=8, k=4)
@@ -3678,6 +3808,9 @@ def step_timing(eng, cfg, reqs, tag):
     for r in reqs:
         eng.submit(r)
     while not eng.active.all():
+        if not eng.has_work():
+            raise AssertionError(f"[{tag}] the requests finished before "
+                                 f"every slot decoded at once")
         eng.step()
     eng._proposer = proposer
 
@@ -5066,6 +5199,231 @@ def ssm_tp_path():
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 15: the dense decoders at full width and depth
+# ----------------------------------------------------------------------
+# each model alone on the card, weights drawn from seed 0 and freed before
+# the next: paged, 4 slots, 16-token blocks, chunk 32, 8 prompts of
+# 128-512 tokens (none a multiple of the chunk), 32 new, greedy; phi4-mini
+# also on the slab pool (4 requests), and in f32 on the same weights (4
+# requests, 16 new), where the bf16 bounds below are checked from
+DENSE_ARCHS = (("mistral-nemo-12b", "nemo"), ("phi4-mini-3.8b", "phi4"),
+               ("stablelm-1.6b", "stablelm"))
+DENSE_A = dict(slots=4, n_requests=8, prompt_lens=(128, 513), new_tokens=32,
+               prefill_chunk=32, block_size=16, slab_requests=4,
+               f32_requests=4, f32_new_tokens=16,
+               timing_prompt_lens=(96, 129))
+# the engine's rows against the one-shot oracle fed its tokens
+# (``oracle_agreement``), with the SSM phase's measures: f32, every token
+# the oracle's up to near ties and a small median logits error; bf16, where
+# the engine's chunks (paged_attention over the scratch) and the oracle's
+# whole prompt (flash_attention) round apart, a floor on the agreeing
+# share and a bound on the median error (PERF.md holds the readings)
+DENSE_GATES = {"float32": {"near_tie": 1e-3,
+                           "logits_err_median_after_wrap": 1e-2},
+               "bfloat16": {"agree_after_wrap": 0.5,
+                            "logits_err_median_after_wrap": 0.25}}
+
+
+def dense_kernel_parity():
+    """Phase 2's cases at phase 15's shapes: ``paged_attention`` at
+    phi4-mini's decode and 32-query chunk (24 q / 8 kv heads of 128: GQA
+    rep 3, which does not divide the 16-row q tile) and stablelm's (32
+    heads of 64, MHA), and ``flash_attention`` at phi4-mini's whole-prompt
+    prefill (the oracle's)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    out = {"paged_attention": [], "flash_attention": []}
+    bf = torch.bfloat16
+    L = DENSE_A["prompt_lens"][1] - 1 + DENSE_A["new_tokens"]
+    C, bs, B = DENSE_A["prefill_chunk"], DENSE_A["block_size"], \
+        DENSE_A["slots"]
+    s_pad = -(-L // C) * C
+    bs_slab = largest_block_divisor(s_pad)
+    lengths = [1] + [129 + (L - 129) * i // (B - 2) for i in range(B - 1)]
+    for seed, arch, tag in ((40, "phi4-mini-3.8b", "phi4"),
+                            (42, "stablelm-1.6b", "stablelm")):
+        cfg = get_config(arch)
+        heads = dict(H=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                     hd=cfg.resolved_head_dim, softcap=0.0, dtype=bf,
+                     time_it=True)
+        out["paged_attention"].append(paged_attention_case(
+            f"{tag}_decode", B=B, S=1, bs=bs, lengths=lengths,
+            n_blocks=s_pad // bs, seed=seed, **heads))
+        # the last chunk of the longest prompt, over the slab scratch
+        out["paged_attention"].append(paged_attention_case(
+            f"{tag}_prefill_chunk", B=1, S=C, bs=bs_slab,
+            lengths=[DENSE_A["prompt_lens"][1] - 1], n_blocks=s_pad // bs_slab,
+            slab=True, seed=seed + 1, **heads))
+    phi4 = get_config("phi4-mini-3.8b")
+    out["flash_attention"].append(flash_attention_case(
+        "phi4_prefill", B=1, H=phi4.num_heads, Hkv=phi4.num_kv_heads,
+        Sq=DENSE_A["prompt_lens"][1] - 1, Sk=DENSE_A["prompt_lens"][1] - 1,
+        hd=phi4.resolved_head_dim, causal=True, dtype=bf, seed=44))
+    for name, recs in out.items():
+        for r in recs:
+            log(f"[parity] {name} {json.dumps(r)}")
+    return out
+
+
+def dense_round(cfg, params, tag, reqs, *, paged, timing):
+    """One engine of phase 15 on ``params``: ``reqs`` served with every
+    entry captured, its rows held against the one-shot oracle fed its
+    tokens (whole-prompt ``prefill`` through ``flash_attention``, then
+    slab decode steps); with ``timing`` one decode step with every slot
+    decoding, traced and untraced."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine, engine_config_for
+    ecfg = engine_config_for(cfg, max_slots=DENSE_A["slots"],
+                             prompt_len=DENSE_A["prompt_lens"][1] - 1,
+                             max_new_tokens=DENSE_A["new_tokens"],
+                             prefill_chunk=DENSE_A["prefill_chunk"],
+                             paged=paged,
+                             kv_block_size=DENSE_A["block_size"])
+    model = build_model(cfg, batch=DENSE_A["slots"],
+                        seq_len=ecfg.max_seq_len)
+    outputs, rep, launches, wall, peak, stats, rows = _serve_streams(
+        model, params, ecfg, reqs)
+    _check_budgets(tag, outputs, reqs, cfg.vocab_size)
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    oracle = ssm_oracle(model, params, reqs, outputs, ecfg.max_seq_len)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = read()
+    agreement = {r.rid: oracle_agreement(outputs[r.rid], oracle[r.rid],
+                                         rows[r.rid], 0) for r in reqs}
+    del oracle
+    bad = []
+    g = DENSE_GATES[cfg.dtype]
+    for rid, ag in agreement.items():
+        if "near_tie" in g and any(d["logits_gap_rel"] > g["near_tie"]
+                                   for d in ag["disagreements"]):
+            bad.append(f"request {rid}: a token leaves the oracle's beyond "
+                       f"a near tie")
+        if ag["agree_after_wrap"] / ag["steps_after_wrap"] \
+                < g.get("agree_after_wrap", 0.0):
+            bad.append(f"request {rid}: agreeing share below "
+                       f"{g['agree_after_wrap']}")
+        if ag["logits_err_median_after_wrap"] \
+                > g["logits_err_median_after_wrap"]:
+            bad.append(f"request {rid}: median logits error "
+                       f"{ag['logits_err_median_after_wrap']}")
+    want_entries = jit_entries(paged, 1)
+    if rep["jit_entries"] != want_entries or rep["recompiled_after_warmup"]:
+        bad.append(f"entries {rep['jit_entries']}, recompiled "
+                   f"{rep['recompiled_after_warmup']}")
+    # paged_attention once a layer a chunk and (paged) a decode step; no
+    # MoE kernel; flash only in the oracle, once a layer a prompt
+    calls = rep["prefill_chunks"] + (rep["decode_steps"] if paged else 0)
+    want = {"moe_gmm": 0, "schedule": 0, "flash_attention": 0,
+            "paged_attention": cfg.num_layers * calls}
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    if oracle_launches["flash_attention"] != cfg.num_layers * len(reqs):
+        bad.append(f"oracle launches {oracle_launches}")
+    out = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "pool": "paged" if paged else "slab", "requests": len(reqs),
+           "prompt_lens": [len(r.tokens) for r in reqs],
+           "tokens_out": rep["total_new_tokens"],
+           "ttft_p50_s": rep["ttft"]["p50"], "ttft_p90_s": rep["ttft"]["p90"],
+           "tpot_p50_s": rep["tpot"]["p50"], "tpot_p90_s": rep["tpot"]["p90"],
+           "throughput_tok_s": rep["throughput_tok_s"],
+           "wall_s": wall, "oracle_s": oracle_s, "peak_mem_gib": peak,
+           "decode_steps": rep["decode_steps"],
+           "prefill_chunks": rep["prefill_chunks"],
+           "preemptions": rep["preemptions"], "state_pool": stats,
+           "jit_entries": rep["jit_entries"], "launches": launches,
+           "oracle_launches": oracle_launches,
+           "attention_dispatch": {b: d["fused"] for b, d in
+                                  rep["attention_dispatch"].items()},
+           "agreement": {rid: {k: ag[k] for k in (
+               "steps", "agree", "logits_err_max", "logits_err_median")}
+               for rid, ag in agreement.items()},
+           "disagreements": {rid: ag["disagreements"][:2]
+                             for rid, ag in agreement.items()
+                             if ag["disagreements"]}}
+    if "moe" in rep or "load_balance" in rep:
+        bad.append("a dense model's report has MoE sections")
+    if timing:
+        # prompts of 3-4 chunks, so that every slot decodes before the
+        # first request has its 32 tokens
+        eng = ServeEngine(model, params, ecfg)
+        eng.warmup()
+        out["decode_step"] = step_timing(eng, cfg, _phase14_requests(
+            cfg, {**DENSE_A, "n_requests": DENSE_A["slots"],
+                  "prompt_lens": DENSE_A["timing_prompt_lens"]}, seed=151,
+            not_multiple=DENSE_A["prefill_chunk"]), f"{tag}_decode")
+        del eng
+    if bad:
+        raise AssertionError(f"[{tag}] " + "; ".join(bad))
+    del model
+    return out
+
+
+def dense_path():
+    """Phase 15: mistral-nemo-12b, phi4-mini-3.8b and stablelm-1.6b at full
+    width and depth, one at a time, paged in bf16 (with a decode step's
+    timing); phi4-mini also on the slab and, on the same weights cast to
+    f32, paged; then reduced f32 streams on the card against the CPU's."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    out = {}
+    for arch, tag in DENSE_ARCHS:
+        cfg = get_config(arch)
+        reqs = _phase14_requests(cfg, DENSE_A, seed=145,
+                                 not_multiple=DENSE_A["prefill_chunk"])
+        t0 = time.perf_counter()
+        params = build_model(cfg, batch=DENSE_A["slots"], seq_len=8).init(0)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        gib = sum(t.numel() * t.element_size()
+                  for t in _leaves(params)) / 2**30
+        log(f"[{tag}] {arch} at full width and depth ({cfg.num_layers} "
+            f"layers, d {cfg.d_model}, {cfg.num_heads} q / "
+            f"{cfg.num_kv_heads} kv heads of {cfg.resolved_head_dim}, "
+            f"{cfg.norm}): {n / 1e9:.3f} B parameters, {gib:.2f} GiB of "
+            f"bf16 weights, drawn in {time.perf_counter() - t0:.1f} s")
+        rec = {"params_b": n / 1e9, "weights_gib": gib,
+               "bf16": dense_round(cfg, params, tag, reqs, paged=True,
+                                   timing=True)}
+        log(f"[{tag}] {json.dumps(rec['bf16'])}")
+        if tag == "phi4":
+            rec["bf16_slab"] = dense_round(
+                cfg, params, f"{tag}-slab", reqs[:DENSE_A["slab_requests"]],
+                paged=False, timing=False)
+            log(f"[{tag}-slab] {json.dumps(rec['bf16_slab'])}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            _cast_(params, torch.float32)
+            f32 = cfg.replace(dtype="float32")
+            reqs32 = _phase14_requests(
+                f32, {**DENSE_A, "n_requests": DENSE_A["f32_requests"]},
+                seed=145, new_tokens=DENSE_A["f32_new_tokens"],
+                not_multiple=DENSE_A["prefill_chunk"])
+            rec["f32"] = dense_round(f32, params, f"{tag}-f32", reqs32,
+                                     paged=True, timing=False)
+            log(f"[{tag}-f32] {json.dumps(rec['f32'])}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = rec
+    for arch, paged in (("phi4-mini-3.8b", True), ("phi4-mini-3.8b", False),
+                        ("stablelm-1.6b", True)):
+        small_reference_check(arch, paged=paged)
+    log(f"[dense] gates held: " + json.dumps({
+        tag: {"tpot_p50_s": rec["bf16"]["tpot_p50_s"],
+              "decode_step_wall_ms": rec["bf16"]["decode_step"]["wall_ms"],
+              "decode_step_busy_ms": rec["bf16"]["decode_step"]["busy_ms"],
+              "idle_share": rec["bf16"]["decode_step"]["idle_share"],
+              "peak_mem_gib": rec["bf16"]["peak_mem_gib"]}
+        for tag, rec in out.items()}))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5083,7 +5441,6 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
-    from repro_torch.models.model import build_model
 
     t_run = time.perf_counter()
 
@@ -5138,6 +5495,13 @@ def main() -> int:
         ssm_tp_path()
         elapsed("phase 14")
         return 0
+    if "--only-dense" in sys.argv[1:]:
+        # a shorter run for work on phase 15: its parity cases and the
+        # phase itself, without the kernels line and the result line
+        dense_kernel_parity()
+        dense_path()
+        elapsed("phase 15")
+        return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
         # phase itself, without the kernels line and the result line
@@ -5154,15 +5518,18 @@ def main() -> int:
         parity[name] += recs
     for name, recs in tp_kernel_parity(mixtral_config()).items():
         parity[name] += recs
+    for name, recs in dense_kernel_parity().items():
+        parity[name] += recs
 
     elapsed("phase 2")
     # --- phase 3/4: the serve path + small reference ----------------------
     summary, qwen_params = main_path(cfg, n_requests=8, slots=4,
                                      new_tokens=32, seed=0, **shape)
-    # phase 7 on phase 3's weights
-    captures = [capture_compare(cfg, qwen_params, "qwen_g1", paged=True,
-                                n_requests=4, prompt_lens=(64, 129),
-                                new_tokens=16, seed=0, **shape)]
+    # phase 7 on phase 3's weights, cut in depth
+    captures = [capture_compare(*depth_cut(cfg, qwen_params, CAPTURE_LAYERS),
+                                "qwen_g1", paged=True, n_requests=4,
+                                prompt_lens=(64, 129), new_tokens=16, seed=0,
+                                **shape)]
     del qwen_params
     small_reference_check()
     gc.collect()                     # the engine holds reference cycles
@@ -5179,7 +5546,8 @@ def main() -> int:
     small_ep_reference_check()
     elapsed("phase 4b (+ 7 on G = 4)")
     # --- phase 8: replica slots and tiered residency on 4b's weights --------
-    placement = placement_path(ep_cfg, ep_params, seed=0, slots=4, **shape)
+    placement, placement_refs = placement_path(ep_cfg, ep_params, seed=0,
+                                               slots=4, **shape)
     del ep_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5199,8 +5567,9 @@ def main() -> int:
         moon, moon_params, "serve-slab", paged=False, slots=4, n_requests=4,
         prompt_lens=(64, 129), new_tokens=8, seed=0, **shape)}
     captures.append(capture_compare(
-        moon, moon_params, "moonshot_slab", paged=False, n_requests=2,
-        prompt_lens=(64, 129), new_tokens=8, seed=0, **shape))
+        *depth_cut(moon, moon_params, CAPTURE_LAYERS), "moonshot_slab",
+        paged=False, n_requests=2, prompt_lens=(64, 129), new_tokens=8,
+        seed=0, **shape))
     del moon_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5225,15 +5594,9 @@ def main() -> int:
     fetch = fetch_lines(captures)                          # (c), phase 7's
     nccl = nccl_cli_path(cfg)                               # (a)
     elapsed("phase 10 (a)")
-    spec = dist_spec(cfg, seed=0, slots=4, **shape)         # (b)
-    ref_params = build_model(ep_moe_config(cfg), batch=4,
-                             seq_len=shape["max_seq_len"],
-                             ep_degree=EP_DEGREE).init(0)
-    dist_ref = dist_reference(cfg, ref_params, spec)
-    del ref_params
-    gc.collect()
-    torch.cuda.empty_cache()
-    dist = dist_gloo_path(cfg, spec, dist_ref)
+    # (b), held against phase 8's runs on the same weights
+    spec = dist_spec(placement_refs, seed=0, slots=4, **shape)
+    dist = dist_gloo_path(spec, placement_refs)
     elapsed("phase 10")
     # --- phase 11: mixtral-8x7b and its window rings ------------------------
     gc.collect()
@@ -5248,6 +5611,11 @@ def main() -> int:
     # --- phase 14: tensor-parallel MoE; SSM and hybrid serving ---------------
     ssm_tp = ssm_tp_path()
     elapsed("phase 14")
+    # --- phase 15: the dense decoders at full width and depth --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dense_path()
+    elapsed("phase 15")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -5272,10 +5640,9 @@ def main() -> int:
                    for tag, rec in clis.items()},
                 "cli_nccl_qwen15_moe_a27b_g1":
                     nccl["launches"]["nccl"][name],
-                f"dist_gloo_qwen15_moe_a27b_ep{EP_DEGREE}_per_process":
-                    [rec[name] for rec in dist["launches"]],
-                f"dist_reference_qwen15_moe_a27b_ep{EP_DEGREE}_virtual":
-                    dist["reference_launches"][name],
+                **{f"dist_gloo_qwen15_moe_a27b_ep{EP_DEGREE}_{tag}"
+                   f"_per_process": [rec[name] for rec in run["launches"]]
+                   for tag, run in dist["runs"].items()},
                 f"serve_mixtral_8x7b_{MIXTRAL_LAYERS}of32_paged":
                     mixtral["serve"]["launches"][name],
                 f"ring_mixtral_8x7b_{MIXTRAL_LAYERS}of32_paged":
@@ -5300,7 +5667,14 @@ def main() -> int:
                    for key in ("g1", "tp")},
                 **{f"serve_{arch}_{dt}": ssm_tp[arch][dt]["launches"][name]
                    for arch in ("mamba2", "zamba2")
-                   for dt in ("bf16", "f32")}},
+                   for dt in ("bf16", "f32")},
+                **{f"serve_{rec[run]['model']}_{run}_{rec[run]['pool']}":
+                   rec[run]["launches"][name]
+                   for rec in dense.values()
+                   for run in ("bf16", "bf16_slab", "f32") if run in rec},
+                **{f"oracle_{rec['bf16']['model']}_bf16":
+                   rec["bf16"]["oracle_launches"][name]
+                   for rec in dense.values()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -220,9 +220,12 @@ class DistComm:
     foreign fetch's form (module docstring): ``"dense"`` (capturable) or
     ``"hosted"`` (eager only); ``describe()`` reports it with the backend.
     ``fetch_bytes`` counts the bytes of expert rows this rank has sent to
-    other ranks through the fetch.  On the card the fetch runs on a side
-    stream (``_SideStream``).  A backend that refuses what is asked of it
-    raises: nothing is copied to the host to get round it."""
+    other ranks through the MoE blocks' fetch, ``swap_bytes`` those sent
+    through the serve engine's replica swap (``placement.ReplicaSwap``,
+    the same fetch into a lasting destination).  On the card the fetch
+    runs on a side stream (``_SideStream``).  A backend that refuses what
+    is asked of it raises: nothing is copied to the host to get round
+    it."""
 
     def __init__(self, group=None, *, fetch: str = "dense"):
         import torch.distributed as dist
@@ -240,6 +243,7 @@ class DistComm:
         self.backend = str(dist.get_backend(group))
         self.fetch = fetch
         self.fetch_bytes = 0
+        self.swap_bytes = 0
         self._side: Optional[_SideStream] = None     # made at the first fetch
 
     def describe(self) -> Dict[str, object]:
@@ -288,7 +292,10 @@ class DistComm:
         self._dist.broadcast(t, src=src, group=self.group)
         return float(t.cpu())
 
-    def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0):
+    def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0, *,
+                   count: str = "fetch_bytes"):
+        """``count``: the counter the bytes sent go to (``"fetch_bytes"``
+        or ``"swap_bytes"``)."""
         if (self.fetch == "hosted" and w_local.is_cuda
                 and torch.cuda.is_current_stream_capturing()):
             raise RuntimeError(
@@ -300,17 +307,18 @@ class DistComm:
             if self.fetch == "dense":
                 rows = dense_fetch(w_local, fids_all, me, topo,
                                    self.all_to_all, fetch_chunk)
-                self.fetch_bytes += (w_local[0].numel()
-                                     * w_local.element_size()
-                                     * fids_all.shape[1] * (self.size - 1))
+                sent = (w_local[0].numel() * w_local.element_size()
+                        * fids_all.shape[1] * (self.size - 1))
             else:
-                rows = self._hosted_fetch(w_local, fids_all, me, topo)
+                rows, sent = self._hosted_fetch(w_local, fids_all, me, topo)
+        setattr(self, count, getattr(self, count) + sent)
         return Fetched(rows, done)
 
-    def _hosted_fetch(self, w_local, fids_all, me, topo) -> torch.Tensor:
+    def _hosted_fetch(self, w_local, fids_all, me, topo):
         """Each source sends each destination only the rows it hosts, in
         k order; the destination puts them at their k and zeros
-        elsewhere.  The split sizes are FIDS read on the host."""
+        elsewhere.  The split sizes are FIDS read on the host.  Returns
+        the rows and the bytes sent."""
         if topo.hosts_per_expert != 1:
             raise ValueError("the hosted fetch needs hosts_per_expert == 1 "
                              f"(got {topo.hosts_per_expert}); use "
@@ -327,7 +335,7 @@ class DistComm:
         out_splits = [int((host[me] == src).sum()) for src in range(G)]
         out = w_local.new_zeros((K,) + tuple(w_local.shape[1:]))
         if not (host >= 0).any():          # no rank sends: skip the call
-            return out
+            return out, 0
         dev = w_local.device
         send = w_local[torch.tensor(send_slots, dtype=torch.long,
                                     device=dev)]
@@ -336,8 +344,7 @@ class DistComm:
                                      input_split_sizes=in_splits,
                                      group=self.group)
         out[torch.tensor(recv_k, dtype=torch.long, device=dev)] = recv
-        self.fetch_bytes += send.numel() * send.element_size()
-        return out
+        return out, send.numel() * send.element_size()
 
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
         if w.shape[0] != epr:

@@ -7,10 +7,12 @@ On the card (the default), full width, random bf16 weights from seed 0:
       --paged --batch 8 --requests 24 --rate 8 --prompt-len 128 --gen 32 \\
       --temperature 0.8 --top-k 50 --top-p 0.9
 
-The archs are the port's registry: qwen15-moe-a27b, moonshot-v1-16b-a3b,
-switch128 and mixtral-8x7b, whose sliding window the engine serves as
-JAX does (the slab clamped to the window; ``--paged`` pools wrap it in
-ring buffers), e.g. on the CPU at reduced size:
+The archs are the port's registry: the MoE decoders qwen15-moe-a27b,
+moonshot-v1-16b-a3b, switch128 and mixtral-8x7b; mamba2-2.7b and
+zamba2-7b; and the dense decoders mistral-nemo-12b, phi4-mini-3.8b and
+stablelm-1.6b.  mixtral's sliding window is served as JAX serves it (the
+slab clamped to the window; ``--paged`` pools wrap it in ring buffers),
+e.g. on the CPU at reduced size:
   serve(build_parser().parse_args(["--arch", "mixtral-8x7b", "--reduced",
       "--paged", "--prompt-len", "80", "--prefill-chunk", "16"]),
       device="cpu")
@@ -61,15 +63,21 @@ captured).  ``WORLD_SIZE`` must equal ``--model-par``.  Each process holds
 only its own expert rows; every process serves the same requests in
 lockstep, and only rank 0 prints and writes the report.
 
+``--replica-slots`` / ``--rebalance-interval`` and
+``--resident-experts`` / ``--prefetch-policy`` run under a launcher too:
+the replica swap fetches each slot's row from its host rank, and each
+rank's host tier holds its own rows.
+
 ``--fused-attention`` and ``--fused-moe`` are accepted as in JAX: on the
 card the hand-written kernels run whatever they say, and the report
 gives what ran (True on the card, False on the CPU, where the plain
 versions run); a window ring refuses ``--fused-attention``,
 ``--prefix-sharing``, ``--speculative-k`` and ``--disaggregate`` as the
-JAX engine does.  Not ported yet, and refused with
-``NotImplementedError``: any arch outside the port's registry (items
-8-9), and a fleet under a launcher (item 5); ``--data-par > 1`` raises
-as in JAX.
+JAX engine does.  Refused with ``NotImplementedError``: any arch outside
+the port's registry (gemma2-2b, pixtral-12b, whisper-large-v3: ROADMAP
+item 9), and a fleet under a launcher, which the JAX package has no
+lockstep counterpart of (a deliberate difference); ``--data-par > 1``
+raises as in JAX.
 
 ``serve(args, device=..., params=...)`` runs on the card unless the
 caller asks for the CPU, on weights drawn from seed 0 unless the caller
@@ -333,7 +341,8 @@ def serve(args, *, device="cuda", params=None):
     if fleet and comm is not None:
         raise NotImplementedError(
             "--replicas / --disaggregate under a launcher: a fleet of "
-            "engines across processes is not ported (ROADMAP item 5)")
+            "engines across processes has no JAX counterpart (the JAX "
+            "package has no lockstep fleet; a deliberate difference)")
     lead = comm is None or comm.rank == 0         # prints, writes the report
     if args.trace:
         requests = load_trace(args.trace, vocab_size=cfg.vocab_size)

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, and the MLP of dense layers and
-shared experts (port of ``repro/models/layers.py``)."""
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE, and the MLP of
+dense layers and shared experts (port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -16,10 +16,34 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return x * inv
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance in f32; the centring, the scaling by
+    ``inv * scale`` and the bias in the input dtype, rounded in the JAX
+    function's order."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)     # jnp.var's
+    inv = torch.rsqrt(var + eps)
+    return ((x - mu.to(x.dtype)) * (inv * scale).to(x.dtype)
+            + bias.to(x.dtype))
+
+
 def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"{kind} is not ported yet")
-    return rmsnorm(x, p["scale"])
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+def init_norm(shape, kind: str, device) -> Dict[str, torch.Tensor]:
+    """A norm's f32 parameters of ``shape`` (``(..., d)``): RMSNorm's scale
+    at 0 (it scales by ``1 + scale``), LayerNorm's scale at 1 and bias at
+    0."""
+    zeros = torch.zeros(shape, dtype=torch.float32, device=device)
+    if kind == "rmsnorm":
+        return {"scale": zeros}
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": zeros}
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

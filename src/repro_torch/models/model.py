@@ -4,9 +4,11 @@ Port of ``repro/models/model.py`` for decoder-only MoE stacks: MoE
 layers after optional leading dense layers (qwen15-moe-a27b,
 moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
 GELU MLPs (switch128), with full or sliding-window attention
-(mixtral-8x7b); and for the SSM (mamba2-2.7b, tied embeddings) and
-hybrid (zamba2-7b: mamba groups around one shared attention block)
-families, whose caches hold fixed-size recurrent state
+(mixtral-8x7b); for dense decoders, one attention and MLP layer a
+period (mistral-nemo-12b, phi4-mini-3.8b with tied embeddings,
+stablelm-1.6b with LayerNorm); and for the SSM (mamba2-2.7b, tied
+embeddings) and hybrid (zamba2-7b: mamba groups around one shared
+attention block) families, whose caches hold fixed-size recurrent state
 (``transformer.run_hybrid``, ``models/mamba2.py``).  The returned
 ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
@@ -51,7 +53,7 @@ from repro_torch.core.dispatch import DistComm, LocalComm, VirtualGroup
 from repro_torch.core.moe_layer import MoEBlockSpec
 from repro_torch.core.router import SkewKey
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import init_norm, norm
 from repro_torch.models.mamba2 import init_mamba
 from repro_torch.models.losses import logits_head
 
@@ -117,20 +119,19 @@ class Model:
                     slice(own[0] * per_rank, (own[-1] + 1) * per_rank))
             return _normal(shape, scale, gen, dev, dtype, keep)
 
-        def zeros(shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
-
         def full(shape, value, dtype):
             out = torch.empty(shape, dtype=dtype or dt, device=dev)
             return out.copy_(torch.as_tensor(value).expand(shape))
 
+        def norm_p(n=()):
+            return init_norm(n + (d,), cfg.norm, dev)
+
         def mamba_layer(n=()):
             return {"mamba": init_mamba(cfg, nrm, full, n),
-                    "norm1": {"scale": zeros(n + (d,))}}
+                    "norm1": norm_p(n)}
 
         def attn_layer(n=()):
-            return {"norm1": {"scale": zeros(n + (d,))},
-                    "norm2": {"scale": zeros(n + (d,))},
+            return {"norm1": norm_p(n), "norm2": norm_p(n),
                     "attn": {"wq": nrm(n + (d, H, hd), s_d),
                              "wk": nrm(n + (d, Hkv, hd), s_d),
                              "wv": nrm(n + (d, Hkv, hd), s_d),
@@ -217,7 +218,7 @@ class Model:
                                 for j, kind in enumerate(pattern)}}
         params: Dict[str, Any] = {
             "embed": nrm((Vp, d), 0.02),
-            "final_norm": {"scale": zeros((d,))},
+            "final_norm": norm_p(),
             "stack": stack,
         }
         if lead:
@@ -426,18 +427,18 @@ def _decode_foreign_slots(spec: MoEBlockSpec, policy: str) -> int:
 def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
                 batch: int, seq_len: int, device=None,
                 ep_degree: int = 1, comm=None) -> Model:
-    """The port's model for a decoder-only MoE, SSM or hybrid ``cfg`` at
-    expert-parallel degree ``ep_degree``: G ranks on the one device when
-    G > 1 (``VirtualGroup``), or, given ``comm`` (a ``DistComm`` of G
-    processes), this process's rank; with fewer experts than ranks the
-    MoE blocks are tensor-parallel (``tp_mode``).  ``device`` defaults
-    to CUDA and raises when no GPU is present."""
+    """The port's model for a decoder-only MoE, dense, SSM or hybrid
+    ``cfg`` at expert-parallel degree ``ep_degree``: G ranks on the one
+    device when G > 1 (``VirtualGroup``), or, given ``comm`` (a
+    ``DistComm`` of G processes), this process's rank; with fewer experts
+    than ranks the MoE blocks are tensor-parallel (``tp_mode``).
+    ``device`` defaults to CUDA and raises when no GPU is present."""
     dev = resolve_device(device)
     if comm is not None and comm.size != ep_degree:
         raise ValueError(f"a communicator of {comm.size} ranks for EP "
                          f"degree {ep_degree}")
     unsupported = [
-        (cfg.family not in ("moe", "ssm", "hybrid")
+        (cfg.family not in ("moe", "dense", "ssm", "hybrid")
          or (cfg.family == "moe") != cfg.is_moe, f"family {cfg.family!r}"),
         (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
          "encoder-decoder / prefix-embedding models"),

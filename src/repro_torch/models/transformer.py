@@ -1,7 +1,7 @@
-"""Decoder stacks: the MoE family's and mamba2's, and the zamba2 hybrid
-(port of ``repro/models/transformer.py``: ``layer_pattern``,
-``run_stack``, ``init_stack_cache``, ``init_hybrid_cache``,
-``run_hybrid``).
+"""Decoder stacks: the MoE family's, the dense decoders', mamba2's, and
+the zamba2 hybrid (port of ``repro/models/transformer.py``:
+``layer_pattern``, ``run_stack``, ``init_stack_cache``,
+``init_hybrid_cache``, ``run_hybrid``).
 
 Parameters stay stacked per layer exactly as in the JAX package
 (``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
@@ -9,11 +9,12 @@ so converting JAX weights is a reshape-free copy; a Python loop over the
 steps replaces ``lax.scan``.  A period of the stack is one MoE layer or,
 with ``moe_layer_period`` p > 1, p layers of which the one at
 ``moe_layer_offset`` is MoE and the others dense (switch128: ``["dense",
-"moe"]``).  Leading dense layers (moonshot's first layer) are unstacked,
-one dict per layer in ``params["lead"]`` and one ``AttnCache`` per layer
-in ``cache["lead"]``, and run before the stack.  The SSM family's stack
-is one ``"mamba"`` layer a period, whose cache is a ``MambaState`` of
-fixed-size recurrent state (no KV-length axis).
+"moe"]``); a dense decoder's period is one dense layer.  Leading dense
+layers (moonshot's first layer) are unstacked, one dict per layer in
+``params["lead"]`` and one ``AttnCache`` per layer in ``cache["lead"]``,
+and run before the stack.  The SSM family's stack is one ``"mamba"``
+layer a period, whose cache is a ``MambaState`` of fixed-size recurrent
+state (no KV-length axis).
 
 The hybrid (zamba2) runs ``attn_every`` mamba layers a group
 (``params["groups"]`` leaves ``[n_groups, attn_every, ...]``), then one
@@ -41,12 +42,14 @@ from repro_torch.models.layers import mlp, norm
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     """(pattern, n_steps, n_lead_dense): layer kinds within one period of
     the stack, the number of periods, and leading unscanned dense layers
-    (the MoE family's patterns of the JAX ``layer_pattern``)."""
+    (the JAX ``layer_pattern``'s MoE, SSM and dense-decoder patterns)."""
     if cfg.family == "ssm":
         return ["mamba"], cfg.num_layers, 0
-    lead = cfg.moe.first_dense_layers if cfg.is_moe else 0
+    if not cfg.is_moe:
+        return ["dense"], cfg.num_layers, 0
+    lead = cfg.moe.first_dense_layers
     L = cfg.num_layers - lead
-    p = cfg.moe.moe_layer_period if cfg.is_moe else 1
+    p = cfg.moe.moe_layer_period
     if p > 1:
         if L % p:
             raise ValueError(f"{cfg.name}: {L} layers are not a whole number "

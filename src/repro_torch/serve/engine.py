@@ -76,7 +76,9 @@ pool), as in JAX:
 and ``probe_prefix()``.
 
 ``report()`` has every section and key the JAX engine's has for the same
-``EngineConfig``, plus ``engine.device``.
+``EngineConfig``, plus ``engine.device``: for a dense decoder
+(mistral-nemo-12b, phi4-mini-3.8b, stablelm-1.6b), which has neither
+experts nor recurrent state, no MoE diagnostics, as in JAX.
 A model built at expert-parallel degree G > 1 runs its MoE blocks over G
 ranks (``VirtualGroup``); ``EngineConfig.moe_policy`` overrides the decode
 steps' scheduling policy, and a model with synthetic router skew draws
@@ -93,9 +95,14 @@ admissions and the replicated tokens.  The report is each process's;
 rank 0's is the one to read, as the JAX block reports rank 0's
 diagnostics, and ``report()["engine"]["comm"]`` names the communicator,
 its fetch form and whether the entries were captured.  Replica slots and
-tiered residency read other ranks' rows and are not ported across
-processes (ROADMAP item 5): they raise, and so does a fleet of such
-engines (``FleetRouter``), which the JAX package has no lockstep for.
+tiered residency run across processes too: the rebalancer and the
+residency manager are host numpy fed from the all-gathered loads, so
+every rank takes the same decisions at the same step; the replica swap
+fetches each slot's row from the rank that hosts it and each rank's host
+tier holds and stages only its own rows (``placement``).  Under gloo the
+swap is eager, so ``jit_entries["replica_swap"]`` reads 0 there, as every
+entry does.  A fleet of such engines (``FleetRouter``) raises: the JAX
+package has no lockstep fleet.
 
 On the card the prefill chunk, the decode (or verify) step and the
 store's scratch-to-pool write (``write_blocks`` paged, ``write_slot`` on
@@ -392,12 +399,6 @@ class ServeEngine:
                 "tiered expert residency needs expert-parallel MoE "
                 "(num_experts >= the mesh model degree)")
         self.dist = model.comm if isinstance(model.comm, DistComm) else None
-        if self.dist is not None and (ecfg.replica_slots > 0
-                                      or ecfg.resident_experts > 0):
-            raise NotImplementedError(
-                "replica_slots and resident_experts across processes "
-                "(DistComm): the replica swap and the host tier read other "
-                "ranks' rows, which needs a collective (ROADMAP item 5)")
         self.model = model
         self.params = params
         self.ecfg = ecfg
@@ -468,7 +469,8 @@ class ServeEngine:
             self._replica_ids = np.full(
                 (topo.num_ranks, ecfg.replica_slots), -1, np.int32)
             self._swap = ReplicaSwap(
-                params, topo.num_ranks * ecfg.replica_slots, self.device)
+                params, topo.num_ranks * ecfg.replica_slots, self.device,
+                comm=self.model.comm, topo=topo)
         self._residency: Optional[ExpertResidencyManager] = None
         self._residency_ids: Optional[np.ndarray] = None
         self._pending_stage = None        # decision applied next step start
@@ -489,7 +491,10 @@ class ServeEngine:
                 policy=ecfg.prefetch_policy,
                 cost=TierCostModel(expert_bytes=expert_bytes))
             self._residency_ids = self._residency._last_ids.copy()
-            self._host_tier = HostTier(leaves)
+            # across processes a rank's tier holds its own rows only
+            epr = self.model.moe_spec.topo.experts_per_rank
+            self._host_tier = HostTier(
+                leaves, row0=0 if self.dist is None else self.dist.rank * epr)
             if self.device.type == "cuda":
                 self._stage_stream = torch.cuda.Stream(self.device)
 
@@ -953,7 +958,7 @@ class ServeEngine:
         self._rebalances += 1
         if not dec.changed:
             return
-        self._swap(dec.weight_rows)
+        self._swap(dec.weight_rows, dec.replica_ids)
         self._replica_ids = dec.replica_ids
         self._replica_swaps += 1
 
@@ -981,13 +986,14 @@ class ServeEngine:
 
     def _dispatch_stage(self, rows: np.ndarray) -> None:
         """Copy ``rows`` (stacked weight-row indices) from the host tier
-        into the expert leaves.  On the card the copies run on a side
-        stream after the work already queued, and the current stream (the
-        decode step that follows) waits on their end; the events around
-        them time the copy (``stage_times``)."""
+        into the expert leaves: every row in one process, across processes
+        the rows this rank hosts (no collective).  On the card the copies
+        run on a side stream after the work already queued, and the
+        current stream (the decode step that follows) waits on their end;
+        the events around them time the copy (``stage_times``)."""
         rows = [int(r) for r in rows]
-        entry = {"rows": len(rows),
-                 "bytes": len(rows) * self._host_tier.row_bytes}
+        n = len(self._host_tier.own(rows))
+        entry = {"rows": n, "bytes": n * self._host_tier.row_bytes}
         if self.device.type == "cuda":
             cur = torch.cuda.current_stream(self.device)
             side = self._stage_stream
@@ -1006,8 +1012,9 @@ class ServeEngine:
         self._residency_stages += 1
 
     def stage_times(self) -> List[Dict[str, float]]:
-        """Each stage's rows, bytes and, on the card, the copy's device
-        ms (from the events around it on the side stream)."""
+        """Each stage's rows and bytes (this process's share across
+        processes) and, on the card, the copy's device ms (from the events
+        around it on the side stream)."""
         if self.device.type == "cuda":
             self._sync()
         out = []
@@ -1064,7 +1071,8 @@ class ServeEngine:
         if self._rebalancer is not None:
             # capture the swap too: the slots are empty (ids all -1), so
             # the rows copied are dead, and real swaps replay the graph
-            self._swap(np.zeros((self._replica_ids.size,), np.int32))
+            self._swap(np.zeros((self._replica_ids.size,), np.int32),
+                       np.full_like(self._replica_ids, -1))
         self._sync()
         self._attn_dispatch = attention_dispatch.dispatch_log()
         self._warm_counts = self.jit_counts()

@@ -38,7 +38,8 @@ cannot stall the decodes in flight.
 
 There is no fleet of engines over ``DistComm``: those run in lockstep
 across processes on rank 0's clock, which the JAX package's fleet has no
-counterpart of, and ``FleetRouter`` refuses them (ROADMAP item 5).
+counterpart of, and ``FleetRouter`` refuses them: a deliberate
+difference from the JAX package, which has no lockstep fleet.
 """
 from __future__ import annotations
 
@@ -68,8 +69,9 @@ class FleetRouter:
         if any(getattr(e, "dist", None) is not None for e in engines):
             raise NotImplementedError(
                 "FleetRouter over engines across processes (DistComm): "
-                "they step in lockstep on rank 0's clock, and a fleet of "
-                "them is not ported (ROADMAP item 5)")
+                "they step in lockstep on rank 0's clock, and the JAX "
+                "package has no lockstep fleet to mirror (a deliberate "
+                "difference: one engine a process, no router)")
         self.engines = list(engines)
         self.clock = self.engines[0].clock
         for i, e in enumerate(self.engines):

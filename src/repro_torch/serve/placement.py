@@ -11,7 +11,14 @@ captured on those tensors stay valid:
   device-to-device gather whose rows sit in a static device buffer
   (``stepcore.Staged``).  On the card it is captured once as a CUDA graph
   (``stepcore.Entry``, the JAX engine's jitted ``_swap_fn``) and replayed
-  for every later swap.
+  for every later swap.  Across processes (``dispatch.DistComm``, where a
+  process holds only its own expert rows and its own R slots) each slot's
+  row comes from the process that hosts it: the swap is the
+  communicator's foreign fetch with the ``[G, R]`` replica table in place
+  of FIDS, into the replica leaves instead of a transient buffer
+  (JAX's ``jnp.take`` over the sharded weights gathers across devices
+  the same way).  Its dense form is captured as on one process (NCCL);
+  its hosted form moves only the hot rows and runs eagerly (gloo).
 * ``HostTier`` holds every expert weight row in host memory: one buffer a
   row of the rank-major expert axis, holding that row of every expert
   leaf of every layer back to back, pinned (``pin_memory``) when the
@@ -22,7 +29,11 @@ captured on those tensors stay valid:
   serves all of them; every staged value is a bit-identical copy of a
   device row, so the padding carries no information, and at full width a
   padded stage would move ``G * W`` rows of ~415 MB.  A stage copies a
-  different number of rows each time, so it is never a graph.
+  different number of rows each time, so it is never a graph.  Across
+  processes each process's tier holds only the rows it hosts (JAX's
+  per-rank residency cache over the rank's own shard): a stage's rows are
+  global rank-major ids, and each process copies the ones it hosts, with
+  no collective.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ from typing import Any, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.prefetch import stage_expert_rows
+from repro_torch.core.dispatch import DistComm
+from repro_torch.core.prefetch import join, stage_expert_rows
 from repro_torch.serve.stepcore import Entry, Staged
 
 EXPERT_LEAF_NAMES = ("w_in", "w_out", "w_gate")
@@ -73,40 +85,62 @@ def replica_pairs(params: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 
 
 class ReplicaSwap:
-    """``swap(rows)``: ``w_rep[..., i, :, :] = w[..., rows[i], :, :]`` for
-    every replica leaf, in place (the JAX engine's
-    ``_swap_replica_weights``); ``rows`` [G * R] rows of the rank-major
-    expert axis."""
+    """``swap(rows, ids)``: every replica leaf takes the hot experts' rows,
+    in place (the JAX engine's ``_swap_replica_weights``).  In one process
+    ``w_rep[..., i, :, :] = w[..., rows[i], :, :]``, ``rows`` [G * R] rows
+    of the rank-major expert axis (the row axis is third from last in the
+    stacked leaves).  Over a ``DistComm`` (``comm``, with the model's
+    ``topo``) this rank's R slots fetch the experts of its row of ``ids``
+    [G, R] (-1: an empty slot, left zero) from their hosts (module
+    docstring)."""
 
-    def __init__(self, params: Any, n_rows: int, device: torch.device):
+    def __init__(self, params: Any, n_rows: int, device: torch.device,
+                 comm: Any = None, topo: Any = None):
         self.pairs = replica_pairs(params)
         if not self.pairs:
             raise ValueError("replica swap: the parameters carry no w_rep_* "
                              "leaves")
+        self.dist = comm if isinstance(comm, DistComm) else None
+        self.topo = topo
         self._rows = Staged(n_rows, device)
-        self.entry = Entry(self._gather, device)
+        refuse = None
+        if self.dist is not None and not self.dist.capturable:
+            refuse = (f"the replica swap's communicator "
+                      f"({self.dist.describe()}) cannot be captured")
+        self.entry = Entry(self._gather, device, refuse)
 
     @property
     def captures(self) -> int:
         return self.entry.captures
 
     def _gather(self, pairs):
-        rows = self._rows.dev
+        if self.dist is None:
+            rows = self._rows.dev
+            for w, w_rep in pairs:
+                torch.index_select(w, w.ndim - 3, rows, out=w_rep)
+            return
+        ids = self._rows.dev.view(self.topo.num_ranks, -1)
         for w, w_rep in pairs:
-            torch.index_select(w, w.ndim - 3, rows, out=w_rep)
+            got = self.dist.fetch_rows(w.movedim(-3, 0), ids, self.dist.rank,
+                                       self.topo, count="swap_bytes")
+            w_rep.movedim(-3, 0).copy_(join(got))
 
-    def __call__(self, rows: np.ndarray) -> None:
-        self._rows.fill()[:] = np.asarray(rows).reshape(-1)
+    def __call__(self, rows: np.ndarray, ids: np.ndarray) -> None:
+        self._rows.fill()[:] = np.asarray(
+            rows if self.dist is None else ids).reshape(-1)
         self._rows.push()
         self.entry(self.pairs)
 
 
 class HostTier:
     """Every row of the expert leaves in host memory (module docstring),
-    pinned when the leaves are on the card; raises if pinning fails."""
+    pinned when the leaves are on the card; raises if pinning fails.  The
+    leaves hold the global rows ``[row0, row0 + n_rows)``: all of them in
+    one process, a ``DistComm`` rank's own (``row0 = rank * epr``)."""
 
-    def __init__(self, leaves: Sequence[torch.Tensor]):
+    def __init__(self, leaves: Sequence[torch.Tensor], row0: int = 0):
         self.leaves = list(leaves)
+        self.row0 = row0
         w0 = self.leaves[0]
         self.n_rows = w0.shape[w0.ndim - 3]
         for w in self.leaves:
@@ -141,11 +175,16 @@ class HostTier:
     def nbytes(self) -> int:
         return self.row_bytes * self.n_rows
 
+    def own(self, rows: Sequence[int]) -> List[int]:
+        """The local rows of those of the global ``rows`` this tier holds."""
+        return [int(r) - self.row0 for r in rows
+                if self.row0 <= int(r) < self.row0 + self.n_rows]
+
     def stage(self, rows: Sequence[int]) -> None:
-        """Copy ``rows`` of the tier into the leaves, one copy a row and
-        leaf, on the current stream."""
-        for r in rows:
-            for w, v in zip(self.leaves, self.rows[int(r)]):
+        """Copy the global ``rows`` this tier holds into the leaves, one
+        copy a row and leaf, on the current stream."""
+        for r in self.own(rows):
+            for w, v in zip(self.leaves, self.rows[r]):
                 stage_expert_rows(w, [r], v.unsqueeze(w.ndim - 3))
 
     def release(self) -> None:

@@ -307,13 +307,16 @@ def placement_jax(tmp_path_factory, *, G, R, KW, CELLS):
 def replay_draws(eng, draws):
     """Make ``eng``'s step core route on the skewed assignments the JAX
     engine drew, call by call (the two frameworks' generators differ):
-    its pre-draws copy them into the static buffers instead."""
+    its pre-draws copy them into the static buffers instead, the ranks
+    the step core runs (all of them, or one process's own under
+    ``DistComm``)."""
     core = eng.core
     left = {entry: list(d) for entry, d in draws.items()}
 
     def predraw(idx, entry="decode"):
         buf = core._pf_skew if entry == "prefill_chunk" else core._skew
-        buf.copy_(torch.tensor(left[entry].pop(0), dtype=torch.int32))
+        buf.copy_(torch.tensor(left[entry].pop(0), dtype=torch.int32)[
+            :, list(core.ranks_here)])
     core._predraw = predraw
     return left
 

@@ -145,6 +145,66 @@ def test_paged_attention_kernel_matches_plain_at_mixtral_heads(cuda, S, bs):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,hd,S,lengths,bs", [
+    (24, 8, 128, 1, [1, 129, 300, 513], 16),    # phi4-mini decode: rep 3
+    (24, 8, 128, 32, [32, 160, 512], 16),       # its 32-query chunk
+    (24, 8, 128, 32, [45, 77, 301], 16),        # a chunk across a block edge
+    (32, 32, 64, 1, [1, 200, 513], 16),         # stablelm decode: MHA
+    (32, 32, 64, 32, [32, 173, 480], 16),       # its 32-query chunk
+], ids=["rep3_decode", "rep3_chunk", "rep3_chunk_straddles",
+        "mha64_decode", "mha64_chunk"])
+def test_paged_attention_kernel_matches_plain_at_dense_heads(
+        cuda, dtype, H, Hkv, hd, S, lengths, bs):
+    """The dense decoders' attention: phi4-mini-3.8b's 24 q heads over 8 kv
+    heads of 128 (GQA rep 3, which does not divide the 16-row q tile, so
+    a tile straddles queries unevenly) and stablelm-1.6b's 32 heads of 64
+    (MHA), at decode over shuffled chains and at 32-query chunks whose
+    windows start on and off a block boundary."""
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, n_blocks = len(lengths), -(-max(lengths) // bs)
+    num_phys = 1 + B * n_blocks
+    perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+    table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+    for b, L in enumerate(lengths):
+        nb = -(-L // bs)
+        table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(torch.int32)
+    P = num_phys * bs
+    k = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n0 = ops.paged_attention.launches
+    got = ops.paged_attention(q, k, v, table, cl, block_size=bs)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, block_size=bs)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S", [(2, 512), (1, 129)])
+def test_flash_attention_kernel_matches_plain_at_gqa_rep3(cuda, dtype, B, S):
+    """phi4-mini-3.8b's whole-prompt attention: 24 q heads over 8 kv heads
+    of 128 (rep 3), causal, a whole and a ragged last tile."""
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((B, S, 24, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, 8, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, 8, 128), generator=g, device=cuda).to(dtype)
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
 @settings(max_examples=400, deadline=None,
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(G=st.sampled_from([1, 2, 4, 8]), E=st.integers(1, 128),

@@ -17,7 +17,9 @@
   the last dimension, a chunk at or past it, hosts_per_expert 1, 2 and
   4, bf16), and its chunked and unchunked results are equal exactly.
 - On the card (``cuda``): the hosted form raises inside a CUDA graph
-  capture."""
+  capture; the serve engine's replica swap over NCCL's dense form is
+  captured once and each replay fills the replica leaves as its table
+  says."""
 import json
 import os
 import textwrap
@@ -381,5 +383,48 @@ def test_hosted_fetch_raises_inside_a_capture(tmp_path):
         with pytest.raises(RuntimeError, match="capture"):
             with torch.cuda.graph(graph):
                 comm.fetch_rows(w, fids, 0, topo)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_replica_swap_over_nccl_is_captured(tmp_path):
+    """A one-process NCCL group on the card: the serve engine's replica
+    swap over ``DistComm(fetch="dense")`` is captured at its first call,
+    and every replay fills each replica slot with the row of the expert
+    its table names (zeros for an empty slot), the rank fetching from
+    itself; nothing leaves the rank, so ``swap_bytes`` stays 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the capture is the card's")
+    import torch.distributed as dist
+    from repro_torch.core.topology import local_slot_of
+    from repro_torch.serve.placement import ReplicaSwap
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        topo = make_topology(1, 4)
+        lso = local_slot_of(topo)
+        g = torch.Generator(device=dev).manual_seed(0)
+        moe = {"router": torch.zeros((3, 8, 4), device=dev),
+               "w_in": torch.randn((3, 4, 8, 16), generator=g, device=dev),
+               "w_out": torch.randn((3, 4, 16, 8), generator=g, device=dev)}
+        moe["w_rep_in"] = torch.zeros((3, 2, 8, 16), device=dev)
+        moe["w_rep_out"] = torch.zeros((3, 2, 16, 8), device=dev)
+        comm = TD.DistComm(fetch="dense")
+        swap = ReplicaSwap({"moe": moe}, 2, dev, comm=comm, topo=topo)
+        for ids in ([[1, 3]], [[2, -1]], [[0, 2]]):
+            swap(np.zeros((2,), np.int32), np.asarray(ids, np.int32))
+            torch.cuda.synchronize()
+            for name in ("in", "out"):
+                w, rep = moe[f"w_{name}"], moe[f"w_rep_{name}"]
+                for r, e in enumerate(ids[0]):
+                    want = (w[:, int(lso[0, e])] if e >= 0
+                            else torch.zeros_like(rep[:, r]))
+                    assert torch.equal(rep[:, r], want), (ids, name, r)
+        assert swap.captures == 1
+        assert comm.swap_bytes == 0
     finally:
         dist.destroy_process_group()

@@ -627,11 +627,12 @@ def test_router_validation(build, match):
 
 def test_router_refuses_engines_across_processes():
     """A fleet of ``DistComm`` engines (lockstep on rank 0's clock) has no
-    JAX counterpart: the port's router refuses it, naming the item."""
+    JAX counterpart: the port's router refuses it, naming the
+    difference."""
     clock = VirtualClock()
     eng = _StubEngine(clock, AdmissionQueue)
     eng.dist = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    with pytest.raises(NotImplementedError, match="no lockstep fleet"):
         FleetRouter([eng])
 
 

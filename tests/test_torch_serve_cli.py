@@ -11,8 +11,9 @@ host devices, once an argv (greedy and sampled, slab and paged, at
 a ``--trace`` file, on reduced mixtral-8x7b, paged through its window
 ring, with the prefix cache, with the speculative verify step, two
 fleets: two ``prefix_affinity`` replicas with the prefix cache, and a
-disaggregated prefill/decode pair, and on reduced mamba2-2.7b and
-zamba2-7b through the slotted state store), recording each run's weights,
+disaggregated prefill/decode pair, on reduced mamba2-2.7b and zamba2-7b
+through the slotted state store, and on the dense reduced
+phi4-mini-3.8b, paged), recording each run's weights,
 streams, noise and skew draws and writing its report (``--out``).  The
 port's ``serve(args, device="cpu", params=...)`` on the converted
 weights, replaying the JAX draws by call index, must give the same
@@ -80,6 +81,8 @@ CELLS = {
                "--requests", "4"],
     "zamba2": ["--arch", "zamba2-7b", "--prefill-chunk", "4",
                "--requests", "4"],
+    # a dense decoder (GQA, tied embeddings): no MoE sections
+    "phi4_dense": ["--arch", "phi4-mini-3.8b"] + PAGED + ["--requests", "4"],
 }
 # the trace cell's records: explicit tokens and drawn prompts, all at t=0
 TRACE = [{"prompt_len": 5, "max_new_tokens": 4},
@@ -378,6 +381,9 @@ def test_cli_streams_and_report_schema_equal_jax(jax_cli, cell, monkeypatch):
     for key in ("decode_steps", "prefill_chunks", "preemptions",
                 "max_occupancy", "total_new_tokens"):
         assert rep[key] == jrep[key], key
+    if cell == "phi4_dense":
+        assert "moe" not in rep and "load_balance" not in rep
+        assert rep["state_pool"] == jrep["state_pool"]
     if cell in ("mamba2", "zamba2"):
         assert rep["state_pool"] == jrep["state_pool"]
         assert rep["state_pool"]["kind"] == "slot"
