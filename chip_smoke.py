@@ -347,7 +347,48 @@ Phases, each of which must pass (any failure exits non-zero):
      holds ``paged_attention`` at phi4-mini's and stablelm's decode and
      32-query chunk and ``flash_attention`` at phi4-mini's prefill.
      ``python3 chip_smoke.py --only-dense`` runs phase 1, those parity
-     cases and phase 15 alone, and prints no result.
+     cases and phase 15 alone, and prints no result;
+  16. gemma2-2b served at full width and depth, whisper-large-v3 and
+     pixtral-12b through ``model.prefill`` and ``decode_step``: (b)
+     gemma2-2b (26 layers of d 2,304, 8 q / 4 kv heads of 256, a window
+     of 4,096 on every other layer, softcaps 50 and 30, post-norms, the
+     gated GELU; 2.61 B parameters, 4.9 GiB of bf16 weights from seed 0)
+     with phase 15's traffic (paged: 8 prompts of 150-417 tokens, 32 new,
+     one decode step timed; slab: 4 of them), the rows held on the
+     one-shot oracle (its whole prompt plain under the softcap, as in
+     JAX); (c) the window binding, paged: 2 prompts of 4,600 in chunks of
+     512, 16 new, the local layers' leaves rings of 4,096 positions and
+     the global layers' full chains over the 5,120-position pool
+     (``ring_full_chain`` False), each stream held step by step on the
+     windowed oracle; then the weights cast to f32: (b) paged at full
+     depth and (c) on its first 4 layers; and reduced gemma2-2b in f32,
+     slab and paged (prompts past its window of 64), card streams equal
+     to the CPU's; (d) whisper-large-v3 at full width (32 encoder and 32
+     decoder layers, d 1,280, 20 heads of 64), seeded frames [2, 1500,
+     1280] and a 32-token prompt, ``prefill`` and 16 greedy
+     ``decode_step``s through the kernels (the decoder's prompt through
+     ``flash_attention``) against the plain branches (``kernels=False``)
+     fed the same tokens, bf16 then f32; (e) pixtral-12b at full width
+     and depth on phase 15's nemo weights (the parameter trees asserted
+     equal), 1,024 seeded patch embeddings before a 32-token prompt, the
+     same hold, f32 on its first 8 layers.  ``[gemma2]``,
+     ``[gemma2-slab]``, ``[gemma2-ring]``, ``[gemma2-f32]``,
+     ``[gemma2-ring-f32]``, ``[whisper-*]`` and ``[pixtral-*]`` lines.
+     Gates: ``DENSE_GATES`` on every hold, the launches (gemma2:
+     ``paged_attention`` once a layer a chunk and decode step, once a
+     global layer in (c); flash once a decoder layer a prefill in (d)
+     and (e), none in the plain branches), the dispatch (in (c)
+     ``prefill_continue`` and ``decode`` fused on the global layers,
+     ``decode_ring`` plain), the mixed rings.  Phase 2 holds
+     ``paged_attention`` at hd 256 with the softcap: gemma2's decode
+     (bf16, f32), its 32-query chunk over a 544-position scratch (bf16 on
+     the tensor cores, f32), decode over chains up to 4,096 and (c)'s
+     512-query chunk; and ``flash_attention`` at whisper's decoder prompt
+     (20 heads of 64, 32 positions) and pixtral's (32 q / 8 kv heads of
+     128, 1,056 positions), bf16 and f32 each.
+     ``python3 chip_smoke.py --only-gemma2`` runs phase
+     1, those parity cases and phase 16 alone (pixtral on nemo weights
+     drawn as phase 15 draws them), and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -1014,10 +1055,11 @@ def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
 # phase 3/4: the main path
 # ----------------------------------------------------------------------
 def small_reference_check(arch: str = "qwen15-moe-a27b", *,
-                          paged: bool = True, seed: int = 0) -> None:
-    """``arch`` reduced, in f32, served on the slab or the paged pool: the
-    card's greedy streams through the kernels equal the CPU's through the
-    plain versions."""
+                          paged: bool = True, seed: int = 0,
+                          prompt_lens=(5, 40)) -> None:
+    """``arch`` reduced, in f32, served on the slab or the paged pool, 5
+    prompts drawn in ``prompt_lens``: the card's greedy streams through
+    the kernels equal the CPU's through the plain versions."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
@@ -1025,15 +1067,17 @@ def small_reference_check(arch: str = "qwen15-moe-a27b", *,
         engine_config_for
     cfg = get_config(arch).reduced()
     rng = torch.Generator().manual_seed(seed)
-    reqs = [(int(torch.randint(5, 40, (1,), generator=rng)),) for _ in range(5)]
+    lo, hi = prompt_lens
+    reqs = [(int(torch.randint(lo, hi, (1,), generator=rng)),)
+            for _ in range(5)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy()
                for (n,) in reqs]
     streams = {}
     for dev in ("cpu", "cuda"):
-        model = build_model(cfg, batch=3, seq_len=40, device=dev)
-        params = build_model(cfg, batch=3, seq_len=40, device="cpu").init(seed)
+        model = build_model(cfg, batch=3, seq_len=hi, device=dev)
+        params = build_model(cfg, batch=3, seq_len=hi, device="cpu").init(seed)
         params = _to(params, dev)
-        ecfg = engine_config_for(cfg, max_slots=3, prompt_len=40,
+        ecfg = engine_config_for(cfg, max_slots=3, prompt_len=hi,
                                  max_new_tokens=8, prefill_chunk=16,
                                  paged=paged, kv_block_size=8)
         eng = ServeEngine(model, params, ecfg, clock=VirtualClock(0.1),
@@ -3162,21 +3206,22 @@ RING_GATES = {"float32": {"near_tie": 1e-3,
                            "logits_err_median_after_wrap": 0.25}}
 
 
-def ring_gate_failures(dtype, agreement):
-    """The ways ``oracle_agreement``'s readings miss ``RING_GATES``."""
-    g, bad = RING_GATES[dtype], []
+def gate_failures(gates, dtype, agreement):
+    """The ways ``oracle_agreement``'s readings, by stream, miss
+    ``gates[dtype]`` (``RING_GATES``, ``DENSE_GATES``)."""
+    g, bad = gates[dtype], []
     for rid, ag in agreement.items():
         if "near_tie" in g and any(d["logits_gap_rel"] > g["near_tie"]
                                    for d in ag["disagreements"]):
-            bad.append(f"request {rid}: a token leaves the oracle's beyond "
-                       f"a near tie ({g['near_tie']})")
+            bad.append(f"stream {rid}: a token leaves the reference's "
+                       f"beyond a near tie ({g['near_tie']})")
         share = ag["agree_after_wrap"] / ag["steps_after_wrap"]
         if share < g.get("agree_after_wrap", 0.0):
-            bad.append(f"request {rid}: {share:.3f} of the steps after the "
+            bad.append(f"stream {rid}: {share:.3f} of the steps after the "
                        f"wrap agree < {g['agree_after_wrap']}")
         med = ag["logits_err_median_after_wrap"]
         if med > g["logits_err_median_after_wrap"]:
-            bad.append(f"request {rid}: median logits error after the wrap "
+            bad.append(f"stream {rid}: median logits error after the wrap "
                        f"{med} > {g['logits_err_median_after_wrap']}")
     return bad
 
@@ -3230,7 +3275,8 @@ def ring_serve(mix, params, tag, *, paged):
             "kv_capacity": rep["engine"]["kv_capacity"],
             "attention_dispatch": dispatch, "launches": launches,
             "oracle": agreement,
-            "gate_failures": ring_gate_failures(mix.dtype, agreement)}
+            "gate_failures": gate_failures(RING_GATES, mix.dtype,
+                                           agreement)}
     log(f"[{tag}] {json.dumps(line)}")
     check_one_capture(tag, rep)
     if rep["n_requests"] != n or any(len(outputs[r.rid]) != new
@@ -5267,22 +5313,23 @@ def dense_kernel_parity():
     return out
 
 
-def dense_round(cfg, params, tag, reqs, *, paged, timing):
-    """One engine of phase 15 on ``params``: ``reqs`` served with every
-    entry captured, its rows held against the one-shot oracle fed its
-    tokens (whole-prompt ``prefill`` through ``flash_attention``, then
-    slab decode steps); with ``timing`` one decode step with every slot
+def dense_round(cfg, params, tag, reqs, *, paged, timing, shape=DENSE_A):
+    """One engine of phase 15 (or 16: ``shape``) on ``params``: ``reqs``
+    served with every entry captured, its rows held against the one-shot
+    oracle fed its tokens (whole-prompt ``prefill`` through
+    ``flash_attention``, or the plain attention under a softcap, then slab
+    decode steps); with ``timing`` one decode step with every slot
     decoding, traced and untraced."""
     import torch
     from repro_torch.models.model import build_model
     from repro_torch.serve import ServeEngine, engine_config_for
-    ecfg = engine_config_for(cfg, max_slots=DENSE_A["slots"],
-                             prompt_len=DENSE_A["prompt_lens"][1] - 1,
-                             max_new_tokens=DENSE_A["new_tokens"],
-                             prefill_chunk=DENSE_A["prefill_chunk"],
+    ecfg = engine_config_for(cfg, max_slots=shape["slots"],
+                             prompt_len=shape["prompt_lens"][1] - 1,
+                             max_new_tokens=shape["new_tokens"],
+                             prefill_chunk=shape["prefill_chunk"],
                              paged=paged,
-                             kv_block_size=DENSE_A["block_size"])
-    model = build_model(cfg, batch=DENSE_A["slots"],
+                             kv_block_size=shape["block_size"])
+    model = build_model(cfg, batch=shape["slots"],
                         seq_len=ecfg.max_seq_len)
     outputs, rep, launches, wall, peak, stats, rows = _serve_streams(
         model, params, ecfg, reqs)
@@ -5296,33 +5343,21 @@ def dense_round(cfg, params, tag, reqs, *, paged, timing):
     agreement = {r.rid: oracle_agreement(outputs[r.rid], oracle[r.rid],
                                          rows[r.rid], 0) for r in reqs}
     del oracle
-    bad = []
-    g = DENSE_GATES[cfg.dtype]
-    for rid, ag in agreement.items():
-        if "near_tie" in g and any(d["logits_gap_rel"] > g["near_tie"]
-                                   for d in ag["disagreements"]):
-            bad.append(f"request {rid}: a token leaves the oracle's beyond "
-                       f"a near tie")
-        if ag["agree_after_wrap"] / ag["steps_after_wrap"] \
-                < g.get("agree_after_wrap", 0.0):
-            bad.append(f"request {rid}: agreeing share below "
-                       f"{g['agree_after_wrap']}")
-        if ag["logits_err_median_after_wrap"] \
-                > g["logits_err_median_after_wrap"]:
-            bad.append(f"request {rid}: median logits error "
-                       f"{ag['logits_err_median_after_wrap']}")
+    bad = gate_failures(DENSE_GATES, cfg.dtype, agreement)
     want_entries = jit_entries(paged, 1)
     if rep["jit_entries"] != want_entries or rep["recompiled_after_warmup"]:
         bad.append(f"entries {rep['jit_entries']}, recompiled "
                    f"{rep['recompiled_after_warmup']}")
     # paged_attention once a layer a chunk and (paged) a decode step; no
-    # MoE kernel; flash only in the oracle, once a layer a prompt
+    # MoE kernel; flash only in the oracle, once a layer a prompt (none
+    # under a softcap, whose whole prompt is plain, as in JAX)
     calls = rep["prefill_chunks"] + (rep["decode_steps"] if paged else 0)
     want = {"moe_gmm": 0, "schedule": 0, "flash_attention": 0,
             "paged_attention": cfg.num_layers * calls}
     if launches != want:
         bad.append(f"launches {launches} != {want}")
-    if oracle_launches["flash_attention"] != cfg.num_layers * len(reqs):
+    flash_layers = 0 if cfg.attn_logit_softcap else cfg.num_layers
+    if oracle_launches["flash_attention"] != flash_layers * len(reqs):
         bad.append(f"oracle launches {oracle_launches}")
     out = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
            "pool": "paged" if paged else "slab", "requests": len(reqs),
@@ -5353,9 +5388,9 @@ def dense_round(cfg, params, tag, reqs, *, paged, timing):
         eng = ServeEngine(model, params, ecfg)
         eng.warmup()
         out["decode_step"] = step_timing(eng, cfg, _phase14_requests(
-            cfg, {**DENSE_A, "n_requests": DENSE_A["slots"],
-                  "prompt_lens": DENSE_A["timing_prompt_lens"]}, seed=151,
-            not_multiple=DENSE_A["prefill_chunk"]), f"{tag}_decode")
+            cfg, {**shape, "n_requests": shape["slots"],
+                  "prompt_lens": shape["timing_prompt_lens"]}, seed=151,
+            not_multiple=shape["prefill_chunk"]), f"{tag}_decode")
         del eng
     if bad:
         raise AssertionError(f"[{tag}] " + "; ".join(bad))
@@ -5363,15 +5398,18 @@ def dense_round(cfg, params, tag, reqs, *, paged, timing):
     return out
 
 
-def dense_path():
+def dense_path(on_nemo=None):
     """Phase 15: mistral-nemo-12b, phi4-mini-3.8b and stablelm-1.6b at full
     width and depth, one at a time, paged in bf16 (with a decode step's
     timing); phi4-mini also on the slab and, on the same weights cast to
-    f32, paged; then reduced f32 streams on the card against the CPU's."""
+    f32, paged; then reduced f32 streams on the card against the CPU's.
+    Returns the records by model and what ``on_nemo(params)`` returns when
+    it is called on nemo's weights before they are freed (None without
+    it)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
-    out = {}
+    out, on_nemo_rec = {}, None
     for arch, tag in DENSE_ARCHS:
         cfg = get_config(arch)
         reqs = _phase14_requests(cfg, DENSE_A, seed=145,
@@ -5407,6 +5445,8 @@ def dense_path():
             rec["f32"] = dense_round(f32, params, f"{tag}-f32", reqs32,
                                      paged=True, timing=False)
             log(f"[{tag}-f32] {json.dumps(rec['f32'])}")
+        if tag == "nemo" and on_nemo is not None:
+            on_nemo_rec = on_nemo(params)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5421,6 +5461,438 @@ def dense_path():
               "idle_share": rec["bf16"]["decode_step"]["idle_share"],
               "peak_mem_gib": rec["bf16"]["peak_mem_gib"]}
         for tag, rec in out.items()}))
+    return out, on_nemo_rec
+
+
+# ----------------------------------------------------------------------
+# phase 16: gemma2-2b served at full width and depth; whisper-large-v3 and
+# pixtral-12b through model.prefill and decode_step
+# ----------------------------------------------------------------------
+# (b): paged, 4 slots, 16-token blocks, chunk 32, 8 prompts of 150-417
+# tokens (none a multiple of the chunk), 32 new, greedy; the slab pool, 4
+# of them; (c): the window binds, paged, 2 prompts of 4,600 tokens in
+# chunks of 512 and 16 new: the local layers wrap rings of 4,096 positions,
+# the global layers keep full chains over the 5,120-position pool
+GEMMA_A = dict(slots=4, n_requests=8, prompt_lens=(150, 418), new_tokens=32,
+               prefill_chunk=32, block_size=16, slab_requests=4,
+               f32_requests=4, f32_new_tokens=16,
+               timing_prompt_lens=(96, 129))
+GEMMA_C = dict(requests=2, prompt_len=4600, chunk=512, new_tokens=16,
+               s_pad=5120)
+# (c) in f32 on the first layers only (two periods of local and global)
+GEMMA_F32_RING_LAYERS = 4
+# (d) and (e): 2 rows of a 32-token prompt (after pixtral's 1024 patches),
+# 16 decode steps; pixtral's f32 hold on its first 8 of 40 layers
+ENCDEC = dict(batch=2, prompt_len=32, new_tokens=16)
+PIXTRAL_F32_LAYERS = 8
+
+
+def gemma2_kernel_parity():
+    """Phase 2's cases at gemma2-2b's attention: 8 q / 4 kv heads of 256
+    (GQA rep 2) with the logit softcap of 50, ``paged_attention`` at hd
+    256 on both routes: decode over 4 chains of 1-544 positions in bf16
+    and f32 (the CUDA cores, 2-row tiles), a 32-query chunk over a
+    544-position slab scratch in bf16 (the tensor cores, 16-row tiles) and
+    f32, decode over chains up to 4,096 positions, and a 512-query chunk
+    over phase 16's 5,120-position scratch (its global layers' prefill
+    once the window binds).  ``library_ms`` is SDPA on the same shapes
+    without the softcap, which no single PyTorch call computes."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    cfg = get_config("gemma2-2b")
+    heads = dict(H=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                 hd=cfg.resolved_head_dim, softcap=cfg.attn_logit_softcap,
+                 time_it=True)
+    bf, f32 = torch.bfloat16, torch.float32
+    scratch, long_scratch = 544, GEMMA_C["s_pad"]
+    cases = [
+        ("gemma2_decode", bf, dict(B=4, S=1, bs=16,
+                                   lengths=[1, 129, 336, 544],
+                                   n_blocks=scratch // 16)),
+        ("gemma2_decode", f32, dict(B=4, S=1, bs=16,
+                                    lengths=[1, 129, 336, 544],
+                                    n_blocks=scratch // 16)),
+        ("gemma2_prefill_chunk", bf, dict(
+            B=1, S=32, bs=largest_block_divisor(scratch), lengths=[448],
+            n_blocks=scratch // largest_block_divisor(scratch), slab=True)),
+        ("gemma2_prefill_chunk", f32, dict(
+            B=1, S=32, bs=largest_block_divisor(scratch), lengths=[448],
+            n_blocks=scratch // largest_block_divisor(scratch), slab=True)),
+        ("gemma2_long_decode", bf, dict(B=4, S=1, bs=16,
+                                        lengths=[1, 1537, 3001, 4096],
+                                        n_blocks=4096 // 16)),
+        ("gemma2_long_prefill_chunk", bf, dict(
+            B=1, S=GEMMA_C["chunk"],
+            bs=largest_block_divisor(long_scratch),
+            lengths=[GEMMA_C["prompt_len"]],
+            n_blocks=long_scratch // largest_block_divisor(long_scratch),
+            slab=True)),
+    ]
+    out = {"paged_attention": []}
+    for seed, (label, dtype, shape) in enumerate(cases, start=160):
+        rec = paged_attention_case(label, dtype=dtype, seed=seed, **shape,
+                                   **heads)
+        rec["library_note"] = "SDPA without the softcap"
+        out["paged_attention"].append(rec)
+        log(f"[parity] paged_attention {json.dumps(rec)}")
+    return out
+
+
+def encdec_kernel_parity():
+    """Phase 2's cases at phase 16's prompts through ``flash_attention``,
+    causal, each in bf16 and in f32: whisper-large-v3's decoder prompt
+    (B 2, 20 heads of 64, MHA, 32 tokens) and pixtral-12b's (B 2, 32 q /
+    8 kv heads of 128, GQA rep 4, its 1,024 patch embeddings before 32
+    tokens: 1,056 positions)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    B, S = ENCDEC["batch"], ENCDEC["prompt_len"]
+    out = {"flash_attention": []}
+    seed = 170
+    for arch, tag in (("whisper-large-v3", "whisper"),
+                      ("pixtral-12b", "pixtral")):
+        cfg = get_config(arch)
+        Sq = S + cfg.num_prefix_embeddings
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = flash_attention_case(
+                f"{tag}_prefill", B=B, H=cfg.num_heads,
+                Hkv=cfg.num_kv_heads, Sq=Sq, Sk=Sq,
+                hd=cfg.resolved_head_dim, causal=True, dtype=dtype,
+                seed=seed)
+            seed += 1
+            out["flash_attention"].append(rec)
+            log(f"[parity] flash_attention {json.dumps(rec)}")
+    return out
+
+
+def gemma2_ring(cfg, params, tag):
+    """(c): the window binds.  Paged, 2 prompts of 4,600 tokens in chunks
+    of 512, 16 new: the 13 local layers' leaves wrap rings of 4,096
+    positions and the 13 global layers' keep full chains over the 5,120
+    positions of the pool (``ring_full_chain`` False).  A chunk's global
+    layers run ``paged_attention`` over the scratch, its local layers the
+    plain windowed attention (the window binds over the scratch); a
+    decode step's global layers the kernel, its local layers
+    ``decode_ring``.  Each stream is held step by step on
+    ``windowed_oracle`` fed its own tokens (``DENSE_GATES``)."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, engine_config_for
+    n, L, new = GEMMA_C["requests"], GEMMA_C["prompt_len"], \
+        GEMMA_C["new_tokens"]
+    ecfg = engine_config_for(cfg, max_slots=n, prompt_len=L,
+                             max_new_tokens=new, prefill_chunk=GEMMA_C["chunk"],
+                             paged=True, kv_block_size=16)
+    model = build_model(cfg, batch=n, seq_len=ecfg.max_seq_len)
+    rng = np.random.default_rng(166)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, (L,)),
+                    max_new_tokens=new) for i in range(n)]
+    outputs, rep, launches, wall, peak, stats, eng_rows = _serve_streams(
+        model, params, ecfg, reqs)
+    t0 = time.perf_counter()
+    agreement = {}
+    for r in reqs:
+        rows = windowed_oracle(cfg, params, r.tokens, outputs[r.rid])
+        agreement[r.rid] = oracle_agreement(outputs[r.rid], rows,
+                                            eng_rows[r.rid], 0)
+        del rows
+    del eng_rows
+    oracle_s = time.perf_counter() - t0
+    per = cfg.num_layers // 2                 # local layers, global layers
+    want_launch = {"moe_gmm": 0, "schedule": 0, "flash_attention": 0,
+                   "paged_attention": per * (rep["prefill_chunks"]
+                                             + rep["decode_steps"])}
+    dispatch = {b: d["fused"] for b, d in rep["attention_dispatch"].items()}
+    line = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "pool": stats["kind"], "window": cfg.sliding_window,
+            "requests": rep["n_requests"], "prompt_len": L,
+            "tokens_out": rep["total_new_tokens"],
+            "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+            "tpot_p90_s": rep["tpot"]["p90"], "wall_s": wall,
+            "oracle_s": oracle_s, "peak_mem_gib": peak,
+            "decode_steps": rep["decode_steps"],
+            "prefill_chunks": rep["prefill_chunks"], "state_pool": stats,
+            "attention_dispatch": dispatch, "launches": launches,
+            "oracle": {rid: {k: ag[k] for k in (
+                "steps", "agree", "logits_err_max", "logits_err_median")}
+                for rid, ag in agreement.items()},
+            "disagreements": {rid: ag["disagreements"][:2]
+                              for rid, ag in agreement.items()
+                              if ag["disagreements"]}}
+    log(f"[{tag}] {json.dumps(line)}")
+    bad = gate_failures(DENSE_GATES, cfg.dtype, agreement)
+    check_one_capture(tag, rep)
+    if rep["n_requests"] != n or any(len(outputs[r.rid]) != new
+                                     for r in reqs):
+        bad.append(f"not every request finished its {new} tokens")
+    if launches != want_launch:
+        bad.append(f"launches {launches} != {want_launch}")
+    if not (stats["window_ring"] and not stats["ring_full_chain"]
+            and stats["ring_tokens"] == 4096
+            and stats["blocks_per_slot"] == GEMMA_C["s_pad"] // 16):
+        bad.append(f"the mixed rings did not engage: {stats}")
+    # the last record a branch wins: a period's global layer comes last
+    want_dispatch = {"prefill_continue": True, "decode": True,
+                     "decode_ring": False}
+    if dispatch != want_dispatch:
+        bad.append(f"dispatch {dispatch} != {want_dispatch}")
+    if bad:
+        raise AssertionError(f"[{tag}] " + "; ".join(bad))
+    return line
+
+
+def gemma2_path():
+    """Phase 16 (b)-(c): gemma2-2b at full width and depth (26 layers of
+    d 2304, 8 q / 4 kv heads of 256, local and global layers, softcaps
+    50 and 30, post-norms, the gated GELU, tied 256,000-token vocabulary),
+    weights drawn from seed 0: (b) paged with phase 15's traffic (with a
+    decode step's timing) and on the slab; (c) the window binding, mixed
+    rings and chains; then the same weights cast to f32: (b) paged at full
+    depth and (c) cut to its first ``GEMMA_F32_RING_LAYERS`` layers; then
+    reduced f32 streams on the card against the CPU's, slab and paged,
+    the paged prompts past the reduced window of 64."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("gemma2-2b")
+    tag = "gemma2"
+    t0 = time.perf_counter()
+    params = build_model(cfg, batch=GEMMA_A["slots"], seq_len=8).init(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    gib = sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30
+    log(f"[{tag}] {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv "
+        f"heads of {cfg.resolved_head_dim}, window {cfg.sliding_window} on "
+        f"every other layer): {n / 1e9:.3f} B parameters, {gib:.2f} GiB of "
+        f"bf16 weights, drawn in {time.perf_counter() - t0:.1f} s")
+    reqs = _phase14_requests(cfg, GEMMA_A, seed=165,
+                             not_multiple=GEMMA_A["prefill_chunk"])
+    rec = {"params_b": n / 1e9, "weights_gib": gib}
+    rec["bf16"] = dense_round(cfg, params, tag, reqs, paged=True,
+                              timing=True, shape=GEMMA_A)
+    log(f"[{tag}] {json.dumps(rec['bf16'])}")
+    rec["bf16_slab"] = dense_round(cfg, params, f"{tag}-slab",
+                                   reqs[:GEMMA_A["slab_requests"]],
+                                   paged=False, timing=False, shape=GEMMA_A)
+    log(f"[{tag}-slab] {json.dumps(rec['bf16_slab'])}")
+    t_b = time.perf_counter()
+    rec["ring"] = gemma2_ring(cfg, params, f"{tag}-ring")
+    t_c = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cast_(params, torch.float32)
+    f32 = cfg.replace(dtype="float32")
+    reqs32 = _phase14_requests(
+        f32, {**GEMMA_A, "n_requests": GEMMA_A["f32_requests"]}, seed=165,
+        new_tokens=GEMMA_A["f32_new_tokens"],
+        not_multiple=GEMMA_A["prefill_chunk"])
+    rec["f32"] = dense_round(f32, params, f"{tag}-f32", reqs32, paged=True,
+                             timing=False, shape=GEMMA_A)
+    log(f"[{tag}-f32] {json.dumps(rec['f32'])}")
+    rec["ring_f32"] = gemma2_ring(
+        *depth_cut(f32, params, GEMMA_F32_RING_LAYERS), f"{tag}-ring-f32")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_f = time.perf_counter()
+    for paged, lens in ((False, (5, 40)), (True, (66, 100))):
+        small_reference_check(cfg.name, paged=paged, prompt_lens=lens)
+    log(f"[time] phase 16 gemma2: (b) {t_b - t0:.1f} s, (c) {t_c - t_b:.1f} "
+        f"s, f32 {t_f - t_c:.1f} s, reference {time.perf_counter() - t_f:.1f}"
+        f" s")
+    return rec
+
+
+def _encdec_run(model, params, batch, *, new_tokens, s_max, kernels,
+                forced=None):
+    """``model.prefill`` of ``batch`` (through the kernels or the plain
+    branches), then ``new_tokens`` greedy ``decode_step``s, or steps fed
+    ``forced`` [new_tokens, B]: each step's logits rows (f32) and tokens,
+    the launches and the seconds."""
+    import torch
+    V = model.cfg.vocab_size
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, pos, _ = model.prefill(params, batch, s_max=s_max,
+                                           kernels=kernels)
+    rows, toks = [logits[:, :V].float()], [logits[:, :V].argmax(-1)]
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    for i in range(new_tokens):
+        tok = toks[-1] if forced is None else forced[i]
+        logits, caches, pos, _ = model.decode_step(
+            params, tok[:, None].to(torch.int32), caches, pos)
+        rows.append(logits[:, :V].float())
+        toks.append(logits[:, :V].argmax(-1))
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(r).all()) for r in rows):
+        raise AssertionError(f"{model.cfg.name}: non-finite logits")
+    return {"rows": rows, "tokens": toks, "launches": read(),
+            "prefill_s": t_pf, "s": time.perf_counter() - t0}
+
+
+def encdec_round(cfg, params, batch, tag, *, new_tokens, s_max):
+    """``cfg`` on ``params``: prefill and ``new_tokens`` greedy decode steps
+    through the kernels (the decoder's whole prompt through
+    ``flash_attention``), then the same with the plain branches
+    (``kernels=False``) fed the kernel run's tokens; each batch row's
+    tokens and logits rows held as ``DENSE_GATES`` say.  flash runs once a
+    decoder layer in the prefill, nothing else launches a kernel."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, batch=batch["tokens"].shape[0],
+                        seq_len=batch["tokens"].shape[1])
+    k = _encdec_run(model, params, batch, new_tokens=new_tokens,
+                    s_max=s_max, kernels=True)
+    p = _encdec_run(model, params, batch, new_tokens=new_tokens,
+                    s_max=s_max, kernels=False, forced=k["tokens"])
+    B = batch["tokens"].shape[0]
+    agreement = {b: oracle_agreement(
+        [int(t[b]) for t in k["tokens"]], [r[b] for r in p["rows"]],
+        [r[b] for r in k["rows"]], 0) for b in range(B)}
+    line = {"model": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "batch": B, "prompt_tokens": batch["tokens"].shape[1],
+            "positions": int(batch["tokens"].shape[1]
+                             + cfg.num_prefix_embeddings),
+            "new_tokens": new_tokens, "prefill_s": k["prefill_s"],
+            "decode_step_s": (k["s"] - k["prefill_s"]) / new_tokens,
+            "plain_prefill_s": p["prefill_s"], "launches": k["launches"],
+            "plain_launches": p["launches"],
+            "tokens_row0": [int(t[0]) for t in k["tokens"]],
+            "agreement": {b: {x: ag[x] for x in (
+                "steps", "agree", "logits_err_max", "logits_err_median")}
+                for b, ag in agreement.items()},
+            "disagreements": {b: ag["disagreements"][:2]
+                              for b, ag in agreement.items()
+                              if ag["disagreements"]}}
+    log(f"[{tag}] {json.dumps(line)}")
+    bad = gate_failures(DENSE_GATES, cfg.dtype, agreement)
+    want = {"moe_gmm": 0, "schedule": 0, "paged_attention": 0,
+            "flash_attention": cfg.num_layers}
+    if k["launches"] != want:
+        bad.append(f"launches {k['launches']} != {want}")
+    if any(p["launches"].values()):
+        bad.append(f"the plain branches launched {p['launches']}")
+    if bad:
+        raise AssertionError(f"[{tag}] " + "; ".join(bad))
+    return line
+
+
+def whisper_path():
+    """Phase 16 (d): whisper-large-v3 at full width (32 encoder and 32
+    decoder layers of d 1280, 20 heads of 64, LayerNorm, sinusoidal
+    positions), weights drawn from seed 0: seeded frame embeddings
+    [2, 1500, 1280] and a 32-token prompt, ``prefill`` and 16
+    ``decode_step``s through the kernels against the plain branches on the
+    same weights, in bf16, then in f32 on the weights cast."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("whisper-large-v3")
+    B, S = ENCDEC["batch"], ENCDEC["prompt_len"]
+    t0 = time.perf_counter()
+    params = build_model(cfg, batch=B, seq_len=S).init(0)
+    n = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(167)
+    frames = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=g,
+                         device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    log(f"[whisper] {cfg.name} at full width ({cfg.encoder_layers} encoder "
+        f"and {cfg.num_layers} decoder layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.resolved_head_dim}): "
+        f"{n / 1e9:.3f} B parameters, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec = {"params_b": n / 1e9}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = cfg.replace(dtype=str(dtype).split(".")[-1])
+        _cast_(params, dtype)
+        batch = {"tokens": tokens, "frames": frames.to(dtype)}
+        rec[c.dtype] = encdec_round(
+            c, params, batch, f"whisper-{c.dtype}",
+            new_tokens=ENCDEC["new_tokens"],
+            s_max=S + ENCDEC["new_tokens"] + 16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def layout(tree, path=""):
+    """``{key path: (shape, dtype)}`` of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in layout(v, f"{path}/{k}").items()}
+    return {path: (tuple(tree.shape), str(tree.dtype))}
+
+
+def param_layout(cfg):
+    """``layout`` of ``cfg``'s parameter tree, from an init under
+    ``FakeTensorMode`` (no memory, no draws)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.model import build_model
+    with FakeTensorMode():
+        return layout(build_model(cfg, batch=1, seq_len=8,
+                                  device="cpu").init(0))
+
+
+def pixtral_path(nemo_params):
+    """Phase 16 (e): pixtral-12b at full width and depth on mistral-nemo-
+    12b's weights (its backbone has nemo's shapes: the two parameter
+    trees are asserted equal), seeded patch embeddings [2, 1024, 5120]
+    before a 32-token prompt, ``prefill`` and 16 ``decode_step``s through
+    the kernels against the plain branches, in bf16; then in f32 on its
+    first ``PIXTRAL_F32_LAYERS`` layers cast (a copy: the bf16 tree stays
+    nemo's)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("pixtral-12b")
+    nemo = get_config("mistral-nemo-12b")
+    mine = layout(nemo_params)
+    if mine != param_layout(cfg) or param_layout(nemo) != mine:
+        raise AssertionError("pixtral-12b's parameter tree is not "
+                             "mistral-nemo-12b's")
+    B, S = ENCDEC["batch"], ENCDEC["prompt_len"]
+    g = torch.Generator(device="cuda").manual_seed(168)
+    patches = torch.randn((B, cfg.num_prefix_embeddings, cfg.d_model),
+                          generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device="cuda", dtype=torch.int32)
+    s_max = cfg.num_prefix_embeddings + S + ENCDEC["new_tokens"] + 16
+    log(f"[pixtral] {cfg.name} at full width and depth on "
+        f"{nemo.name}'s weights (the same tree): {cfg.num_layers} layers, "
+        f"{cfg.num_prefix_embeddings} patch embeddings before {S} tokens")
+    rec = {"bfloat16": encdec_round(
+        cfg, nemo_params, {"tokens": tokens,
+                           "patches": patches.to(torch.bfloat16)},
+        "pixtral-bfloat16", new_tokens=ENCDEC["new_tokens"], s_max=s_max)}
+    c32, cut = depth_cut(cfg.replace(dtype="float32"), nemo_params,
+                         PIXTRAL_F32_LAYERS)
+    cut = _to(cut, "cuda", torch.float32)
+    rec["float32"] = encdec_round(
+        c32, cut, {"tokens": tokens, "patches": patches},
+        "pixtral-float32", new_tokens=ENCDEC["new_tokens"], s_max=s_max)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gemma2_only_path():
+    """``--only-gemma2``: phase 16 alone, pixtral on nemo weights drawn as
+    phase 15 draws them."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    out = {"gemma2": gemma2_path(), "whisper": whisper_path()}
+    nemo = get_config("mistral-nemo-12b")
+    params = build_model(nemo, batch=DENSE_A["slots"], seq_len=8).init(0)
+    out["pixtral"] = pixtral_path(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5502,6 +5974,14 @@ def main() -> int:
         dense_path()
         elapsed("phase 15")
         return 0
+    if "--only-gemma2" in sys.argv[1:]:
+        # a shorter run for work on phase 16: its parity cases and the
+        # phase itself, without the kernels line and the result line
+        gemma2_kernel_parity()
+        encdec_kernel_parity()
+        gemma2_only_path()
+        elapsed("phase 16")
+        return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
         # phase itself, without the kernels line and the result line
@@ -5519,6 +5999,10 @@ def main() -> int:
     for name, recs in tp_kernel_parity(mixtral_config()).items():
         parity[name] += recs
     for name, recs in dense_kernel_parity().items():
+        parity[name] += recs
+    for name, recs in gemma2_kernel_parity().items():
+        parity[name] += recs
+    for name, recs in encdec_kernel_parity().items():
         parity[name] += recs
 
     elapsed("phase 2")
@@ -5614,8 +6098,15 @@ def main() -> int:
     # --- phase 15: the dense decoders at full width and depth --------------
     gc.collect()
     torch.cuda.empty_cache()
-    dense = dense_path()
-    elapsed("phase 15")
+    # phase 16 (e): pixtral-12b's backbone is nemo's, run on its weights
+    dense, pixtral = dense_path(on_nemo=pixtral_path)
+    elapsed("phase 15 (+ 16 (e) on nemo's weights)")
+    # --- phase 16: gemma2-2b served; whisper-large-v3 at the model --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma2 = gemma2_path()
+    whisper = whisper_path()
+    elapsed("phase 16")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -5674,7 +6165,18 @@ def main() -> int:
                    for run in ("bf16", "bf16_slab", "f32") if run in rec},
                 **{f"oracle_{rec['bf16']['model']}_bf16":
                    rec["bf16"]["oracle_launches"][name]
-                   for rec in dense.values()}},
+                   for rec in dense.values()},
+                **{f"serve_gemma2_2b_{run}_{gemma2[run]['pool']}":
+                   gemma2[run]["launches"][name]
+                   for run in ("bf16", "bf16_slab", "f32")},
+                "ring_gemma2_2b_bf16_paged":
+                    gemma2["ring"]["launches"][name],
+                f"ring_gemma2_2b_{GEMMA_F32_RING_LAYERS}of26_f32_paged":
+                    gemma2["ring_f32"]["launches"][name],
+                **{f"prefill_decode_{rec['model']}_{dt}":
+                   rec["launches"][name]
+                   for rec_by in (whisper, pixtral)
+                   for dt, rec in rec_by.items() if dt != "params_b"}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -5684,7 +6186,8 @@ def main() -> int:
             "cases": [{k: r.get(k) for k in ("case", "dtype", "max_abs_err",
                                              "ms", "event_ms", "plain_ms",
                                              "bound_ms", "bound_by",
-                                             "library_ms", "splits", "ctas")}
+                                             "library_ms", "library_note",
+                                             "splits", "ctas")}
                       for r in parity[name]],
         })
     log(f"[capture] {len(captures)} configurations: captured streams "

@@ -24,7 +24,12 @@ slice out as rows of its own (``tp_rows``): ``[G * E, d, f / G]`` for
 expert rows and the kernel reads dense tensors.  ``tp_params`` applies it
 to a converted tree.  Mamba leaves and the hybrid's ``groups`` /
 ``shared`` / ``tail`` tree keep JAX's layout, and ``MambaState`` caches
-become the port's.
+become the port's.  So do gemma2's ``post_norm1`` / ``post_norm2`` leaves
+and its two-layer period (``blocks/sub0`` local, ``blocks/sub1``
+global), whisper's encoder (``encoder/stack/blocks/sub0`` and
+``encoder/final_norm``) and its stacked cross-attention leaves
+(``cross/norm``, ``cross/attn/wq|wk|wv|wo``, a leading decoder-layer
+axis), and its cache's ``cross`` K/V.
 """
 from __future__ import annotations
 

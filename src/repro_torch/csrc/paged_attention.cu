@@ -51,6 +51,12 @@
 //     every stage, P from registers); everything else, decode (a GEMV) and
 //     every f32 tile, on the CUDA cores, each 16-byte chunk of a position
 //     dotted by one lane and summed over the lanes that hold the row.
+//   * Head dims 32, 64, 128 and 256.  At hd 256 a position's vector can be
+//     wider than a warp's 32 16-byte chunks (64 chunks in f32): each lane
+//     then holds two chunks, c and c + 32, and a warp one position at a
+//     time.  On the tensor cores, hd 256 keeps O (128 f32 a thread) in
+//     registers and reads Q's fragments from shared memory at every stage
+//     instead of holding them too (64 more registers would spill).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -294,17 +300,27 @@ __device__ void finish(const Args& a, const Tile& t, float* st) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores: decode (GEMV) and every f32 tile.  A lane group of CH lanes
-// holds one position's vector, lane c its 16-byte chunk c; a warp holds
-// NPW = 32 / CH positions at a time and walks J = 4 of them a stage, so a
-// stage is KC = 16 NPW positions (16 KB of K and V in every dtype and hd).
-// Each lane group keeps its own online softmax over its positions; the
-// groups, then the warps, are merged at the end.
+// CUDA cores: decode (GEMV) and every f32 tile.  A position's vector is CH
+// 16-byte chunks; a lane group of LPP = min(CH, 32) lanes holds it, lane c
+// its chunks c + i LPP (i < CPL = CH / LPP: two at hd 256 in f32, else
+// one).  A warp holds NPW = 32 / LPP positions at a time and walks J = 4 of
+// them a stage, so a stage is KC = 16 NPW positions (16 KB of K and V, 32
+// KB at hd 256 in f32).  Each lane group keeps its own online softmax over
+// its positions; the groups, then the warps, are merged at the end.
 // ---------------------------------------------------------------------------
+template <typename T, int HD>
+struct CudaCoreShape {
+  static constexpr int VEC = 16 / sizeof(T), CH = HD / VEC, LPP = CH < 32 ? CH : 32,
+                       CPL = CH / LPP, NPW = 32 / LPP, J = 4, KC = WARPS * NPW * J,
+                       STAGES = 4;
+  static_assert(CH % LPP == 0 && 32 % LPP == 0, "a position's chunks split over its lanes");
+};
+
 template <typename T, int HD, int QT>
 __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
-  constexpr int VEC = 16 / sizeof(T), CH = HD / VEC, NPW = 32 / CH, J = 4;
-  constexpr int KC = WARPS * NPW * J, STAGES = 4, PER = KC * CH / THREADS;
+  using Sh = CudaCoreShape<T, HD>;
+  constexpr int VEC = Sh::VEC, CH = Sh::CH, LPP = Sh::LPP, CPL = Sh::CPL, NPW = Sh::NPW;
+  constexpr int J = Sh::J, KC = Sh::KC, STAGES = Sh::STAGES, PER = KC * CH / THREADS;
   extern __shared__ __align__(16) unsigned char smem_cc[];
   unsigned char* smem = smem_cc;
   T* ks = reinterpret_cast<T*>(smem);
@@ -314,46 +330,52 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
   const T* vp = static_cast<const T*>(a.vp);
   const Tile t = tile_of(a, QT);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int pg = lane / CH, c = lane % CH;
+  const int pg = lane / LPP, c = lane % LPP;
 
-  float qf[QT][VEC];
+  float qf[QT][CPL][VEC];
 #pragma unroll
   for (int r = 0; r < QT; ++r) {
-    if (r < t.nrows) {
-      load16(q + q_offset(a, t, t.row0 + r, HD) + c * VEC, qf[r]);
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) qf[r][v] *= a.scale;
-    } else {
+    for (int i = 0; i < CPL; ++i) {
+      if (r < t.nrows) {
+        load16(q + q_offset(a, t, t.row0 + r, HD) + (c + i * LPP) * VEC, qf[r][i]);
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) qf[r][v] = 0.f;
+        for (int v = 0; v < VEC; ++v) qf[r][i][v] *= a.scale;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) qf[r][i][v] = 0.f;
+      }
     }
   }
   const int nst = t.end > t.lo ? (t.end - t.lo + KC - 1) / KC : 0;
   auto load_stage = [&](int k) {
     const int slot = k % STAGES, base = t.lo + k * KC;
+    const int ch = threadIdx.x % CH;  // the chunk this thread copies
     size_t off[PER];  // every block-table read in flight before any copy
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int p = base + threadIdx.x / CH + i * (THREADS / CH);
-      off[i] = p < t.end ? kv_offset(a, t, p, HD) + c * VEC : 0;
+      const int p = base + (threadIdx.x + i * THREADS) / CH;
+      off[i] = p < t.end ? kv_offset(a, t, p, HD) + ch * VEC : 0;
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int pp = threadIdx.x / CH + i * (THREADS / CH);
+      const int pp = (threadIdx.x + i * THREADS) / CH;
       const bool ok = base + pp < t.end;
-      const size_t dst = ((size_t)slot * KC + pp) * HD + c * VEC;
+      const size_t dst = ((size_t)slot * KC + pp) * HD + ch * VEC;
       cp_async16(smem_addr(ks + dst), kp + off[i], ok);
       cp_async16(smem_addr(vs + dst), vp + off[i], ok);
     }
   };
 
-  float m[QT], l[QT], acc[QT][VEC];
+  float m[QT], l[QT], acc[QT][CPL][VEC];
 #pragma unroll
   for (int r = 0; r < QT; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+    for (int i = 0; i < CPL; ++i)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[r][i][v] = 0.f;
   }
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
@@ -371,15 +393,19 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int pp = warp * NPW * J + j * NPW + pg, p = base + pp;
-      float kf[VEC];
-      load16(ks + ((size_t)slot * KC + pp) * HD + c * VEC, kf);
+      float kf[CPL][VEC];
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        load16(ks + ((size_t)slot * KC + pp) * HD + (c + i * LPP) * VEC, kf[i]);
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
         float x = 0.f;
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) x = fmaf(qf[r][v], kf[v], x);
+        for (int i = 0; i < CPL; ++i)
 #pragma unroll
-        for (int o = CH / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+          for (int v = 0; v < VEC; ++v) x = fmaf(qf[r][i][v], kf[i][v], x);
+#pragma unroll
+        for (int o = LPP / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
         s[j][r] = visible(a, t, r, p) ? capped(x, a.softcap) : NEG_INF;
       }
     }
@@ -392,29 +418,35 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
       m[r] = m_new;
       l[r] *= corr;
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[r][v] *= corr;
+      for (int i = 0; i < CPL; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[r][i][v] *= corr;
     }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int pp = warp * NPW * J + j * NPW + pg, p = base + pp;
-      float vf[VEC];
-      load16(vs + ((size_t)slot * KC + pp) * HD + c * VEC, vf);
+      float vf[CPL][VEC];
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        load16(vs + ((size_t)slot * KC + pp) * HD + (c + i * LPP) * VEC, vf[i]);
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
         const float pe = visible(a, t, r, p) ? expf(s[j][r] - m[r]) : 0.f;
         l[r] += pe;
         const float pr = rounded<T>(pe);
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(pr, vf[v], acc[r][v]);
+        for (int i = 0; i < CPL; ++i)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][i][v] = fmaf(pr, vf[i][v], acc[r][i][v]);
       }
     }
   }
   hopper::cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the per-warp states below
 
-  // merge the lane groups of the warp (same chunk c, other positions)
+  // merge the lane groups of the warp (same chunks, other positions)
 #pragma unroll
-  for (int o = CH; o < 32; o <<= 1) {
+  for (int o = LPP; o < 32; o <<= 1) {
 #pragma unroll
     for (int r = 0; r < QT; ++r) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
@@ -422,8 +454,10 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
       const float M = fmaxf(m[r], mo), ca = expf(m[r] - M), cb = expf(mo - M);
       l[r] = ca * l[r] + cb * lo;
 #pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        acc[r][v] = ca * acc[r][v] + cb * __shfl_xor_sync(0xffffffffu, acc[r][v], o);
+      for (int i = 0; i < CPL; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[r][i][v] = ca * acc[r][i][v] + cb * __shfl_xor_sync(0xffffffffu, acc[r][i][v], o);
       m[r] = M;
     }
   }
@@ -435,7 +469,10 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
 #pragma unroll
     for (int r = 0; r < QT; ++r) {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) wacc[(warp * QT + r) * HD + c * VEC + v] = acc[r][v];
+      for (int i = 0; i < CPL; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          wacc[(warp * QT + r) * HD + (c + i * LPP) * VEC + v] = acc[r][i][v];
       if (c == 0) {
         wm[warp * QT + r] = m[r];
         wl[warp * QT + r] = l[r];
@@ -495,7 +532,10 @@ __global__ void __launch_bounds__(THREADS) pa_tensor_cores(const Args a) {
     }
   };
 
-  uint32_t qa[HD / 16][4];
+  // Q's fragments: held in registers for the whole span up to hd 128; at
+  // hd 256 read from shared memory at every stage (O takes the registers)
+  constexpr bool Q_REGS = HD <= 128;
+  uint32_t qa[Q_REGS ? HD / 16 : 1][4];
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[HD / 8][4];
 #pragma unroll
@@ -513,26 +553,41 @@ __global__ void __launch_bounds__(THREADS) pa_tensor_cores(const Args a) {
     __syncthreads();
     if (k + STAGES - 1 < nst) load_stage(k + STAGES - 1);
     hopper::cp_async_commit();
-    if (k == 0) {
+    if constexpr (Q_REGS) {
+      if (k == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        hopper::ldmatrix_x4(qa[kk], qs + hopper::sw128(lane % 16, kk * 16 + (lane / 16) * 8, QT));
+        for (int kk = 0; kk < HD / 16; ++kk)
+          hopper::ldmatrix_x4(qa[kk], qs + hopper::sw128(lane % 16, kk * 16 + (lane / 16) * 8, QT));
+      }
     }
     const int base = t.lo + k * KC + warp * 16;
     if (base >= t.end) continue;  // warp-uniform: no live position
     const uint32_t kst = ks0 + (k % STAGES) * KV_BYTES, vst = vs0 + (k % STAGES) * KV_BYTES;
     float s[2][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int k2 = 0; k2 < HD / 32; ++k2) {
+    for (int k2 = 0; k2 < HD / 32; ++k2) {
+      uint32_t qk[2][4];  // Q's fragments of columns 32 k2 .. 32 k2 + 31
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qk[h][e] = qa[2 * k2 + h][e];
+        } else {
+          hopper::ldmatrix_x4(
+              qk[h], qs + hopper::sw128(lane % 16, (2 * k2 + h) * 16 + (lane / 16) * 8, QT));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
         uint32_t b[4];
         hopper::ldmatrix_x4(
             b, kst + hopper::sw128(warp * 16 + j * 8 + lane % 8, k2 * 32 + (lane / 8) * 8, KC));
-        hopper::mma_16816(s[j], qa[2 * k2], b[0], b[1]);
-        hopper::mma_16816(s[j], qa[2 * k2 + 1], b[2], b[3]);
+        hopper::mma_16816(s[j], qk[0], b[0], b[1]);
+        hopper::mma_16816(s[j], qk[1], b[2], b[3]);
       }
     }
     float pe[2][4];
@@ -611,12 +666,14 @@ __global__ void __launch_bounds__(THREADS) pa_tensor_cores(const Args a) {
   finish<T, QT, HD>(a, t, st);
 }
 
-// 4 stages of K and V, KC = 16 * (32 / CH) positions of HD elements each
+// the ring of K and V stages, KC positions of HD elements each
 template <typename T, int HD>
 constexpr int cuda_core_smem() {
-  return 4 * 2 * (16 * (32 / (HD * (int)sizeof(T) / 16))) * HD * (int)sizeof(T);
+  using Sh = CudaCoreShape<T, HD>;
+  return Sh::STAGES * 2 * Sh::KC * HD * (int)sizeof(T);
 }
 // the q tile and 3 stages of K and V, 64 positions, in the swizzled layout
+// (204,800 bytes at hd 256: one CTA an SM)
 template <int HD>
 constexpr int tensor_core_smem() {
   return (16 + 2 * 3 * 64) * 128 * ((HD + 63) / 64);
@@ -654,6 +711,7 @@ int launch_cuda_cores(int hd, int qt, dim3 grid, cudaStream_t s, const Args& a) 
     case 32: return launch_cuda_cores<T, 32>(qt, grid, s, a);
     case 64: return launch_cuda_cores<T, 64>(qt, grid, s, a);
     case 128: return launch_cuda_cores<T, 128>(qt, grid, s, a);
+    case 256: return launch_cuda_cores<T, 256>(qt, grid, s, a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -663,7 +721,7 @@ int launch_cuda_cores(int hd, int qt, dim3 grid, cudaStream_t s, const Args& a) 
 // dtype: 0 float32, 1 bfloat16.  tensor_cores: 1 for a bf16 q tile of 16
 // rows (qt must be 16), 0 for the CUDA cores (qt 1, 2, 4 or 8).  The grid
 // is (n_tiles * n_splits, Hkv, B); ws and tickets are read only when
-// n_splits > 1.  The Python wrapper checks hd in {32, 64, 128}, H % Hkv,
+// n_splits > 1.  The Python wrapper checks hd in {32, 64, 128, 256}, H % Hkv,
 // contiguity, 16-byte alignment and int32 tables.
 extern "C" int paged_attention_launch(int dtype, int tensor_cores, int qt, const void* q,
                                       const void* k_pool, const void* v_pool,
@@ -684,6 +742,7 @@ extern "C" int paged_attention_launch(int dtype, int tensor_cores, int qt, const
       case 32: return launch<pa_tensor_cores<32>, tensor_core_smem<32>()>(grid, s, a);
       case 64: return launch<pa_tensor_cores<64>, tensor_core_smem<64>()>(grid, s, a);
       case 128: return launch<pa_tensor_cores<128>, tensor_core_smem<128>()>(grid, s, a);
+      case 256: return launch<pa_tensor_cores<256>, tensor_core_smem<256>()>(grid, s, a);
     }
     return (int)cudaErrorInvalidValue;
   }

@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 H100_SMS = 132
 TC_ROWS = 16          # q rows of a tensor-core tile (mma.sync m16n8k16)
 TC_STAGE = 64         # positions of a tensor-core stage
@@ -64,9 +64,10 @@ def launch_plan(B: int, S: int, H: int, Hkv: int, hd: int,
     """The kernel's route and grid for these shapes.  bf16 tiles of at
     least 16 rows (S * rep) take the tensor cores; decode and every f32
     tile the CUDA cores, with tiles of 1, 2, 4 or 8 rows.  A CUDA-core
-    stage holds 16 KB of K and V (16 * 32 / (hd * size / 16) positions)
-    and a span at least two of them, so that its ring overlaps a copy with
-    a stage's math (spans of one stage ran slower on serve decode: more
+    stage holds 16 * max(1, 32 / (hd * size / 16)) positions (16 KB of K
+    and V; 32 KB at hd 256 in f32, whose positions take a warp each) and
+    a span at least two of them, so that its ring overlaps a copy with a
+    stage's math (spans of one stage ran slower on serve decode: more
     blocks, nothing overlapped); a tensor-core stage is 64 positions and a
     span at least one."""
     rows = S * (H // Hkv)
@@ -75,8 +76,8 @@ def launch_plan(B: int, S: int, H: int, Hkv: int, hd: int,
         qt, min_span = TC_ROWS, TC_STAGE
     else:
         qt = min(8, 1 << (rows - 1).bit_length())
-        min_span = 2 * 16 * (32 // (hd * (torch.finfo(dtype).bits // 8)
-                                    // 16))
+        chunks = hd * (torch.finfo(dtype).bits // 8) // 16
+        min_span = 2 * 16 * max(1, 32 // chunks)
     n_tiles = -(-rows // qt)
     n_splits, span = split_plan(n_blocks * block_size, B * Hkv * n_tiles,
                                 min_span, sms)

@@ -74,8 +74,9 @@ gives what ran (True on the card, False on the CPU, where the plain
 versions run); a window ring refuses ``--fused-attention``,
 ``--prefix-sharing``, ``--speculative-k`` and ``--disaggregate`` as the
 JAX engine does.  Refused with ``NotImplementedError``: any arch outside
-the port's registry (gemma2-2b, pixtral-12b, whisper-large-v3: ROADMAP
-item 9), and a fleet under a launcher, which the JAX package has no
+the port's registry; whisper-large-v3 and pixtral-12b, with the serve
+engine's refusal (JAX's words, the flag named), before any weights are
+drawn; and a fleet under a launcher, which the JAX package has no
 lockstep counterpart of (a deliberate difference); ``--data-par > 1``
 raises as in JAX.
 
@@ -110,6 +111,7 @@ from repro_torch.serve import (ROUTING_POLICIES, EngineConfig, FleetRouter,
                                ServeEngine, WallClock, engine_config_for,
                                load_trace, poisson_requests)
 from repro_torch.serve import stepcore
+from repro_torch.serve.engine import check_servable
 from repro_torch.serve.stepcore import kernel_launches
 
 # One row per EngineConfig knob: the flag and the field it sets; argparse
@@ -208,8 +210,7 @@ def check_ported(args) -> None:
     if args.arch not in REGISTRY:
         raise NotImplementedError(
             f"--arch {args.arch}: not in the port's registry "
-            f"{sorted(REGISTRY)}; the other models come with ROADMAP "
-            f"item 9")
+            f"{sorted(REGISTRY)}")
     if args.data_par > 1:
         raise NotImplementedError(
             "the serving engine shards the model/expert axis only; "
@@ -221,6 +222,11 @@ def config_from_args(args):
     refused what the port does not serve yet."""
     check_ported(args)
     cfg = get_config(args.arch)
+    try:
+        # the engine's own refusal, before any weights are drawn
+        check_servable(cfg)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"--arch {args.arch}: {e}") from None
     if args.reduced:
         cfg = cfg.reduced()
     if getattr(args, "sliding_window", -1) >= 0:

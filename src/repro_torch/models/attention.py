@@ -1,5 +1,6 @@
-"""Attention: MHA/GQA with RoPE and a sliding window, through the
-hand-written kernels.
+"""Attention: MHA/GQA with RoPE or absolute positions, a sliding window
+(on every layer, or on the local layers of a local/global model), a logit
+softcap, causal or full, through the hand-written kernels.
 
 Port of ``repro/models/attention.py``: the projections and RoPE, the plain
 ``chunked_attention`` (the JAX package's prefill reference),
@@ -24,9 +25,12 @@ Port of ``repro/models/attention.py``: the projections and RoPE, the plain
   read by the plain ``paged_ring_decode_attention`` (``decode_ring``,
   single-query only).
 * ``prefill_cache`` (S > 1 on a slab cache): a whole prompt attends over
-  itself through the flash kernel (``chunked_attention`` under a window),
-  then its K/V fill the cache prefix [0, S); a window-clamped slab keeps
-  the window's tail at its ring slots p % S_max.
+  itself through the flash kernel (``chunked_attention`` under a window or
+  a softcap, as in JAX), then its K/V fill the cache prefix [0, S); a
+  window-clamped slab keeps the window's tail at its ring slots p % S_max.
+* ``prefill`` (no cache: whisper's encoder, or ``kv_source``): attention
+  over the inputs alone, full (non-causal) attention plain, as in JAX;
+  ``cross_attention`` is the decoder's over the encoder's cached K/V.
 * ``decode_slab`` (S = 1 on a slab cache): the new K/V land at
   ``cache_len - 1`` (a scalar or one position per row), or at
   ``(cache_len - 1) % S_max`` on a window-clamped slab (the slab ring),
@@ -228,11 +232,14 @@ def paged_ring_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                    cfg: ModelConfig, *, q_offset, cache: AttnCache,
+                    cfg: ModelConfig, *, q_offset, cache: Optional[AttnCache],
                     cache_len=None, continue_prefill: bool = False,
                     block_table: Optional[torch.Tensor] = None,
                     block_size: int = 0, strict: bool = False,
-                    kernels: bool = True) -> Tuple[torch.Tensor, AttnCache]:
+                    kernels: bool = True, is_global: bool = True,
+                    causal: bool = True,
+                    kv_source: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[AttnCache]]:
     """Projections + RoPE + attention + out-projection.  ``q_offset`` is an
     int or a 0-d tensor (prefill, slab decode) or a per-row [B] tensor
     (paged or slab decode).  ``strict`` makes a branch without a kernel
@@ -240,24 +247,49 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     branches on every device (the slab ones only: ``chunked_attention``
     for a chunk or a whole prompt, ``decode_attention`` for a step), as
     JAX's ``attention_block`` with ``use_pallas=False``, and logs JAX's
-    reasons."""
+    reasons.
+
+    The layer's window is ``cfg.sliding_window``, or 0 on a global layer
+    of a model with local and global layers (``is_global``, gemma2): every
+    branch reads it.  ``causal`` False is full attention (whisper's
+    encoder), which no kernel branch takes, as in JAX.  Without a cache
+    (``cache`` None: the encoder) x attends over itself, or over
+    ``kv_source`` [B, Sk, d] (cross-attention, keys without RoPE), and
+    nothing is stored.  ``rope_theta <= 0`` (whisper's absolute positions)
+    applies no RoPE."""
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
-    window = cfg.sliding_window
+    window = 0 if (is_global and cfg.global_attn_every) else cfg.sliding_window
+    kv_in = x if kv_source is None else kv_source
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"])
     ar = torch.arange(S, device=x.device)
-    off = (q_offset.reshape(-1, 1)
-           if torch.is_tensor(q_offset) and q_offset.ndim else q_offset)
-    q = apply_rope(q, off + ar, cfg.rope_theta)
-    k = apply_rope(k, off + ar, cfg.rope_theta)
+    if cfg.rope_theta > 0 and kv_source is None:
+        off = (q_offset.reshape(-1, 1)
+               if torch.is_tensor(q_offset) and q_offset.ndim else q_offset)
+        q = apply_rope(q, off + ar, cfg.rope_theta)
+        k = apply_rope(k, off + ar, cfg.rope_theta)
     fused = x.device.type == "cuda"
     if not kernels and block_table is not None:
         raise NotImplementedError("the plain attention branches are the "
                                   "slab's: paged decode runs the kernel")
 
-    if continue_prefill and block_table is None:
+    if cache is None:
+        # no cache (the encoder, cross-attention): the flash kernel's
+        # guards are causal, no window and no softcap, as in JAX
+        if kernels and causal and window == 0 and softcap == 0.0:
+            _record_dispatch("prefill", fused=fused)
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            _record_dispatch(
+                "prefill", fused=False, has_kernel=False, strict=strict,
+                kernels=kernels,
+                reason=(f"flash kernel guards failed (causal={causal}, "
+                        f"window={window}, softcap={softcap})"))
+            out = chunked_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset)
+    elif continue_prefill and block_table is None:
         # the chunk's start stays on the device (a host int would be baked
         # into a captured step): the writes go to start + [0, S)
         S_max = cache.k.shape[1]
@@ -265,7 +297,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         at = start.long() + ar
         cache.k.index_copy_(1, at, k.to(cache.k.dtype))
         cache.v.index_copy_(1, at, v.to(cache.v.dtype))
-        if kernels and (window == 0 or window >= S_max):
+        if kernels and causal and (window == 0 or window >= S_max):
             bs_slab = largest_block_divisor(S_max)
             nb = S_max // bs_slab
             Hkv, hd = cache.k.shape[2], cache.k.shape[3]
@@ -282,8 +314,9 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
             _record_dispatch(
                 "prefill_continue", fused=False, has_kernel=False,
                 strict=strict, kernels=kernels,
-                reason=f"binding sliding window {window} < slab {S_max}")
-            out = chunked_attention(q, cache.k, cache.v, causal=True,
+                reason=("non-causal attention" if not causal else
+                        f"binding sliding window {window} < slab {S_max}"))
+            out = chunked_attention(q, cache.k, cache.v, causal=causal,
                                     window=window, softcap=softcap,
                                     q_offset=start)
     elif block_table is not None:
@@ -319,16 +352,16 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     elif S > 1:
         # whole prompt: the flash kernel's guards are causal, no window and
         # no softcap; otherwise the chunked reference
-        if kernels and window == 0 and softcap == 0.0:
+        if kernels and causal and window == 0 and softcap == 0.0:
             _record_dispatch("prefill_cache", fused=fused)
             out = flash_attention(q, k, v, causal=True)
         else:
             _record_dispatch(
                 "prefill_cache", fused=False, has_kernel=False,
                 strict=strict, kernels=kernels,
-                reason=(f"flash kernel guards failed (causal=True, "
+                reason=(f"flash kernel guards failed (causal={causal}, "
                         f"window={window}, softcap={softcap})"))
-            out = chunked_attention(q, k, v, causal=True, window=window,
+            out = chunked_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
         S_max = cache.k.shape[1]
         if S >= S_max and 0 < window and S_max <= window:
@@ -346,11 +379,17 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
         # (cache_len - 1) % S_max overwrites the expired position
         S_max = cache.k.shape[1]
         ring = 0 < window and S_max <= window
-        cl = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        cl = torch.as_tensor(cache_len, device=x.device)
+        scalar = cl.ndim == 0
+        cl = cl.reshape(-1)
         rows = torch.arange(B, device=x.device)
         at = (cl.long() - 1).expand(B)
         if ring:
             at = at % S_max
+        elif scalar:
+            # one length for every row: JAX's dynamic_update_slice, which
+            # clamps a write past the slab onto its last position
+            at = at.clamp(max=S_max - 1)
         cache.k[rows, at] = k[:, 0].to(cache.k.dtype)
         cache.v[rows, at] = v[:, 0].to(cache.v.dtype)
         _record_dispatch(
@@ -362,3 +401,14 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                                window=0 if ring else window, softcap=softcap)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def cross_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                    kv: AttnCache) -> torch.Tensor:
+    """Whisper's decoder cross-attention: x [B, S, d] attends over the
+    encoder's precomputed K/V [B, S_enc, Hkv, hd] (``kv``), full and
+    without RoPE, through the plain ``chunked_attention``, as JAX's
+    ``_run_encdec_decoder`` computes it."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    out = chunked_attention(q, kv.k, kv.v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])

@@ -1,8 +1,11 @@
-"""Shared building blocks: RMSNorm and LayerNorm, RoPE, and the MLP of
-dense layers and shared experts (port of ``repro/models/layers.py``)."""
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE, whisper's
+sinusoidal positions, and the MLP of dense layers and shared experts
+(port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 from typing import Dict
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -66,15 +69,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings [seq_len, d] in f32:
+    sines then cosines of ``pos * exp(-i ln(10000) / (d // 2 - 1))`` for
+    even i < d, the JAX function's divisor kept as it is."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / (d // 2 - 1)))
+    ang = pos * div[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+
+
 def mlp(x: torch.Tensor, p: Dict[str, torch.Tensor],
         act: str) -> torch.Tensor:
     """The MLP of a dense layer or of the shared experts: SwiGLU
-    (``w_gate``, ``w_in``, ``w_out``) or, for ``gelu_mlp``, tanh-GELU
-    between two products (``jax.nn.gelu``'s default).  Plain
-    ``torch.matmul`` products, as the JAX package leaves them to XLA."""
+    (``w_gate``, ``w_in``, ``w_out``), gemma2's gated GELU (``gelu``:
+    ``gelu(x @ w_gate) * (x @ w_in)``) or, for ``gelu_mlp``, GELU between
+    two products; GELU is the tanh form (``jax.nn.gelu``'s default).
+    Plain ``torch.matmul`` products, as the JAX package leaves them to
+    XLA."""
     h = x @ p["w_in"]
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
+    elif act == "gelu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
     elif act == "gelu_mlp":
         h = F.gelu(h, approximate="tanh")
     else:

@@ -6,13 +6,20 @@ moonshot-v1-16b-a3b), or periods of dense and MoE layers with SwiGLU or
 GELU MLPs (switch128), with full or sliding-window attention
 (mixtral-8x7b); for dense decoders, one attention and MLP layer a
 period (mistral-nemo-12b, phi4-mini-3.8b with tied embeddings,
-stablelm-1.6b with LayerNorm); and for the SSM (mamba2-2.7b, tied
+stablelm-1.6b with LayerNorm), or gemma2-2b's periods of a local
+(windowed) and a global layer, with logit softcaps, post-norms, the gated
+GELU and its embedding scale; for the SSM (mamba2-2.7b, tied
 embeddings) and hybrid (zamba2-7b: mamba groups around one shared
 attention block) families, whose caches hold fixed-size recurrent state
-(``transformer.run_hybrid``, ``models/mamba2.py``).  The returned
-``Model`` exposes:
+(``transformer.run_hybrid``, ``models/mamba2.py``); and, through
+``prefill`` and ``decode_step`` only (the serve engine refuses them, as
+JAX's does), whisper-large-v3's encoder-decoder (stubbed frame
+embeddings, absolute sinusoidal positions, cross-attention over the
+encoder's cached K/V) and pixtral-12b (stubbed patch embeddings before
+the tokens).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
-  prefill(params, batch, s_max, skew_key)      -> (logits, caches, S, diags)
+  prefill(params, batch, s_max, skew_key, kernels)
+                                               -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
                 skew_assign, moe_replica_ids, fused_attention)
                                                -> (logits, caches, pos + C, diags)
@@ -20,6 +27,7 @@ attention block) families, whose caches hold fixed-size recurrent state
               block_size, moe_policy, skew_assign, moe_replica_ids,
               moe_residency_ids, moe_layer_diags, fused_attention)
                                                -> (logits, caches, pos + S, diags)
+  encode(params, frames)                       -> whisper's encoder output
   init_cache(batch, s_max, device, clamp_window)
                                                -> slab K/V caches
   init_paged_cache(num_blocks, block_size, s_ref, seq_axes, clamp_window)
@@ -52,8 +60,10 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.dispatch import DistComm, LocalComm, VirtualGroup
 from repro_torch.core.moe_layer import MoEBlockSpec
 from repro_torch.core.router import SkewKey
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import init_norm, norm
+from repro_torch.models.layers import (init_norm, mlp, norm,
+                                       sinusoidal_positions)
 from repro_torch.models.mamba2 import init_mamba
 from repro_torch.models.losses import logits_head
 
@@ -90,6 +100,7 @@ class Model:
     moe_spec: Optional[MoEBlockSpec]         # prefill chunks (None: no MoE)
     moe_spec_decode: Optional[MoEBlockSpec]  # decode steps
     comm: Any = None                # the MoE blocks' EP group
+    seq_len: int = 0                # build-time length (whisper's positions)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -130,24 +141,31 @@ class Model:
             return {"mamba": init_mamba(cfg, nrm, full, n),
                     "norm1": norm_p(n)}
 
+        def attn_w(n=()):
+            return {"wq": nrm(n + (d, H, hd), s_d),
+                    "wk": nrm(n + (d, Hkv, hd), s_d),
+                    "wv": nrm(n + (d, Hkv, hd), s_d),
+                    "wo": nrm(n + (H, hd, d), s_d)}
+
         def attn_layer(n=()):
-            return {"norm1": norm_p(n), "norm2": norm_p(n),
-                    "attn": {"wq": nrm(n + (d, H, hd), s_d),
-                             "wk": nrm(n + (d, Hkv, hd), s_d),
-                             "wv": nrm(n + (d, Hkv, hd), s_d),
-                             "wo": nrm(n + (H, hd, d), s_d)}}
+            p = {"norm1": norm_p(n), "norm2": norm_p(n), "attn": attn_w(n)}
+            if cfg.post_norm:             # gemma2's norms after each block
+                p["post_norm1"] = norm_p(n)
+                p["post_norm2"] = norm_p(n)
+            return p
 
         def ffn(n, f):
-            """A dense MLP of ``cfg.act``: SwiGLU carries a gate."""
+            """A dense MLP of ``cfg.act``: SwiGLU and the gated GELU carry
+            a gate."""
             p = {"w_in": nrm(n + (d, f), s_d),
                  "w_out": nrm(n + (f, d), (2.0 / f) ** 0.5)}
-            if cfg.act == "swiglu":
+            if cfg.act in ("swiglu", "gelu"):
                 p["w_gate"] = nrm(n + (d, f), s_d)
             return p
 
-        def layer(kind):
+        def layer(kind, n=n):
             p: Dict[str, Any] = attn_layer((n,))
-            if kind == "dense":
+            if kind != "moe":
                 p["mlp"] = ffn((n,), cfg.d_ff)
                 return p
             if self.moe_spec.tp_mode:
@@ -227,6 +245,13 @@ class Model:
                 for _ in range(lead)]
         if not cfg.tie_embeddings:
             params["lm_head"] = nrm((Vp, d), 0.02)
+        if cfg.is_encoder_decoder:
+            L = cfg.num_layers
+            params["encoder"] = {
+                "stack": {"blocks": {"sub0": layer(
+                    "dense", n=cfg.encoder_layers)}},
+                "final_norm": norm_p()}
+            params["cross"] = {"norm": norm_p((L,)), "attn": attn_w((L,))}
         return params
 
     def init_cache(self, b: int, s_max: int, device=None,
@@ -238,11 +263,20 @@ class Model:
         recurrent state is f32 and fixed-size; the hybrid's attention
         caches are never clamped."""
         dev = device or self.device
-        if self.cfg.family == "hybrid":
-            return {"stack": T.init_hybrid_cache(self.cfg, b, s_max,
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return {"stack": T.init_hybrid_cache(cfg, b, s_max,
                                                  self.dtype, dev)}
-        return {"stack": T.init_stack_cache(self.cfg, b, s_max, self.dtype,
-                                            dev, clamp_window)}
+        cache = {"stack": T.init_stack_cache(cfg, b, s_max, self.dtype,
+                                             dev, clamp_window)}
+        if cfg.is_encoder_decoder:
+            # the encoder's K/V for every decoder layer, filled by prefill
+            shape = (cfg.num_layers, b, cfg.encoder_seq_len,
+                     cfg.num_kv_heads, cfg.resolved_head_dim)
+            cache["cross"] = A.AttnCache(
+                torch.zeros(shape, dtype=self.dtype, device=dev),
+                torch.zeros(shape, dtype=self.dtype, device=dev))
+        return cache
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          s_ref: Optional[int] = None,
@@ -268,22 +302,73 @@ class Model:
     # ------------------------------------------------------------------
     def _backbone(self, params, h, *, cache, cache_len, q_offset=0,
                   moe_spec=None, continue_prefill: bool = False,
-                  valid_mask=None, **kw):
-        """The stack of ``cfg.family`` on h [B, S, d]: ``run_hybrid`` (no
-        paged pool: JAX's refusal) or ``run_stack`` with every keyword."""
-        if self.cfg.family == "hybrid":
-            if kw.get("block_table") is not None:
-                raise NotImplementedError(
-                    "paged KV decode supports plain decoder stacks only")
-            return T.run_hybrid(h, params["stack"], self.cfg, cache=cache,
+                  valid_mask=None, cross=None, kernels: bool = True, **kw):
+        """The stack of ``cfg.family`` on h [B, S, d]: ``run_hybrid`` or
+        whisper's decoder over the encoder's K/V ``cross`` (neither on a
+        paged pool: JAX's refusal), or ``run_stack`` with every
+        keyword."""
+        cfg = self.cfg
+        if (cfg.family == "hybrid" or cfg.is_encoder_decoder) \
+                and kw.get("block_table") is not None:
+            raise NotImplementedError(
+                "paged KV decode supports plain decoder stacks only")
+        if cfg.family == "hybrid":
+            return T.run_hybrid(h, params["stack"], cfg, cache=cache,
                                 cache_len=cache_len, q_offset=q_offset,
                                 continue_prefill=continue_prefill,
                                 valid_mask=valid_mask)
-        return T.run_stack(h, params["stack"], self.cfg, cache=cache,
+        if cfg.is_encoder_decoder:
+            return _run_encdec_decoder(h, params, cfg, cache=cache,
+                                       cache_len=cache_len,
+                                       q_offset=q_offset, cross=cross,
+                                       kernels=kernels)
+        return T.run_stack(h, params["stack"], cfg, cache=cache,
                            cache_len=cache_len, q_offset=q_offset,
                            moe_spec=moe_spec, comm=self.comm,
                            continue_prefill=continue_prefill,
-                           valid_mask=valid_mask, **kw)
+                           valid_mask=valid_mask, kernels=kernels, **kw)
+
+    def _embed_tokens(self, params, tokens, offset=0):
+        """Token embeddings, plus whisper's absolute sinusoidal positions
+        (no RoPE) at ``offset`` (an int, a 0-d tensor or one per row), or
+        times gemma's ``d ** 0.5``, cast to h's dtype first, as in JAX.
+        The position table has the build-time ``seq_len + 65`` rows, and an
+        offset past it is clamped as JAX's slice and gather clamp: a
+        scalar offset's window starts at most ``len - S``, a per-row
+        offset's every index is clamped to the last row."""
+        cfg = self.cfg
+        h = params["embed"][tokens]
+        if cfg.rope_theta <= 0 and cfg.ssm is None:
+            n = self.seq_len + 65
+            table = sinusoidal_positions(n, cfg.d_model, h.device).to(h.dtype)
+            S = tokens.shape[1]
+            ar = torch.arange(S, device=h.device)
+            off = torch.as_tensor(offset, device=h.device)
+            if off.ndim:
+                h = h + table[(off.reshape(-1, 1).long() + ar).clamp(
+                    0, n - 1)]
+            else:
+                h = h + table[off.long().clamp(0, n - S) + ar][None]
+        if cfg.name.startswith("gemma"):
+            # a host scalar, so that a captured step copies nothing
+            h = h * float(torch.tensor(cfg.d_model ** 0.5).to(h.dtype))
+        return h
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over stubbed frame embeddings [B, S_enc, d]:
+        sinusoidal positions, ``encoder_layers`` layers of full
+        (non-causal) attention, plain as in JAX, and the encoder's final
+        norm."""
+        cfg = self.cfg
+        enc_cfg = cfg.replace(num_layers=cfg.encoder_layers,
+                              is_encoder_decoder=False)
+        frames = torch.as_tensor(frames, device=self.device)
+        pos = sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                   frames.device).to(frames.dtype)
+        h, _, _ = T.run_stack(frames + pos[None], params["encoder"]["stack"],
+                              enc_cfg, cache=None, moe_spec=None,
+                              causal=False)
+        return norm(h, params["encoder"]["final_norm"], cfg.norm)
 
     def _vocab_w(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
@@ -296,22 +381,36 @@ class Model:
 
     def prefill(self, params, batch: Dict[str, Any],
                 s_max: Optional[int] = None,
-                skew_key: Optional[SkewKey] = None):
+                skew_key: Optional[SkewKey] = None, kernels: bool = True):
         """A whole prompt ``batch["tokens"]`` [B, S] on a fresh slab cache
-        of ``s_max`` positions (default S + 64): attention through the
-        flash kernel (``chunked_attention`` under a sliding window), K/V
-        into the cache prefix [0, S) (a window-clamped cache keeps the
-        window's tail at its ring slots).  Returns (logits
-        [B, Vp] at the last position, caches, pos = S as a 0-d int32
-        tensor, diags).  Runs with the build-time MoE spec."""
+        of ``s_max`` positions (default S + 64, the tokens' count, as in
+        JAX): attention through the flash kernel (``chunked_attention``
+        under a sliding window or a softcap), K/V into the cache prefix
+        [0, S) (a window-clamped cache keeps the window's tail at its ring
+        slots).  Whisper encodes ``batch["frames"]`` [B, S_enc, d] first
+        and keeps each decoder layer's cross K/V in ``caches["cross"]``;
+        pixtral puts ``batch["patches"]`` [B, n_prefix, d] before the
+        tokens.  Returns (logits [B, Vp] at the last position, caches,
+        pos = the positions filled as a 0-d int32 tensor, diags).  Runs
+        with the build-time MoE spec; ``kernels`` False takes the plain
+        attention branches on every device."""
+        cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         caches = self.init_cache(B, s_max or S + 64)
-        pos = torch.tensor(S, dtype=torch.int32, device=self.device)
-        h = params["embed"][tokens]
+        h = self._embed_tokens(params, tokens)
+        cross = None
+        if cfg.is_encoder_decoder:
+            cross = _cross_kv(params, self.encode(params, batch["frames"]))
+            caches["cross"] = cross
+        if cfg.num_prefix_embeddings:
+            patches = torch.as_tensor(batch["patches"], device=self.device)
+            h = torch.cat([patches.to(h.dtype), h], dim=1)
+        pos = torch.tensor(h.shape[1], dtype=torch.int32, device=self.device)
         h, _, diags = self._backbone(params, h, cache=caches["stack"],
                                      cache_len=pos, moe_spec=self.moe_spec,
-                                     skew_key=skew_key)
+                                     skew_key=skew_key, cross=cross,
+                                     kernels=kernels)
         return self._head(params, h[:, -1]), caches, pos, diags
 
     def prefill_chunk(self, params, tokens: torch.Tensor, caches, pos,
@@ -331,6 +430,10 @@ class Model:
         (``moe_layer.moe_block``).  ``fused_attention`` (the serve
         engine's ``fused_paged_attention``) makes the chunk strict: a
         branch without a kernel raises ``FusedPathUnavailable``."""
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the encoder-decoder decoder takes whole "
+                f"prompts (model.prefill), as in JAX")
         Bc, C = tokens.shape
         spec = (None if self.moe_spec is None else
                 dataclasses.replace(self.moe_spec, tokens_local=Bc * C))
@@ -339,7 +442,7 @@ class Model:
             last = torch.as_tensor(last_index, device=self.device).reshape(1)
             vmask = (torch.arange(C, device=self.device)[None, :]
                      <= last).expand(Bc, C)
-        h = params["embed"][tokens]
+        h = self._embed_tokens(params, tokens, pos)
         h, stack, diags = self._backbone(
             params, h, cache=caches["stack"], cache_len=pos + C,
             q_offset=pos, moe_spec=spec, skew_key=skew_key,
@@ -393,10 +496,11 @@ class Model:
                 num_foreign_slots=_decode_foreign_slots(spec, moe_policy)))
         if S > 1 and spec is not None:
             spec = dataclasses.replace(spec, tokens_local=spec.tokens_local * S)
-        h = params["embed"][token]
+        h = self._embed_tokens(params, token, pos)
         h, stack, diags = self._backbone(
             params, h, cache=caches["stack"], cache_len=new_pos,
             q_offset=pos, moe_spec=spec, skew_key=skew_key,
+            cross=caches.get("cross"),
             valid_mask=vmask, block_table=block_table,
             block_size=block_size, skew_assign=skew_assign,
             moe_replica_ids=moe_replica_ids,
@@ -437,22 +541,11 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     if comm is not None and comm.size != ep_degree:
         raise ValueError(f"a communicator of {comm.size} ranks for EP "
                          f"degree {ep_degree}")
-    unsupported = [
-        (cfg.family not in ("moe", "dense", "ssm", "hybrid")
-         or (cfg.family == "moe") != cfg.is_moe, f"family {cfg.family!r}"),
-        (cfg.is_encoder_decoder or cfg.num_prefix_embeddings > 0,
-         "encoder-decoder / prefix-embedding models"),
-        (cfg.rope_theta <= 0, "absolute position embeddings"),
-        (cfg.global_attn_every > 0,
-         "local and global attention layers"),
-        (cfg.attn_logit_softcap > 0, "attention logit softcap"),
-        (cfg.post_norm, "post-norm layers"),
-        (cfg.name.startswith("gemma"), "gemma embedding scaling"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{cfg.name}: {what} not ported yet")
-    if cfg.act not in ("swiglu", "gelu_mlp"):
+    if cfg.family not in ("moe", "dense", "ssm", "hybrid", "audio", "vlm") \
+            or (cfg.family == "moe") != cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not "
+                                  f"ported yet")
+    if cfg.act not in ("swiglu", "gelu", "gelu_mlp"):
         raise NotImplementedError(f"{cfg.name}: {cfg.act} MLPs not ported "
                                   f"yet")
     moe_spec = moe_spec_decode = None
@@ -472,4 +565,37 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         comm = (LocalComm() if ep_degree == 1
                 else VirtualGroup(ep_degree, dev))
     return Model(cfg=cfg, device=dev, moe_spec=moe_spec,
-                 moe_spec_decode=moe_spec_decode, comm=comm)
+                 moe_spec_decode=moe_spec_decode, comm=comm, seq_len=seq_len)
+
+
+# ----------------------------------------------------------------------
+# whisper's decoder: self-attention, cross-attention, MLP a layer
+# ----------------------------------------------------------------------
+def _cross_kv(params, enc_out: torch.Tensor) -> A.AttnCache:
+    """Every decoder layer's cross K/V over the encoder's output, stacked
+    [L, B, S_enc, Hkv, hd]: computed once, at prefill."""
+    w = params["cross"]["attn"]
+    return A.AttnCache(torch.einsum("bsd,ldhk->lbshk", enc_out, w["wk"]),
+                       torch.einsum("bsd,ldhk->lbshk", enc_out, w["wv"]))
+
+
+def _run_encdec_decoder(h, params, cfg: ModelConfig, *, cache, cache_len,
+                        q_offset, cross: A.AttnCache, kernels: bool = True):
+    """Whisper's decoder stack (JAX's ``_run_encdec_decoder``): each layer's
+    causal self-attention over its slab cache (the flash kernel on a
+    whole prompt where ``kernels``, plain slab decode), then its
+    cross-attention over the cached encoder K/V ``cross`` (plain, as in
+    JAX), then the MLP.  Returns (h, cache, {})."""
+    blocks = params["stack"]["blocks"]["sub0"]
+    for i in range(cfg.num_layers):
+        p = T.layer_slice(blocks, i)
+        pc = T.layer_slice(params["cross"], i)
+        y, _ = A.attention_block(
+            norm(h, p["norm1"], cfg.norm), p["attn"], cfg,
+            q_offset=q_offset, cache=T.layer_slice(cache["blocks"]["sub0"], i),
+            cache_len=cache_len, kernels=kernels)
+        h = h + y
+        h = h + A.cross_attention(norm(h, pc["norm"], cfg.norm), pc["attn"],
+                                  T.layer_slice(cross, i))
+        h = h + mlp(norm(h, p["norm2"], cfg.norm), p["mlp"], cfg.act)
+    return h, cache, {}

@@ -1,7 +1,7 @@
-"""Decoder stacks: the MoE family's, the dense decoders', mamba2's, and
-the zamba2 hybrid (port of ``repro/models/transformer.py``:
-``layer_pattern``, ``run_stack``, ``init_stack_cache``,
-``init_hybrid_cache``, ``run_hybrid``).
+"""Decoder stacks: the MoE family's, the dense decoders' (gemma2's local
+and global layers among them), mamba2's, and the zamba2 hybrid (port of
+``repro/models/transformer.py``: ``layer_pattern``, ``run_stack``,
+``init_stack_cache``, ``init_hybrid_cache``, ``run_hybrid``).
 
 Parameters stay stacked per layer exactly as in the JAX package
 (``params["blocks"]["sub{j}"]`` leaves carry a leading ``n_steps`` axis),
@@ -9,8 +9,10 @@ so converting JAX weights is a reshape-free copy; a Python loop over the
 steps replaces ``lax.scan``.  A period of the stack is one MoE layer or,
 with ``moe_layer_period`` p > 1, p layers of which the one at
 ``moe_layer_offset`` is MoE and the others dense (switch128: ``["dense",
-"moe"]``); a dense decoder's period is one dense layer.  Leading dense
-layers (moonshot's first layer) are unstacked, one dict per layer in
+"moe"]``); a dense decoder's period is one dense layer, or gemma2's
+``["attn_local", "attn_global"]``, whose local layers' slab caches are
+clamped to the window.  Leading dense layers (moonshot's first layer) are
+unstacked, one dict per layer in
 ``params["lead"]`` and one ``AttnCache`` per layer in ``cache["lead"]``,
 and run before the stack.  The SSM family's stack is one ``"mamba"``
 layer a period, whose cache is a ``MambaState`` of fixed-size recurrent
@@ -42,10 +44,19 @@ from repro_torch.models.layers import mlp, norm
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, int]:
     """(pattern, n_steps, n_lead_dense): layer kinds within one period of
     the stack, the number of periods, and leading unscanned dense layers
-    (the JAX ``layer_pattern``'s MoE, SSM and dense-decoder patterns)."""
+    (the JAX ``layer_pattern``'s MoE, SSM, dense-decoder and local/global
+    patterns).  ``"attn_local"`` and ``"attn_global"`` are dense layers
+    whose attention takes the sliding window or not."""
     if cfg.family == "ssm":
         return ["mamba"], cfg.num_layers, 0
     if not cfg.is_moe:
+        p = cfg.global_attn_every
+        if p > 1:                 # gemma2: p - 1 local layers, then a global
+            if cfg.num_layers % p:
+                raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are "
+                                 f"not a whole number of periods of {p}")
+            return (["attn_local"] * (p - 1) + ["attn_global"],
+                    cfg.num_layers // p, 0)
         return ["dense"], cfg.num_layers, 0
     lead = cfg.moe.first_dense_layers
     L = cfg.num_layers - lead
@@ -81,26 +92,30 @@ def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
                      device, clamp_window: bool = True) -> Dict[str, Any]:
     """Stacked K/V caches [n_steps, batch, s_max, Hkv, hd] per pattern slot,
     plus a list of [batch, s_max, Hkv, hd] caches for the lead layers.  A
-    sliding-window model's caches hold min(s_max, window) positions, a ring
-    buffer; ``clamp_window=False`` keeps every leaf at ``s_max`` (the
-    serve engine's paged mode, where the window is enforced by ring-index
+    sliding-window model's caches (a local/global model's local layers'
+    only) hold min(s_max, window) positions, a ring buffer;
+    ``clamp_window=False`` keeps every leaf at ``s_max`` (the serve
+    engine's paged mode, where the window is enforced by ring-index
     arithmetic and masks, not by storage)."""
     pattern, n_steps, lead = layer_pattern(cfg)
     if pattern == ["mamba"]:
         return {"blocks": {"sub0": M.init_state(batch, cfg, dtype, device,
                                                 lead=(n_steps,))}}
-    if clamp_window and cfg.sliding_window and not cfg.global_attn_every:
-        s_max = min(s_max, cfg.sliding_window)
-    shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
 
-    def one(lead_shape=()):
-        full = lead_shape + shape
+    def one(kind, lead_shape=()):
+        s = s_max
+        window = cfg.sliding_window
+        if clamp_window and (kind == "attn_local"
+                             or (window and not cfg.global_attn_every)):
+            s = min(s_max, window)    # a ring buffer for windowed layers
+        full = lead_shape + (batch, s, cfg.num_kv_heads,
+                             cfg.resolved_head_dim)
         return A.AttnCache(torch.zeros(full, dtype=dtype, device=device),
                            torch.zeros(full, dtype=dtype, device=device))
-    cache: Dict[str, Any] = {"blocks": {f"sub{j}": one((n_steps,))
-                                        for j in range(len(pattern))}}
+    cache: Dict[str, Any] = {"blocks": {f"sub{j}": one(kind, (n_steps,))
+                                        for j, kind in enumerate(pattern)}}
     if lead:
-        cache["lead"] = [one() for _ in range(lead)]
+        cache["lead"] = [one("dense") for _ in range(lead)]
     return cache
 
 
@@ -109,22 +124,31 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      continue_prefill: bool, valid_mask, block_table,
                      block_size: int, strict: bool,
                      skew_assign=None, moe_replica_ids=None,
-                     moe_residency_ids=None):
+                     moe_residency_ids=None, causal: bool = True,
+                     kernels: bool = True):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
-    experts) or, for a ``"dense"`` layer, the MLP of ``cfg.act`` ->
-    residual; for a ``"mamba"`` layer norm -> mamba block -> residual,
-    the layer's state updated in place.  Returns (x, diagnostics of this
-    layer; none for a dense or mamba layer)."""
+    experts) or, for a ``"dense"``, ``"attn_local"`` or ``"attn_global"``
+    layer, the MLP of ``cfg.act`` -> residual, with gemma2's post-norms
+    on each sub-layer's output before its residual (``cfg.post_norm``);
+    for a ``"mamba"`` layer norm -> mamba block -> residual, the layer's
+    state updated in place.  Returns (x, diagnostics of this layer; none
+    for a dense or mamba layer)."""
     if kind == "mamba":
         return _mamba_layer(x, p, cfg, cache, _valid_len(valid_mask)), {}
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
-        block_table=block_table, block_size=block_size, strict=strict)
+        block_table=block_table, block_size=block_size, strict=strict,
+        is_global=kind != "attn_local", causal=causal, kernels=kernels)
+    if cfg.post_norm:
+        h = norm(h, p["post_norm1"], cfg.norm)
     x = x + h
     h = norm(x, p["norm2"], cfg.norm)
-    if kind == "dense":
-        return x + mlp(h, p["mlp"], cfg.act), {}
+    if kind != "moe":
+        h = mlp(h, p["mlp"], cfg.act)
+        if cfg.post_norm:
+            h = norm(h, p["post_norm2"], cfg.norm)
+        return x + h, {}
     # the shared experts run while the block's foreign fetch is in flight
     # (paper §4.3); the block adds them last, moe_y + shared
     shared = ((lambda: mlp(h, p["shared_mlp"], cfg.act))
@@ -134,6 +158,8 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                          skew_assign=skew_assign,
                          replica_ids=moe_replica_ids,
                          residency_ids=moe_residency_ids, shared=shared)
+    if cfg.post_norm:
+        y = norm(y, p["post_norm2"], cfg.norm)
     # collapse the leading batch-group axis only
     return x + y, {k: v.mean(dim=0) for k, v in mdiag.items()}
 
@@ -154,15 +180,16 @@ def _mamba_layer(x, p, cfg: ModelConfig, state, valid_len):
 
 
 def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
-              cache: Dict[str, Any], cache_len=None, q_offset=0,
-              moe_spec: MoEBlockSpec, comm=None,
+              cache: Optional[Dict[str, Any]], cache_len=None, q_offset=0,
+              moe_spec: Optional[MoEBlockSpec], comm=None,
               skew_key: Optional[SkewKey] = None,
               continue_prefill: bool = False, valid_mask=None,
               block_table=None, block_size: int = 0,
               skew_assign: Optional[torch.Tensor] = None,
               moe_replica_ids: Optional[torch.Tensor] = None,
               moe_residency_ids: Optional[torch.Tensor] = None,
-              moe_layer_diags: bool = False, strict: bool = False
+              moe_layer_diags: bool = False, strict: bool = False,
+              causal: bool = True, kernels: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
@@ -175,13 +202,15 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
     (``moe_layer.moe_block``).  Returns (x, cache, diags averaged over the
     MoE layers); ``moe_layer_diags`` adds ``expert_load_layers``
     [n_moe_layers, Ep], each MoE layer's expert loads before the mean,
-    which the tiered-residency manager reads.  ``strict`` goes to every
-    ``attention_block``."""
+    which the tiered-residency manager reads.  ``strict``, ``causal`` and
+    ``kernels`` go to every ``attention_block``; without a cache
+    (``cache`` None: whisper's encoder) nothing is stored."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
               comm=comm, continue_prefill=continue_prefill,
               valid_mask=valid_mask, block_table=block_table,
-              block_size=block_size, strict=strict)
+              block_size=block_size, strict=strict, causal=causal,
+              kernels=kernels)
     moe_kw = dict(moe_replica_ids=moe_replica_ids,
                   moe_residency_ids=moe_residency_ids)
     for i in range(lead):
@@ -200,7 +229,8 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
                 n_moe += 1
             x, d = _apply_one_layer(
                 x, p_step[f"sub{j}"], pattern[j], cfg,
-                cache=layer_slice(cache["blocks"][f"sub{j}"], i),
+                cache=(None if cache is None else
+                       layer_slice(cache["blocks"][f"sub{j}"], i)),
                 skew_key=layer_key, skew_assign=drawn, **kw, **moe_kw)
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)

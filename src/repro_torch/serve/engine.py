@@ -294,6 +294,16 @@ def paged_pool_len(max_seq_len: int, prefill_chunk: int,
         + (prefill_chunk if prefix_sharing else 0) + speculative_k
 
 
+def check_servable(cfg) -> None:
+    """The JAX engine's refusal of the encoder-decoder and prefix-embedding
+    models (whisper-large-v3, pixtral-12b), in its words: they run
+    through ``model.prefill`` and ``decode_step`` only."""
+    if cfg.is_encoder_decoder or cfg.num_prefix_embeddings:
+        raise NotImplementedError(
+            f"serve engine supports decoder-only transformer, SSM, "
+            f"and hybrid families; got {cfg.name} ({cfg.family})")
+
+
 def check_window_ring(cfg, ecfg) -> None:
     """A paged pool serves a window that binds over a slot's chain as a
     ring buffer: refuse a chunk wider than the ring, speculative verify,
@@ -376,6 +386,7 @@ def engine_config_for(cfg, *, max_slots: int, prompt_len: int,
 class ServeEngine:
     def __init__(self, model, params, ecfg: EngineConfig, *, clock=None,
                  device=None):
+        check_servable(model.cfg)
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model lives on {model.device}, engine asked "
@@ -1353,7 +1364,9 @@ class ServeEngine:
         snap = (self._attn_dispatch if self._attn_dispatch is not None
                 else attention_dispatch.dispatch_log())
         if snap:
-            # the last record a branch wins (every call of one agrees);
+            # the last record a branch wins, as in JAX (every call of one
+            # agrees, but on a local/global model the global layer's, last
+            # in its period);
             # ``requested`` is the config's switch, as in JAX, and a
             # fallback is a record where it was on and the kernel did not run
             req = self.ecfg.fused_paged_attention

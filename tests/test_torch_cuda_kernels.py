@@ -186,6 +186,54 @@ def test_paged_attention_kernel_matches_plain_at_dense_heads(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lengths,bs,slab", [
+    (1, [1, 129, 336, 544], 16, False),      # decode, 2-row tiles
+    (1, [1, 1537, 3001, 4096], 16, False),   # long chains
+    (32, [448], 68, True),                   # a chunk over the slab scratch
+    (32, [45, 77, 301], 16, False),          # chunks across a block edge
+    (512, [4608], 128, True),                # a 512-query chunk, 64 tiles
+], ids=["decode", "long_decode", "slab_chunk", "chunk_straddles",
+        "long_chunk"])
+def test_paged_attention_kernel_matches_plain_at_gemma2_heads(
+        cuda, dtype, S, lengths, bs, slab):
+    """gemma2-2b's attention: 8 q heads over 4 kv heads of 256 (GQA rep
+    2), logit softcap 50; decode on the CUDA cores (at hd 256 in f32 a
+    position's 64 chunks take two a lane), chunks on the tensor cores in
+    bf16 (hd 256 reads Q's fragments from shared memory each stage)."""
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(9)
+    H, Hkv, hd, B = 8, 4, 256, len(lengths)
+    n_blocks = -(-max(lengths) // bs)
+    if slab:
+        n_blocks = -(-(max(lengths) + 96) // bs)
+        num_phys = B * n_blocks
+        table = torch.arange(num_phys, dtype=torch.int32,
+                             device=cuda).reshape(B, n_blocks)
+    else:
+        num_phys = 1 + B * n_blocks
+        perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+        table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+        for b, L in enumerate(lengths):
+            nb = -(-L // bs)
+            table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(
+                torch.int32)
+    P = num_phys * bs
+    k = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=bs, softcap=50.0)
+    n0 = ops.paged_attention.launches
+    got = ops.paged_attention(q, k, v, table, cl, **kw)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, **kw)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S", [(2, 512), (1, 129)])
 def test_flash_attention_kernel_matches_plain_at_gqa_rep3(cuda, dtype, B, S):
     """phi4-mini-3.8b's whole-prompt attention: 24 q heads over 8 kv heads
@@ -251,6 +299,8 @@ def test_schedule_kernel_equals_plain(cuda, G, E, units, hot, q, c_pair, K,
     (32, 1, 96, 30.0, 64),
     (2, 8, 7, 0.0, 128),      # 16 rows from two queries
     (3, 2, 3, 30.0, 32),      # a ragged 6-row tile
+    (1, 2, 16, 50.0, 256),    # gemma2 decode: hd 256, rep 2, softcap 50
+    (8, 2, 16, 50.0, 256),    # 16 rows at hd 256: the tensor-core route
 ])
 @pytest.mark.parametrize("splits", ["one", "two", "many"])
 def test_paged_attention_kernel_matches_plain(cuda, monkeypatch, dtype, S,
@@ -375,7 +425,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     tg = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="d % 64"):
         gmm.moe_gmm(x, w, torch.zeros((1, 64, 96), device=cuda), tg)
-    q = torch.zeros((1, 1, 2, 160), device=cuda)             # hd > 128
+    q = torch.zeros((1, 1, 2, 160), device=cuda)             # hd 160
     pool = torch.zeros((1, 16, 2, 160), device=cuda)
     with pytest.raises(ValueError, match="hd"):
         pa.paged_attention(q, pool, pool,

@@ -130,6 +130,9 @@ def test_slab_as_pool_prefill_matches_chunked_attention(q_offset):
     (4, 1, 16, 16, 128, torch.bfloat16, 4096),   # long chains
     (3, 4, 8, 2, 64, torch.float32, 480),        # f32 GQA window
     (2, 1, 8, 1, 32, torch.float32, 960),        # MQA decode
+    (4, 1, 8, 4, 256, torch.float32, 544),       # gemma2 decode, f32
+    (4, 1, 8, 4, 256, torch.bfloat16, 4096),     # gemma2 long chains
+    (1, 32, 8, 4, 256, torch.bfloat16, 544),     # gemma2 prefill chunk
 ])
 def test_split_plan_covers_every_position_once(bs, B, S, H, Hkv, hd, dtype,
                                                capacity):

@@ -136,7 +136,7 @@ def test_same_argv_same_engine_config(argv, monkeypatch):
     (["--disaggregate", "--replicas", "2", "--paged"], "--disaggregate"),
     (["--paged", "--prefix-sharing"], "--prefix-sharing"),
     (["--paged", "--speculative-k", "2"], "--speculative-k"),
-    (["--arch", "gemma2-2b"], "--arch"),
+    (["--arch", "whisper-large-v3"], "--arch"),
     (["--data-par", "2"], "--data-par")])
 def test_unported_flags_raise_naming_the_flag(extra, flag, capsys):
     """What the port does not serve raises, naming the flag;
