@@ -36,7 +36,8 @@ Phases, each of which must pass (any failure exits non-zero):
      on a small configuration, the card's token streams equal to the
      plain versions' streams on the CPU;
   4b. HarMoEny across expert-parallel ranks, once the serve path's memory
-     is freed: ``ServeEngine`` on full-width, full-depth qwen15-moe-a27b
+     is freed: ``ServeEngine`` on full-width qwen15-moe-a27b, cut to 6 of
+     its 24 layers (``EP_LAYERS``, as phases 8 and 10 (b)),
      at EP degree 4 on virtual ranks (``VirtualGroup``: four ranks of 15
      experts each, run in lockstep on the one card; 4 foreign slots),
      under the paper's synthetic skew (0.9 of the routing mass on one
@@ -157,9 +158,10 @@ Phases, each of which must pass (any failure exits non-zero):
      (gloo's collectives tried on CUDA tensors first), each a
      ``DistComm`` rank with the hosted fetch and eager entries holding
      only its own 15 experts a layer, serving full-width qwen at G = 4,
-     phase 8's 12 layers, under skew 0.9 with harmoeny: phase 8's runs
-     without either mechanism, with replica slots (the swap fetching
-     each slot's row from the process that hosts it) and with residency
+     phase 8's 6 layers (``EP_LAYERS``), under skew 0.9 with harmoeny:
+     phase 8's runs without either mechanism, with replica slots (the
+     swap fetching each slot's row from the process that hosts it) and
+     with residency
      under predictive (each process's host tier pinning its own 15 rows
      and staging only those), held against phase 8's ``VirtualGroup(4)``
      runs on the same weights (``[dist]`` lines: each process's peak
@@ -196,8 +198,9 @@ Phases, each of which must pass (any failure exits non-zero):
      the share of agreeing steps and the median logits error after the
      wrap (``RING_GATES``: the kernels and the oracle's plain attention
      round differently and flip some tokens' experts); after (c), both
-     rings again on the same 8 layers cast to f32, where every step's
-     token must be the oracle's argmax (up to near ties) and every
+     rings again on the same 8 layers cast to f32 (the slab's with 1
+     prompt of 4,080 and 40 new tokens, wrapping at step 16), where every
+     step's token must be the oracle's argmax (up to near ties) and every
      logits row within ``RING_GATES``' bound of the oracle's; (c) G = 4 on
      virtual ranks under 0.9 skew, harmoeny, 4 requests (phase 4b's
      ``[ep]`` line, plus the hosted gather's bytes: 8 rows x 3 matrices
@@ -209,7 +212,8 @@ Phases, each of which must pass (any failure exits non-zero):
      ``python3 chip_smoke.py --only-mixtral`` runs phase 1, those parity
      cases and phase 11 alone, and prints no result;
   12. prefix sharing and speculative decoding on the paged pool, full-width
-     qwen15-moe-a27b (bf16 weights drawn once from seed 0), 4 slots,
+     qwen15-moe-a27b cut to 12 of its 24 layers (``PS_LAYERS``, with
+     phase 13) (bf16 weights drawn once from seed 0), 4 slots,
      16-token blocks, chunk 32, strict (``fused_paged_attention`` and
      ``fused_moe_gmm`` on): (a) prefix sharing at G = 1, greedy, 32 new
      tokens: request 0 of 8 Poisson prompts of 576-640 tokens that share
@@ -306,11 +310,12 @@ Phases, each of which must pass (any failure exits non-zero):
      (``TP_GATES``: partings only at near ties, rows within 1e-3; bf16 a
      bound on the median); gates: one capture of each entry, ``moe_gmm``
      once a rank a layer a call and ``schedule`` never under
-     tensor-parallel MoE.  (b) mamba2-2.7b (64 layers) and (c) zamba2-7b
-     (81 layers, hd 112, 13 groups of 6 around one shared attention block
-     and a tail of 3) at full width and depth: the slot pool, 4 slots, 8
-     prompts of 128-1024 tokens (none a multiple of the chunk), chunk 256,
-     32 new, greedy; each engine's rows held against the one-shot
+     tensor-parallel MoE.  (b) mamba2-2.7b and (c) zamba2-7b (hd 112,
+     groups of 6 around one shared attention block and a tail of 3) at
+     full width, cut to half their depth for phase 17's time (32 of 64
+     layers; 39 of 81, 6 groups): the slot pool, 4 slots, 8 prompts of
+     128-1024 tokens (none a multiple of the chunk), chunk 256, 32 new,
+     greedy; each engine's rows held against the one-shot
      ``prefill`` + ``decode_step`` oracle fed its tokens (``SSM_GATES``);
      a decode step with every slot decoding traced (busy, wall, idle, top
      kernels) and the SSD recurrence's device ms a layer and its share of
@@ -388,7 +393,40 @@ Phases, each of which must pass (any failure exits non-zero):
      128, 1,056 positions), bf16 and f32 each.
      ``python3 chip_smoke.py --only-gemma2`` runs phase
      1, those parity cases and phase 16 alone (pixtral on nemo weights
-     drawn as phase 15 draws them), and prints no result.
+     drawn as phase 15 draws them), and prints no result;
+  17. the training path (``launch.train``'s loop, AdamW, checkpoints),
+     bf16 weights from seed 0 at full width and depth: (a) switch128
+     (3.71 B parameters) trains 20 steps at batch 4 x 512 on the zipf
+     dataset at lr 3e-4, checkpointed at its last step (37 GB: every 10
+     steps would hold two of them, 74 GB of the machine's 80 GB disk),
+     ``[train-switch]``: step time (median of steps 3-20, with the
+     guard below inside it, and less the guard's own time), tok/s, peak
+     memory, the first and last 5 losses; gates: every loss and gradient
+     norm finite, every expert that received tokens in a layer has a
+     non-zero ``w_in`` and ``w_out`` gradient there, no kernel launched
+     but the schedule (no kernel has a backward: training runs the plain
+     branches); (d) (a)'s checkpoint restored (parameters only, CRCs
+     checked, equal to the trained ones) into ``ServeEngine``, paged, 4
+     requests of 64-128 prompt tokens, 16 greedy tokens through
+     ``moe_gmm`` and ``paged_attention``, each step held against the
+     plain branches fed the engine's tokens (``DENSE_GATES``),
+     ``[train-serve]``; (b) switch128's f32 2-layer cut (``moe_block_m``
+     32): one step's loss and gradients on the card against the CPU's on
+     the same weights and batch, then ``VirtualGroup(4)`` against G = 1
+     under harmoeny on a 0.9 skew of drawn routes (0 drops, units moved,
+     every rank's expert rows with gradient), ``[train-f32]``
+     (``TRAIN_TOL`` on each leaf relative to its own largest reference
+     magnitude; the card's step with TF32 on and the smallest leaf's
+     gradient zeroed must each miss it); (c) stablelm-1.6b's
+     kill-and-resume drill under ``torch.use_deterministic_algorithms``:
+     12 steps at batch 4 x 512,
+     checkpointed every 4 (asynchronous saves from host snapshots, as
+     ``repro.launch.train``'s), against a run killed
+     by ``REPRO_FAIL_AT_STEP=6`` and resumed from step 4: the restored
+     tree equal to the killed run's state bit for bit, the final
+     parameters and the step-8 and step-12 checkpoints equal,
+     ``[train-drill]``.  ``python3 chip_smoke.py --only-train`` runs
+     phase 1 and phase 17 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -399,6 +437,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -728,11 +767,11 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
 
 
 EP_DEGREE = 4
-# phases 4b, 7 (at G = 4) and 8 run qwen15-moe-a27b at full width cut to
-# 12 of its 24 layers: the eager G = 4 runs and their traces
-# scale with the depth, and the whole script has to stay inside its
-# 1200 s with phase 14 added
-EP_LAYERS = 12
+# phases 4b, 7 (at G = 4), 8 and 10 (b) run qwen15-moe-a27b at full width
+# cut to 6 of its 24 layers: the eager G = 4 runs, their
+# traces and the gloo processes scale with the depth, and the whole script
+# has to stay inside its 1200 s with phase 17 added
+EP_LAYERS = 6
 
 
 def ep_moe_config(cfg, policy="harmoeny", replica_slots=0):
@@ -1488,7 +1527,7 @@ def check_one_capture(tag, rep):
 # checks (captured = eager streams, host launches a call) does not depend
 # on the depth
 CAPTURE_LAYERS = 12          # qwen G = 1 (of 24) and moonshot (of 48)
-CAPTURE_EP_LAYERS = 6        # qwen G = 4 (of phase 4b's 12)
+CAPTURE_EP_LAYERS = 6        # qwen G = 4 (all of phase 4b's 6)
 
 
 def depth_cut(cfg, params, n_layers):
@@ -1507,15 +1546,12 @@ def depth_cut(cfg, params, n_layers):
     return cut, dict(params, stack=stack)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def _leaves(tree_):
+    """The tensors of a parameter, optimizer or cache tree in JAX's leaf
+    order (``repro_torch.tree``: sorted keys), as checkpoints and
+    gradients list them."""
+    from repro_torch import tree
+    return tree.leaves(tree_)
 
 
 def _reset_launches():
@@ -3002,6 +3038,10 @@ MIX_RING = dict(slots=2, prompt_len=4600, new_tokens=32, prefill_chunk=512,
 # (the slab's one-shot oracle decodes eagerly, ~0.15 s a step, so the
 # stream is short: the write wraps at step 56, 64 steps before the end)
 MIX_SLAB = dict(slots=1, prompt_len=4040, new_tokens=120, prefill_chunk=512)
+# the f32 slab ring, shorter still (f32 decode and its oracle are slower):
+# the write wraps at step 16, 24 steps before the end
+MIX_SLAB_F32 = dict(slots=1, prompt_len=4080, new_tokens=40,
+                    prefill_chunk=512)
 # (c) G = 4 on virtual ranks under 0.9 skew, harmoeny
 MIX_EP = dict(slots=4, n_requests=4, max_seq_len=256, prefill_chunk=32,
               block_size=16, new_tokens=8)
@@ -3226,10 +3266,11 @@ def gate_failures(gates, dtype, agreement):
     return bad
 
 
-def ring_serve(mix, params, tag, *, paged):
+def ring_serve(mix, params, tag, *, paged, shape=None):
     """(b): the ring binding.  Paged: 2 prompts of 4600 past the window,
     M = 4096, whole chains of 256 blocks; slab: a prompt of 4040 on the
-    clamped slab with 120 new tokens, so that decode wraps.  Each stream
+    clamped slab with 120 new tokens, so that decode wraps (``shape``
+    another such dict, as ``MIX_SLAB_F32``).  Each stream
     is held step by step against ``windowed_oracle`` on its own history,
     tokens and logits rows (``oracle_agreement``); the misses of
     ``RING_GATES`` are returned in the line's ``gate_failures`` for the
@@ -3238,7 +3279,7 @@ def ring_serve(mix, params, tag, *, paged):
     import numpy as np
     from repro_torch.models.model import build_model
     from repro_torch.serve import Request, engine_config_for
-    shape = MIX_RING if paged else MIX_SLAB
+    shape = shape or (MIX_RING if paged else MIX_SLAB)
     n, L, new = shape["slots"], shape["prompt_len"], shape["new_tokens"]
     ecfg = engine_config_for(
         mix, max_slots=n, prompt_len=L, max_new_tokens=new,
@@ -3420,7 +3461,8 @@ def mixtral_path():
     # change is the precision, which tells bf16 rounding (the kernels and
     # the oracle's plain attention round apart, and some tokens' top-2
     # experts flip) from a fault of the 8-layer path.  The bf16 weights go
-    # as the f32 ones come (44.2 GiB)
+    # as the f32 ones come (44.2 GiB).  The slab's f32 ring is shorter
+    # than its bf16 one (``MIX_SLAB_F32``; PERF.md section 4)
     gc.collect()
     torch.cuda.empty_cache()
     _cast_(params, torch.float32)
@@ -3428,7 +3470,7 @@ def mixtral_path():
     out["ring_paged_f32"] = ring_serve(f32, params, "mixtral-ring-f32",
                                        paged=True)
     out["ring_slab_f32"] = ring_serve(f32, params, "mixtral-ring-slab-f32",
-                                      paged=False)
+                                      paged=False, shape=MIX_SLAB_F32)
     raise_ring_failures({"mixtral-ring-f32": out["ring_paged_f32"],
                          "mixtral-ring-slab-f32": out["ring_slab_f32"]})
     del params
@@ -3443,8 +3485,10 @@ def mixtral_path():
 # ----------------------------------------------------------------------
 # phase 12: prefix sharing and speculative decoding on the paged pool
 # ----------------------------------------------------------------------
-# full-width qwen15-moe-a27b, paged, 16-token blocks, chunk 32, 4 slots
+# full-width qwen15-moe-a27b, paged, 16-token blocks, chunk 32, 4 slots;
+# cut to 12 of its 24 layers (phases 12 and 13) for phase 17's time
 PS = dict(slots=4, prefill_chunk=32, block_size=16)
+PS_LAYERS = 12
 # (a): 8 prompts of 576-640 tokens sharing their first 512, 32 new tokens
 PREFIX_A = dict(n_requests=8, prompt_lens=(576, 640), shared=512,
                 new_tokens=32)
@@ -4103,7 +4147,8 @@ def spec_ep_line(cfg, reqs, runs):
 # position whose argmax is not the reference's token only at a near tie,
 # and a small median logits error (read: every position agrees, median
 # ~5e-6).  bf16, where different GEMM shapes round apart (k = 4 routes 20
-# tokens a step, k = 0 4) and 24 layers of top-4-of-60 routing amplify it:
+# tokens a step, k = 0 4) and the layers of top-4-of-60 routing (24 when
+# these were read, 12 now) amplify it:
 # a floor on the share of positions that take the reference's token and a
 # bound on the median logits error, set from the f32-checked readings
 # (0.375-0.625 agree, median 0.196-0.271; PERF.md §6), which rows
@@ -4206,7 +4251,7 @@ def prefix_spec_path(fleet=False):
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
-    cfg = get_config("qwen15-moe-a27b")
+    cfg = get_config("qwen15-moe-a27b").replace(num_layers=PS_LAYERS)
     t0 = time.perf_counter()
     params = build_model(cfg, batch=PS["slots"], seq_len=704).init(0)
     torch.cuda.synchronize()
@@ -4739,7 +4784,7 @@ def fleet_only_path():
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
-    cfg = get_config("qwen15-moe-a27b")
+    cfg = get_config("qwen15-moe-a27b").replace(num_layers=PS_LAYERS)
     params = build_model(cfg, batch=PS["slots"], seq_len=704).init(0)
     out = fleet_path(cfg, params)
     del params
@@ -4761,11 +4806,14 @@ TP_DEGREE = 16
 TP_A = dict(slots=4, n_requests=4, prompt_lens=(256, 513), new_tokens=16,
             prefill_chunk=256, block_size=16)
 TP_F32_LAYERS = 2            # the f32 hold's shallower cut
-# (b) mamba2-2.7b and (c) zamba2-7b at full width and depth: the slot pool,
-# 4 slots, 8 prompts of 128-1024 tokens (none a multiple of the chunk),
-# chunk 256, 32 new (16 in the f32 round), greedy
+# (b) mamba2-2.7b and (c) zamba2-7b at full width: the slot pool, 4 slots,
+# 8 prompts of 128-1024 tokens (none a multiple of the chunk), chunk 256,
+# 32 new (16 in the f32 round), greedy; cut to half their depth (of 64
+# and 81 layers) for phase 17's time, zamba2 to 6 groups of 6 and its
+# tail of 3
 SSM_A = dict(slots=4, n_requests=8, prompt_lens=(128, 1025), new_tokens=32,
              f32_new_tokens=16, prefill_chunk=256)
+SSM_LAYERS = {"mamba2-2.7b": 32, "zamba2-7b": 39}
 SSM_ENTRIES = {"prefill_chunk": 1, "decode": 1, "write_slot": 1}
 # the holds, by dtype, on logits errors relative to the reference's
 # largest logit.  (a): the tensor-parallel engine against the one-rank
@@ -5194,15 +5242,16 @@ def ssm_round(cfg, params, tag, reqs, *, preempt, timing):
 
 
 def ssm_path():
-    """Phase 14 (b) and (c): mamba2-2.7b and zamba2-7b at full width and
-    depth through the slotted state store, in bf16 (with a decode step's
-    timing) and then in f32 on the same weights (with the preemption)."""
+    """Phase 14 (b) and (c): mamba2-2.7b and zamba2-7b at full width, cut
+    to ``SSM_LAYERS``, through the slotted state store, in bf16 (with a
+    decode step's timing) and then in f32 on the same weights (with the
+    preemption)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
     out = {}
     for arch, tag in (("mamba2-2.7b", "mamba2"), ("zamba2-7b", "zamba2")):
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(num_layers=SSM_LAYERS[arch])
         reqs = _phase14_requests(cfg, SSM_A, seed=143,
                                  not_multiple=SSM_A["prefill_chunk"])
         t0 = time.perf_counter()
@@ -5211,9 +5260,9 @@ def ssm_path():
         n = sum(t.numel() for t in _leaves(params))
         gib = sum(t.numel() * t.element_size()
                   for t in _leaves(params)) / 2**30
-        log(f"[{tag}] {arch} at full width and depth ({cfg.num_layers} "
-            f"layers): {n / 1e9:.3f} B parameters, {gib:.2f} GiB of bf16 "
-            f"weights, drawn in {time.perf_counter() - t0:.1f} s")
+        log(f"[{tag}] {arch} at full width, {cfg.num_layers} layers: "
+            f"{n / 1e9:.3f} B parameters, {gib:.2f} GiB of bf16 weights, "
+            f"drawn in {time.perf_counter() - t0:.1f} s")
         rec = {"params_b": n / 1e9, "weights_gib": gib,
                "bf16": ssm_round(cfg, params, tag, reqs, preempt=False,
                                  timing=True)}
@@ -5896,6 +5945,509 @@ def gemma2_only_path():
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 17: the training path
+# ----------------------------------------------------------------------
+# (a) full-width switch128 trained through launch.train's loop, one
+# checkpoint at the last step (37 GB: every 10 steps would hold two, 74
+# GB of the machine's ~80 GB disk); (b) its f32 2-layer cut, the card's
+# gradients against the CPU's and VirtualGroup(4) against G = 1 under
+# the 0.9 skew (moe_block_m 32: the grouped buffer's padding a group is
+# the CPU side's cost); (c) stablelm-1.6b's kill-and-resume drill under
+# deterministic algorithms; (d) (a)'s checkpoint served
+TRAIN_A = dict(steps=20, batch=4, seq_len=512, dataset="zipf", lr=3e-4,
+               ckpt_every=20, log_every=5)
+TRAIN_B = dict(layers=2, batch=2, seq_len=256, block_m=32, skew=0.9,
+               ep_degree=4)
+TRAIN_C = dict(steps=12, batch=4, seq_len=512, ckpt_every=4, log_every=4)
+TRAIN_C_FAIL = 6
+TRAIN_D = dict(slots=4, n_requests=4, prompt_lens=(64, 129), new_tokens=16,
+               prefill_chunk=32, block_size=16)
+# (b): the card's f32 loss and gradients against the CPU's, and G = 4's
+# against G = 1's: the loss relative to the reference's, each gradient
+# leaf's largest error relative to that leaf's own largest reference
+# magnitude (floored at TRAIN_FLOOR); summation orders differ (cuBLAS
+# against the CPU's BLAS, the ranks' partial sums).  Two controls must
+# fail the limit: the step on the card with TF32 on, and the smallest
+# reference leaf's gradient zeroed (PERF.md section 6 holds the readings)
+TRAIN_TOL = 1e-5
+TRAIN_FLOOR = 1e-12
+
+
+def train_args(arch, ckpt_dir, **kw):
+    """``launch.train``'s namespace for ``arch`` on the card."""
+    from repro_torch.launch.train import build_parser
+    argv = ["--arch", arch, "--ckpt-dir", ckpt_dir]
+    for k, v in kw.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    return build_parser().parse_args(argv)
+
+
+def expert_grad_check(cfg, rec):
+    """``on_grads`` for MoE training: the gradients' global norm is finite,
+    and every expert that received tokens in a layer has a non-zero
+    ``w_in`` and ``w_out`` gradient there (a kernel's output without a
+    ``grad_fn`` would leave them all zero)."""
+    import math
+    from repro_torch.models.transformer import layer_pattern
+    from repro_torch.optim.adamw import global_norm
+    import torch
+    pattern, n_steps, _ = layer_pattern(cfg)
+    moe_subs = [j for j, kind in enumerate(pattern) if kind == "moe"]
+
+    def check(grads, diags):
+        torch.cuda.synchronize()          # the step's work before the guard
+        t0 = time.perf_counter()
+        gn = float(global_norm(grads))
+        rec["grad_norms"].append(gn)
+        if not math.isfinite(gn):
+            raise AssertionError(f"gradient norm {gn}")
+        loads = diags["expert_load_layers"]              # [n_moe, Ep]
+        got = loads.reshape(n_steps, len(moe_subs), -1) > 0
+        for m, j in enumerate(moe_subs):
+            moe = grads["stack"]["blocks"][f"sub{j}"]["moe"]
+            E = moe["w_in"].shape[1]
+            for name in ("w_in", "w_out"):
+                zero = moe[name].abs().amax(dim=(2, 3)) == 0   # [n, E]
+                bad = zero & got[:, m, :E]
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"{int(bad.sum())} experts with tokens have an "
+                        f"all-zero {name} gradient (sub{j})")
+        rec["experts_with_tokens"].append(int(got.sum()))
+        rec["guard_s"].append(time.perf_counter() - t0)
+    return check
+
+
+def switch_train(tmp):
+    """(a): full-width switch128 through ``launch.train``'s loop."""
+    import statistics
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.transformer import layer_pattern
+    cfg = get_config("switch128")
+    rec = {"grad_norms": [], "experts_with_tokens": [], "guard_s": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    res = train_loop(train_args("switch128", os.path.join(tmp, "a"),
+                                **TRAIN_A),
+                     on_grads=expert_grad_check(cfg, rec),
+                     moe_layer_diags=True)
+    wall = time.perf_counter() - t0
+    launches = read()
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    # the step as timed holds the guard (``on_grads``); less the guard it
+    # is the training step a user runs
+    steady = res.step_seconds[2:]
+    unguarded = [t - g for t, g in zip(res.step_seconds, rec["guard_s"])][2:]
+    out = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "params_b": n_params / 1e9, "steps": len(res.losses),
+           "batch": TRAIN_A["batch"], "seq_len": TRAIN_A["seq_len"],
+           "dataset": TRAIN_A["dataset"],
+           "step_s_median_3_20": statistics.median(steady),
+           "step_s_min": min(steady), "step_s_max": max(steady),
+           "guard_s_median_3_20": statistics.median(rec["guard_s"][2:]),
+           "step_s_less_guard_median_3_20": statistics.median(unguarded),
+           "tok_s": TRAIN_A["batch"] * TRAIN_A["seq_len"]
+           / statistics.median(steady),
+           "tok_s_less_guard": TRAIN_A["batch"] * TRAIN_A["seq_len"]
+           / statistics.median(unguarded),
+           "first_step_s": res.step_seconds[0],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "wall_s": wall, "ckpt_s": res.ckpt_seconds,
+           "loss_first5": res.losses[:5], "loss_last5": res.losses[-5:],
+           "grad_norm_first_last": [rec["grad_norms"][0],
+                                    rec["grad_norms"][-1]],
+           "experts_with_tokens_per_step": rec["experts_with_tokens"][-1],
+           "launches": launches}
+    log(f"[train-switch] {json.dumps(out)}")
+    bad = []
+    if not all(math.isfinite(x) for x in res.losses):
+        bad.append(f"non-finite loss in {res.losses}")
+    # no kernel has a backward: training runs the plain branches; the
+    # schedule (integers, no gradient) runs once a MoE layer a step
+    pattern, n_steps, _ = layer_pattern(cfg)
+    want = {"moe_gmm": 0, "paged_attention": 0, "flash_attention": 0,
+            "schedule": n_steps * pattern.count("moe") * len(res.losses)}
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    if bad:
+        raise AssertionError("[train-switch] " + "; ".join(bad))
+    return out, res
+
+
+def trained_serve(cfg, ckpt_dir, step, trained, like):
+    """(d): (a)'s last checkpoint restored into ``ServeEngine`` (paged,
+    greedy), its tokens held against the plain branches fed them."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import engine_config_for
+    t0 = time.perf_counter()
+    params = Checkpointer(ckpt_dir).restore(step, like, only="params",
+                                            device="cuda")["params"]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(params),
+                                                  _leaves(trained)))
+    if not same:
+        raise AssertionError("[train-serve] the restored parameters are not "
+                             "the trained ones")
+    D = TRAIN_D
+    ecfg = engine_config_for(cfg, max_slots=D["slots"],
+                             prompt_len=D["prompt_lens"][1] - 1,
+                             max_new_tokens=D["new_tokens"],
+                             prefill_chunk=D["prefill_chunk"], paged=True,
+                             kv_block_size=D["block_size"])
+    model = build_model(cfg, batch=D["slots"], seq_len=ecfg.max_seq_len)
+    reqs = _phase14_requests(cfg, D, seed=171)
+    outputs, rep, launches, wall, peak, stats, rows = _serve_streams(
+        model, params, ecfg, reqs)
+    _check_budgets("train-serve", outputs, reqs, cfg.vocab_size)
+    # the plain branches, teacher-forced: each step's logits from a whole
+    # prompt of the request's tokens so far (plain attention and the
+    # grouped FFN's reference)
+    V, oracle = cfg.vocab_size, {}
+    read = _reset_launches()
+    with torch.no_grad():
+        for r in reqs:
+            hist = list(r.tokens) + outputs[r.rid]
+            oracle[r.rid] = []
+            for i in range(len(outputs[r.rid])):
+                toks = torch.tensor([hist[:len(r.tokens) + i]],
+                                    dtype=torch.int32, device="cuda")
+                logits, _, _, _ = model.prefill(params, {"tokens": toks},
+                                                kernels=False)
+                oracle[r.rid].append(logits[0, :V].float())
+    plain_launches = read()
+    agreement = {r.rid: oracle_agreement(outputs[r.rid], oracle[r.rid],
+                                         rows[r.rid], 0) for r in reqs}
+    from repro_torch.models.transformer import layer_pattern
+    pattern, n_steps, _ = layer_pattern(cfg)
+    n_moe = n_steps * pattern.count("moe")
+    steps = rep["decode_steps"] + rep["prefill_chunks"]
+    want = {"moe_gmm": n_moe * steps, "flash_attention": 0,
+            "paged_attention": cfg.num_layers * steps,
+            "schedule": n_moe * steps}
+    out = {"model": cfg.name, "restore_s": restore_s,
+           "requests": len(reqs), "tokens_out": rep["total_new_tokens"],
+           "ttft_p50_s": rep["ttft"]["p50"], "tpot_p50_s": rep["tpot"]["p50"],
+           "wall_s": wall, "peak_mem_gib": peak, "launches": launches,
+           "plain_launches": plain_launches,
+           "agreement": {rid: {k: ag[k] for k in (
+               "steps", "agree", "logits_err_max", "logits_err_median")}
+               for rid, ag in agreement.items()}}
+    log(f"[train-serve] {json.dumps(out)}")
+    bad = gate_failures(DENSE_GATES, cfg.dtype, agreement)
+    if launches != want:
+        bad.append(f"launches {launches} != {want}")
+    # the schedule (Alg. 2, integers) is the same kernel on both sides
+    if any(n for k, n in plain_launches.items() if k != "schedule"):
+        bad.append(f"the plain branches launched {plain_launches}")
+    if bad:
+        raise AssertionError("[train-serve] " + "; ".join(bad))
+    return out
+
+
+def _skew_assign(T, G, E, alpha, seed):
+    """Skewed expert ids [1, G, T / G, 1] (the hot expert 0 drawn with
+    probability ``alpha``), for each rank's token slice."""
+    import numpy as np
+    import torch
+    p = np.full(E, (1 - alpha) / (E - 1))
+    p[0] = alpha
+    a = np.random.default_rng(seed).choice(E, size=(T, 1), p=p)
+    return torch.from_numpy(a.astype(np.int32).reshape(1, G, T // G, 1))
+
+
+def _grad_errs(got, ref):
+    """Each leaf's largest error relative to its own largest reference
+    magnitude (floored at ``TRAIN_FLOOR``), in JAX's leaf order."""
+    return [float((a.float().cpu() - b.float().cpu()).abs().max())
+            / max(TRAIN_FLOOR, float(b.float().abs().max()))
+            for a, b in zip(_leaves(got), _leaves(ref))]
+
+
+def _worst(errs, paths):
+    """(the largest error, its leaf's path)."""
+    i = max(range(len(errs)), key=errs.__getitem__)
+    return errs[i], paths[i]
+
+
+def switch_f32_check():
+    """(b): switch128's f32 2-layer cut: one step's loss and gradients on
+    the card against the CPU's on the same weights and batch, then
+    ``VirtualGroup(4)`` against G = 1 under harmoeny on a 0.9 skew
+    (foreign rows carry gradient back to the hot expert's rows).  The
+    limit's controls: the card's step with TF32 on, and the CPU's
+    gradients with the leaf of the smallest magnitude zeroed, each held
+    against the CPU's, must miss it."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import build_model
+    from repro_torch import tree
+    B_ = TRAIN_B
+    cut = get_config("switch128").replace(num_layers=B_["layers"],
+                                          dtype="float32")
+    pcfg = ParallelConfig(moe_block_m=B_["block_m"])
+    shape = dict(batch=B_["batch"], seq_len=B_["seq_len"])
+    card = build_model(cut, pcfg, **shape)
+    params = card.init(0)
+    paths = tree.paths(params)
+    nb = next(synthetic_batches("zipf", vocab=cut.vocab_size, seed=0,
+                                **shape))
+    batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+    t0 = time.perf_counter()
+    loss, diags, grads = loss_and_grads(card, params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = build_model(cut, pcfg, device="cpu", **shape)
+    p_cpu = tree.tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = loss_and_grads(cpu, p_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    del p_cpu
+    errs_cpu = _grad_errs(grads, grads_c)
+    err_cpu, worst_cpu = _worst(errs_cpu, paths)
+    loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    # the controls: TF32's 10-bit mantissa in every f32 product; and the
+    # leaf whose gradient is smallest (the one a bound relative to 1
+    # would have let through) zeroed
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, _, grads_tf32 = loss_and_grads(card, params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    err_tf32, worst_tf32 = _worst(_grad_errs(grads_tf32, grads_c), paths)
+    del grads_tf32
+    mags = [float(t.abs().max()) for t in tree.leaves(grads_c)]
+    small = min((i for i in range(len(mags)) if mags[i] > 0),
+                key=mags.__getitem__)
+    zeroed = [torch.zeros_like(t) if i == small else t
+              for i, t in enumerate(tree.leaves(grads))]
+    err_zeroed = _grad_errs(zeroed, grads_c)[small]
+    del grads_c, zeroed
+    # G = 4 against G = 1 on the same skewed routes
+    G = B_["ep_degree"]
+    T = B_["batch"] * B_["seq_len"]
+    E = cut.moe.num_experts
+    sa4 = _skew_assign(T, G, E, B_["skew"], seed=17).cuda()
+    sa1 = sa4.reshape(1, 1, T, 1)
+    l1, _, g1 = loss_and_grads(card, params, batch, skew_assign=sa1)
+    ep = build_model(cut, pcfg, ep_degree=G, **shape)
+    # G ranks hold the same experts in rank-major rows (row g * epr + j:
+    # slot j of rank g), and their gradients come back in that order
+    order = torch.as_tensor(ep.moe_spec.topo.slot_map.reshape(-1),
+                            device="cuda").long()
+    expert = [p.split("/")[-2:-1] == ["moe"] and not p.endswith("router")
+              for p in paths]
+    p4 = tree.unflatten(tree.flatten(params)[1], [
+        t[:, order] if ex else t for t, ex in zip(tree.leaves(params),
+                                                  expert)])
+    l4, d4, g4 = loss_and_grads(ep, p4, batch, skew_assign=sa4)
+    epr = E // G
+    moe_g = g4[paths.index(next(p for p in paths
+                                if p.endswith("moe/w_in")))]
+    rank_nz = [bool(moe_g[:, g * epr:(g + 1) * epr].abs().amax() > 0)
+               for g in range(G)]
+    g4 = [torch.empty_like(g).index_copy_(1, order, g) if ex else g
+          for g, ex in zip(g4, expert)]
+    err_ep, worst_ep = _worst(_grad_errs(g4, g1), paths)
+    loss_err_ep = abs(float(l4) - float(l1)) / abs(float(l1))
+    out = {"model": cut.name, "layers": cut.num_layers, "dtype": "float32",
+           "batch": B_["batch"], "seq_len": B_["seq_len"],
+           "loss_card": float(loss), "loss_cpu": float(loss_c),
+           "loss_err_rel": loss_err, "grad_err_vs_cpu": err_cpu,
+           "grad_err_vs_cpu_leaf": worst_cpu,
+           "grad_err_vs_cpu_by_leaf": dict(zip(paths, errs_cpu)),
+           "smallest_leaf": paths[small], "smallest_leaf_max": mags[small],
+           "control_tf32_err": err_tf32, "control_tf32_leaf": worst_tf32,
+           "control_zeroed_err": err_zeroed,
+           "card_s": card_s, "cpu_s": cpu_s,
+           "loss_g1": float(l1), "loss_g4": float(l4),
+           "loss_err_rel_g4_vs_g1": loss_err_ep,
+           "grad_err_g4_vs_g1": err_ep, "grad_err_g4_vs_g1_leaf": worst_ep,
+           "drops": float(d4["send_drops"]) + float(d4["dest_drops"]),
+           "moved_units": float(d4["moved_units"]),
+           "ranks_with_grad": rank_nz, "tol": TRAIN_TOL,
+           "floor": TRAIN_FLOOR}
+    log(f"[train-f32] {json.dumps(out)}")
+    bad = []
+    if loss_err > TRAIN_TOL or err_cpu > TRAIN_TOL:
+        bad.append(f"card against CPU: loss {loss_err}, grads {err_cpu} "
+                   f"({worst_cpu})")
+    if err_tf32 <= TRAIN_TOL or err_zeroed <= TRAIN_TOL:
+        bad.append(f"a control passed the limit {TRAIN_TOL}: TF32 "
+                   f"{err_tf32}, {paths[small]} zeroed {err_zeroed}")
+    if out["drops"] != 0 or out["moved_units"] <= 0:
+        bad.append(f"G = {G}: drops {out['drops']}, moved "
+                   f"{out['moved_units']} (want 0 and > 0)")
+    if loss_err_ep > TRAIN_TOL or err_ep > TRAIN_TOL:
+        bad.append(f"G = {G} against G = 1: loss {loss_err_ep}, grads "
+                   f"{err_ep} ({worst_ep})")
+    if not all(rank_nz):
+        bad.append(f"ranks without expert gradient: {rank_nz}")
+    if bad:
+        raise AssertionError("[train-f32] " + "; ".join(bad))
+    return out
+
+
+def stablelm_drill(tmp):
+    """(c): stablelm-1.6b killed at step ``TRAIN_C_FAIL`` and resumed
+    from its last checkpoint, against an uninterrupted run, under
+    ``torch.use_deterministic_algorithms``."""
+    import statistics
+    import torch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.fault_tolerance import InjectedFailure
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    torch.use_deterministic_algorithms(True)
+    try:
+        clean_dir, drill_dir = (os.path.join(tmp, "c_clean"),
+                                os.path.join(tmp, "c_drill"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clean = train_loop(train_args("stablelm-1.6b", clean_dir, **TRAIN_C))
+        clean_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ck = Checkpointer(clean_dir)
+        clean_manifests = {s: ck.manifest(s) for s in (4, 8, 12)}
+        final_params = clean.params
+        losses = clean.losses
+        steady = clean.step_seconds[2:]
+        ckpt_s = clean.ckpt_seconds
+        n_params = sum(t.numel() for t in _leaves(final_params))
+        del clean, ck
+        shutil.rmtree(clean_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the killed run: its state at the checkpoint it will resume from
+        held = {}
+
+        def keep(step, params, opt, loss, diags):
+            if step == TRAIN_C["ckpt_every"]:
+                held["state"] = [t.clone() for t in
+                                 _leaves({"params": params, "opt": opt})]
+        os.environ["REPRO_FAIL_AT_STEP"] = str(TRAIN_C_FAIL)
+        try:
+            train_loop(train_args("stablelm-1.6b", drill_dir, **TRAIN_C),
+                       after_step=keep)
+            raise AssertionError("[train-drill] the injected failure did "
+                                 "not fire")
+        except InjectedFailure:
+            pass
+        finally:
+            del os.environ["REPRO_FAIL_AT_STEP"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        restored = {}
+
+        def on_restore(step, state):
+            restored["step"] = step
+            restored["equal"] = all(
+                torch.equal(a, b) for a, b in zip(_leaves(state),
+                                                  held["state"]))
+        t0 = time.perf_counter()
+        resumed = train_loop(train_args("stablelm-1.6b", drill_dir,
+                                        **TRAIN_C), on_restore=on_restore)
+        resume_s = time.perf_counter() - t0
+        del held["state"]
+        params_equal = all(torch.equal(a, b) for a, b in zip(
+            _leaves(resumed.params), _leaves(final_params)))
+        ck = Checkpointer(drill_dir)
+        manifests_equal = {s: ck.manifest(s) == clean_manifests[s]
+                           for s in (8, 12)}
+        out = {"model": "stablelm-1.6b", "params_b": n_params / 1e9,
+               "steps": TRAIN_C["steps"], "batch": TRAIN_C["batch"],
+               "seq_len": TRAIN_C["seq_len"],
+               "step_s_median_3_12": statistics.median(steady),
+               "tok_s": TRAIN_C["batch"] * TRAIN_C["seq_len"]
+               / statistics.median(steady),
+               "peak_mem_gib": peak, "clean_s": clean_s, "ckpt_s": ckpt_s,
+               "resume_s": resume_s, "loss_first_last": [losses[0],
+                                                         losses[-1]],
+               "resumed_from": restored.get("step"),
+               "restored_equal": restored.get("equal"),
+               "final_params_equal": params_equal,
+               "final_checkpoints_equal": manifests_equal}
+        log(f"[train-drill] {json.dumps(out)}")
+        bad = []
+        if not all(math.isfinite(x) for x in losses + resumed.losses):
+            bad.append("a non-finite loss")
+        if restored.get("step") != TRAIN_C["ckpt_every"] \
+                or not restored.get("equal"):
+            bad.append(f"restored {restored}")
+        if not params_equal or not all(manifests_equal.values()):
+            bad.append(f"resumed != uninterrupted: params {params_equal}, "
+                       f"checkpoints {manifests_equal}")
+        if bad:
+            raise AssertionError("[train-drill] " + "; ".join(bad))
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_path():
+    """Phase 17: (a), (d) on (a)'s checkpoint, (b), (c); returns their
+    records."""
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_config
+    tmp = tempfile.mkdtemp(prefix="train_", dir=os.path.join(HERE, "build"))
+    disk = shutil.disk_usage(tmp)
+    log(f"[train] checkpoints under {tmp}: {disk.free / 1e9:.1f} GB free "
+        f"of {disk.total / 1e9:.1f} GB")
+    try:
+        t0 = time.perf_counter()
+        a, res = switch_train(tmp)
+        ta = time.perf_counter() - t0
+        trained = res.params
+        like = {"params": _meta(res.params), "opt": _meta(res.opt)}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        d = trained_serve(get_config("switch128"), os.path.join(tmp, "a"),
+                          TRAIN_A["steps"], trained, like)
+        td = time.perf_counter() - t0
+        del trained
+        shutil.rmtree(os.path.join(tmp, "a"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        b = switch_f32_check()
+        tb = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        c = stablelm_drill(tmp)
+        tc = time.perf_counter() - t0
+        log(f"[time] phase 17: (a) {ta:.1f} s, (d) {td:.1f} s, (b) "
+            f"{tb:.1f} s, (c) {tc:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"switch": a, "serve": d, "f32": b, "drill": c}
+
+
+def _meta(tree_):
+    """``tree_`` with every tensor replaced by one on the meta device."""
+    from repro_torch import tree
+    import torch
+    return tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                               device="meta"), tree_)
+
+
 def main() -> int:
     try:
         import torch
@@ -5914,6 +6466,9 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
 
+    # phase 17 (c) runs cuBLAS under deterministic algorithms, which needs
+    # a fixed workspace from the first handle on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_run = time.perf_counter()
 
     def elapsed(what):
@@ -5981,6 +6536,12 @@ def main() -> int:
         encdec_kernel_parity()
         gemma2_only_path()
         elapsed("phase 16")
+        return 0
+    if "--only-train" in sys.argv[1:]:
+        # a shorter run for work on phase 17: the phase alone, without the
+        # kernels line and the result line
+        train_path()
+        elapsed("phase 17")
         return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
@@ -6107,6 +6668,11 @@ def main() -> int:
     gemma2 = gemma2_path()
     whisper = whisper_path()
     elapsed("phase 16")
+    # --- phase 17: the training path ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_path()
+    elapsed("phase 17")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -6176,7 +6742,12 @@ def main() -> int:
                 **{f"prefill_decode_{rec['model']}_{dt}":
                    rec["launches"][name]
                    for rec_by in (whisper, pixtral)
-                   for dt, rec in rec_by.items() if dt != "params_b"}},
+                   for dt, rec in rec_by.items() if dt != "params_b"},
+                "train_switch128": train["switch"]["launches"][name],
+                "serve_switch128_trained_paged":
+                    train["serve"]["launches"][name],
+                "oracle_switch128_trained_plain":
+                    train["serve"]["plain_launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -145,7 +145,17 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The subset of the JAX ``ParallelConfig`` the one-rank port honours."""
+    """The subset of the JAX ``ParallelConfig`` the one-rank port honours.
+    ``remat`` other than "none" checkpoints each period of the stack in
+    training, "selective" as "full" (JAX's reading); ``microbatch`` n > 1
+    splits a training batch into n microbatches (``launch.steps``);
+    ``compress_grads`` names JAX's int8 all-reduce (``optim.compress``);
+    it is read nowhere, in JAX as here (no data-parallel step uses it)."""
 
+    remat: str = "none"           # none | full | selective
+    microbatch: int = 0           # >0: microbatches accumulated in f32
+    compress_grads: bool = False  # int8 all-reduce
+    loss_chunk: int = 2048        # vocab-loss sequence chunk
+    attn_chunk: int = 1024        # chunked attention's KV block in training
     moe_cf_pair: float = 2.0      # off-diagonal dispatch pair capacity factor
     moe_block_m: int = 128        # grouped-FFN row-tile (weight reuse ~ block_m)

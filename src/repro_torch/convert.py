@@ -30,6 +30,12 @@ global), whisper's encoder (``encoder/stack/blocks/sub0`` and
 ``encoder/final_norm``) and its stacked cross-attention leaves
 (``cross/norm``, ``cross/attn/wq|wk|wv|wo``, a leading decoder-layer
 axis), and its cache's ``cross`` K/V.
+
+An optimizer state (JAX's ``AdamWState(step, m, v)``) becomes the
+port's ``optim.adamw.AdamWState``: the int32 step a 0-d tensor, the f32
+moments trees of the parameters' layout.  A JAX checkpoint needs no
+conversion: ``checkpoint.Checkpointer`` reads its files in JAX's leaf
+order into the port's trees.
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.mamba2 import MambaState
+from repro_torch.optim.adamw import AdamWState
 
-_NAMED = {tuple(t._fields): t for t in (AttnCache, MambaState)}
+_NAMED = {tuple(t._fields): t for t in (AttnCache, MambaState, AdamWState)}
 
 
 def _leaf(a, device) -> torch.Tensor:

@@ -22,7 +22,7 @@ vector (``replica_ids_me``, -1 = empty), so a swap changes values only.
 
 Collectives.  The per-rank body (``moe_layer._moe_forward_local``) is a
 generator: each collective is a ``yield`` of a ``Collective`` request
-(``yield from all_gather(x)``, ``all_to_all``, ``psum``,
+(``yield from all_gather(x)``, ``all_to_all``, ``psum``, ``pmax``,
 ``fetch_rows``), and the communicator answers it.  Three communicators
 run the same body: ``LocalComm`` (one rank: every collective is the
 identity), ``DistComm`` (one rank per process over
@@ -73,7 +73,8 @@ from repro_torch.core.topology import EPTopology, device_tables, local_slot_of
 
 
 class Collective(NamedTuple):
-    op: str               # "all_gather" | "all_to_all" | "psum" | "fetch_rows"
+    op: str               # "all_gather" | "all_to_all" | "psum" | "pmax"
+                          # | "fetch_rows"
     x: torch.Tensor
     args: tuple = ()      # fetch_rows: (fids_all, me, topo, fetch_chunk)
 
@@ -104,12 +105,17 @@ def psum(x: torch.Tensor):
     return (yield Collective("psum", x))
 
 
+def pmax(x: torch.Tensor):
+    """The elementwise maximum of every rank's ``x``."""
+    return (yield Collective("pmax", x))
+
+
 def run(comm, body: Body):
     """Drive one rank's body against a communicator that answers each
     collective at once (``LocalComm``, ``DistComm``, or a test's stand-in
-    with ``all_gather`` / ``all_to_all`` / ``psum`` / ``fetch_rows``
-    methods; ``fetch_rows(w_local, fids_all, me, topo, fetch_chunk)``
-    answers with a ``Fetched``)."""
+    with ``all_gather`` / ``all_to_all`` / ``psum`` / ``pmax`` /
+    ``fetch_rows`` methods; ``fetch_rows(w_local, fids_all, me, topo,
+    fetch_chunk)`` answers with a ``Fetched``)."""
     try:
         req = next(body)
         while True:
@@ -198,6 +204,9 @@ class LocalComm:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
     def fetch_rows(self, w_local, fids_all, me, topo, fetch_chunk=0):
         # one rank hosts every expert, so FIDS is all -1: zeros
         return Fetched(dense_fetch(w_local, fids_all, me, topo,
@@ -281,6 +290,12 @@ class DistComm:
         self._dist.all_reduce(out, group=self.group)
         return out
 
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.MAX,
+                              group=self.group)
+        return out
+
     def rank0_value(self, value: float) -> float:
         """Rank 0's ``value`` on every rank (the serve engine's per-step
         clock reading; a CPU tensor on gloo, a device one on NCCL)."""
@@ -359,8 +374,12 @@ class DistComm:
 def _adjacent_view(xs: List[torch.Tensor]) -> Optional[torch.Tensor]:
     """[G, ...] as a view when the G tensors are back-to-back slices of
     one storage (each rank's expert rows of a rank-major weight), else
-    None."""
+    None.  Under autograd, with a tensor that requires grad, None too: a
+    view strided out of rank 0's slice would send the gradient of every
+    rank's rows to rank 0's alone (the caller stacks instead)."""
     x0 = xs[0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return None
     n = x0.numel()
     for g, x in enumerate(xs):
         if (x.untyped_storage().data_ptr()
@@ -438,6 +457,12 @@ class VirtualGroup:
         for x in xs[1:]:
             total = total + x                       # rank order
         return [total] * self.size
+
+    def _pmax(self, xs):
+        top = xs[0]
+        for x in xs[1:]:
+            top = torch.maximum(top, x)
+        return [top] * self.size
 
     def _fetch_rows(self, xs, args):
         """Every destination's foreign rows in one gather from the

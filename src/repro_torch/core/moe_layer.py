@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig, round_up
 from repro_torch.core import dispatch as D
 from repro_torch.core import prefetch
-from repro_torch.core.grouped_ffn import grouped_ffn
+from repro_torch.core.grouped_ffn import grouped_ffn, grouped_ffn_ref
 from repro_torch.core.qthreshold import q_threshold
 from repro_torch.core.dispatch import replica_slot_map
 from repro_torch.core.router import (SkewKey, expert_counts, route_assigned,
@@ -131,7 +131,8 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                        skew_assign: Optional[torch.Tensor] = None,
                        replica_ids: Optional[torch.Tensor] = None,
                        residency_ids: Optional[torch.Tensor] = None,
-                       overlap: Optional[Callable[[], object]] = None):
+                       overlap: Optional[Callable[[], object]] = None,
+                       kernels: bool = True):
     """Per-rank body of rank ``me``, a generator that yields its
     collectives (dispatch.py) and returns (y_rep, diagnostics, the
     result of ``overlap``).  x_rep: [t_pad, d] replicated over the EP
@@ -140,7 +141,9 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
     this rank's drawn skewed assignment; ``replica_ids`` [G, R] and
     ``residency_ids`` [G, W] the replicated placement tables (module
     docstring); ``overlap`` work independent of the block (the shared
-    experts), run on the current stream while the fetch is in flight."""
+    experts), run on the current stream while the fetch is in flight;
+    ``kernels`` False runs the grouped FFN's reference
+    (``grouped_ffn_ref``) in place of the kernel's entry."""
     topo, moe = spec.topo, spec.moe
     G, Ep = topo.num_ranks, topo.padded_experts
     epr = topo.experts_per_rank
@@ -228,10 +231,10 @@ def _moe_forward_local(x_rep: torch.Tensor, params: Dict[str, torch.Tensor],
                         for f in fetched)
         foreign_rows = layout.group_sizes[epr + R:].sum()
     sizes_padded = D.round_up_j(layout.group_sizes, spec.block_m)
-    out_grouped = grouped_ffn(grouped, w_in, w_out, sizes_padded,
-                              w_gate=w_gate, act=spec.act,
-                              block_m=spec.block_m, replica=replica,
-                              foreign=foreign, foreign_rows=foreign_rows)
+    ffn = grouped_ffn if kernels else grouped_ffn_ref
+    out_grouped = ffn(grouped, w_in, w_out, sizes_padded, w_gate=w_gate,
+                      act=spec.act, block_m=spec.block_m, replica=replica,
+                      foreign=foreign, foreign_rows=foreign_rows)
 
     # --- step 6: gather + combine ---------------------------------------------
     y_slice = yield from D.combine(out_grouped, layout, num_ranks=G,
@@ -280,7 +283,8 @@ def tp_layout(assign: torch.Tensor, E: int, block_m: int):
 def tp_moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
                  spec: MoEBlockSpec, comm,
                  skew_key: Optional[SkewKey] = None,
-                 skew_assign: Optional[torch.Tensor] = None
+                 skew_assign: Optional[torch.Tensor] = None,
+                 kernels: bool = True
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Tensor-parallel MoE (E < EP degree; JAX's ``tp_moe_block``).  Every
     rank routes all of x [B, S, d] alike (``route_topk``, or the skew
@@ -292,7 +296,9 @@ def tp_moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     (``params``' expert rows are rank-major, row ``g * E + e`` holding
     rank g's slice of expert e: ``comm.expert_rows``), the partial
     outputs are summed over the ranks (``psum``) and combined with the
-    gates.  Dead tokens are routed too, as in JAX: nothing is dropped."""
+    gates.  Dead tokens are routed too, as in JAX: nothing is dropped.
+    ``kernels`` False runs ``grouped_ffn_ref`` in place of the kernel's
+    entry."""
     moe = spec.moe
     E, k, bm = moe.num_experts, moe.num_experts_per_tok, spec.block_m
     B, S_len, d = x.shape
@@ -315,9 +321,9 @@ def tp_moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     def body(me: int):
         w = {n: comm.expert_rows(params[n], me, E)
              for n in ("w_in", "w_out", "w_gate") if n in params}
-        y_part = grouped_ffn(x_buf, w["w_in"], w["w_out"], padded,
-                             w_gate=w.get("w_gate"), act=spec.act,
-                             block_m=bm)
+        ffn = grouped_ffn if kernels else grouped_ffn_ref
+        y_part = ffn(x_buf, w["w_in"], w["w_out"], padded,
+                     w_gate=w.get("w_gate"), act=spec.act, block_m=bm)
         return (yield from D.psum(y_part))           # row-parallel
     y_buf = comm.run_ranks(body)[0]
     y_units = y_buf[row]
@@ -343,7 +349,8 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
               skew_assign: Optional[torch.Tensor] = None,
               replica_ids: Optional[torch.Tensor] = None,
               residency_ids: Optional[torch.Tensor] = None,
-              shared: Optional[Callable[[], torch.Tensor]] = None
+              shared: Optional[Callable[[], torch.Tensor]] = None,
+              kernels: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> [B, S, d], diagnostics, over the EP group of
     ``comm`` (default: one rank).  ``params``' expert rows are rank-major
@@ -365,7 +372,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     pads) is the tiered-residency working set (None: everything
     resident).  y is replicated; the diagnostics are those of the first
     rank that this process runs (rank 0 unless ``DistComm``), as the JAX
-    block reports rank 0's."""
+    block reports rank 0's.  ``kernels`` False runs the grouped FFN's
+    reference (``grouped_ffn_ref``) on any device, as JAX's block without
+    ``use_pallas``: training's path, which autograd differentiates (the
+    kernel has no backward and raises on an input that requires grad)."""
     comm = comm if comm is not None else D.LocalComm()
     if comm.size != spec.ep_degree:
         raise ValueError(f"communicator of {comm.size} ranks for a spec of "
@@ -374,7 +384,8 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         # capacity-free and compute-balanced: dead tokens cannot drop real
         # ones, so the mask (and the placement tables) are not needed
         y, diag = tp_moe_block(x, params, spec=spec, comm=comm,
-                               skew_key=skew_key, skew_assign=skew_assign)
+                               skew_key=skew_key, skew_assign=skew_assign,
+                               kernels=kernels)
         return (y if shared is None else y + shared()), diag
     B, S_len, d = x.shape
     flat = x.reshape(B * S_len, d)
@@ -413,7 +424,7 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
             skew_assign=(None if skew_assign is None
                          else skew_assign[here.index(me)]),
             replica_ids=replica_ids, residency_ids=residency_ids,
-            overlap=shared if me == here[0] else None)
+            overlap=shared if me == here[0] else None, kernels=kernels)
     y, diag, side = comm.run_ranks(body)[0]
     y = y[:n_valid].reshape(B, S_len, d)
     return (y if side is None else y + side), diag

@@ -21,11 +21,18 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("moe_gmm", "paged_attention", "flash_attention", "schedule")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources whose device-code optimisation nvcc splits over every core
+# (``--split-compile=0``): paged_attention's 27 instantiations build in
+# 29 s instead of 61 on an H100 machine's 8 cores, with the same register
+# counts; it alone decided the build's wall time
+SPLIT_COMPILE = ("paged_attention",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, by kernel name
@@ -40,20 +47,25 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + (["--split-compile=0"] if name in SPLIT_COMPILE
+                         else [])
+
+
 def _lib_path(name: str) -> Path:
     """The library's path, tagged with a hash of its source, of every
     shared header in ``csrc/`` and of the compiler flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:
     out = _lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
 
@@ -94,3 +106,14 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise when autograd would record a call on ``tensors``: the kernels
+    have no backward, and a kernel's output would carry no gradient back
+    to its inputs (training runs the plain branches, ``kernels=False``)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward, and an "
+                           f"input requires grad; run the plain branch "
+                           f"(kernels=False) to train")

@@ -66,7 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model-layout entry: q [B, Sq, H, hd]; k/v [B, Sk, Hkv, hd] ->
     [B, Sq, H, hd] contiguous.  The kernel reads q, k and v in place
     through their strides (the last axis, hd, must be contiguous), so the
-    JAX wrapper's transposes are not needed."""
+    JAX wrapper's transposes are not needed.  Forward only: raises when
+    an input requires grad under grad mode (``build.forward_only``)."""
+    build.forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -182,7 +182,10 @@ def moe_gmm(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     K); ``live_rows`` an optional int32 [1] on x's device, a multiple of
     block_m, past which every row of x is zero; ``foreign_rows`` the
     foreign groups' real row count, for the counter -> [M, d] in x's
-    type."""
+    type.  Forward only: raises when an input requires grad under grad
+    mode (``build.forward_only``), on either device."""
+    build.forward_only("moe_gmm", x, w_in, w_out, w_gate,
+                       *(replica or ()), *(foreign or ()))
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w_in, w_out, tile_group, w_gate=w_gate,
                              act=act, block_m=block_m, replica=replica,

@@ -182,7 +182,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     is row ``i * rep + r`` of (b, g)'s tile, the TPU wrapper's layout.  A
     chain cut into several spans takes a workspace for the spans' partials
     (``torch.empty``) and the shared merge counters; one call is one
-    device launch either way."""
+    device launch either way.  Forward only: raises when an input
+    requires grad under grad mode (``build.forward_only``)."""
+    build.forward_only("paged_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_table,
                                      cache_len, block_size=block_size,

@@ -1,6 +1,9 @@
-"""Inference step functions assembled from a model (port of the prefill
-and decode steps of ``repro/launch/steps.py``; the training step is not
-ported yet).
+"""Step functions assembled from a model and the optimizer (port of
+``repro/launch/steps.py``).
+
+    train_step = make_train_step(model, lr=3e-4)
+    opt = adamw_init(params)
+    params, opt, loss, diags = train_step(params, opt, batch)
 
     prefill_step = make_prefill_step(model, s_max=S + 64)
     token, caches, pos, _ = prefill_step(params, {"tokens": prompts})
@@ -8,16 +11,104 @@ ported yet).
     for _ in range(n):
         token, caches, pos, _ = decode_step(params, token, caches, pos)
 
-Greedy: each step returns the argmax token [B, 1] int32 (ties to the
-lower id, as ``jnp.argmax``).  The slab caches are updated in place.  On
-a sliding-window model this is the one-shot windowed path: the slab is
-clamped to the window, the prefill keeps the prompt's window tail at its
-ring slots, and each decode step writes at its position modulo the
-clamped slab's length.
+The train step differentiates ``model.train_loss`` with respect to every
+parameter leaf, in JAX's leaf order (``repro_torch.tree``), and applies
+``optim.adamw_update``; with ``ParallelConfig.microbatch`` n > 1 it
+splits the batch into n microbatches along its first axis, sums their
+gradients in f32 and divides by n (the loss and the diagnostics are the
+microbatches' means, each over all its axes), as JAX's scan does.  The
+parameters stay plain tensors that require no grad: the step
+differentiates aliases of them, and the update writes them in place.
+
+Greedy decoding: each inference step returns the argmax token [B, 1]
+int32 (ties to the lower id, as ``jnp.argmax``).  The slab caches are
+updated in place.  On a sliding-window model this is the one-shot
+windowed path: the slab is clamped to the window, the prefill keeps the
+prompt's window tail at its ring slots, and each decode step writes at
+its position modulo the clamped slab's length.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Dict, Optional
+
 import torch
+
+from repro_torch import tree
+from repro_torch.optim.adamw import AdamWState, adamw_update
+
+
+def loss_and_grads(model, params, batch, skew_key=None, skew_assign=None,
+                   moe_layer_diags: bool = False):
+    """(loss, diags, gradient leaves in JAX's order) of
+    ``model.train_loss`` on one batch; a leaf that the loss does not reach
+    gets zeros, as ``jax.grad`` gives."""
+    flat, structure = tree.flatten(params)
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        loss, diags = model.train_loss(
+            tree.unflatten(structure, leaves), batch, skew_key,
+            skew_assign=skew_assign, moe_layer_diags=moe_layer_diags)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in diags.items()}, \
+        list(grads)
+
+
+def make_train_step(model, *, lr: float = 3e-4,
+                    on_grads: Optional[Callable[[Any, Dict], None]] = None,
+                    moe_layer_diags: bool = False):
+    """``train_step(params, opt, batch, skew_key=None, skew_assign=None)
+    -> (params, opt, loss, diags)``; ``batch`` holds ``tokens`` and
+    ``labels`` [B, S] (whisper's ``frames``, pixtral's ``patches``),
+    arrays or tensors.  ``on_grads(grads, diags)``, if given, sees the
+    gradient tree (the microbatches' f32 mean) before the update;
+    ``moe_layer_diags`` adds each MoE layer's expert loads
+    (``expert_load_layers``) to the diagnostics."""
+    n_ub = max(model.pcfg.microbatch, 1)
+
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, Any],
+                   skew_key=None, skew_assign=None):
+        structure = tree.flatten(params)[1]
+        if n_ub == 1:
+            loss, diags, grads = loss_and_grads(
+                model, params, batch, skew_key, skew_assign, moe_layer_diags)
+        else:
+            gsum = loss_sum = None
+            per = []
+            for i in range(n_ub):
+                ub = {k: _split(v, n_ub, i) for k, v in batch.items()}
+                loss_i, diags_i, g = loss_and_grads(
+                    model, params, ub, skew_key, skew_assign,
+                    moe_layer_diags)
+                if gsum is None:
+                    gsum = [torch.zeros(x.shape, dtype=torch.float32,
+                                        device=x.device) for x in g]
+                    loss_sum = torch.zeros((), dtype=torch.float32,
+                                           device=loss_i.device)
+                for acc, x in zip(gsum, g):
+                    acc.add_(x.float())
+                del g
+                loss_sum = loss_sum + loss_i
+                per.append(diags_i)
+            grads = [g.div_(n_ub) for g in gsum]
+            loss = loss_sum / n_ub
+            # JAX's tree-map of .mean() over the stacked diagnostics: a
+            # vector one collapses to a scalar too
+            diags = {k: torch.stack([d[k] for d in per]).mean()
+                     for k in per[0]}
+        grad_tree = tree.unflatten(structure, grads)
+        if on_grads is not None:
+            on_grads(grad_tree, diags)
+        params, opt_state = adamw_update(grad_tree, opt_state, params, lr=lr)
+        return params, opt_state, loss, diags
+    return train_step
+
+
+def _split(x, n: int, i: int):
+    """Microbatch i of n along the first axis (JAX's reshape to
+    (n, B / n, ...))."""
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
 
 
 def make_prefill_step(model, *, s_max: int):

@@ -238,7 +238,8 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     block_size: int = 0, strict: bool = False,
                     kernels: bool = True, is_global: bool = True,
                     causal: bool = True,
-                    kv_source: Optional[torch.Tensor] = None
+                    kv_source: Optional[torch.Tensor] = None,
+                    attn_chunk: int = 1024
                     ) -> Tuple[torch.Tensor, Optional[AttnCache]]:
     """Projections + RoPE + attention + out-projection.  ``q_offset`` is an
     int or a 0-d tensor (prefill, slab decode) or a per-row [B] tensor
@@ -255,8 +256,9 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
     encoder), which no kernel branch takes, as in JAX.  Without a cache
     (``cache`` None: the encoder) x attends over itself, or over
     ``kv_source`` [B, Sk, d] (cross-attention, keys without RoPE), and
-    nothing is stored.  ``rope_theta <= 0`` (whisper's absolute positions)
-    applies no RoPE."""
+    nothing is stored; its plain branch takes KV blocks of ``attn_chunk``
+    (JAX's ``ParallelConfig.attn_chunk``; training's path).
+    ``rope_theta <= 0`` (whisper's absolute positions) applies no RoPE."""
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     window = 0 if (is_global and cfg.global_attn_every) else cfg.sliding_window
@@ -288,7 +290,8 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                 reason=(f"flash kernel guards failed (causal={causal}, "
                         f"window={window}, softcap={softcap})"))
             out = chunked_attention(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, q_offset=q_offset)
+                                    softcap=softcap, q_offset=q_offset,
+                                    chunk=attn_chunk)
     elif continue_prefill and block_table is None:
         # the chunk's start stays on the device (a host int would be baked
         # into a captured step): the writes go to start + [0, S)
@@ -404,11 +407,11 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 
 def cross_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                    kv: AttnCache) -> torch.Tensor:
+                    kv: AttnCache, chunk: int = 1024) -> torch.Tensor:
     """Whisper's decoder cross-attention: x [B, S, d] attends over the
     encoder's precomputed K/V [B, S_enc, Hkv, hd] (``kv``), full and
     without RoPE, through the plain ``chunked_attention``, as JAX's
     ``_run_encdec_decoder`` computes it."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    out = chunked_attention(q, kv.k, kv.v, causal=False)
+    out = chunked_attention(q, kv.k, kv.v, causal=False, chunk=chunk)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])

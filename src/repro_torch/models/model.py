@@ -27,13 +27,18 @@ the tokens).  The returned ``Model`` exposes:
               block_size, moe_policy, skew_assign, moe_replica_ids,
               moe_residency_ids, moe_layer_diags, fused_attention)
                                                -> (logits, caches, pos + S, diags)
+  train_loss(params, batch, skew_key)          -> (loss, diags)
   encode(params, frames)                       -> whisper's encoder output
   init_cache(batch, s_max, device, clamp_window)
                                                -> slab K/V caches
   init_paged_cache(num_blocks, block_size, s_ref, seq_axes, clamp_window)
                                                -> the physical paged K/V pool
-Caches are updated in place.  Everything lives on ``model.device``: CUDA
-unless the caller passes ``device="cpu"``.  At expert-parallel degree
+``train_loss`` is JAX's: the cache-less stack on the plain branches (no
+kernel has a backward), each period checkpointed with
+``ParallelConfig.remat``, and the chunked cross-entropy
+(``losses.chunked_softmax_xent``), plus 0.01 times the MoE blocks' mean
+aux loss.  Caches are updated in place.  Everything lives on
+``model.device``: CUDA unless the caller passes ``device="cpu"``.  At expert-parallel degree
 G > 1 the MoE blocks run G ranks in lockstep on that one device
 (``dispatch.VirtualGroup``); expert weights stay rank-major
 ``[G * epr, ...]``, as the JAX package lays them out.  Given a
@@ -54,6 +59,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -65,7 +71,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import (init_norm, mlp, norm,
                                        sinusoidal_positions)
 from repro_torch.models.mamba2 import init_mamba
-from repro_torch.models.losses import logits_head
+from repro_torch.models.losses import chunked_softmax_xent, logits_head
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -101,6 +107,7 @@ class Model:
     moe_spec_decode: Optional[MoEBlockSpec]  # decode steps
     comm: Any = None                # the MoE blocks' EP group
     seq_len: int = 0                # build-time length (whisper's positions)
+    pcfg: ParallelConfig = ParallelConfig()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -302,31 +309,39 @@ class Model:
     # ------------------------------------------------------------------
     def _backbone(self, params, h, *, cache, cache_len, q_offset=0,
                   moe_spec=None, continue_prefill: bool = False,
-                  valid_mask=None, cross=None, kernels: bool = True, **kw):
+                  valid_mask=None, cross=None, kernels: bool = True,
+                  train: bool = False, **kw):
         """The stack of ``cfg.family`` on h [B, S, d]: ``run_hybrid`` or
         whisper's decoder over the encoder's K/V ``cross`` (neither on a
         paged pool: JAX's refusal), or ``run_stack`` with every
-        keyword."""
+        keyword.  ``train``: no cache, the plain branches, and the
+        ``ParallelConfig``'s remat and attention chunk."""
         cfg = self.cfg
         if (cfg.family == "hybrid" or cfg.is_encoder_decoder) \
                 and kw.get("block_table") is not None:
             raise NotImplementedError(
                 "paged KV decode supports plain decoder stacks only")
+        tr = {}
+        if train:
+            kernels = False
+            tr = dict(remat=self.pcfg.remat != "none",
+                      attn_chunk=self.pcfg.attn_chunk)
         if cfg.family == "hybrid":
             return T.run_hybrid(h, params["stack"], cfg, cache=cache,
                                 cache_len=cache_len, q_offset=q_offset,
                                 continue_prefill=continue_prefill,
-                                valid_mask=valid_mask)
+                                valid_mask=valid_mask, **tr)
         if cfg.is_encoder_decoder:
             return _run_encdec_decoder(h, params, cfg, cache=cache,
                                        cache_len=cache_len,
                                        q_offset=q_offset, cross=cross,
-                                       kernels=kernels)
+                                       kernels=kernels, **tr)
         return T.run_stack(h, params["stack"], cfg, cache=cache,
                            cache_len=cache_len, q_offset=q_offset,
                            moe_spec=moe_spec, comm=self.comm,
                            continue_prefill=continue_prefill,
-                           valid_mask=valid_mask, kernels=kernels, **kw)
+                           valid_mask=valid_mask, kernels=kernels, **tr,
+                           **kw)
 
     def _embed_tokens(self, params, tokens, offset=0):
         """Token embeddings, plus whisper's absolute sinusoidal positions
@@ -354,11 +369,12 @@ class Model:
             h = h * float(torch.tensor(cfg.d_model ** 0.5).to(h.dtype))
         return h
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor,
+               attn_chunk: int = 1024) -> torch.Tensor:
         """Whisper's encoder over stubbed frame embeddings [B, S_enc, d]:
         sinusoidal positions, ``encoder_layers`` layers of full
-        (non-causal) attention, plain as in JAX, and the encoder's final
-        norm."""
+        (non-causal) attention, plain as in JAX (KV blocks of
+        ``attn_chunk``), and the encoder's final norm."""
         cfg = self.cfg
         enc_cfg = cfg.replace(num_layers=cfg.encoder_layers,
                               is_encoder_decoder=False)
@@ -367,7 +383,8 @@ class Model:
                                    frames.device).to(frames.dtype)
         h, _, _ = T.run_stack(frames + pos[None], params["encoder"]["stack"],
                               enc_cfg, cache=None, moe_spec=None,
-                              causal=False)
+                              causal=False, kernels=False,
+                              attn_chunk=attn_chunk)
         return norm(h, params["encoder"]["final_norm"], cfg.norm)
 
     def _vocab_w(self, params):
@@ -378,6 +395,49 @@ class Model:
         return logits_head(h_last, self._vocab_w(params),
                            real_vocab=self.cfg.vocab_size,
                            softcap=self.cfg.final_logit_softcap)
+
+    def train_loss(self, params, batch: Dict[str, Any],
+                   skew_key: Optional[SkewKey] = None, *,
+                   skew_assign: Optional[torch.Tensor] = None,
+                   moe_layer_diags: bool = False):
+        """JAX's ``train_loss``: the mean next-token NLL of
+        ``batch["labels"]`` [B, S] (-1 ignored) after ``batch["tokens"]``
+        [B, S], through the cache-less stack on the plain branches (with
+        the ``ParallelConfig``'s remat) and the chunked cross-entropy of
+        ``loss_chunk`` positions.  Whisper encodes ``batch["frames"]``
+        first; pixtral puts ``batch["patches"]`` before the tokens and
+        cuts them after the stack.  The MoE blocks run with the training
+        spec (``tokens_local`` of one microbatch) on ``skew_key``'s skew
+        where the config has one, or on ``skew_assign`` drawn beforehand
+        (``transformer.run_stack``), and ``0.01 * aux_loss`` is added, as
+        in JAX; ``moe_layer_diags`` adds ``expert_load_layers``.  Returns
+        (loss, diags), both f32 on ``model.device``."""
+        cfg, pc = self.cfg, self.pcfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        h = self._embed_tokens(params, tokens)
+        cross = None
+        if cfg.is_encoder_decoder:
+            enc = self.encode(params, batch["frames"], pc.attn_chunk)
+            cross = _cross_kv(params, enc)
+        n_prefix = cfg.num_prefix_embeddings
+        if n_prefix:
+            patches = torch.as_tensor(batch["patches"], device=self.device)
+            h = torch.cat([patches.to(h.dtype), h], dim=1)
+        h, _, diags = self._backbone(params, h, cache=None, cache_len=None,
+                                     moe_spec=self.moe_spec,
+                                     skew_key=skew_key, cross=cross,
+                                     train=True, skew_assign=skew_assign,
+                                     moe_layer_diags=moe_layer_diags)
+        h = norm(h, params["final_norm"], cfg.norm)
+        if n_prefix:
+            h = h[:, n_prefix:]
+        loss = chunked_softmax_xent(
+            h, self._vocab_w(params), labels, real_vocab=cfg.vocab_size,
+            chunk=pc.loss_chunk, softcap=cfg.final_logit_softcap)
+        if "aux_loss" in diags:
+            loss = loss + 0.01 * diags["aux_loss"]
+        return loss, diags
 
     def prefill(self, params, batch: Dict[str, Any],
                 s_max: Optional[int] = None,
@@ -552,7 +612,8 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
     if cfg.is_moe:
         moe_spec = MoEBlockSpec(
             moe=cfg.moe, d_model=cfg.d_model, ep_degree=ep_degree,
-            tokens_local=batch * seq_len,
+            # per-step tokens: microbatching divides the batch a step
+            tokens_local=max(batch // max(pcfg.microbatch, 1), 1) * seq_len,
             act="silu" if cfg.act == "swiglu" else "gelu",
             cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m,
             tp_mode=cfg.moe.num_experts < ep_degree)
@@ -565,7 +626,8 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
         comm = (LocalComm() if ep_degree == 1
                 else VirtualGroup(ep_degree, dev))
     return Model(cfg=cfg, device=dev, moe_spec=moe_spec,
-                 moe_spec_decode=moe_spec_decode, comm=comm, seq_len=seq_len)
+                 moe_spec_decode=moe_spec_decode, comm=comm, seq_len=seq_len,
+                 pcfg=pcfg)
 
 
 # ----------------------------------------------------------------------
@@ -580,22 +642,32 @@ def _cross_kv(params, enc_out: torch.Tensor) -> A.AttnCache:
 
 
 def _run_encdec_decoder(h, params, cfg: ModelConfig, *, cache, cache_len,
-                        q_offset, cross: A.AttnCache, kernels: bool = True):
+                        q_offset, cross: A.AttnCache, kernels: bool = True,
+                        remat: bool = False, attn_chunk: int = 1024):
     """Whisper's decoder stack (JAX's ``_run_encdec_decoder``): each layer's
     causal self-attention over its slab cache (the flash kernel on a
-    whole prompt where ``kernels``, plain slab decode), then its
-    cross-attention over the cached encoder K/V ``cross`` (plain, as in
-    JAX), then the MLP.  Returns (h, cache, {})."""
+    whole prompt where ``kernels``, plain slab decode; without a cache,
+    training, plain over the layer's own K/V in ``attn_chunk`` blocks),
+    then its cross-attention over the encoder K/V ``cross`` (plain, as in
+    JAX), then the MLP; ``remat`` checkpoints each layer.  Returns
+    (h, cache, {})."""
     blocks = params["stack"]["blocks"]["sub0"]
-    for i in range(cfg.num_layers):
+
+    def layer(h, i):
         p = T.layer_slice(blocks, i)
         pc = T.layer_slice(params["cross"], i)
         y, _ = A.attention_block(
             norm(h, p["norm1"], cfg.norm), p["attn"], cfg,
-            q_offset=q_offset, cache=T.layer_slice(cache["blocks"]["sub0"], i),
-            cache_len=cache_len, kernels=kernels)
+            q_offset=q_offset,
+            cache=(None if cache is None
+                   else T.layer_slice(cache["blocks"]["sub0"], i)),
+            cache_len=cache_len, kernels=kernels, attn_chunk=attn_chunk)
         h = h + y
         h = h + A.cross_attention(norm(h, pc["norm"], cfg.norm), pc["attn"],
-                                  T.layer_slice(cross, i))
-        h = h + mlp(norm(h, p["norm2"], cfg.norm), p["mlp"], cfg.act)
+                                  T.layer_slice(cross, i), attn_chunk)
+        return h + mlp(norm(h, p["norm2"], cfg.norm), p["mlp"], cfg.act)
+
+    for i in range(cfg.num_layers):
+        h = (checkpoint(layer, h, i, use_reentrant=False) if remat
+             else layer(h, i))
     return h, cache, {}

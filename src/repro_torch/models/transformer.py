@@ -26,12 +26,20 @@ attention(+MLP) block whose weights every group shares
 layers as a tail (``params["tail"]``, a list: zamba2's 81 = 13 x 6 + 3).
 Its attention runs the plain slab branches on every device, as JAX's
 ``run_hybrid`` calls ``attention_block`` without ``use_pallas``.
+
+Training runs both stacks without a cache (``cache`` None: JAX's
+``mode="train"``), on the plain branches (``kernels`` False), and with
+``remat`` each period of ``run_stack`` (each group of ``run_hybrid``)
+under ``torch.utils.checkpoint``, as JAX wraps its scan body in
+``jax.checkpoint``: only the period's input is kept, and its activations
+are recomputed in backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe_layer import MoEBlockSpec, moe_block
@@ -125,21 +133,24 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                      block_size: int, strict: bool,
                      skew_assign=None, moe_replica_ids=None,
                      moe_residency_ids=None, causal: bool = True,
-                     kernels: bool = True):
+                     kernels: bool = True, attn_chunk: int = 1024):
     """norm -> attention -> residual -> norm -> MoE block (+ shared
     experts) or, for a ``"dense"``, ``"attn_local"`` or ``"attn_global"``
     layer, the MLP of ``cfg.act`` -> residual, with gemma2's post-norms
     on each sub-layer's output before its residual (``cfg.post_norm``);
     for a ``"mamba"`` layer norm -> mamba block -> residual, the layer's
-    state updated in place.  Returns (x, diagnostics of this layer; none
-    for a dense or mamba layer)."""
+    state updated in place (none without a cache: training).
+    ``attn_chunk`` is the KV block of the plain attention without a
+    cache.  Returns (x, diagnostics of this layer; none for a dense or
+    mamba layer)."""
     if kind == "mamba":
         return _mamba_layer(x, p, cfg, cache, _valid_len(valid_mask)), {}
     h, _ = A.attention_block(
         norm(x, p["norm1"], cfg.norm), p["attn"], cfg, q_offset=q_offset,
         cache=cache, cache_len=cache_len, continue_prefill=continue_prefill,
         block_table=block_table, block_size=block_size, strict=strict,
-        is_global=kind != "attn_local", causal=causal, kernels=kernels)
+        is_global=kind != "attn_local", causal=causal, kernels=kernels,
+        attn_chunk=attn_chunk)
     if cfg.post_norm:
         h = norm(h, p["post_norm1"], cfg.norm)
     x = x + h
@@ -157,7 +168,8 @@ def _apply_one_layer(x, p, kind: str, cfg: ModelConfig, *, cache, q_offset,
                          skew_key=skew_key, valid_mask=valid_mask,
                          skew_assign=skew_assign,
                          replica_ids=moe_replica_ids,
-                         residency_ids=moe_residency_ids, shared=shared)
+                         residency_ids=moe_residency_ids, shared=shared,
+                         kernels=kernels)
     if cfg.post_norm:
         y = norm(y, p["post_norm2"], cfg.norm)
     # collapse the leading batch-group axis only
@@ -171,11 +183,13 @@ def _valid_len(valid_mask):
 
 def _mamba_layer(x, p, cfg: ModelConfig, state, valid_len):
     """norm -> mamba block -> residual; ``state`` (a ``MambaState`` of
-    views into the cache) takes the new state in place."""
+    views into the cache, or None in training) takes the new state in
+    place."""
     h, new = M.mamba_block(norm(x, p["norm1"], cfg.norm), p["mamba"], cfg,
                            state=state, valid_len=valid_len)
-    for dst, src in zip(state, new):
-        dst.copy_(src)
+    if state is not None:
+        for dst, src in zip(state, new):
+            dst.copy_(src)
     return x + h
 
 
@@ -189,7 +203,8 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
               moe_replica_ids: Optional[torch.Tensor] = None,
               moe_residency_ids: Optional[torch.Tensor] = None,
               moe_layer_diags: bool = False, strict: bool = False,
-              causal: bool = True, kernels: bool = True
+              causal: bool = True, kernels: bool = True,
+              remat: bool = False, attn_chunk: int = 1024
               ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Run every layer on x [B, S, d], updating ``cache`` in place, the MoE
     blocks over ``comm``'s EP group.  ``skew_key`` (synthetic router
@@ -203,35 +218,52 @@ def run_stack(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
     MoE layers); ``moe_layer_diags`` adds ``expert_load_layers``
     [n_moe_layers, Ep], each MoE layer's expert loads before the mean,
     which the tiered-residency manager reads.  ``strict``, ``causal`` and
-    ``kernels`` go to every ``attention_block``; without a cache
-    (``cache`` None: whisper's encoder) nothing is stored."""
+    ``kernels`` go to every ``attention_block``, ``kernels`` to every MoE
+    block too; without a cache (``cache`` None: whisper's encoder, and
+    training) nothing is stored.  ``remat`` runs each period under
+    ``torch.utils.checkpoint``; ``attn_chunk`` is the plain attention's
+    KV block without a cache."""
     pattern, n_steps, lead = layer_pattern(cfg)
     kw = dict(q_offset=q_offset, cache_len=cache_len, moe_spec=moe_spec,
               comm=comm, continue_prefill=continue_prefill,
               valid_mask=valid_mask, block_table=block_table,
               block_size=block_size, strict=strict, causal=causal,
-              kernels=kernels)
+              kernels=kernels, attn_chunk=attn_chunk)
     moe_kw = dict(moe_replica_ids=moe_replica_ids,
                   moe_residency_ids=moe_residency_ids)
     for i in range(lead):
         x, _ = _apply_one_layer(x, params["lead"][i], "dense", cfg,
-                                cache=cache["lead"][i], skew_key=None, **kw)
+                                cache=None if cache is None
+                                else cache["lead"][i], skew_key=None, **kw)
     per_step: Dict[str, List[torch.Tensor]] = {}
-    n_moe = 0
-    for i in range(n_steps):
+    moe_before = [sum(1 for kind in pattern[:j] if kind == "moe")
+                  for j in range(len(pattern))]
+    n_moe_step = sum(1 for kind in pattern if kind == "moe")
+
+    def period(x, i):
+        """Period i's layers on x -> (x, each layer's diagnostics)."""
         p_step = layer_slice(params["blocks"], i)
+        ds = []
         for j in range(len(pattern)):
             layer_key = (None if skew_key is None
                          else skew_key.fold_in(i * len(pattern) + j))
             drawn = None
             if skew_assign is not None and pattern[j] == "moe":
-                drawn = skew_assign[n_moe]
-                n_moe += 1
+                drawn = skew_assign[i * n_moe_step + moe_before[j]]
             x, d = _apply_one_layer(
                 x, p_step[f"sub{j}"], pattern[j], cfg,
                 cache=(None if cache is None else
                        layer_slice(cache["blocks"][f"sub{j}"], i)),
                 skew_key=layer_key, skew_assign=drawn, **kw, **moe_kw)
+            ds.append(d)
+        return x, ds
+
+    for i in range(n_steps):
+        if remat:
+            x, ds = checkpoint(period, x, i, use_reentrant=False)
+        else:
+            x, ds = period(x, i)
+        for d in ds:
             for k, v in d.items():
                 per_step.setdefault(k, []).append(v)
     diags = {k: torch.stack(v).mean(dim=0) for k, v in per_step.items()}
@@ -269,31 +301,42 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
 
 
 def run_hybrid(x: torch.Tensor, params: Dict[str, Any], cfg: ModelConfig, *,
-               cache: Dict[str, Any], cache_len=None, q_offset=0,
-               continue_prefill: bool = False, valid_mask=None
+               cache: Optional[Dict[str, Any]], cache_len=None, q_offset=0,
+               continue_prefill: bool = False, valid_mask=None,
+               remat: bool = False, attn_chunk: int = 1024
                ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
     """Run the hybrid stack on x [B, S, d], updating ``cache`` in place:
     every group's mamba layers, then the shared attention(+MLP) block on
     the group's own K/V cache (plain slab branches), then the tail.  Pad
     positions past ``valid_mask``'s prefix stay out of the recurrent
-    state.  Returns (x, cache, {})."""
+    state.  Without a cache (training) nothing is stored, the attention
+    takes ``attn_chunk`` KV blocks, and ``remat`` runs each group under
+    ``torch.utils.checkpoint``.  Returns (x, cache, {})."""
     per, n_groups, rem = hybrid_shape(cfg)
     shared = params["shared"]
     vlen = _valid_len(valid_mask)
-    for g in range(n_groups):
+
+    def group(x, g):
         p_grp = layer_slice(params["groups"], g)
-        c_grp = layer_slice(cache["mamba"], g)
+        c_grp = None if cache is None else layer_slice(cache["mamba"], g)
         for i in range(per):
             x = _mamba_layer(x, layer_slice(p_grp, i), cfg,
-                             layer_slice(c_grp, i), vlen)
+                             None if c_grp is None
+                             else layer_slice(c_grp, i), vlen)
         h, _ = A.attention_block(
             norm(x, shared["norm1"], cfg.norm), shared["attn"], cfg,
-            q_offset=q_offset, cache=layer_slice(cache["attn"], g),
+            q_offset=q_offset,
+            cache=None if cache is None else layer_slice(cache["attn"], g),
             cache_len=cache_len, continue_prefill=continue_prefill,
-            kernels=False)
+            kernels=False, attn_chunk=attn_chunk)
         x = x + h
-        x = x + mlp(norm(x, shared["norm2"], cfg.norm), shared["mlp"],
-                    cfg.act)
+        return x + mlp(norm(x, shared["norm2"], cfg.norm), shared["mlp"],
+                       cfg.act)
+
+    for g in range(n_groups):
+        x = (checkpoint(group, x, g, use_reentrant=False) if remat
+             else group(x, g))
     for i in range(rem):
-        x = _mamba_layer(x, params["tail"][i], cfg, cache["tail"][i], vlen)
+        x = _mamba_layer(x, params["tail"][i], cfg,
+                         None if cache is None else cache["tail"][i], vlen)
     return x, cache, {}

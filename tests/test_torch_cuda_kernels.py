@@ -656,3 +656,46 @@ def test_captured_sampler_equals_plain(cuda, top_k, top_p):
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), want), seed
         assert torch.equal(eager.cpu(), want), seed
+
+
+def kernel_grad_calls(dev):
+    """Each kernel wrapper's call on small inputs on ``dev``, one of its
+    inputs requiring grad (``tests/test_torch_train.py`` runs them on the
+    CPU)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import fused_expert_ffn
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn(64, 64, generator=g, **f32)
+    w_in = torch.randn(2, 64, 64, generator=g, **f32).requires_grad_(True)
+    w_out = torch.randn(2, 64, 64, generator=g, **f32)
+    sizes = torch.tensor([32, 32], dtype=torch.int32, device=dev)
+    q = torch.randn(1, 16, 2, 64, generator=g, **f32).requires_grad_(True)
+    kv = torch.randn(1, 16, 2, 64, generator=g, **f32)
+    pool = torch.randn(1, 32, 2, 64, generator=g, **f32)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    return {
+        "moe_gmm": lambda: fused_expert_ffn(x, w_in, w_out, sizes,
+                                            act="gelu", block_m=32),
+        "flash_attention": lambda: flash_attention(q, kv, kv, causal=True),
+        "paged_attention": lambda: paged_attention(
+            q[:, :1].contiguous(), pool, pool, table, 17, block_size=16)}
+
+
+@pytest.mark.parametrize("name", ["moe_gmm", "flash_attention",
+                                  "paged_attention"])
+def test_kernel_wrappers_refuse_grad(cuda, name):
+    """A kernel has no backward: its wrapper raises on an input that
+    requires grad under grad mode, and launches nothing (training runs
+    the plain branches, ``kernels=False``)."""
+    calls = kernel_grad_calls("cuda")
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    fns = {"moe_gmm": moe_gmm, "flash_attention": flash_attention,
+           "paged_attention": paged_attention}
+    before = fns[name].launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[name]()
+    assert fns[name].launches == before

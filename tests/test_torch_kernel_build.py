@@ -37,6 +37,21 @@ def test_lib_path_changes_with_the_source_and_the_flags(tmp_path,
     assert build._lib_path("moe_gmm") != second
 
 
+def test_split_compile_only_where_listed(tmp_path, monkeypatch):
+    """``--split-compile`` goes to the sources of ``SPLIT_COMPILE`` alone,
+    and is part of their libraries' tags."""
+    assert build.SPLIT_COMPILE == ("paged_attention",)
+    assert "--split-compile=0" in build._flags("paged_attention")
+    for name in build.KERNELS:
+        if name != "paged_attention":
+            assert build._flags(name) == build.NVCC_FLAGS
+    monkeypatch.setattr(build, "CSRC", _csrc(tmp_path))
+    (tmp_path / "paged_attention.cu").write_text('#include "hopper.cuh"\n')
+    split = build._lib_path("paged_attention")
+    monkeypatch.setattr(build, "SPLIT_COMPILE", ())
+    assert build._lib_path("paged_attention") != split
+
+
 def test_every_kernel_has_its_source_and_a_tagged_library():
     """Each library of ``build.KERNELS`` (the schedule kernel among them)
     comes from its own ``csrc/<name>.cu`` and carries its name and tag."""
