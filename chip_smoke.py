@@ -426,7 +426,33 @@ Phases, each of which must pass (any failure exits non-zero):
      tree equal to the killed run's state bit for bit, the final
      parameters and the step-8 and step-12 checkpoints equal,
      ``[train-drill]``.  ``python3 chip_smoke.py --only-train`` runs
-     phase 1 and phase 17 alone, and prints no result.
+     phase 1 and phase 17 alone, and prints no result;
+  18. the dry-run against the card (``repro_torch.launch.dryrun``), three
+     cells of its matrix on a 1 x 1 mesh, cut only in batch, weights from
+     seed 0: (i) stablelm-1.6b x ``decode_32k`` at batch 4 (3.1 GiB of
+     weights, 25.8 GB of slab cache; the slab decode), (ii)
+     phi4-mini-3.8b x ``prefill_32k`` at batch 1 (``flash_attention`` at
+     32,768 positions, GQA rep 3), (iii) qwen15-moe-a27b at a
+     ``prefill_32k`` shape of batch 1 (``moe_gmm`` and ``schedule`` over
+     32,768 tokens).  For each: the dry-run's prediction on the meta
+     device (``[dryrun-predict]``); the same leaves allocated on the
+     card, whose ``memory_allocated`` increase must be within 1 % of the
+     predicted ``argument_bytes``; the step once on the plain branches
+     under ``op_analysis``, whose FLOPs must equal the meta count
+     exactly, with its peak memory; the step with the kernels on the
+     same arguments (an MoE cell on the plain run's experts), whose
+     outputs must lie near the plain step's (a share of their largest
+     magnitude: a prefill's second layer's K and V within
+     ``DRYRUN_GAP``, the last layer's and the last-position logits
+     within ``DRYRUN_DEPTH_GAP``), with its tokens equal but at a near
+     tie, while each planted fault of ``DRYRUN_FAULTS`` must fail that;
+     the step with the kernels, a warm-up
+     and 3 reps timed by CUDA events: device ms, ``model_flops`` and
+     their share of 989 TFLOP/s (bf16, data sheet), the launches
+     (``flash_attention`` in (ii) and (iii), ``moe_gmm`` and ``schedule``
+     in (iii) must launch), the card's name and power limit
+     (``[dryrun]`` lines).  ``python3 chip_smoke.py --only-dryrun`` runs
+     phase 1 and phase 18 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -6448,6 +6474,254 @@ def _meta(tree_):
                                                device="meta"), tree_)
 
 
+# ----------------------------------------------------------------------
+# phase 18: the dry-run against the card
+# ----------------------------------------------------------------------
+# three cells of the dry-run's matrix on a 1 x 1 mesh (make_host_mesh),
+# cut only in batch, weights from seed 0: (i) a slab decode at 32,768
+# positions (25.8 GB of cache), (ii) a whole 32,768-token prompt through
+# flash_attention at GQA rep 3, (iii) one through moe_gmm and schedule
+# (qwen15-moe-a27b of PAPER_MODELS, at a prefill_32k shape of batch 1)
+DRYRUN_CELLS = (("stablelm-1.6b", "decode_32k", 4),
+                ("phi4-mini-3.8b", "prefill_32k", 1),
+                ("qwen15-moe-a27b", "prefill_32k", 1))
+DRYRUN_MEM_TOL = 0.01          # memory_allocated against argument_bytes
+DRYRUN_REPS = 3
+# the kernel step against the plain step on the same arguments (an MoE
+# cell on the plain run's experts), each output as a share of the plain
+# one's largest magnitude: a prefill's second layer's K and V (what one
+# pass through the kernels gave, at every position) within the bf16
+# tolerance; the last-position logits and the last layer's K and V within
+# DRYRUN_DEPTH_GAP, bf16 rounding carried through every layer (phi4-mini's
+# 32 layers read 0.048-0.061 on an H100, its planted faults 0.54-1.44).
+# Each planted fault of the cell's kernels must fail one of the two.
+DRYRUN_GAP = TOL["bfloat16"]
+DRYRUN_DEPTH_GAP = 0.15
+DRYRUN_FAULTS = {"phi4-mini-3.8b": ("flash_scale", "flash_mask"),
+                 "qwen15-moe-a27b": ("flash_scale", "moe_gmm_tile")}
+
+
+@contextlib.contextmanager
+def kept_logits(model, into):
+    """Within the block, ``model``'s ``prefill`` and ``decode_step``
+    append their logits to ``into`` (the steps return only the argmax)."""
+    cls = type(model)
+    methods = {n: getattr(cls, n) for n in ("prefill", "decode_step")}
+
+    def keeping(fn):
+        def call(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            if self is model:
+                into.append(out[0])
+            return out
+        return call
+    for n, fn in methods.items():
+        setattr(cls, n, keeping(fn))
+    try:
+        yield
+    finally:
+        for n, fn in methods.items():
+            setattr(cls, n, fn)
+
+
+def step_outputs(out, logits, shape, vocab):
+    """What phase 18 compares of a step: the last-position logits [B, V]
+    and, of a prefill, the K and V over the prompt of the second layer
+    and of the last (the model's one stacked pattern slot)."""
+    from repro_torch import tree
+    got = {"logits": logits[-1][:, :vocab].float()}
+    if shape.kind == "prefill":
+        k, v = tree.leaves(out[1]["stack"]["blocks"])
+        for name, t in (("k", k), ("v", v)):
+            got[name + "1"] = t[1, :, :shape.seq_len].float()
+            got[name] = t[-1, :, :shape.seq_len].float()
+    return got
+
+
+def step_gaps(got, ref):
+    """Each compared output's largest difference as a share of the
+    reference's largest magnitude."""
+    return {k: float((got[k] - ref[k]).abs().max())
+            / max(float(ref[k].abs().max()), 1e-30) for k in ref}
+
+
+def gaps_failed(gaps):
+    """The compared outputs beyond their limits."""
+    return [k for k, g in gaps.items()
+            if g > (DRYRUN_GAP if k in ("k1", "v1") else DRYRUN_DEPTH_GAP)]
+
+
+def dryrun_cell(arch, shape_name, batch):
+    """One cell: the dry-run's prediction on meta, then the same leaves
+    allocated on the card (their bytes held to ``argument_bytes``), the
+    step on the plain branches under ``op_analysis`` (its FLOPs held to
+    the meta count, exactly), the step with the kernels held to it on the
+    same arguments (and planted faults shown to fail that check), and the
+    step with the kernels timed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    shape = dataclasses.replace(SHAPE_BY_NAME[shape_name],
+                                global_batch=batch)
+    t0 = time.perf_counter()
+    pred = dryrun.lower_cell(arch, shape, mesh=make_host_mesh(1, 1),
+                             verbose=False)
+    t_pred = time.perf_counter() - t0
+    log(f"[dryrun-predict] {json.dumps({k: pred[k] for k in ('arch', 'shape', 'global_batch', 'seq_len', 'n_chips', 'memory', 'flops', 'bytes_accessed', 'model_flops', 'param_count', 'fits', 'hlo_ops', 'wall_s')})}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg, dryrun.parallel_config(cfg, shape),
+                        batch=shape.global_batch, seq_len=shape.seq_len)
+    params = model.init(0)
+    inputs = dryrun.make_inputs(model, shape, "cuda", seed=0)
+    step, args, _ = dryrun.cell_step(model, shape, params, inputs)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    want = pred["memory"]["argument_bytes"]
+    mem_err = abs(allocated - want) / want
+
+    # an MoE cell records its experts on the plain run; the kernel step
+    # takes them, so a near tie of the router cannot part the two runs
+    routes = [] if cfg.is_moe else None
+
+    def routing(replay):
+        if routes is None:
+            return contextlib.nullcontext()
+        return (replayed_routes(replay=routes) if replay
+                else replayed_routes(record=routes))
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logits = []
+    t0 = time.perf_counter()
+    with op_analysis.OpCounter() as counter, routing(False), \
+            kept_logits(model, logits):
+        out = step(*args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    plain = counter.result()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    ref = step_outputs(out, logits, shape, cfg.vocab_size)
+    tok = out[0]
+    ok_tokens = bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    del out, logits
+    gc.collect()
+
+    # the same arguments through the kernels (a decode step writes its one
+    # position of the same cache again)
+    kstep = dryrun.make_cell_step(model, shape, kernels=True)
+
+    def kernel_gaps():
+        kept = []
+        with routing(True), kept_logits(model, kept):
+            out = kstep(*args)
+        got = step_outputs(out, kept, shape, cfg.vocab_size)
+        return got, step_gaps(got, ref)
+    got, gaps = kernel_gaps()
+    rows_parted = int((got["logits"].argmax(-1)
+                       != ref["logits"].argmax(-1)).sum())
+    # a parted row is a near tie when the plain logits of the two tokens
+    # lie within the measured logit gap
+    scale = float(ref["logits"].abs().max())
+    margin = float((ref["logits"].max(-1).values - ref["logits"].gather(
+        1, got["logits"].argmax(-1, keepdim=True))[:, 0]).max()) / scale
+    del got
+    fault_gaps = {}
+    for name in DRYRUN_FAULTS.get(arch, ()):
+        with planted_fault(name):
+            fault_gaps[name] = kernel_gaps()[1]
+    gc.collect()
+
+    read = _reset_launches()
+    kstep(*args)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(DRYRUN_REPS):
+        out = kstep(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / DRYRUN_REPS
+    kernel_peak = torch.cuda.max_memory_allocated() - base
+    launches = read()
+    k_tok = out[0]
+    ok_tokens &= bool(((k_tok >= 0) & (k_tok < cfg.vocab_size)).all())
+    line = {"arch": arch, "shape": shape_name, "batch": batch,
+            "seq_len": shape.seq_len, "mesh": "1x1",
+            "predict_s": t_pred, "argument_bytes": want,
+            "allocated_bytes": allocated, "allocated_err": mem_err,
+            "meta_flops": pred["flops_raw"], "card_plain_flops":
+                plain["flops"], "card_plain_ops": plain["ops"],
+            "meta_ops": pred["hlo_ops"], "plain_s": t_plain,
+            "plain_peak_bytes": plain_peak,
+            "predicted_temp_bytes": pred["memory"]["temp_bytes"],
+            "kernel_vs_plain": gaps, "gap_limit": DRYRUN_GAP,
+            "depth_gap_limit": DRYRUN_DEPTH_GAP,
+            "rows_parted": rows_parted, "parted_margin": margin,
+            "fault_gaps": fault_gaps,
+            "kernel_peak_bytes": kernel_peak, "device_ms": ms,
+            "model_flops": pred["model_flops"],
+            "mfu_989": pred["model_flops"] / (ms * 1e-3 * 989e12),
+            "launches": launches, "card": smi_line()}
+    log(f"[dryrun] {json.dumps(line)}")
+    bad = []
+    if mem_err > DRYRUN_MEM_TOL:
+        bad.append(f"allocated {allocated} B against argument_bytes {want}"
+                   f" ({mem_err:.4f} > {DRYRUN_MEM_TOL})")
+    if plain["flops"] != pred["flops_raw"]:
+        bad.append(f"the card's plain FLOPs {plain['flops']} != the meta "
+                   f"count {pred['flops_raw']}")
+    if not ok_tokens:
+        bad.append("tokens outside the vocabulary")
+    if gaps_failed(gaps):
+        bad.append(f"the kernel step against the plain step: {gaps} "
+                   f"beyond {DRYRUN_GAP} (second layer) or "
+                   f"{DRYRUN_DEPTH_GAP} (last layer, logits)")
+    if rows_parted and margin > max(gaps["logits"], 1e-30):
+        bad.append(f"{rows_parted} rows' tokens parted from the plain "
+                   f"step's {margin:.3e} of the largest logit apart, "
+                   f"beyond the logit gap {gaps['logits']:.3e}")
+    missed = [n for n, g in fault_gaps.items() if not gaps_failed(g)]
+    if missed:
+        bad.append(f"planted faults {missed} passed the check: "
+                   f"{fault_gaps}")
+    need = (() if shape.kind == "decode" else
+            ("flash_attention",) + (("moe_gmm", "schedule")
+                                    if cfg.is_moe else ()))
+    for name in need:
+        if launches[name] <= 0:
+            bad.append(f"{name} never launched")
+    if bad:
+        raise AssertionError(f"[dryrun] {arch} x {shape_name}: "
+                             + "; ".join(bad))
+    del out, kstep, step, args, inputs, params, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def dryrun_path():
+    """Phase 18: the three cells of ``DRYRUN_CELLS``; returns their
+    lines by a path name."""
+    out = {}
+    for arch, shape_name, batch in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun_cell(arch, shape_name, batch)
+        out[f"dryrun_{arch.replace('-', '_').replace('.', '_')}_"
+            f"{shape_name}_b{batch}"] = rec
+        log(f"[time] phase 18 {arch} x {shape_name}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6542,6 +6816,12 @@ def main() -> int:
         # kernels line and the result line
         train_path()
         elapsed("phase 17")
+        return 0
+    if "--only-dryrun" in sys.argv[1:]:
+        # a shorter run for work on phase 18: the phase alone, without the
+        # kernels line and the result line
+        dryrun_path()
+        elapsed("phase 18")
         return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
@@ -6673,6 +6953,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_path()
     elapsed("phase 17")
+    # --- phase 18: the dry-run against the card -----------------------------
+    dry = dryrun_path()
+    elapsed("phase 18")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -6747,7 +7030,9 @@ def main() -> int:
                 "serve_switch128_trained_paged":
                     train["serve"]["launches"][name],
                 "oracle_switch128_trained_plain":
-                    train["serve"]["plain_launches"][name]},
+                    train["serve"]["plain_launches"][name],
+                **{path: rec["launches"][name]
+                   for path, rec in dry.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

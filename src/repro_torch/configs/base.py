@@ -1,4 +1,4 @@
-"""Model / parallelism configuration dataclasses.
+"""Model / shape / parallelism configuration dataclasses.
 
 A copy of ``repro/configs/base.py`` trimmed to what the port uses, so the
 port never imports the JAX package.  The fields and ``reduced()`` are
@@ -100,6 +100,15 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe is not None and self.moe.num_experts > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True iff every sequence-mixing layer is sub-quadratic (SSM,
+        hybrid, or a sliding window over every layer), as in JAX: the
+        ``long_500k`` cell runs only then."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0 and self.global_attn_every == 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -144,15 +153,48 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry-run matrix (JAX's: train_4k /
+    prefill_32k / decode_32k / long_500k)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, plus the reason when skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: long_500k skipped (DESIGN.md §5)"
+    return True, ""
+
+
+@dataclass(frozen=True)
 class ParallelConfig:
     """The subset of the JAX ``ParallelConfig`` the one-rank port honours.
     ``remat`` other than "none" checkpoints each period of the stack in
     training, "selective" as "full" (JAX's reading); ``microbatch`` n > 1
     splits a training batch into n microbatches (``launch.steps``);
     ``compress_grads`` names JAX's int8 all-reduce (``optim.compress``);
-    it is read nowhere, in JAX as here (no data-parallel step uses it)."""
+    it is read nowhere, in JAX as here (no data-parallel step uses it).
+    ``fsdp`` and ``shard_kv_seq`` are read only by ``launch/shardings``
+    and ``launch/dryrun`` (JAX's steps do not read them either): they
+    choose the specs, and the port runs no sharded step."""
 
+    fsdp: bool = False            # shard params/opt-state over 'data' too
     remat: str = "none"           # none | full | selective
+    shard_kv_seq: bool = False    # long_500k: KV sequence over 'data'
     microbatch: int = 0           # >0: microbatches accumulated in f32
     compress_grads: bool = False  # int8 all-reduce
     loss_chunk: int = 2048        # vocab-loss sequence chunk

@@ -110,6 +110,13 @@ def pmax(x: torch.Tensor):
     return (yield Collective("pmax", x))
 
 
+# Watchers of the collectives the bodies yield (``launch/op_analysis``
+# counts them): each is called as ``watcher(op, inputs, answers)`` once a
+# collective is answered, with every rank's input and answer that this
+# process holds (one rank's under ``run``, all G under ``VirtualGroup``).
+WATCHERS: List[Callable[[str, List[torch.Tensor], List[object]], None]] = []
+
+
 def run(comm, body: Body):
     """Drive one rank's body against a communicator that answers each
     collective at once (``LocalComm``, ``DistComm``, or a test's stand-in
@@ -119,7 +126,10 @@ def run(comm, body: Body):
     try:
         req = next(body)
         while True:
-            req = body.send(getattr(comm, req.op)(req.x, *req.args))
+            ans = getattr(comm, req.op)(req.x, *req.args)
+            for watch in WATCHERS:
+                watch(req.op, [req.x], [ans])
+            req = body.send(ans)
     except StopIteration as stop:
         return stop.value
 
@@ -441,6 +451,8 @@ class VirtualGroup:
                                      f"tensor on {x.device}")
             answers = getattr(self, "_" + reqs[0].op)(
                 xs, *(([r.args for r in reqs],) if reqs[0].args else ()))
+            for watch in WATCHERS:
+                watch(reqs[0].op, xs, answers)
 
     def _all_gather(self, xs):
         out = _adjacent_view(xs)

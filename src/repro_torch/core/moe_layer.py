@@ -361,8 +361,8 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     one row for each rank this process runs (``comm.ranks_here``: all G,
     or under ``DistComm`` this rank's own).  ``shared`` computes the
     shared experts' output [B, S, d] on the same input; it runs while the
-    foreign fetch is in flight and is added last, ``y = moe_y +
-    shared``.  ``valid_mask``
+    foreign fetch is in flight (after the block when autograd records)
+    and is added last, ``y = moe_y + shared``.  ``valid_mask``
     [B, S] bool keeps dead tokens (inactive slots, chunk padding) out of
     routing and capacity; their outputs are garbage the caller discards.
     With ``spec.moe.num_replica_slots`` R > 0, ``params`` carry the
@@ -412,6 +412,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
         return R if name.startswith("w_rep_") else epr
 
     here = comm.ranks_here
+    # when autograd records, the shared experts run after the block: a
+    # checkpointed layer's recompute then stops before their last product,
+    # whose result backward does not read (XLA's remat drops it too)
+    late = shared is not None and torch.is_grad_enabled() and x.requires_grad
 
     def body(me: int):
         prm = {n: (w if n == "router" else comm.expert_rows(w, me,
@@ -424,7 +428,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
             skew_assign=(None if skew_assign is None
                          else skew_assign[here.index(me)]),
             replica_ids=replica_ids, residency_ids=residency_ids,
-            overlap=shared if me == here[0] else None, kernels=kernels)
+            overlap=shared if me == here[0] and not late else None,
+            kernels=kernels)
     y, diag, side = comm.run_ranks(body)[0]
+    if late:
+        side = shared()
     y = y[:n_valid].reshape(B, S_len, d)
     return (y if side is None else y + side), diag

@@ -5,7 +5,9 @@ Port of the loop of ``repro/core/scheduler.py::rebalance``, which JAX
 runs inside the jitted step as a ``lax.while_loop``.  ``rebalance``
 launches the one-CTA kernel of ``csrc/schedule.cu`` for CUDA tensors and
 runs ``rebalance_plain`` for CPU tensors; there is no fallback from one to
-the other.  On the card the schedule never leaves the device, so a step
+the other.  On the ``meta`` device (the dry-run, ``launch/dryrun.py``) it
+returns empty tensors of S's and the diagnostics' shapes and dtypes; any
+other device raises.  On the card the schedule never leaves the device, so a step
 that schedules can be captured as a CUDA graph.
 
 ``rebalance.launches`` counts the kernel's launches (CUDA tensors only).
@@ -128,7 +130,12 @@ def rebalance(S_initial: torch.Tensor, is_local: torch.Tensor, *, q: int,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """S_initial [G, Ep, G] int32, is_local [G, Ep] int32 (1 where rank g
     hosts expert e) -> (S [G, Ep, G] int32, diag [4] int32), both on the
-    input's device; never read on the host."""
+    input's device; never read on the host.  On ``meta``: their shapes."""
+    if S_initial.device.type == "meta":
+        # the dry-run's shape-only step: S's and the diagnostics' shapes
+        # and dtypes, no values (launch/dryrun.py)
+        return (torch.empty_like(S_initial),
+                torch.empty((4,), dtype=torch.int32, device="meta"))
     if S_initial.device.type == "cpu":
         return rebalance_plain(S_initial, is_local, q=q, c_pair=c_pair,
                                num_foreign_slots=num_foreign_slots,

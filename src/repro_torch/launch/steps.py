@@ -34,7 +34,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.optim.adamw import AdamWState, adamw_update
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 
 
 def loss_and_grads(model, params, batch, skew_key=None, skew_assign=None,
@@ -111,18 +111,30 @@ def _split(x, n: int, i: int):
     return x[i * b:(i + 1) * b]
 
 
-def make_prefill_step(model, *, s_max: int):
+def make_prefill_step(model, *, s_max: int, kernels: bool = True):
+    """``kernels`` False: the plain branches on every device (the dry-run's
+    step on ``meta``, as JAX's dry-run lowers with ``use_pallas=False``)."""
     def prefill_step(params, batch):
-        logits, caches, pos, diags = model.prefill(params, batch, s_max=s_max)
+        logits, caches, pos, diags = model.prefill(params, batch, s_max=s_max,
+                                                   kernels=kernels)
         token = logits.argmax(dim=-1)[:, None].to(torch.int32)
         return token, caches, pos, diags
     return prefill_step
 
 
-def make_decode_step(model):
+def make_decode_step(model, *, kernels: bool = True):
     def decode_step(params, token, caches, pos):
         logits, caches, new_pos, diags = model.decode_step(
-            params, token, caches, pos)
+            params, token, caches, pos, kernels=kernels)
         new_token = logits.argmax(dim=-1)[:, None].to(torch.int32)
         return new_token, caches, new_pos, diags
     return decode_step
+
+
+def optimizer_shapes(param_shapes: Any) -> AdamWState:
+    """AdamW's state for a tree of parameters (or of their shapes) as
+    empty ``meta`` tensors: the counterpart of
+    ``jax.eval_shape(adamw_init, param_shapes)`` (``launch/dryrun``)."""
+    return adamw_init(tree.tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+        param_shapes))

@@ -50,6 +50,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, round_up
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -132,21 +133,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((B, H, Sq), _NEG_INF, device=q.device)
     l = torch.zeros((B, H, Sq), device=q.device)
     acc = torch.zeros((B, H, Sq, hd), device=q.device)
+    # under autograd each block is checkpointed, as JAX's scan step is:
+    # backward recomputes its [Sq, chunk] scores instead of storing them
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     for c0 in range(0, Sk, chunk):
-        kb, vb = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
-        kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
-        s = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kb), softcap)
-        mask = _mask(q_pos, kv_pos, causal, window)
-        if mask is not None:
-            s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
-        m = m_new
+        args = (m, l, acc, qf, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+                q_pos, c0, causal, window, softcap)
+        m, l, acc = (checkpoint(_attn_block, *args, use_reentrant=False)
+                     if remat else _attn_block(*args))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _attn_block(m, l, acc, qf, kb, vb, q_pos, c0: int, causal: bool,
+                window: int, softcap: float):
+    """One KV block of the online softmax: the running (max, denominator,
+    accumulator) after it."""
+    kb, vb = kb.float(), vb.float()
+    kv_pos = c0 + torch.arange(kb.shape[1], device=qf.device)
+    s = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kb), softcap)
+    mask = _mask(q_pos, kv_pos, causal, window)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+    return m_new, l, acc
 
 
 def _mask(q_pos, kv_pos, causal: bool, window: int):

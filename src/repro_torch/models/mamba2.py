@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm
@@ -121,6 +122,23 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b[None, None, :]), new_state
 
 
+def _chunk_y(state, tri, xdt, B_q, C_q, Lcum):
+    """One chunk's y: the quadratic form within the chunk plus the carried
+    state's part.  ``y_diag``'s product comes last: a checkpoint's
+    recompute stops before it (backward reads its operands, not its
+    result), as XLA's remat of JAX's scan step drops it."""
+    G = torch.einsum("bqn,bsn->bqs", C_q, B_q)                # [B, Q, Q]
+    # the upper triangle's exponent is positive and may overflow: it is
+    # masked to -inf before the exponential (exp -> 0), where the
+    # reference masks the product after it
+    diff = Lcum[:, :, None, :] - Lcum[:, None, :, :]          # [B, Q, S, H]
+    decay = torch.exp(torch.where(tri[None, :, :, None], diff,
+                                  float("-inf")))
+    W = G[..., None] * decay
+    y_off = torch.einsum("bqn,bhpn,bqh->bqhp", C_q, state, torch.exp(Lcum))
+    return torch.einsum("bqsh,bshp->bqhp", W, xdt) + y_off
+
+
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bs: torch.Tensor, Cs: torch.Tensor, *, chunk: int,
                 init_ssm: Optional[torch.Tensor] = None
@@ -145,26 +163,21 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = (torch.zeros((Bb, H, Pd, N), dtype=torch.float32,
                          device=xh.device)
              if init_ssm is None else init_ssm.float())
+    # under autograd each chunk's y is checkpointed, as JAX's scan step is:
+    # backward recomputes its [B, Q, Q, H] decay block instead of storing it
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc, dtc, Bc, Cc, ldc, state))
     ys = []
     for c in range(n_chunks):
         x_q, dt_q, B_q, C_q, ld_q = (t[:, c] for t in (xc, dtc, Bc, Cc, ldc))
         Lcum = torch.cumsum(ld_q, dim=1)                      # [B, Q, H]
-        G = torch.einsum("bqn,bsn->bqs", C_q, B_q)            # [B, Q, Q]
-        # the upper triangle's exponent is positive and may overflow: it is
-        # masked to -inf before the exponential (exp -> 0), where the
-        # reference masks the product after it
-        diff = Lcum[:, :, None, :] - Lcum[:, None, :, :]      # [B, Q, S, H]
-        decay = torch.exp(torch.where(tri[None, :, :, None], diff,
-                                      float("-inf")))
-        W = G[..., None] * decay
         xdt = x_q * dt_q[..., None]                           # [B, Q, H, P]
-        y_diag = torch.einsum("bqsh,bshp->bqhp", W, xdt)
-        y_off = torch.einsum("bqn,bhpn,bqh->bqhp", C_q, state,
-                             torch.exp(Lcum))
+        args = (state, tri, xdt, B_q, C_q, Lcum)
+        ys.append(checkpoint(_chunk_y, *args, use_reentrant=False) if remat
+                  else _chunk_y(*args))
         rem = torch.exp(Lcum[:, -1:, :] - Lcum)               # to chunk end
         S_c = torch.einsum("bsh,bshp,bsn->bhpn", rem, xdt, B_q)
         state = state * torch.exp(Lcum[:, -1])[:, :, None, None] + S_c
-        ys.append(y_diag + y_off)
     y = torch.stack(ys, dim=1).reshape(Bb, Lp, H, Pd)[:, :L]
     return y, state
 

@@ -18,6 +18,7 @@ embeddings, absolute sinusoidal positions, cross-attention over the
 encoder's cached K/V) and pixtral-12b (stubbed patch embeddings before
 the tokens).  The returned ``Model`` exposes:
   init(seed)                                   -> params (random, seeded)
+  param_shapes()                               -> init's leaves, empty on meta
   prefill(params, batch, s_max, skew_key, kernels)
                                                -> (logits, caches, S, diags)
   prefill_chunk(params, tokens, caches, pos, last_index, skew_key,
@@ -25,7 +26,7 @@ the tokens).  The returned ``Model`` exposes:
                                                -> (logits, caches, pos + C, diags)
   decode_step(params, token, caches, pos, skew_key, active_mask, block_table,
               block_size, moe_policy, skew_assign, moe_replica_ids,
-              moe_residency_ids, moe_layer_diags, fused_attention)
+              moe_residency_ids, moe_layer_diags, fused_attention, kernels)
                                                -> (logits, caches, pos + S, diags)
   train_loss(params, batch, skew_key)          -> (loss, diags)
   encode(params, frames)                       -> whisper's encoder output
@@ -76,16 +77,19 @@ from repro_torch.models.losses import chunked_softmax_xent, logits_head
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _normal(shape, scale: float, gen: torch.Generator, device,
+def _normal(shape, scale: float, gen: Optional[torch.Generator], device,
             dtype, keep: Optional[slice] = None) -> torch.Tensor:
     """N(0, scale^2) draws in f32, cast to ``dtype`` a slab at a time so the
     f32 transient stays bounded at full width.  ``keep`` cuts axis 1 of
     each slab once drawn (one EP rank's expert rows): the kept values are
-    the whole draw's, and the generator advances as for the whole."""
+    the whole draw's, and the generator advances as for the whole.  With
+    no generator (the meta device) the empty tensor of the kept shape."""
     kept = list(shape)
     if keep is not None:
         kept[1] = len(range(shape[1])[keep])
     out = torch.empty(kept, dtype=dtype, device=device)
+    if gen is None:
+        return out
     inner = math.prod(shape[1:])
     step = max(1, (1 << 28) // max(inner, 1))
     for i in range(0, shape[0], step):
@@ -121,7 +125,8 @@ class Model:
         only, with exactly the values the rank-major init gives them: each
         leaf is drawn a layer slab at a time and cut as it is drawn."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         d, H, Hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
         Vp = cfg.padded_vocab
@@ -260,6 +265,14 @@ class Model:
                 "final_norm": norm_p()}
             params["cross"] = {"norm": norm_p((L,)), "attn": attn_w((L,))}
         return params
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """``init``'s tree with every leaf an empty ``meta`` tensor of its
+        shape and dtype, in its order (replica and tensor-parallel leaves
+        included): the counterpart of ``jax.eval_shape(model.init)``.
+        Nothing is drawn or allocated, so a full-width model's tree costs
+        nothing (``launch/dryrun.py``)."""
+        return dataclasses.replace(self, device=torch.device("meta")).init()
 
     def init_cache(self, b: int, s_max: int, device=None,
                    clamp_window: bool = True) -> Dict[str, Any]:
@@ -521,7 +534,8 @@ class Model:
                     moe_replica_ids: Optional[torch.Tensor] = None,
                     moe_residency_ids: Optional[torch.Tensor] = None,
                     moe_layer_diags: bool = False,
-                    fused_attention: Optional[bool] = None):
+                    fused_attention: Optional[bool] = None,
+                    kernels: bool = True):
         """token [B, S] against the paged pool (``block_table`` given; S > 1
         is a multi-query window) or, with S = 1, the slab caches of
         ``init_cache`` / ``prefill``.  pos is each row's length BEFORE the
@@ -536,8 +550,9 @@ class Model:
         resident working set (``moe_layer.moe_block``); ``moe_layer_diags``
         adds ``expert_load_layers`` to the diagnostics
         (``transformer.run_stack``); ``fused_attention`` makes a paged
-        step strict, as in ``prefill_chunk``.  Reads no device value on
-        the host.  Returns logits [B, Vp] at the last position when
+        step strict, as in ``prefill_chunk``; ``kernels`` False takes the
+        plain attention and MoE branches on every device, as ``prefill``
+        does.  Reads no device value on the host.  Returns logits [B, Vp] at the last position when
         S == 1, else [B, S, Vp]."""
         B, S = token.shape
         if S > 1 and block_table is None:
@@ -565,7 +580,7 @@ class Model:
             block_size=block_size, skew_assign=skew_assign,
             moe_replica_ids=moe_replica_ids,
             moe_residency_ids=moe_residency_ids,
-            moe_layer_diags=moe_layer_diags,
+            moe_layer_diags=moe_layer_diags, kernels=kernels,
             strict=bool(fused_attention) and block_table is not None)
         if S == 1:
             logits = self._head(params, h[:, -1])

@@ -12,8 +12,10 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
-def _walk(tree: Any) -> Tuple[List[Any], List[str], Any]:
-    """(leaves, their paths, the structure) in JAX's order."""
+def _walk(tree: Any, fields: bool = False
+          ) -> Tuple[List[Any], List[str], Any]:
+    """(leaves, their paths, the structure) in JAX's order; ``fields``
+    names a named tuple's entries by field, else by index."""
     out: List[Any] = []
     names: List[str] = []
 
@@ -25,8 +27,10 @@ def _walk(tree: Any) -> Tuple[List[Any], List[str], Any]:
             return ("dict", keys, [walk(t[k], path + (str(k),))
                                    for k in keys])
         if isinstance(t, (list, tuple)):
+            ids = (getattr(t, "_fields", None) if fields else None) \
+                or range(len(t))
             return (type(t), None, [walk(v, path + (str(i),))
-                                    for i, v in enumerate(t)])
+                                    for i, v in zip(ids, t)])
         out.append(t)
         names.append("/".join(path))
         return "leaf"
@@ -66,10 +70,13 @@ def leaves(tree: Any) -> List[Any]:
     return flatten(tree)[0]
 
 
-def paths(tree: Any) -> List[str]:
+def paths(tree: Any, fields: bool = False) -> List[str]:
     """Each leaf's path of keys and indices joined by "/" (as
-    ``"stack/blocks/sub1/moe/w_in"``), in ``flatten``'s order."""
-    return _walk(tree)[1]
+    ``"stack/blocks/sub1/moe/w_in"``), in ``flatten``'s order; with
+    ``fields`` a named tuple's entries go by their field names (as
+    ``"stack/blocks/sub0/k"``), as the JAX package's
+    ``launch/shardings._path_str`` names them."""
+    return _walk(tree, fields)[1]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
