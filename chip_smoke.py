@@ -36,7 +36,7 @@ Phases, each of which must pass (any failure exits non-zero):
      on a small configuration, the card's token streams equal to the
      plain versions' streams on the CPU;
   4b. HarMoEny across expert-parallel ranks, once the serve path's memory
-     is freed: ``ServeEngine`` on full-width qwen15-moe-a27b, cut to 6 of
+     is freed: ``ServeEngine`` on full-width qwen15-moe-a27b, cut to 4 of
      its 24 layers (``EP_LAYERS``, as phases 8 and 10 (b)),
      at EP degree 4 on virtual ranks (``VirtualGroup``: four ranks of 15
      experts each, run in lockstep on the one card; 4 foreign slots),
@@ -150,15 +150,16 @@ Phases, each of which must pass (any failure exits non-zero):
      ``torch.distributed.run --standalone --nproc-per-node 1``
      (``DistComm`` on NCCL, dense fetch, every entry captured), 4
      requests of 128 prompt tokens and 8 new, against the same argv
-     without a launcher (``LocalComm``); each replays its last decode
-     graph once more under the profiler (a ``[cli-nccl]`` line).  Gates:
-     exit 0, reports written, one capture of each entry, equal greedy
-     streams and launches, device work in the NCCL graph beyond the
-     ``LocalComm`` graph's; (b) four processes on the one card over gloo
+     without a launcher (``LocalComm``), the two processes side by side
+     (since PR 30); each replays its last decode graph once more under
+     the profiler (a ``[cli-nccl]`` line), then runs phase 19's NCCL
+     route (``[grid-nccl]``).  Gates: exit 0, reports written, one
+     capture of each entry, equal greedy streams and launches, device
+     work in the NCCL graph beyond the ``LocalComm`` graph's; (b) four processes on the one card over gloo
      (gloo's collectives tried on CUDA tensors first), each a
      ``DistComm`` rank with the hosted fetch and eager entries holding
      only its own 15 experts a layer, serving full-width qwen at G = 4,
-     phase 8's 6 layers (``EP_LAYERS``), under skew 0.9 with harmoeny:
+     phase 8's 4 layers (``EP_LAYERS``), under skew 0.9 with harmoeny:
      phase 8's runs without either mechanism, with replica slots (the
      swap fetching each slot's row from the process that hosts it) and
      with residency
@@ -212,7 +213,7 @@ Phases, each of which must pass (any failure exits non-zero):
      ``python3 chip_smoke.py --only-mixtral`` runs phase 1, those parity
      cases and phase 11 alone, and prints no result;
   12. prefix sharing and speculative decoding on the paged pool, full-width
-     qwen15-moe-a27b cut to 12 of its 24 layers (``PS_LAYERS``, with
+     qwen15-moe-a27b cut to 6 of its 24 layers (``PS_LAYERS``, with
      phase 13) (bf16 weights drawn once from seed 0), 4 slots,
      16-token blocks, chunk 32, strict (``fused_paged_attention`` and
      ``fused_moe_gmm`` on): (a) prefix sharing at G = 1, greedy, 32 new
@@ -312,8 +313,8 @@ Phases, each of which must pass (any failure exits non-zero):
      once a rank a layer a call and ``schedule`` never under
      tensor-parallel MoE.  (b) mamba2-2.7b and (c) zamba2-7b (hd 112,
      groups of 6 around one shared attention block and a tail of 3) at
-     full width, cut to half their depth for phase 17's time (32 of 64
-     layers; 39 of 81, 6 groups): the slot pool, 4 slots, 8 prompts of
+     full width, cut to a quarter of their depth for phases 17 and 19's
+     time (16 of 64 layers; 21 of 81, 3 groups): the slot pool, 4 slots, 8 prompts of
      128-1024 tokens (none a multiple of the chunk), chunk 256, 32 new,
      greedy; each engine's rows held against the one-shot
      ``prefill`` + ``decode_step`` oracle fed its tokens (``SSM_GATES``);
@@ -396,10 +397,10 @@ Phases, each of which must pass (any failure exits non-zero):
      drawn as phase 15 draws them), and prints no result;
   17. the training path (``launch.train``'s loop, AdamW, checkpoints),
      bf16 weights from seed 0 at full width and depth: (a) switch128
-     (3.71 B parameters) trains 20 steps at batch 4 x 512 on the zipf
-     dataset at lr 3e-4, checkpointed at its last step (37 GB: every 10
-     steps would hold two of them, 74 GB of the machine's 80 GB disk),
-     ``[train-switch]``: step time (median of steps 3-20, with the
+     (3.71 B parameters) trains 10 steps (20 until phase 19) at batch
+     4 x 512 on the zipf dataset at lr 3e-4, checkpointed once, at its
+     last step (37 GB of the machine's ~80 GB disk),
+     ``[train-switch]``: step time (median of steps 3 on, with the
      guard below inside it, and less the guard's own time), tok/s, peak
      memory, the first and last 5 losses; gates: every loss and gradient
      norm finite, every expert that received tokens in a layer has a
@@ -418,13 +419,14 @@ Phases, each of which must pass (any failure exits non-zero):
      (``TRAIN_TOL`` on each leaf relative to its own largest reference
      magnitude; the card's step with TF32 on and the smallest leaf's
      gradient zeroed must each miss it); (c) stablelm-1.6b's
-     kill-and-resume drill under ``torch.use_deterministic_algorithms``:
-     12 steps at batch 4 x 512,
+     kill-and-resume drill under ``torch.use_deterministic_algorithms``,
+     on 12 of its 24 layers: 8 steps at batch 4 x 512 (12 steps at full
+     depth before phase 19 needed the time),
      checkpointed every 4 (asynchronous saves from host snapshots, as
      ``repro.launch.train``'s), against a run killed
      by ``REPRO_FAIL_AT_STEP=6`` and resumed from step 4: the restored
      tree equal to the killed run's state bit for bit, the final
-     parameters and the step-8 and step-12 checkpoints equal,
+     parameters and the step-8 checkpoint equal,
      ``[train-drill]``.  ``python3 chip_smoke.py --only-train`` runs
      phase 1 and phase 17 alone, and prints no result;
   18. the dry-run against the card (``repro_torch.launch.dryrun``), three
@@ -452,7 +454,37 @@ Phases, each of which must pass (any failure exits non-zero):
      (``flash_attention`` in (ii) and (iii), ``moe_gmm`` and ``schedule``
      in (iii) must launch), the card's name and power limit
      (``[dryrun]`` lines).  ``python3 chip_smoke.py --only-dryrun`` runs
-     phase 1 and phase 18 alone, and prints no result.
+     phase 1 and phase 18 alone, and prints no result;
+  19. training across processes on the (data, model) grid
+     (``launch/grid.py``): full-width switch128 cut to its first 4 of 12
+     layers (2 MoE layers), bf16, the zipf batch 4 x 512, weights from
+     seed 0.  First, in this process, ``VirtualGroup(2)``'s gradients on
+     each data half (and on half 0 in f32), written as checkpoints and
+     the model freed (``[grid-ref]``); then four gloo processes share the
+     card as a (2, 2) grid: (a) each row's first step over its EP group
+     of two processes against the reference of its half, every leaf's
+     largest error as a share of its largest magnitude, bf16 within
+     ``GRID_TOL`` (two ulps) and, on row 0, f32 within ``TRAIN_TOL``
+     (``[grid-a]``), while planted faults (the data-parallel average
+     dropped, ``DistComm.enter`` without its sum, the fetch's gradient
+     not sent back where units moved) must miss the bf16 bound
+     (``[grid-faults]``); (b) ``launch.train``'s loop on the grid, its
+     first step's averaged gradients against the two halves' mean, 2
+     steps, its step-2 checkpoint written by both processes of row 0,
+     killed at step 3 (``[grid-b]``: step time, tok/s, the gloo
+     collectives' share, peak memory, launches: the schedule only); (c)
+     resumed onto (1, 2) by row 0's processes, each restoring its own
+     rows, bit-equal to the state the killed run held, 2 steps and its
+     last checkpoint (``[grid-c]``); that checkpoint restored onto one
+     process at G = 1, every leaf bit-equal to its file
+     (``[grid-restore]``); (d) its parameters served as phase 17 (d)
+     serves (``[train-serve]``).  Its NCCL route runs in phase 10 (a)'s
+     two processes, after their CLI run (a fresh process's start costs
+     ~40 s): ``launch.train``'s loop at world size 1 under
+     ``torch.distributed.run --standalone --nproc-per-node 1`` on NCCL,
+     its losses held to the same argv without a launcher
+     (``[grid-nccl]``).  ``python3 chip_smoke.py --only-grid`` runs
+     phase 1 and phase 19 alone, and prints no result.
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits non-zero
@@ -794,10 +826,11 @@ def flash_attention_case(label, *, B, H, Hkv, Sq, Sk, hd, causal, dtype,
 
 EP_DEGREE = 4
 # phases 4b, 7 (at G = 4), 8 and 10 (b) run qwen15-moe-a27b at full width
-# cut to 6 of its 24 layers: the eager G = 4 runs, their
-# traces and the gloo processes scale with the depth, and the whole script
-# has to stay inside its 1200 s with phase 17 added
-EP_LAYERS = 6
+# cut to 4 of its 24 layers (12 in PR 25-27, 6 in PR 28-29): the eager
+# G = 4 runs, their traces and the gloo processes scale with the depth,
+# and the whole script has to stay inside its 1200 s with phases 17 and 19
+# added
+EP_LAYERS = 4
 
 
 def ep_moe_config(cfg, policy="harmoeny", replica_slots=0):
@@ -1553,7 +1586,7 @@ def check_one_capture(tag, rep):
 # checks (captured = eager streams, host launches a call) does not depend
 # on the depth
 CAPTURE_LAYERS = 12          # qwen G = 1 (of 24) and moonshot (of 48)
-CAPTURE_EP_LAYERS = 6        # qwen G = 4 (all of phase 4b's 6)
+CAPTURE_EP_LAYERS = 4        # qwen G = 4 (all of phase 4b's 4)
 
 
 def depth_cut(cfg, params, n_layers):
@@ -2669,7 +2702,7 @@ def fetch_lines(caps):
 
 
 PROFILED_CLI = """
-import json, sys
+import json, os, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.launch import serve as S
@@ -2696,6 +2729,24 @@ def profiled_run(self, requests=(), **kw):
 
 E.ServeEngine.run = profiled_run
 S.main(sys.argv[2:])
+# phase 19's NCCL route, batched into this process: launch.train's loop on
+# the same launcher (or, in the process without one, on one rank)
+train = os.environ.get("CHIP_TRAIN_AFTER")
+if train:
+    from repro_torch.launch import train as LT
+    argv, out = json.loads(train)
+    seen = {}
+    build = LT.build_model
+
+    def build_and_see(*a, **k):
+        model = build(*a, **k)
+        seen["comm"] = (model.comm.describe() if hasattr(model.comm,
+                        "describe") else {"kind": type(model.comm).__name__})
+        return model
+    LT.build_model = build_and_see
+    res = LT.train_loop(LT.build_parser().parse_args(argv))
+    json.dump({"losses": res.losses, "comm": seen["comm"],
+               "step_s": res.step_seconds}, open(out, "w"))
 """
 
 
@@ -2716,34 +2767,69 @@ def nccl_cli_path(cfg):
     worker = os.path.join(build, "profiled_cli.py")
     with open(worker, "w") as f:
         f.write(PROFILED_CLI)
-    runs = {}
+    # the two processes run side by side (since PR 30, for the script's
+    # time): their streams, launches and graphs do not depend on it, their
+    # latencies are read under each other's load
+    started = {}
     for tag, launcher in (("local", [sys.executable, worker]),
                           ("nccl", [sys.executable, "-m",
                                     "torch.distributed.run", "--standalone",
                                     "--nproc-per-node", "1", worker])):
-        out, ops = (os.path.join(build, f"{tag}{x}.json")
-                    for x in ("", "_ops"))
+        out, ops, log_path, err_path = (
+            os.path.join(build, f"{tag}{x}")
+            for x in (".json", "_ops.json", ".log", ".err"))
         for path in (out, ops):
             if os.path.exists(path):
                 os.remove(path)
-        t0 = time.perf_counter()
-        r = subprocess.run(launcher + [ops] + NCCL_ARGV + ["--out", out],
-                           capture_output=True, text=True, env=env,
-                           cwd=HERE, timeout=600)
-        wall = time.perf_counter() - t0
+        train_out = os.path.join(build, f"{tag}_train.json")
+        if os.path.exists(train_out):
+            os.remove(train_out)
+        run_env = dict(env, CHIP_TRAIN_AFTER=json.dumps(
+            [NCCL_TRAIN_ARGV + ["--device", "cuda"], train_out]))
+        with open(log_path, "w") as fo, open(err_path, "w") as fe:
+            started[tag] = (subprocess.Popen(
+                launcher + [ops] + NCCL_ARGV + ["--out", out],
+                stdout=fo, stderr=fe, text=True, env=run_env, cwd=HERE),
+                time.perf_counter(), out, ops, log_path, err_path)
+    ended, deadline = {}, time.perf_counter() + 600
+    try:
+        while len(ended) < len(started):
+            for tag, (proc, t0, *_) in started.items():
+                if tag not in ended and proc.poll() is not None:
+                    ended[tag] = time.perf_counter() - t0
+            if time.perf_counter() > deadline:
+                left = sorted(set(started) - set(ended))
+                raise AssertionError(f"[cli-nccl] still running after "
+                                     f"600 s: {left}")
+            time.sleep(0.2)
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    runs = {}
+    for tag, (proc, t0, out, ops, log_path, err_path) in started.items():
+        wall = ended[tag]
+        with open(log_path) as f:
+            text = f.read()
         device = next((json.loads(line[len("[serve] device "):])
-                       for line in r.stdout.splitlines()
+                       for line in text.splitlines()
                        if line.startswith("[serve] device ")), None)
-        if r.returncode != 0 or device is None or not os.path.exists(out):
-            raise AssertionError(f"[cli-nccl] {tag}: exited {r.returncode}:"
-                                 f" {r.stderr[-4000:]}")
+        if proc.returncode != 0 or device is None \
+                or not os.path.exists(out):
+            with open(err_path) as f:
+                err = f.read()
+            raise AssertionError(f"[cli-nccl] {tag}: exited "
+                                 f"{proc.returncode}: {err[-4000:]}")
         with open(out) as f:
             rep = json.load(f)
         with open(ops) as f:
             ops = json.load(f)
         check_one_capture(f"cli-nccl {tag}", rep)
+        with open(os.path.join(build, f"{tag}_train.json")) as f:
+            train = json.load(f)
         runs[tag] = {"rep": rep, "device": device, "wall": wall,
-                     "ops": Counter(ops)}
+                     "ops": Counter(ops), "train": train}
     loc, nc = runs["local"], runs["nccl"]
     comm_ops = dict(nc["ops"] - loc["ops"])
     summary = {
@@ -2779,6 +2865,7 @@ def nccl_cli_path(cfg):
                              f"{dict(nc['ops'])}")
     if summary["launches"]["nccl"] != summary["launches"]["local"]:
         raise AssertionError(f"[cli-nccl] launches {summary['launches']}")
+    summary["train"] = grid_nccl_check(nc["train"], loc["train"])
     return summary
 
 
@@ -3512,9 +3599,10 @@ def mixtral_path():
 # phase 12: prefix sharing and speculative decoding on the paged pool
 # ----------------------------------------------------------------------
 # full-width qwen15-moe-a27b, paged, 16-token blocks, chunk 32, 4 slots;
-# cut to 12 of its 24 layers (phases 12 and 13) for phase 17's time
+# cut to 6 of its 24 layers (phases 12 and 13; 12 in PR 28-29) for
+# phases 17 and 19's time
 PS = dict(slots=4, prefill_chunk=32, block_size=16)
-PS_LAYERS = 12
+PS_LAYERS = 6
 # (a): 8 prompts of 576-640 tokens sharing their first 512, 32 new tokens
 PREFIX_A = dict(n_requests=8, prompt_lens=(576, 640), shared=512,
                 new_tokens=32)
@@ -4834,12 +4922,12 @@ TP_A = dict(slots=4, n_requests=4, prompt_lens=(256, 513), new_tokens=16,
 TP_F32_LAYERS = 2            # the f32 hold's shallower cut
 # (b) mamba2-2.7b and (c) zamba2-7b at full width: the slot pool, 4 slots,
 # 8 prompts of 128-1024 tokens (none a multiple of the chunk), chunk 256,
-# 32 new (16 in the f32 round), greedy; cut to half their depth (of 64
-# and 81 layers) for phase 17's time, zamba2 to 6 groups of 6 and its
-# tail of 3
+# 32 new (16 in the f32 round), greedy; cut to a quarter of their depth
+# (of 64 and 81 layers; half in PR 28-29) for phases 17 and 19's time,
+# zamba2 to 3 groups of 6 and its tail of 3
 SSM_A = dict(slots=4, n_requests=8, prompt_lens=(128, 1025), new_tokens=32,
              f32_new_tokens=16, prefill_chunk=256)
-SSM_LAYERS = {"mamba2-2.7b": 32, "zamba2-7b": 39}
+SSM_LAYERS = {"mamba2-2.7b": 16, "zamba2-7b": 21}
 SSM_ENTRIES = {"prefill_chunk": 1, "decode": 1, "write_slot": 1}
 # the holds, by dtype, on logits errors relative to the reference's
 # largest logit.  (a): the tensor-parallel engine against the one-rank
@@ -5981,11 +6069,18 @@ def gemma2_only_path():
 # the 0.9 skew (moe_block_m 32: the grouped buffer's padding a group is
 # the CPU side's cost); (c) stablelm-1.6b's kill-and-resume drill under
 # deterministic algorithms; (d) (a)'s checkpoint served
-TRAIN_A = dict(steps=20, batch=4, seq_len=512, dataset="zipf", lr=3e-4,
-               ckpt_every=20, log_every=5)
+# (a) at 10 steps (20 until PR 30: phase 19 took the time)
+TRAIN_A = dict(steps=10, batch=4, seq_len=512, dataset="zipf", lr=3e-4,
+               ckpt_every=10, log_every=5)
 TRAIN_B = dict(layers=2, batch=2, seq_len=256, block_m=32, skew=0.9,
                ep_degree=4)
-TRAIN_C = dict(steps=12, batch=4, seq_len=512, ckpt_every=4, log_every=4)
+# (c) at 8 steps on 12 of stablelm-1.6b's 24 layers (12 steps at full
+# depth until PR 30: phase 19 took the time): two checkpoints of the
+# uninterrupted run, one of the killed, one of the resumed
+TRAIN_C = dict(steps=8, batch=4, seq_len=512, ckpt_every=4, log_every=4)
+TRAIN_C_LAYERS = 12
+TRAIN_C_SAVED = tuple(range(TRAIN_C["ckpt_every"], TRAIN_C["steps"] + 1,
+                            TRAIN_C["ckpt_every"]))
 TRAIN_C_FAIL = 6
 TRAIN_D = dict(slots=4, n_requests=4, prompt_lens=(64, 129), new_tokens=16,
                prefill_chunk=32, block_size=16)
@@ -6073,10 +6168,10 @@ def switch_train(tmp):
            "params_b": n_params / 1e9, "steps": len(res.losses),
            "batch": TRAIN_A["batch"], "seq_len": TRAIN_A["seq_len"],
            "dataset": TRAIN_A["dataset"],
-           "step_s_median_3_20": statistics.median(steady),
+           "step_s_median_3_on": statistics.median(steady),
            "step_s_min": min(steady), "step_s_max": max(steady),
-           "guard_s_median_3_20": statistics.median(rec["guard_s"][2:]),
-           "step_s_less_guard_median_3_20": statistics.median(unguarded),
+           "guard_s_median_3_on": statistics.median(rec["guard_s"][2:]),
+           "step_s_less_guard_median_3_on": statistics.median(unguarded),
            "tok_s": TRAIN_A["batch"] * TRAIN_A["seq_len"]
            / statistics.median(steady),
            "tok_s_less_guard": TRAIN_A["batch"] * TRAIN_A["seq_len"]
@@ -6265,10 +6360,15 @@ def switch_f32_check():
     G = B_["ep_degree"]
     T = B_["batch"] * B_["seq_len"]
     E = cut.moe.num_experts
-    sa4 = _skew_assign(T, G, E, B_["skew"], seed=17).cuda()
-    sa1 = sa4.reshape(1, 1, T, 1)
+    sa1 = _skew_assign(T, 1, E, B_["skew"], seed=17).cuda()
     l1, _, g1 = loss_and_grads(card, params, batch, skew_assign=sa1)
     ep = build_model(cut, pcfg, ep_degree=G, **shape)
+    # the same routes a rank: G = 4 slices the tokens by sequence, as
+    # JAX's block does where the length divides (rank g routes positions
+    # [g S / G, (g + 1) S / G) of every row)
+    assert ep.moe_spec.seq_sharded
+    sa4 = sa1.reshape(B_["batch"], G, B_["seq_len"] // G).transpose(
+        0, 1).reshape(1, G, T // G, 1)
     # G ranks hold the same experts in rank-major rows (row g * epr + j:
     # slot j of rank g), and their gradients come back in that order
     order = torch.as_tensor(ep.moe_spec.topo.slot_map.reshape(-1),
@@ -6335,6 +6435,8 @@ def stablelm_drill(tmp):
     from repro_torch.launch.train import train_loop
     from repro_torch.runtime.fault_tolerance import InjectedFailure
     from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_config
+    cut = get_config("stablelm-1.6b").replace(num_layers=TRAIN_C_LAYERS)
     torch.use_deterministic_algorithms(True)
     try:
         clean_dir, drill_dir = (os.path.join(tmp, "c_clean"),
@@ -6342,11 +6444,12 @@ def stablelm_drill(tmp):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        clean = train_loop(train_args("stablelm-1.6b", clean_dir, **TRAIN_C))
+        clean = train_loop(train_args("stablelm-1.6b", clean_dir, **TRAIN_C),
+                           cfg=cut)
         clean_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         ck = Checkpointer(clean_dir)
-        clean_manifests = {s: ck.manifest(s) for s in (4, 8, 12)}
+        clean_manifests = {s: ck.manifest(s) for s in TRAIN_C_SAVED}
         final_params = clean.params
         losses = clean.losses
         steady = clean.step_seconds[2:]
@@ -6366,7 +6469,7 @@ def stablelm_drill(tmp):
         os.environ["REPRO_FAIL_AT_STEP"] = str(TRAIN_C_FAIL)
         try:
             train_loop(train_args("stablelm-1.6b", drill_dir, **TRAIN_C),
-                       after_step=keep)
+                       after_step=keep, cfg=cut)
             raise AssertionError("[train-drill] the injected failure did "
                                  "not fire")
         except InjectedFailure:
@@ -6384,18 +6487,20 @@ def stablelm_drill(tmp):
                                                   held["state"]))
         t0 = time.perf_counter()
         resumed = train_loop(train_args("stablelm-1.6b", drill_dir,
-                                        **TRAIN_C), on_restore=on_restore)
+                                        **TRAIN_C), on_restore=on_restore,
+                             cfg=cut)
         resume_s = time.perf_counter() - t0
         del held["state"]
         params_equal = all(torch.equal(a, b) for a, b in zip(
             _leaves(resumed.params), _leaves(final_params)))
         ck = Checkpointer(drill_dir)
         manifests_equal = {s: ck.manifest(s) == clean_manifests[s]
-                           for s in (8, 12)}
-        out = {"model": "stablelm-1.6b", "params_b": n_params / 1e9,
+                           for s in TRAIN_C_SAVED[1:]}
+        out = {"model": "stablelm-1.6b", "layers": TRAIN_C_LAYERS,
+               "params_b": n_params / 1e9,
                "steps": TRAIN_C["steps"], "batch": TRAIN_C["batch"],
                "seq_len": TRAIN_C["seq_len"],
-               "step_s_median_3_12": statistics.median(steady),
+               "step_s_median_3_on": statistics.median(steady),
                "tok_s": TRAIN_C["batch"] * TRAIN_C["seq_len"]
                / statistics.median(steady),
                "peak_mem_gib": peak, "clean_s": clean_s, "ckpt_s": ckpt_s,
@@ -6722,6 +6827,521 @@ def dryrun_path():
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 19: training across processes on the (data, model) grid
+# ----------------------------------------------------------------------
+# full-width switch128 (d 768, 128 experts of d_ff 3072, vocab 32,128)
+# cut to its first 4 of 12 layers (2 MoE layers), bf16, the global batch
+# 4 x 512 of the zipf dataset, weights from seed 0; four gloo processes
+# share the one card (NCCL refuses two ranks on one card), as phase 10 (b)
+GRID_CELL = dict(layers=4, batch=4, seq_len=512, dataset="zipf", seed=0,
+                 lr=3e-4)
+# (b)-(c): launch.train's loop on the (2, 2) grid for 2 steps, its step-2
+# checkpoint written, killed at step 3; then resumed onto (1, 2) for steps
+# 3-4 and its last checkpoint written
+GRID_STEPS = dict(steps=4, ckpt_every=2, fail_at=2)
+# each gradient leaf's largest error against VirtualGroup(2)'s, as a share
+# of the reference leaf's largest magnitude (floored at TRAIN_FLOOR).  In
+# f32 the two compute the same sums up to rounding (TRAIN_TOL); that run
+# shows nothing but rounding parts them, so bf16 is bounded by two bf16
+# ulps at that magnitude.  Every planted fault must miss the bf16 bound
+GRID_TOL = {"float32": TRAIN_TOL, "bfloat16": 2.0 ** -6}
+GRID_REF = {"bfloat16": "bf16", "float32": "f32"}
+# the NCCL route at world size 1 under a launcher, against the same argv
+# without one (reduced switch128, f32; run by phase 10 (a)'s processes
+# after their CLI run, which saves a fresh process's start): each loss
+# within this
+NCCL_TRAIN_ARGV = ["--arch", "switch128", "--reduced", "--steps", "4",
+                   "--batch", "4", "--seq-len", "64", "--log-every", "1"]
+NCCL_LOSS_TOL = 1e-5
+
+GRID_WORKER = """
+import gc, json, os, sys, time
+import numpy as np, torch, torch.distributed as dist
+rank, port, here, work = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, here + "/src")
+sys.path.insert(0, here)
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4)
+import chip_smoke as CS
+from repro_torch import tree
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core import dispatch as D
+from repro_torch.data.pipeline import synthetic_batches
+from repro_torch.launch import train as LT
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.launch.grid import make_grid
+from repro_torch.launch.steps import loss_and_grads
+from repro_torch.models.model import build_model
+from repro_torch.runtime.fault_tolerance import InjectedFailure
+spec = json.load(open(f"{work}/spec.json"))
+C, ST = spec["cell"], spec["steps"]
+grid = make_grid(2, 2)
+grid12 = make_grid(1, 2, ranks=[0, 1])             # the resume's grid
+dev = torch.device("cuda", 0)
+out = {"rank": rank, "place": [grid.row, grid.col]}
+
+# the gloo collectives' wall time, each after a sync (the device's queued
+# work is not the collective's)
+coll = {"s": 0.0, "calls": 0}
+for name in ("all_reduce", "all_gather_into_tensor", "all_to_all_single"):
+    def timed(*a, _fn=getattr(dist, name), **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = _fn(*a, **k)
+        coll["s"] += time.perf_counter() - t0
+        coll["calls"] += 1
+        return r
+    setattr(dist, name, timed)
+
+cut = get_config("switch128").replace(num_layers=C["layers"])
+S = C["seq_len"]
+pcfg = ParallelConfig(attn_chunk=min(512, S), loss_chunk=min(2048, S))
+batch = next(synthetic_batches(C["dataset"], batch=C["batch"], seq_len=S,
+                               vocab=cut.vocab_size, seed=C["seed"]))
+mine = {k: torch.from_numpy(v).to(dev)
+        for k, v in grid.shard_batch(batch).items()}
+
+
+def refs(name, like):
+    # this process's part of a reference: its expert rows, and the rest
+    return tree.leaves(Checkpointer(f"{work}/{name}").restore(
+        0, like, shardings=grid.shardings(like), device=dev, verify=False))
+
+
+def worst(got, want):
+    e = [float((a.float() - b.float()).abs().max())
+         / max(CS.TRAIN_FLOOR, float(b.float().abs().max()))
+         for a, b in zip(got, want)]
+    i = max(range(len(e)), key=e.__getitem__)
+    return {"err": e[i], "leaf": paths[i]}
+
+
+def model_of(dtype):
+    return build_model(cut.replace(dtype=dtype), pcfg,
+                       batch=grid.local_batch(C["batch"]), seq_len=S,
+                       device=dev, ep_degree=grid.model, comm=grid.comm())
+
+
+# (a) this row's data half over its EP group of two processes against
+# VirtualGroup(2) on the same weights and rows: bf16, then f32 (row 0)
+model = model_of("bfloat16")
+params = model.init(C["seed"])
+paths = tree.paths(params)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+loss, diags, raw = loss_and_grads(model, params, mine)
+torch.cuda.synchronize()
+out["a_step_s"] = time.perf_counter() - t0
+ref_row = refs(f"ref_bf16_{grid.row}", params)
+out["a_loss"] = float(loss)
+out["a_worst"] = worst(raw, ref_row)
+out["a_moved_units"] = float(diags["moved_units"])
+out["a_drops"] = float(diags["send_drops"] + diags["dest_drops"])
+# the planted faults, each against the reference it must miss
+avg = [((a.float() + b.float()) / 2).to(a.dtype)
+       for a, b in zip(refs("ref_bf16_0", params), refs("ref_bf16_1", params))]
+faults = {"dp_average_dropped": worst(raw, avg)}
+enter = D.DistComm.enter
+D.DistComm.enter = lambda self, x: x     # the ranks' cotangents not summed
+faults["enter_not_summed"] = worst(loss_and_grads(model, params, mine)[2],
+                                   ref_row)
+D.DistComm.enter = enter
+if out["a_moved_units"] > 0:
+    # the foreign rows' gradient kept by the rank that fetched them
+    back = D._DistHostedFetch.backward
+    D._DistHostedFetch.backward = staticmethod(
+        lambda ctx, ct: (ct.new_zeros(ctx.shape), None, None))
+    faults["fetch_grad_not_sent_back"] = worst(
+        loss_and_grads(model, params, mine)[2], ref_row)
+    D._DistHostedFetch.backward = back
+out["faults"] = faults
+del raw, ref_row, params, model
+gc.collect()
+torch.cuda.empty_cache()
+if grid.row == 0:
+    model = model_of("float32")
+    params = model.init(C["seed"])
+    loss32, _, g32 = loss_and_grads(model, params, mine)
+    out["a_f32_loss"] = float(loss32)
+    out["a_f32_worst"] = worst(g32, refs("ref_f32_0", params))
+    del g32, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+dist.barrier()
+
+# (b) launch.train's loop on the (2, 2) grid, (c) killed at step 3
+args = CS.train_args("switch128", f"{work}/ckpt", steps=ST["steps"],
+                     batch=C["batch"], seq_len=S, dataset=C["dataset"],
+                     lr=C["lr"], ckpt_every=ST["ckpt_every"], log_every=1,
+                     data_par=2, model_par=2, seed=C["seed"])
+first, held, steps = {}, {}, []
+
+
+def on_grads(grads, diags):
+    if "worst" not in first:
+        first["worst"] = worst(tree.leaves(grads), avg)
+
+
+def after_step(step, params, opt, loss, diags):
+    if step == ST["ckpt_every"] and grid12 is not None:
+        held["state"] = [t.clone() for t in tree.leaves(
+            {"params": params, "opt": opt})]
+
+
+make_step = LT.make_train_step
+
+
+def timed_maker(*a, **k):
+    fn = make_step(*a, **k)
+
+    def step(*sa, **sk):
+        c0, n0 = coll["s"], coll["calls"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*sa, **sk)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0,
+                      "gloo_s": coll["s"] - c0,
+                      "gloo_calls": coll["calls"] - n0,
+                      "loss": float(r[2])})
+        return r
+    return step
+
+
+LT.make_train_step = timed_maker
+os.environ["REPRO_FAIL_AT_STEP"] = str(ST["fail_at"])
+torch.cuda.reset_peak_memory_stats()
+read = CS._reset_launches()
+t0 = time.perf_counter()
+try:
+    LT.train_loop(args, on_grads=on_grads, after_step=after_step, grid=grid,
+                  cfg=cut)
+    raise AssertionError("the injected failure did not fire")
+except InjectedFailure:
+    pass
+finally:
+    del os.environ["REPRO_FAIL_AT_STEP"]
+out["b_wall_s"] = time.perf_counter() - t0
+out["b_steps"] = list(steps)
+out["b_first_worst"] = first["worst"]
+out["b_launches"] = read()
+out["b_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+del avg
+gc.collect()
+torch.cuda.empty_cache()
+dist.barrier()
+# (c) resumed onto (1, 2) by row 0's processes
+if grid12 is not None:
+    restore, rs, restored = Checkpointer.restore, {}, {}
+
+    def timed_restore(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = restore(self, *a, **k)
+        torch.cuda.synchronize()
+        rs["s"] = time.perf_counter() - t0
+        return r
+    Checkpointer.restore = timed_restore
+
+    def on_restore(step, state):
+        restored["step"] = step
+        restored["equal"] = all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(state), held["state"]))
+        held.clear()
+    args.data_par = 1
+    steps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    read = CS._reset_launches()
+    t0 = time.perf_counter()
+    res = LT.train_loop(args, on_restore=on_restore, grid=grid12, cfg=cut)
+    out["c_wall_s"] = time.perf_counter() - t0
+    out["c_restore_s"] = rs["s"]
+    out["c_restored"] = restored
+    out["c_steps"] = list(steps)
+    out["c_ckpt_s"] = res.ckpt_seconds
+    out["c_launches"] = read()
+    out["c_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del res
+dist.barrier()
+json.dump(out, open(f"{work}/rank{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+def grid_reference(work):
+    """VirtualGroup(2)'s gradients on each data half of the first batch in
+    bf16, and on half 0 in f32, on the same weights as the processes',
+    saved for them as checkpoints (each restores its own expert rows);
+    returns the references' losses and moved units."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_batches
+    from repro_torch.launch.grid import data_rows
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import build_model
+    C = GRID_CELL
+    cut = get_config("switch128").replace(num_layers=C["layers"])
+    S = C["seq_len"]
+    pcfg = ParallelConfig(attn_chunk=min(512, S), loss_chunk=min(2048, S))
+    batch = next(synthetic_batches(C["dataset"], batch=C["batch"],
+                                   seq_len=S, vocab=cut.vocab_size,
+                                   seed=C["seed"]))
+    out = {}
+    for dtype, halves in (("bfloat16", (0, 1)), ("float32", (0,))):
+        model = build_model(cut.replace(dtype=dtype), pcfg,
+                            batch=C["batch"] // 2, seq_len=S, ep_degree=2)
+        params = model.init(C["seed"])
+        structure = tree.flatten(params)[1]
+        for d in halves:
+            rows = data_rows(C["batch"], 2, d)
+            mine = {k: torch.from_numpy(v[rows]).cuda()
+                    for k, v in batch.items()}
+            loss, diags, grads = loss_and_grads(model, params, mine)
+            Checkpointer(os.path.join(work, f"ref_{GRID_REF[dtype]}_{d}"),
+                         keep=0).save(0, tree.unflatten(structure, grads),
+                                      blocking=True)
+            out[f"{GRID_REF[dtype]}_{d}"] = {
+                "loss": float(loss),
+                "moved_units": float(diags["moved_units"])}
+            del grads
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_restore_one(cut, ckpt_dir, step):
+    """(c)'s last checkpoint restored onto one process at G = 1 (all 128
+    experts of a layer whole) on the card, every leaf held against its
+    file bit for bit; returns the parameters and the seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.steps import optimizer_shapes
+    from repro_torch.models.model import build_model
+    C = GRID_CELL
+    model = build_model(cut, ParallelConfig(), batch=C["batch"],
+                        seq_len=C["seq_len"], device="meta")
+    shapes = model.param_shapes()
+    like = {"params": shapes, "opt": optimizer_shapes(shapes)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = Checkpointer(ckpt_dir).restore(step, like, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    unequal = []
+    for i, t in enumerate(_leaves(state)):
+        arr = np.load(os.path.join(final, f"leaf_{i}.npy"), mmap_mode="r")
+        got = t.cpu().contiguous().reshape(-1).view(torch.uint8)
+        want = torch.from_numpy(np.array(arr).reshape(-1).view(np.uint8))
+        if tuple(t.shape) != arr.shape or not torch.equal(got, want):
+            unequal.append(i)
+    params = state["params"]
+    del state
+    return params, restore_s, unequal
+
+
+def grid_nccl_check(nccl, local):
+    """Phase 19's NCCL route, run by phase 10 (a)'s two processes after
+    the CLI (``PROFILED_CLI``): ``launch.train``'s loop at world size 1
+    under ``torch.distributed.run --standalone --nproc-per-node 1`` (NCCL
+    on the card, a (1, 1) grid over ``DistComm``), against the same argv
+    in the process without a launcher: each step's loss."""
+    errs = [abs(a - b) for a, b in zip(nccl["losses"], local["losses"])]
+    out = {"argv": NCCL_TRAIN_ARGV + ["--device", "cuda"],
+           "comm": nccl["comm"], "comm_without_launcher": local["comm"],
+           "losses": nccl["losses"], "losses_without_launcher":
+           local["losses"], "loss_err_max": max(errs) if errs else None,
+           "step_s": nccl["step_s"],
+           "step_s_without_launcher": local["step_s"]}
+    log(f"[grid-nccl] {json.dumps(out)}")
+    bad = []
+    if nccl["comm"].get("kind") != "DistComm" \
+            or nccl["comm"].get("backend") != "nccl":
+        bad.append(f"the launcher's run took {nccl['comm']}")
+    if local["comm"].get("kind") != "LocalComm":
+        bad.append(f"the run without a launcher took {local['comm']}")
+    if len(nccl["losses"]) != len(local["losses"]) or not errs \
+            or max(errs) > NCCL_LOSS_TOL:
+        bad.append(f"losses {nccl['losses']} against {local['losses']}")
+    if bad:
+        raise AssertionError("[grid-nccl] " + "; ".join(bad))
+    return out
+
+
+def grid_path():
+    """Phase 19: (a)-(c) in four gloo processes on the one card against
+    VirtualGroup(2) references made first in this process, (c)'s last
+    checkpoint restored onto one process, (d) served, and the NCCL route
+    at world size 1; returns the records."""
+    import socket
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_config
+    tmp = tempfile.mkdtemp(prefix="grid_", dir=os.path.join(HERE, "build"))
+    C, ST = GRID_CELL, GRID_STEPS
+    cut = get_config("switch128").replace(num_layers=C["layers"])
+    try:
+        t0 = time.perf_counter()
+        refs = grid_reference(tmp)
+        ref_s = time.perf_counter() - t0
+        log(f"[grid-ref] VirtualGroup(2) on each data half: "
+            f"{json.dumps(refs)} ({ref_s:.1f} s)")
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump({"cell": C, "steps": ST}, f)
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = str(sk.getsockname()[1])
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                   OMP_NUM_THREADS="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", GRID_WORKER, str(r),
+                                   port, HERE, tmp], env=env, cwd=HERE,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(4)]
+        try:
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        workers_s = time.perf_counter() - t0
+        ranks = []
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"[grid] process {r} exited "
+                                     f"{p.returncode}: {errs[r][-4000:]}")
+            ranks.append(json.load(open(os.path.join(tmp, f"rank{r}.json"))))
+        bad = []
+        tok = C["batch"] * C["seq_len"]
+        for rec in ranks:
+            r = rec["rank"]
+            log(f"[grid-a] process {r} at {rec['place']}: G = 2 against "
+                f"VirtualGroup(2), bf16 {json.dumps(rec['a_worst'])}"
+                + (f", f32 {json.dumps(rec['a_f32_worst'])}"
+                   if "a_f32_worst" in rec else "")
+                + f"; loss {rec['a_loss']}, moved {rec['a_moved_units']}, "
+                f"drops {rec['a_drops']}, step {rec['a_step_s']:.3f} s")
+            log(f"[grid-faults] process {r}: {json.dumps(rec['faults'])}")
+            if rec["a_worst"]["err"] > GRID_TOL["bfloat16"]:
+                bad.append(f"(a) process {r}: {rec['a_worst']}")
+            if "a_f32_worst" in rec \
+                    and rec["a_f32_worst"]["err"] > GRID_TOL["float32"]:
+                bad.append(f"(a) f32 process {r}: {rec['a_f32_worst']}")
+            if rec["b_first_worst"]["err"] > GRID_TOL["bfloat16"]:
+                bad.append(f"(b) process {r}: {rec['b_first_worst']}")
+            for name, f in rec["faults"].items():
+                if f["err"] <= GRID_TOL["bfloat16"]:
+                    bad.append(f"fault {name} passed on process {r}: {f}")
+            if rec["a_drops"]:
+                bad.append(f"(a) process {r}: drops {rec['a_drops']}")
+        # every process of a row computes its row's loss; (b)'s step
+        # losses are the data-parallel mean, the same on all four
+        b_losses = [[s["loss"] for s in rec["b_steps"]] for rec in ranks]
+        if any(ls != b_losses[0] for ls in b_losses):
+            bad.append(f"(b) the processes' losses differ: {b_losses}")
+        for rec in ranks:
+            if abs(rec["a_loss"] - refs[f"bf16_{rec['place'][0]}"]["loss"]) \
+                    > GRID_TOL["bfloat16"] * abs(rec["a_loss"]):
+                bad.append(f"(a) process {rec['rank']}: loss {rec['a_loss']}")
+        n_moe = C["layers"] // 2
+        grid_s = [s["s"] for rec in ranks for s in rec["b_steps"][1:]]
+        gloo_share = [s["gloo_s"] / s["s"] for rec in ranks
+                      for s in rec["b_steps"][1:]]
+        b = {"grid": [2, 2], "processes": 4, "steps": len(b_losses[0]),
+             "losses": b_losses[0],
+             "step_s_after_first": grid_s,
+             "tok_s": tok / statistics.median(grid_s),
+             "gloo_share": gloo_share,
+             "gloo_calls_a_step": ranks[0]["b_steps"][-1]["gloo_calls"],
+             "first_step_s": [rec["b_steps"][0]["s"] for rec in ranks],
+             "first_step_worst": [rec["b_first_worst"] for rec in ranks],
+             "peak_mem_gib": [rec["b_peak_mem_gib"] for rec in ranks],
+             "launches": [rec["b_launches"] for rec in ranks],
+             "wall_s": [rec["b_wall_s"] for rec in ranks]}
+        log(f"[grid-b] {json.dumps(b)}")
+        for rec in ranks:
+            # training runs the plain branches: the schedule only, once a
+            # MoE layer a step on each process
+            want = {"moe_gmm": 0, "paged_attention": 0, "flash_attention": 0,
+                    "schedule": n_moe * len(rec["b_steps"])}
+            if rec["b_launches"] != want:
+                bad.append(f"(b) process {rec['rank']}: launches "
+                           f"{rec['b_launches']} != {want}")
+        row0 = [rec for rec in ranks if "c_wall_s" in rec]
+        c = {"grid": [1, 2], "processes": 2,
+             "restored": [rec["c_restored"] for rec in row0],
+             "restore_s": [rec["c_restore_s"] for rec in row0],
+             "losses": [s["loss"] for s in row0[0]["c_steps"]],
+             "step_s": [[s["s"] for s in rec["c_steps"]] for rec in row0],
+             "tok_s": tok / statistics.median(
+                 [s["s"] for rec in row0 for s in rec["c_steps"]]),
+             "gloo_share": [[s["gloo_s"] / s["s"] for s in rec["c_steps"]]
+                            for rec in row0],
+             "ckpt_s": [rec["c_ckpt_s"] for rec in row0],
+             "peak_mem_gib": [rec["c_peak_mem_gib"] for rec in row0],
+             "launches": [rec["c_launches"] for rec in row0],
+             "workers_s": workers_s}
+        log(f"[grid-c] {json.dumps(c)}")
+        for rec in row0:
+            if rec["c_restored"] != {"step": ST["ckpt_every"],
+                                     "equal": True}:
+                bad.append(f"(c) process {rec['rank']} restored "
+                           f"{rec['c_restored']}")
+            if len(rec["c_steps"]) != ST["steps"] - ST["ckpt_every"]:
+                bad.append(f"(c) process {rec['rank']} ran "
+                           f"{len(rec['c_steps'])} steps")
+        if not all(math.isfinite(x) for x in b_losses[0] + c["losses"]):
+            bad.append("a non-finite loss")
+        if bad:
+            raise AssertionError("[grid] " + "; ".join(bad))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp, "ckpt")
+        params, restore_s, unequal = grid_restore_one(cut, ckpt, ST["steps"])
+        final = os.path.join(ckpt, f"step_{ST['steps']}")
+        one = {"grid": [1, 1], "restore_s": restore_s,
+               "leaves_unequal": unequal,
+               "params_b": sum(t.numel() for t in _leaves(params)) / 1e9,
+               "checkpoint_gb": sum(os.path.getsize(os.path.join(final, f))
+                                    for f in os.listdir(final)) / 1e9}
+        log(f"[grid-restore] {json.dumps(one)}")
+        if unequal:
+            raise AssertionError(f"[grid-restore] leaves {unequal} differ "
+                                 f"from the checkpoint's files")
+        # (d): the restored parameters served (trained_serve restores the
+        # parameters again and holds them equal to these)
+        from repro_torch.launch.steps import optimizer_shapes
+        like = {"params": _meta(params),
+                "opt": optimizer_shapes(_meta(params))}
+        t0 = time.perf_counter()
+        d = trained_serve(cut, ckpt, ST["steps"], params, like)
+        d_s = time.perf_counter() - t0
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] phase 19: references {ref_s:.1f} s, processes "
+            f"{workers_s:.1f} s, (d) {d_s:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"a": [rec["a_worst"] for rec in ranks], "b": b, "c": c,
+            "restore": one, "serve": d}
+
+
 def main() -> int:
     try:
         import torch
@@ -6822,6 +7442,12 @@ def main() -> int:
         # kernels line and the result line
         dryrun_path()
         elapsed("phase 18")
+        return 0
+    if "--only-grid" in sys.argv[1:]:
+        # a shorter run for work on phase 19: the phase alone, without the
+        # kernels line and the result line
+        grid_path()
+        elapsed("phase 19")
         return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
@@ -6956,6 +7582,11 @@ def main() -> int:
     # --- phase 18: the dry-run against the card -----------------------------
     dry = dryrun_path()
     elapsed("phase 18")
+    # --- phase 19: training across processes on the (data, model) grid ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = grid_path()
+    elapsed("phase 19")
     # each kernel's launches over the run of the path that carries it
     path_of = {"moe_gmm": summary, "paged_attention": summary,
                "flash_attention": whole_summary, "schedule": summary}
@@ -7032,7 +7663,15 @@ def main() -> int:
                 "oracle_switch128_trained_plain":
                     train["serve"]["plain_launches"][name],
                 **{path: rec["launches"][name]
-                   for path, rec in dry.items()}},
+                   for path, rec in dry.items()},
+                f"grid_switch128_{GRID_CELL['layers']}of12_2x2_train"
+                f"_per_process": [l[name] for l in grid["b"]["launches"]],
+                f"grid_switch128_{GRID_CELL['layers']}of12_1x2_resumed"
+                f"_per_process": [l[name] for l in grid["c"]["launches"]],
+                f"serve_switch128_{GRID_CELL['layers']}of12_grid_trained"
+                f"_paged": grid["serve"]["launches"][name],
+                f"oracle_switch128_{GRID_CELL['layers']}of12_grid_trained"
+                f"_plain": grid["serve"]["plain_launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in parity[name]
                                if r["dtype"] in ("bfloat16", "int32")),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

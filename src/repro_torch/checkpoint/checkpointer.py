@@ -25,17 +25,23 @@ memory, which PyTorch's caching host allocator keeps for the next
 save), and writes it on a background thread; ``wait()`` joins it, and
 the next ``save`` waits for the last one before it snapshots.
 ``restore`` checks every leaf's CRC and puts each leaf on the device of
-the matching leaf of ``like``.
+the matching leaf of ``like``.  ``restore(..., shardings=)`` is the
+elastic restore, JAX's ``shardings`` for a process of a grid
+(``launch/grid.py``): a leaf with a ``RowShard`` loads only this
+process's rows of the global leaf (read through a memory map), and a
+checkpoint restores onto any grid whose global shapes agree; a leaf
+whose shape cannot match raises, naming it.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +54,13 @@ _NP = {torch.float32: np.float32, torch.float16: np.float16,
        torch.int32: np.int32, torch.int64: np.int64, torch.int8: np.int8,
        torch.uint8: np.uint8, torch.bool: np.bool_,
        torch.float64: np.float64}
+
+
+class RowShard(NamedTuple):
+    """Part ``index`` of ``parts`` equal slices of a leaf's ``axis``."""
+    axis: int
+    index: int
+    parts: int
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -95,13 +108,29 @@ class _Stager:
                 yield self.buf[:n].numpy()
 
 
+def _header(t: torch.Tensor, shape) -> bytes:
+    """The .npy (1.0) header of a leaf of ``t``'s dtype and ``shape``."""
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        buf, {"descr": _descr(t), "fortran_order": False,
+              "shape": tuple(shape)})
+    return buf.getvalue()
+
+
+def _pwrite_all(fd: int, buf: np.ndarray, offset: int) -> None:
+    """``buf``'s bytes at ``offset`` of ``fd``, in as many writes as the
+    kernel takes (one write moves at most ~2 GiB)."""
+    view = memoryview(buf).cast("B")
+    done = 0
+    while done < len(view):
+        done += os.pwrite(fd, view[done:done + (1 << 30)], offset + done)
+
+
 def _write_leaf(path: str, t: torch.Tensor, stager: _Stager, ready) -> dict:
     """``leaf_i.npy`` of ``t``; returns its manifest entry (less ``i``)."""
     crc = 0
     with open(path, "wb") as f:
-        np.lib.format.write_array_header_1_0(
-            f, {"descr": _descr(t), "fortran_order": False,
-                "shape": tuple(t.shape)})
+        f.write(_header(t, t.shape))
         for chunk in stager.chunks(t, ready):
             f.write(memoryview(chunk))
             crc = zlib.crc32(memoryview(chunk), crc)
@@ -171,7 +200,6 @@ class Checkpointer:
 
     def _write(self, step: int, leaves: List[torch.Tensor], ready) -> None:
         tmp = os.path.join(self.dir, f"_tmp_step_{step}")
-        final = os.path.join(self.dir, f"step_{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp, exist_ok=True)
         # largest first, round-robin over the workers' stagers
@@ -188,6 +216,11 @@ class Checkpointer:
         with ThreadPoolExecutor(_THREADS) as ex:
             for fut in [ex.submit(lane, w) for w in range(_THREADS)]:
                 fut.result()
+        self._commit(step, tmp, entries)
+
+    def _commit(self, step: int, tmp: str, entries: List[dict]) -> None:
+        """The manifest, the rename to ``step_<step>`` and the marker."""
+        final = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": step, "leaves": entries}, f)
         shutil.rmtree(final, ignore_errors=True)
@@ -196,6 +229,125 @@ class Checkpointer:
         with open(final + ".done", "w") as f:
             f.write("ok")
         self._gc()
+
+    def save_part(self, step: int, tree: Any,
+                  shardings: Sequence[Optional[RowShard]], *, part: int,
+                  parts: int, sync: Callable[[], None],
+                  blocking: bool = False) -> None:
+        """Part ``part`` of ``parts`` processes writes one checkpoint of the
+        global leaves together with the others, each writing its own
+        slice of every ``RowShard`` leaf into the one file (``tree``
+        holds this process's slices), part 0 the other leaves: the files
+        are those a one-process save of the global tree writes, byte for
+        byte.  Part 0 makes the files (header, full size), ``sync()``
+        (a barrier over the parts) lets every part write, each marks its
+        part done, and part 0 then reads the files back for their CRCs
+        and commits.  ``blocking`` as in ``save`` (without it each part
+        writes from a host snapshot of what it writes, on a background
+        thread)."""
+        self.wait()
+        leaves = T.leaves(tree)
+        if len(shardings) != len(leaves):
+            raise ValueError(f"{len(shardings)} shardings for "
+                             f"{len(leaves)} leaves")
+        tmp = os.path.join(self.dir, f"_tmp_step_{step}")
+        shapes = []
+        for t, shd in zip(leaves, shardings):
+            shape = list(t.shape)
+            if shd is not None:
+                shape[shd.axis] *= parts
+            shapes.append(shape)
+        heads = [_header(t, shape) for t, shape in zip(leaves, shapes)]
+        if part == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            for i, (t, shape, head) in enumerate(zip(leaves, shapes, heads)):
+                with open(os.path.join(tmp, f"leaf_{i}.npy"), "wb") as f:
+                    f.write(head)
+                    f.truncate(len(head) + t.element_size()
+                               * int(np.prod(shape, dtype=np.int64)))
+        sync()
+        mine = [i for i, shd in enumerate(shardings)
+                if shd is not None or part == 0]
+        ready = self._ready(leaves)
+        if blocking:
+            src = {i: leaves[i] for i in mine}
+        else:
+            src = dict(zip(mine, _snapshot_host([leaves[i] for i in mine],
+                                                ready)))
+            ready = None
+
+        def run():
+            def one(i: int):
+                t = src[i].detach()
+                raw = (t.cpu() if t.is_cuda else t).contiguous().reshape(
+                    -1).view(torch.uint8).numpy() if t.numel() else \
+                    np.zeros(0, np.uint8)
+                shd = shardings[i]
+                fd = os.open(os.path.join(tmp, f"leaf_{i}.npy"), os.O_WRONLY)
+                try:
+                    if shd is None:
+                        _pwrite_all(fd, raw, len(heads[i]))
+                        return
+                    # [outer, rows a part x inner] blocks of this part
+                    outer = int(np.prod(t.shape[:shd.axis], dtype=np.int64))
+                    block = raw.size // max(outer, 1)
+                    for o in range(outer):
+                        _pwrite_all(fd, raw[o * block:(o + 1) * block],
+                                    len(heads[i])
+                                    + (o * parts + shd.index) * block)
+                finally:
+                    os.close(fd)
+            if ready is not None:
+                ready.synchronize()
+            with ThreadPoolExecutor(_THREADS) as ex:
+                list(ex.map(one, mine))
+            open(os.path.join(tmp, f"part_{part}.done"), "w").close()
+            if part == 0:
+                self._commit_parts(step, tmp, leaves, shapes, heads, parts)
+
+        if blocking:
+            run()
+            return
+
+        def background():
+            try:
+                run()
+            except BaseException as e:         # re-raised by wait()
+                self._error = e
+        self._thread = threading.Thread(target=background, daemon=True)
+        self._thread.start()
+
+    def _commit_parts(self, step, tmp, leaves, shapes, heads, parts,
+                      timeout: float = 1800.0) -> None:
+        """Part 0's commit of a ``save_part``: once every part's marker is
+        there, each leaf's CRC read back from its file, the manifest, the
+        rename and the commit marker."""
+        import time
+        t0 = time.monotonic()
+        while not all(os.path.exists(os.path.join(tmp, f"part_{p}.done"))
+                      for p in range(parts)):
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"checkpoint step {step}: a part did "
+                                   f"not finish writing")
+            time.sleep(0.01)
+
+        def crc_of(i: int) -> dict:
+            crc = 0
+            with open(os.path.join(tmp, f"leaf_{i}.npy"), "rb") as f:
+                f.seek(len(heads[i]))
+                while True:
+                    chunk = f.read(_CHUNK)
+                    if not chunk:
+                        break
+                    crc = zlib.crc32(chunk, crc)
+            return {"i": i, "shape": shapes[i],
+                    "dtype": _dtype_name(leaves[i]), "crc32": crc}
+        with ThreadPoolExecutor(_THREADS) as ex:
+            entries = list(ex.map(crc_of, range(len(leaves))))
+        for p in range(parts):
+            os.remove(os.path.join(tmp, f"part_{p}.done"))
+        self._commit(step, tmp, entries)
 
     def wait(self) -> None:
         """Join the background save; re-raise what it raised."""
@@ -219,34 +371,67 @@ class Checkpointer:
             return json.load(f)
 
     def restore(self, step: int, like: Any, *, verify: bool = True,
-                only: Optional[str] = None, device=None) -> Any:
+                only: Optional[str] = None, device=None,
+                shardings: Optional[Sequence[Optional[RowShard]]] = None
+                ) -> Any:
         """Load ``step`` into the structure of ``like``, each leaf on the
         device of ``like``'s leaf (on ``device`` when given), in the
         manifest's dtype.  ``only`` (a top-level key of ``like``) loads
         that subtree alone; the rest of ``like`` only fixes the leaf
         numbering (its leaves may be on the ``meta`` device) and comes
-        back as it is."""
+        back as it is.  ``shardings`` (one entry a leaf of ``like``, in
+        ``tree.flatten``'s order) loads a ``RowShard`` leaf's own slice
+        of the global leaf and a None one whole; each leaf's shape (its
+        global shape for a slice) must be the checkpoint's, else a
+        ValueError names the leaf."""
         final = os.path.join(self.dir, f"step_{step}")
         manifest = self.manifest(step)
         ref, structure = T.flatten(like)
         if len(ref) != len(manifest["leaves"]):
             raise ValueError("tree structure changed")
+        shards = list(shardings) if shardings is not None \
+            else [None] * len(ref)
+        if len(shards) != len(ref):
+            raise ValueError(f"{len(shards)} shardings for {len(ref)} "
+                             f"leaves")
+        names = T.paths(like)
         wanted = range(len(ref))
         if only is not None:         # sorted keys: the subtree's leaves
             start = sum(len(T.leaves(like[k])) for k in sorted(like)
                         if k < only)
             wanted = range(start, start + len(T.leaves(like[only])))
+        for i in wanted:
+            want, shd = list(ref[i].shape), shards[i]
+            if shd is not None and shd.axis < len(want):
+                want[shd.axis] *= shd.parts
+            if manifest["leaves"][i]["shape"] != want:
+                raise ValueError(
+                    f"checkpoint leaf {i} ({names[i]}) has shape "
+                    f"{manifest['leaves'][i]['shape']}; this process's "
+                    f"leaf is {list(ref[i].shape)}"
+                    + (f", {shd.parts} slices of axis {shd.axis}"
+                       if shd is not None else "")
+                    + f": {want}")
         out = list(ref)
 
         def load(i: int):
             meta = manifest["leaves"][i]
-            arr = np.load(os.path.join(final, f"leaf_{meta['i']}.npy"))
+            arr = np.load(os.path.join(final, f"leaf_{meta['i']}.npy"),
+                          mmap_mode="r")
             if verify:
-                crc = zlib.crc32(np.ascontiguousarray(arr).reshape(-1)
-                                 .view(np.uint8))
+                raw = arr.reshape(-1).view(np.uint8)
+                crc = 0
+                for lo in range(0, raw.size, _CHUNK):
+                    crc = zlib.crc32(raw[lo:lo + _CHUNK], crc)
                 if crc != meta["crc32"]:
                     raise IOError(f"checkpoint leaf {meta['i']} corrupt "
                                   f"(crc {crc} != {meta['crc32']})")
+            shd = shards[i]
+            if shd is not None:
+                n = arr.shape[shd.axis] // shd.parts
+                arr = arr[(slice(None),) * shd.axis
+                          + (slice(shd.index * n, (shd.index + 1) * n),)]
+            arr = np.array(arr)                 # out of the memory map
             if meta["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
             else:

@@ -98,6 +98,14 @@ def expert_shard(moe_params: Dict[str, Any], rank: int,
     return out
 
 
+def is_expert_path(path: str) -> bool:
+    """Whether the leaf at ``path`` (``tree.paths``) is one that
+    ``shard_params`` cuts: an MoE block's leaf other than its router,
+    whose expert (or replica) rows lie on axis 1."""
+    parts = path.split("/")
+    return "moe" in parts[:-1] and parts[-1] != "router"
+
+
 def shard_params(params: Any, rank: int, ep_degree: int) -> Any:
     """A whole parameter tree as rank ``rank`` of ``ep_degree`` holds it
     under ``DistComm``: every MoE block's expert and replica leaves cut to

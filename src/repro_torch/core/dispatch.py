@@ -53,6 +53,26 @@ whose ``done`` event the body joins before the grouped FFN
 the paper's dedicated stream.  Fork and join are events, so a captured
 step holds them too.
 
+Under autograd (training) every communicator's collectives carry
+gradients.  ``VirtualGroup`` builds one graph over all its ranks.
+``DistComm``'s graph is one a process, so each of its collectives is a
+``torch.autograd.Function`` whose backward is the transposed collective,
+with the convention that a value replicated over the group holds its
+whole cotangent on every process and a per-rank value its own:
+``all_to_all`` sends the cotangent back along the reverse exchange;
+``all_gather`` of a replicated result takes the process's own slice of
+it (``gather_all_experts``' per-rank use sums the ranks' cotangents
+first); ``psum`` passes the cotangent through; the fetch sends the
+fetched rows' cotangent back to their hosting rank, which adds it into
+its expert rows.  Where the block enters a rank's own work from a
+replicated tensor (the input tokens, the router), ``enter`` sums the
+ranks' cotangents, so that such a tensor ends with its whole gradient on
+every process; ``rank0_mean_grad`` gives a per-rank scalar (the aux
+loss) as rank 0's value with the ranks' mean gradient, JAX's
+``shard_map`` transpose of an output that is not mapped over the axis.
+Without an input that requires grad no autograd node is built and the
+raw calls run, as serving's captured steps need.
+
 No step here reads a device value on the host: scatters that drop
 out-of-range rows send them to one extra dump row that is sliced off
 (never a boolean mask, whose result size only the host can know), and
@@ -90,9 +110,13 @@ class Fetched(NamedTuple):
 Body = Generator[Collective, object, object]
 
 
-def all_gather(x: torch.Tensor):
-    """Every rank's ``x`` stacked in rank order: [G, ...]."""
-    return (yield Collective("all_gather", x))
+def all_gather(x: torch.Tensor, per_rank_use: bool = False):
+    """Every rank's ``x`` stacked in rank order: [G, ...].
+    ``per_rank_use``: the result feeds each rank's own work (not a
+    replicated value), so under autograd on ``DistComm`` its backward
+    sums the ranks' cotangents before taking this rank's slice."""
+    return (yield Collective("all_gather", x,
+                             ("per_rank",) if per_rank_use else ()))
 
 
 def all_to_all(x: torch.Tensor):
@@ -115,6 +139,12 @@ def pmax(x: torch.Tensor):
 # collective is answered, with every rank's input and answer that this
 # process holds (one rank's under ``run``, all G under ``VirtualGroup``).
 WATCHERS: List[Callable[[str, List[torch.Tensor], List[object]], None]] = []
+
+
+def _records(*xs: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``xs``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
 def run(comm, body: Body):
@@ -205,7 +235,7 @@ class LocalComm:
     size = 1
     ranks_here = (0,)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, mode: str = "") -> torch.Tensor:
         return x[None]
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -224,6 +254,12 @@ class LocalComm:
 
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
         return w
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def rank0_mean_grad(self, values: List[torch.Tensor]) -> torch.Tensor:
+        return values[0]
 
     def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
         return [run(self, make_body(0))]
@@ -277,7 +313,12 @@ class DistComm:
     def capturable(self) -> bool:
         return self.backend == "nccl" and self.fetch == "dense"
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, mode: str = "") -> torch.Tensor:
+        if _records(x):
+            return _DistAllGather.apply(x, self, mode == "per_rank")
+        return self._all_gather(x)
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         shape = tuple(x.shape)
         flat = x.contiguous().reshape(-1)
         out = flat.new_empty((self.size * flat.numel(),))
@@ -290,12 +331,22 @@ class DistComm:
         if x.shape[0] != self.size:
             raise ValueError(f"DistComm.all_to_all splits axis 0 evenly "
                              f"over {self.size} ranks, got {x.shape[0]}")
+        if _records(x):
+            return _DistAllToAll.apply(x, self)
+        return self._all_to_all(x)
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
         out = torch.empty_like(x)
         self._dist.all_to_all_single(out, x, group=self.group)
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
+        if _records(x):
+            return _DistPsum.apply(x, self)
+        return self._psum(x)
+
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
         out = x.clone()
         self._dist.all_reduce(out, group=self.group)
         return out
@@ -305,6 +356,18 @@ class DistComm:
         self._dist.all_reduce(out, op=self._dist.ReduceOp.MAX,
                               group=self.group)
         return out
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, replicated over the group, as the input of this rank's
+        own work: under autograd its backward sums the ranks'
+        cotangents."""
+        return _DistEnter.apply(x, self) if _records(x) else x
+
+    def rank0_mean_grad(self, values: List[torch.Tensor]) -> torch.Tensor:
+        """Rank 0's value of this rank's scalar ``values[0]`` (one
+        collective), whose backward gives this rank the cotangent over
+        the group's size."""
+        return _DistRank0.apply(values[0], self)
 
     def rank0_value(self, value: float) -> float:
         """Rank 0's ``value`` on every rank (the serve engine's per-step
@@ -335,15 +398,20 @@ class DistComm:
                 sent = (w_local[0].numel() * w_local.element_size()
                         * fids_all.shape[1] * (self.size - 1))
             else:
-                rows, sent = self._hosted_fetch(w_local, fids_all, me, topo)
+                plan = self._hosted_plan(w_local, fids_all, me, topo)
+                rows = (_DistHostedFetch.apply(w_local, self, plan)
+                        if _records(w_local)
+                        else self._hosted_fetch(w_local, plan))
+                sent = (len(plan[0]) * w_local[0].numel()
+                        * w_local.element_size())
         setattr(self, count, getattr(self, count) + sent)
         return Fetched(rows, done)
 
-    def _hosted_fetch(self, w_local, fids_all, me, topo):
-        """Each source sends each destination only the rows it hosts, in
-        k order; the destination puts them at their k and zeros
-        elsewhere.  The split sizes are FIDS read on the host.  Returns
-        the rows and the bytes sent."""
+    def _hosted_plan(self, w_local, fids_all, me, topo):
+        """The hosted fetch's exchange, read from FIDS on the host: the
+        slots this rank sends (in destination, then k order) and each
+        destination's count, and the k of each row it receives (in
+        source order) and each source's count."""
         if topo.hosts_per_expert != 1:
             raise ValueError("the hosted fetch needs hosts_per_expert == 1 "
                              f"(got {topo.hosts_per_expert}); use "
@@ -358,9 +426,17 @@ class DistComm:
         recv_k = [k for src in range(G) for k in range(K)
                   if host[me, k] == src]
         out_splits = [int((host[me] == src).sum()) for src in range(G)]
+        return (send_slots, in_splits, recv_k, out_splits, K,
+                bool((host >= 0).any()))
+
+    def _hosted_fetch(self, w_local, plan):
+        """Each source sends each destination only the rows it hosts, in
+        k order; the destination puts them at their k and zeros
+        elsewhere (``plan``: ``_hosted_plan``)."""
+        send_slots, in_splits, recv_k, out_splits, K, any_sent = plan
         out = w_local.new_zeros((K,) + tuple(w_local.shape[1:]))
-        if not (host >= 0).any():          # no rank sends: skip the call
-            return out, 0
+        if not any_sent:                   # no rank sends: skip the call
+            return out
         dev = w_local.device
         send = w_local[torch.tensor(send_slots, dtype=torch.long,
                                     device=dev)]
@@ -369,7 +445,7 @@ class DistComm:
                                      input_split_sizes=in_splits,
                                      group=self.group)
         out[torch.tensor(recv_k, dtype=torch.long, device=dev)] = recv
-        return out, send.numel() * send.element_size()
+        return out
 
     def expert_rows(self, w: torch.Tensor, rank: int, epr: int):
         if w.shape[0] != epr:
@@ -379,6 +455,123 @@ class DistComm:
 
     def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
         return [run(self, make_body(self.rank))]
+
+
+class _DistAllGather(torch.autograd.Function):
+    """``DistComm.all_gather`` under autograd: the cotangent of a
+    replicated result is whole on every process, so this rank's input
+    takes its own slice; with ``per_rank`` the result fed each rank's
+    own work, and the ranks' cotangents are summed first."""
+
+    @staticmethod
+    def forward(ctx, x, comm, per_rank):
+        ctx.comm, ctx.per_rank = comm, per_rank
+        return comm._all_gather(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        comm = ctx.comm
+        if ctx.per_rank:
+            ct = comm._psum(ct)
+        return ct[comm.rank].clone(), None, None
+
+
+class _DistAllToAll(torch.autograd.Function):
+    """``DistComm.all_to_all`` under autograd: the backward is the
+    reverse exchange (an even all-to-all is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm._all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.comm._all_to_all(ct), None
+
+
+class _DistPsum(torch.autograd.Function):
+    """``DistComm.psum`` under autograd: each rank's partial gets the
+    replicated sum's whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm._psum(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _DistEnter(torch.autograd.Function):
+    """The identity into a rank's own work; its backward sums the
+    ranks' cotangents of a replicated tensor."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.comm._psum(ct.contiguous()), None
+
+
+class _DistRank0(torch.autograd.Function):
+    """Rank 0's value of a per-rank scalar on every rank; each rank's
+    own gets the cotangent over the group's size (the ranks' mean)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.size = comm.size
+        return comm._all_gather(x)[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct / ctx.size, None
+
+
+class _DistHostedFetch(torch.autograd.Function):
+    """The hosted fetch under autograd: the backward sends each
+    received row's cotangent back to its hosting rank (the exchange
+    reversed, split sizes swapped), which adds it into the rows it
+    sent."""
+
+    @staticmethod
+    def forward(ctx, w_local, comm, plan):
+        ctx.comm, ctx.plan, ctx.shape = comm, plan, tuple(w_local.shape)
+        return comm._hosted_fetch(w_local, plan)
+
+    @staticmethod
+    def backward(ctx, ct):
+        send_slots, in_splits, recv_k, out_splits, _, any_sent = ctx.plan
+        grad = ct.new_zeros(ctx.shape)
+        if not any_sent:
+            return grad, None, None
+        dev = ct.device
+        back = ct[torch.tensor(recv_k, dtype=torch.long,
+                               device=dev)].contiguous()
+        sent = ct.new_empty((len(send_slots),) + ctx.shape[1:])
+        ctx.comm._dist.all_to_all_single(
+            sent, back, output_split_sizes=in_splits,
+            input_split_sizes=out_splits, group=ctx.comm.group)
+        grad.index_add_(0, torch.tensor(send_slots, dtype=torch.long,
+                                        device=dev), sent)
+        return grad, None, None
+
+
+class _Rank0MeanGrad(torch.autograd.Function):
+    """``VirtualGroup.rank0_mean_grad``: rank 0's value, each rank's
+    scalar the cotangent over the group's size."""
+
+    @staticmethod
+    def forward(ctx, *values):
+        ctx.n = len(values)
+        return values[0].clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (ct / ctx.n,) * ctx.n
 
 
 def _adjacent_view(xs: List[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -425,6 +618,13 @@ class VirtualGroup:
                              f"{self.size} ranks, got {w.shape[0]}")
         return w[rank * epr:(rank + 1) * epr]
 
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x            # one graph over every rank: nothing to sum
+
+    def rank0_mean_grad(self, values: List[torch.Tensor]) -> torch.Tensor:
+        return _Rank0MeanGrad.apply(*values) if _records(*values) \
+            else values[0]
+
     def run_ranks(self, make_body: Callable[[int], Body]) -> List[object]:
         bodies = [make_body(g) for g in range(self.size)]
         answers: List[Optional[torch.Tensor]] = [None] * self.size
@@ -454,7 +654,7 @@ class VirtualGroup:
             for watch in WATCHERS:
                 watch(reqs[0].op, xs, answers)
 
-    def _all_gather(self, xs):
+    def _all_gather(self, xs, args=None):
         out = _adjacent_view(xs)
         if out is None:
             out = torch.stack(xs)

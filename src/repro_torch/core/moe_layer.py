@@ -14,13 +14,16 @@ Port of ``repro/core/moe_layer.py`` (``MoEBlockSpec``, ``moe_block`` and
 The body is a generator that yields its collectives, so one body runs on
 every communicator of ``dispatch.py``: one rank (``LocalComm``), G ranks
 in one process (``VirtualGroup``) or one rank per process (``DistComm``).
-x comes replicated over the EP group and each rank routes its contiguous
-token slice.  With a ``SkewKey`` the router is the paper's synthetic skew
-(``route_skewed``), each rank drawing on the key folded with its rank, as
-the JAX block folds its key; a captured decode step cannot draw, so it
-takes the same draws made before the step (``skew_assign``, one
-``[t_slice, k]`` slice a rank: ``serve/stepcore.py``).  Nothing here reads
-a device value on the host.
+x comes replicated over the EP group and each rank routes its token
+slice: a contiguous slice of the flattened tokens, or with
+``spec.seq_sharded`` (JAX's sequence-sharded island, which
+``build_model`` sets where the length divides over G) positions
+[g S / G, (g + 1) S / G) of every row.  With a ``SkewKey`` the router
+is the paper's synthetic skew (``route_skewed``), each rank drawing on
+the key folded with its rank, as the JAX block folds its key; a captured
+decode step cannot draw, so it takes the same draws made before the step
+(``skew_assign``, one ``[t_slice, k]`` slice a rank:
+``serve/stepcore.py``).  Nothing here reads a device value on the host.
 
 Serving-time expert placement (paper §4.2-4.3): with
 ``num_replica_slots`` R > 0 the block carries ``w_rep_*`` leaves of
@@ -81,6 +84,10 @@ class MoEBlockSpec:
     # tensor-parallel MoE: every rank holds a d_ff slice of every expert
     # (the block's expert rows are rank-major slices, ``tp_moe_block``)
     tp_mode: bool = False
+    # sequence-sharded slices (JAX's): rank g routes positions
+    # [g S / G, (g + 1) S / G) of every row, not a contiguous slice of
+    # the flattened tokens; needs S % G == 0 (``moe_block``)
+    seq_sharded: bool = False
 
     @property
     def topo(self) -> EPTopology:
@@ -316,7 +323,10 @@ def tp_moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     U = r.assign.numel()
     sizes, padded, row, m_pad = tp_layout(r.assign, E, bm)
     x_units = torch.repeat_interleave(flat, k, dim=0)
-    x_buf = flat.new_zeros((m_pad, d)).index_copy_(0, row, x_units)
+    # every rank's d_ff slice reads all of x_buf: under DistComm its
+    # gradient sums the ranks'
+    x_buf = comm.enter(flat.new_zeros((m_pad, d)).index_copy_(0, row,
+                                                               x_units))
 
     def body(me: int):
         w = {n: comm.expert_rows(params[n], me, E)
@@ -388,13 +398,27 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
                                kernels=kernels)
         return (y if shared is None else y + shared()), diag
     B, S_len, d = x.shape
-    flat = x.reshape(B * S_len, d)
+    G = spec.ep_degree
+    if spec.seq_sharded and S_len % G:
+        raise ValueError(f"a sequence-sharded MoE block needs the length "
+                         f"{S_len} to divide over {G} ranks")
+    # sequence-sharded: each rank's positions of every row back to back,
+    # rank-major, so that rank g's slice of the flat tokens is its shard
+    # (with one row the two orders are the same)
+    seq = spec.seq_sharded and G > 1 and B > 1
+
+    def to_slices(t):
+        if not seq:
+            return t.reshape((B * S_len,) + t.shape[2:])
+        t = t.reshape((B, G, S_len // G) + t.shape[2:]).transpose(0, 1)
+        return t.reshape((B * S_len,) + t.shape[3:])
+    flat = to_slices(x)
     n_valid = flat.shape[0]
-    t_pad = round_up(max(n_valid, spec.ep_degree), spec.ep_degree)
+    t_pad = round_up(max(n_valid, G), G)
     x_rep = F.pad(flat, (0, 0, 0, t_pad - n_valid))
     v_rep = None
     if valid_mask is not None:          # pads are invalid
-        v = valid_mask.reshape(-1).to(torch.bool)
+        v = to_slices(valid_mask.to(torch.bool))
         v_rep = torch.cat([v, v.new_zeros(t_pad - n_valid)])
     epr = spec.topo.experts_per_rank
     R = spec.moe.num_replica_slots
@@ -417,9 +441,13 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
     # whose result backward does not read (XLA's remat drops it too)
     late = shared is not None and torch.is_grad_enabled() and x.requires_grad
 
+    # under DistComm a replicated input's gradient sums every rank's
+    x_rep = comm.enter(x_rep)
+    router = comm.enter(params["router"])
+
     def body(me: int):
-        prm = {n: (w if n == "router" else comm.expert_rows(w, me,
-                                                            rows_of(n)))
+        prm = {n: (router if n == "router" else comm.expert_rows(
+                   w, me, rows_of(n)))
                for n, w in params.items()
                if R or not n.startswith("w_rep_")}
         return _moe_forward_local(
@@ -430,8 +458,16 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor], *,
             replica_ids=replica_ids, residency_ids=residency_ids,
             overlap=shared if me == here[0] and not late else None,
             kernels=kernels)
-    y, diag, side = comm.run_ranks(body)[0]
+    outs = comm.run_ranks(body)
+    y, diag, side = outs[0]
+    if D._records(diag["aux_loss"]):
+        # JAX's block reports rank 0's aux loss, and its transpose gives
+        # each rank's the cotangent over G: the ranks' mean gradient
+        diag = dict(diag, aux_loss=comm.rank0_mean_grad(
+            [o[1]["aux_loss"] for o in outs]))
     if late:
         side = shared()
-    y = y[:n_valid].reshape(B, S_len, d)
+    y = y[:n_valid]
+    y = (y.reshape(G, B, S_len // G, d).transpose(0, 1) if seq
+         else y).reshape(B, S_len, d)
     return (y if side is None else y + side), diag

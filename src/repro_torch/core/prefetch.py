@@ -116,5 +116,5 @@ def gather_all_experts(w_local: torch.Tensor):
     """Even-Split support (paper §5.3.2): every rank's expert rows, in
     rank-major order [G * epr, ...].  On a ``VirtualGroup`` this is a view
     of the rank-major weight, not a copy."""
-    w_all = yield from all_gather(w_local)
+    w_all = yield from all_gather(w_local, per_rank_use=True)
     return w_all.reshape((-1,) + tuple(w_local.shape[1:]))

@@ -106,6 +106,7 @@ from repro_torch.configs.registry import REGISTRY, get_config
 from repro_torch.convert import shard_params
 from repro_torch.core.dispatch import DistComm
 from repro_torch.core.topology import static_opt_placement
+from repro_torch.launch.grid import init_from_env, make_grid
 from repro_torch.models.model import build_model
 from repro_torch.serve import (ROUTING_POLICIES, EngineConfig, FleetRouter,
                                ServeEngine, WallClock, engine_config_for,
@@ -261,30 +262,21 @@ def process_group_comm(args, device):
     """The launcher's process group as the MoE blocks' communicator, and
     the device this process runs on: a ``DistComm`` over the default
     group when one is initialized or the environment names one
-    (``RANK`` / ``WORLD_SIZE``, initialized here: NCCL on
-    ``cuda:LOCAL_RANK``, gloo when the caller asks for the CPU), else
-    None (one process: ``LocalComm`` or ``VirtualGroup``).  NCCL takes
-    the dense fetch, whose collectives can be captured; gloo the hosted
-    fetch, with the entries eager."""
+    (``grid.init_from_env``: NCCL on ``cuda:LOCAL_RANK``, gloo when the
+    caller asks for the CPU), else None (one process: ``LocalComm`` or
+    ``VirtualGroup``).  Serving's grid is one data row, as JAX's serving
+    refuses ``--data-par`` > 1.  NCCL takes the dense fetch, whose
+    collectives can be captured; gloo the hosted fetch, with the entries
+    eager."""
     import torch.distributed as dist
-    if not dist.is_initialized():
-        if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
-            return None, device
-        if torch.device(device).type == "cuda":
-            local = int(os.environ.get("LOCAL_RANK", 0))
-            device = torch.device("cuda", local)
-            torch.cuda.set_device(device)
-            dist.init_process_group("nccl", device_id=device)
-        else:
-            dist.init_process_group("gloo")
+    launched, device = init_from_env(device)
+    if not launched:
+        return None, device
     world = dist.get_world_size()
     if world != args.model_par:
         raise ValueError(f"WORLD_SIZE {world} != --model-par "
                          f"{args.model_par}: one process runs one EP rank")
-    backend = str(dist.get_backend())
-    if torch.device(device).type == "cuda" and backend == "nccl":
-        device = torch.device("cuda", torch.cuda.current_device())
-    return DistComm(fetch="dense" if backend == "nccl" else "hosted"), device
+    return make_grid(1, args.model_par).comm(), device
 
 
 def build_serving_engine(args, cfg=None, *, prompt_len=None, gen=None,

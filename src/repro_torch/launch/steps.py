@@ -56,14 +56,19 @@ def loss_and_grads(model, params, batch, skew_key=None, skew_assign=None,
 
 def make_train_step(model, *, lr: float = 3e-4,
                     on_grads: Optional[Callable[[Any, Dict], None]] = None,
-                    moe_layer_diags: bool = False):
+                    moe_layer_diags: bool = False, grid=None):
     """``train_step(params, opt, batch, skew_key=None, skew_assign=None)
     -> (params, opt, loss, diags)``; ``batch`` holds ``tokens`` and
     ``labels`` [B, S] (whisper's ``frames``, pixtral's ``patches``),
     arrays or tensors.  ``on_grads(grads, diags)``, if given, sees the
     gradient tree (the microbatches' f32 mean) before the update;
     ``moe_layer_diags`` adds each MoE layer's expert loads
-    (``expert_load_layers``) to the diagnostics."""
+    (``expert_load_layers``) to the diagnostics.  On a process ``grid``
+    (``launch/grid.py``; the model built on its row's ``DistComm``)
+    ``batch`` is this process's data shard, and the gradients, the loss
+    and the diagnostics are averaged over the data-parallel group (the
+    diagnostics as JAX's MoE layer averages its data shards') before
+    the update, whose clip takes the whole model's norm."""
     n_ub = max(model.pcfg.microbatch, 1)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any],
@@ -96,10 +101,19 @@ def make_train_step(model, *, lr: float = 3e-4,
             # vector one collapses to a scalar too
             diags = {k: torch.stack([d[k] for d in per]).mean()
                      for k in per[0]}
+        gnorm = None
+        if grid is not None:
+            keys = sorted(diags)
+            avg = grid.average(grads + [loss] + [diags[k] for k in keys])
+            grads, loss = avg[:len(grads)], avg[len(grads)]
+            diags = dict(zip(keys, avg[len(grads) + 1:]))
         grad_tree = tree.unflatten(structure, grads)
+        if grid is not None:
+            gnorm = grid.global_norm(grad_tree)
         if on_grads is not None:
             on_grads(grad_tree, diags)
-        params, opt_state = adamw_update(grad_tree, opt_state, params, lr=lr)
+        params, opt_state = adamw_update(grad_tree, opt_state, params, lr=lr,
+                                         grad_norm=gnorm)
         return params, opt_state, loss, diags
     return train_step
 

@@ -10,18 +10,33 @@ On the CPU, at reduced size:
       --reduced --device cpu --steps 50 --batch 8 --seq-len 64 \\
       --ckpt-dir /tmp/ckpt --resume auto
 
+Across processes, on the (data, model) grid of JAX's mesh, under a
+launcher that sets ``RANK`` and ``WORLD_SIZE`` = data x model (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``):
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen15-moe-a27b --reduced \
+      --device cpu --data-par 2 --model-par 2 --steps 20 --batch 8 \
+      --seq-len 64 --ckpt-dir /tmp/ckpt
+
 The flags are ``repro.launch.train``'s, plus ``--device`` (cuda unless
-given).  ``--model-par G`` builds the
-model at expert-parallel degree G on virtual ranks of the one device
-(``VirtualGroup``), as the serving CLI reads it; ``--data-par`` > 1
-raises (data parallelism across cards is not ported).  Every
+given).  In one process ``--model-par G`` builds the model at
+expert-parallel degree G on virtual ranks of the one device
+(``VirtualGroup``), as the serving CLI reads it, and ``--data-par`` > 1
+raises (one process is one grid point: it needs a launcher).  Under a launcher each process is one
+point of the grid (``launch/grid.py``): it holds its EP rank's expert
+rows and a replica of the rest, takes its data shard of the global
+batch, and averages the gradients over its data-parallel group before
+AdamW; a checkpoint holds the global leaves and restores onto another
+grid (the elastic restart; ``--data-par`` 0 takes ``WORLD_SIZE //
+--model-par``, as JAX takes its devices).  Every
 ``--ckpt-every`` steps the parameters and the AdamW state are
 checkpointed asynchronously (``checkpoint/checkpointer.py``), and the
 run resumes from the latest committed checkpoint (``--resume auto``);
 ``REPRO_FAIL_AT_STEP=N`` kills the loop at step N for drills.  A resumed
 run skips the batches the earlier run consumed, so that killed-and-
 resumed and uninterrupted runs end bit-equal (the JAX trainer restarts
-its data stream at a resume).  Log lines are the JAX trainer's:
+its data stream at a resume).  Log lines are the JAX trainer's, printed
+by process 0:
 ``[train] step N loss ... tok/s ...``, ``[train] resumed from step N``
 and ``[train] loss a -> b (improved|NOT improved)``.
 """
@@ -39,6 +54,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import PrefetchLoader, synthetic_batches
+from repro_torch.launch.grid import init_grid
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw_init
@@ -63,25 +79,41 @@ class TrainResult:
 def train_loop(args, *, on_grads: Optional[Callable] = None,
                after_step: Optional[Callable] = None,
                on_restore: Optional[Callable] = None,
-               moe_layer_diags: bool = False) -> TrainResult:
+               moe_layer_diags: bool = False, grid=None,
+               cfg=None) -> TrainResult:
     """Run ``args`` (``build_parser``'s namespace).  ``on_grads(grads,
     diags)`` sees each step's gradients before the update (with
     ``moe_layer_diags`` the diagnostics carry each MoE layer's expert
     loads); ``after_step(step, params, opt, loss, diags)`` runs after
     each step's update, before its checkpoint; ``on_restore(step,
-    state)`` sees a resumed run's restored ``{"params", "opt"}``."""
-    if args.data_par > 1:
+    state)`` sees a resumed run's restored ``{"params", "opt"}`` (this
+    process's leaves on a grid).  ``grid`` is this process's grid point
+    (``launch/grid.py``), made from the launcher's environment when not
+    given; ``cfg`` the model's config in place of ``--arch`` (a cut
+    one)."""
+    if grid is None:
+        grid, device = init_grid(args.device, data=args.data_par,
+                                 model=args.model_par)
+    else:
+        device = torch.device(args.device)
+    if grid is None and args.data_par > 1:
         raise NotImplementedError(
-            "--data-par > 1: data parallelism across cards is not ported; "
-            "the port trains on one device (--model-par G: virtual EP ranks)")
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+            f"--data-par {args.data_par}: data parallelism runs one process "
+            f"a grid point; start {args.data_par} x --model-par processes "
+            f"under a launcher (torchrun)")
+    say = grid is None or grid.rank == 0
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     pcfg = ParallelConfig(remat=args.remat, microbatch=args.microbatch,
                           attn_chunk=min(512, args.seq_len),
                           loss_chunk=min(2048, args.seq_len))
-    model = build_model(cfg, pcfg, batch=args.batch, seq_len=args.seq_len,
-                        device=args.device, ep_degree=args.model_par)
+    model = build_model(cfg, pcfg, batch=(grid.local_batch(args.batch)
+                                          if grid else args.batch),
+                        seq_len=args.seq_len, device=device,
+                        ep_degree=args.model_par,
+                        comm=grid.comm() if grid else None)
     dev = model.device
     ckpt = Checkpointer(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     injector = FailureInjector.from_env()
@@ -92,15 +124,25 @@ def train_loop(args, *, on_grads: Optional[Callable] = None,
     if ckpt and args.resume == "auto":
         latest = ckpt.latest_step()
         if latest is not None:
-            state = ckpt.restore(latest, {"params": params, "opt": opt})
+            like = {"params": params, "opt": opt}
+            state = ckpt.restore(latest, like, shardings=(
+                grid.shardings(like) if grid else None))
             params, opt = state["params"], state["opt"]
             start = latest
-            print(f"[train] resumed from step {latest}")
+            if say:
+                print(f"[train] resumed from step {latest}")
             if on_restore is not None:
                 on_restore(latest, state)
 
+    def save(step: int, blocking: bool) -> None:
+        state = {"params": params, "opt": opt}
+        if grid is None:
+            ckpt.save(step, state, blocking=blocking)
+        else:
+            grid.save(ckpt, step, state, blocking=blocking)
+
     step_fn = make_train_step(model, lr=args.lr, on_grads=on_grads,
-                              moe_layer_diags=moe_layer_diags)
+                              moe_layer_diags=moe_layer_diags, grid=grid)
     batches = synthetic_batches(args.dataset, batch=args.batch,
                                 seq_len=args.seq_len, vocab=cfg.vocab_size,
                                 seed=args.seed)
@@ -114,15 +156,18 @@ def train_loop(args, *, on_grads: Optional[Callable] = None,
         t0 = time.time()
         for step in range(start, args.steps):
             injector.check(step)
+            batch = next(loader)
+            if grid is not None:
+                batch = grid.shard_batch(batch, args.microbatch)
             batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in next(loader).items()}
+                     for k, v in batch.items()}
             ts = time.perf_counter()
             params, opt, loss, diags = step_fn(params, opt, batch)
             res.losses.append(float(loss))
             res.step_seconds.append(time.perf_counter() - ts)
             if after_step is not None:
                 after_step(step + 1, params, opt, loss, diags)
-            if (step + 1) % args.log_every == 0:
+            if (step + 1) % args.log_every == 0 and say:
                 tput = args.log_every * args.batch * args.seq_len \
                     / (time.time() - t0)
                 extra = ""
@@ -136,20 +181,18 @@ def train_loop(args, *, on_grads: Optional[Callable] = None,
                 # the last step's state is written at once (it is the
                 # final checkpoint's: no snapshot needed)
                 tc = time.perf_counter()
-                ckpt.save(step + 1, {"params": params, "opt": opt},
-                          blocking=step + 1 == args.steps)
+                save(step + 1, blocking=step + 1 == args.steps)
                 res.ckpt_seconds += time.perf_counter() - tc
                 saved = step + 1
         if ckpt and saved != args.steps:
             tc = time.perf_counter()
-            ckpt.save(args.steps, {"params": params, "opt": opt},
-                      blocking=True)
+            save(args.steps, blocking=True)
             res.ckpt_seconds += time.perf_counter() - tc
     finally:
         loader.close()
         if ckpt:                    # a pending save commits, even on failure
             ckpt.wait()
-    if len(res.losses) >= 10:
+    if len(res.losses) >= 10 and say:
         a, b = np.mean(res.losses[:5]), np.mean(res.losses[-5:])
         print(f"[train] loss {a:.4f} -> {b:.4f} "
               f"({'improved' if b < a else 'NOT improved'})")

@@ -508,8 +508,10 @@ class Model:
                 f"{self.cfg.name}: the encoder-decoder decoder takes whole "
                 f"prompts (model.prefill), as in JAX")
         Bc, C = tokens.shape
+        G = self.moe_spec.ep_degree if self.moe_spec is not None else 1
         spec = (None if self.moe_spec is None else
-                dataclasses.replace(self.moe_spec, tokens_local=Bc * C))
+                dataclasses.replace(self.moe_spec, tokens_local=Bc * C,
+                                    seq_sharded=C % G == 0 and G > 1))
         vmask = None
         if last_index is not None:
             last = torch.as_tensor(last_index, device=self.device).reshape(1)
@@ -631,10 +633,11 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
             tokens_local=max(batch // max(pcfg.microbatch, 1), 1) * seq_len,
             act="silu" if cfg.act == "swiglu" else "gelu",
             cf_pair=pcfg.moe_cf_pair, block_m=pcfg.moe_block_m,
-            tp_mode=cfg.moe.num_experts < ep_degree)
+            tp_mode=cfg.moe.num_experts < ep_degree,
+            seq_sharded=seq_len % ep_degree == 0 and ep_degree > 1)
         # decode: one token per sequence, 128-row tiles, K per policy
         moe_spec_decode = dataclasses.replace(
-            moe_spec, tokens_local=batch, block_m=128,
+            moe_spec, tokens_local=batch, block_m=128, seq_sharded=False,
             moe=dataclasses.replace(cfg.moe, num_foreign_slots=(
                 _decode_foreign_slots(moe_spec, cfg.moe.policy))))
     if comm is None:

@@ -11,7 +11,7 @@ temporaries stay small at full width (switch128's expert leaves are
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,12 +63,17 @@ def global_norm(grads: Any) -> torch.Tensor:
 def adamw_update(grads: Any, state: AdamWState, params: Any, *,
                  lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 grad_clip: float = 1.0) -> Tuple[Any, AdamWState]:
+                 grad_clip: float = 1.0,
+                 grad_norm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, AdamWState]:
     """One AdamW step on ``params`` from ``grads`` (same structure; any
     float dtype), in place: returns (params, AdamWState(step + 1, m, v))
-    with the same leaves, updated.  No value is read on the host."""
+    with the same leaves, updated.  ``grad_norm`` is the clip's global
+    norm when ``grads`` hold only part of the model (a process of a
+    grid: ``launch/grid.py``), else ``global_norm(grads)``.  No value is
+    read on the host."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     stepf = step.float()
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
