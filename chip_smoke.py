@@ -87,6 +87,22 @@ Phases, each of which must pass (any failure exits non-zero):
      CPU.  Phase 2 also holds ``moe_gmm``'s plain form at switch128's
      decode and prefill-chunk dispatches and ``paged_attention`` at its
      head shape against their plain versions;
+  6b. every head width the TPU kernels take, and the relu_mlp MLP (run
+     right after phase 6): reduced qwen15-moe-a27b with ``head_dim=112``
+     (zamba2-7b's attention width, which ``paged_attention`` pads to
+     128) served at G = 1 on the paged pool, 4 requests: in f32 the
+     card's greedy streams equal the CPU's, in bf16 a ``[widths-serve]``
+     line with ``pattern_serve``'s gates (``paged_attention`` once a
+     layer a chunk and a decode step); reduced moonshot-v1-16b-a3b with
+     ``head_dim=256`` through ``launch.steps``' whole-prompt prefill, 2
+     prompts of 320 tokens, a ``[widths-prefill]`` line
+     (``flash_attention`` once a layer, at the tensor cores' width 256)
+     and in f32 the card's tokens equal to the CPU's; reduced
+     phi4-mini-3.8b with ``act="relu_mlp"`` served in f32, card streams
+     equal the CPU's.  Phase 2 holds both kernels at these widths at
+     real models' heads (``widths_kernel_parity``).  ``python3
+     chip_smoke.py --only-widths`` runs phase 1, those parity cases and
+     phase 6b alone, and prints no result;
   7. eager against captured, on the weights of phases 3, 4b and 6, the
      deep models cut to their first layers (``depth_cut``: qwen at G = 1
      paged and moonshot on the slab at 12 layers; qwen at G = 4 under
@@ -459,16 +475,21 @@ Phases, each of which must pass (any failure exits non-zero):
      (``launch/grid.py``): full-width switch128 cut to its first 4 of 12
      layers (2 MoE layers), bf16, the zipf batch 4 x 512, weights from
      seed 0.  First, in this process, ``VirtualGroup(2)``'s gradients on
-     each data half (and on half 0 in f32), written as checkpoints and
-     the model freed (``[grid-ref]``); then four gloo processes share the
-     card as a (2, 2) grid: (a) each row's first step over its EP group
-     of two processes against the reference of its half, every leaf's
-     largest error as a share of its largest magnitude, bf16 within
-     ``GRID_TOL`` (two ulps) and, on row 0, f32 within ``TRAIN_TOL``
-     (``[grid-a]``), while planted faults (the data-parallel average
-     dropped, ``DistComm.enter`` without its sum, the fetch's gradient
-     not sent back where units moved) must miss the bf16 bound
-     (``[grid-faults]``); (b) ``launch.train``'s loop on the grid, its
+     each data half (and on half 0 in f32) under phase 4b's skew (0.9 on
+     one expert, q = 1, the draws on ``GRID_SKEW_KEY``), and on each
+     half on learned routes, written as checkpoints and the model freed
+     (``[grid-ref]``); then four gloo processes share the card as a (2,
+     2) grid: (a) each row's first step over its EP group of two
+     processes under the same skew against the reference of its half,
+     every leaf's largest error as a share of its largest magnitude,
+     bf16 within ``GRID_TOL`` (two ulps) and, on row 0, f32 within
+     ``TRAIN_TOL``, units moved and no drops (``[grid-a]``), while three
+     planted faults (the data-parallel average dropped,
+     ``DistComm.enter`` without its sum, the fetched rows' gradient kept
+     by the rank that fetched them) must each miss the bf16 bound, the
+     first two on every process, the third on the process of each row
+     that hosts the fetched rows (the fetching one's own rows are
+     untouched by it) (``[grid-faults]``); (b) ``launch.train``'s loop on the grid, its
      first step's averaged gradients against the two halves' mean, 2
      steps, its step-2 checkpoint written by both processes of row 0,
      killed at step 3 (``[grid-b]``: step time, tok/s, the gloo
@@ -1154,8 +1175,10 @@ def kernel_parity(cfg, flash_cfg, switch_cfg, *, max_seq_len, prefill_chunk,
 # ----------------------------------------------------------------------
 def small_reference_check(arch: str = "qwen15-moe-a27b", *,
                           paged: bool = True, seed: int = 0,
-                          prompt_lens=(5, 40)) -> None:
-    """``arch`` reduced, in f32, served on the slab or the paged pool, 5
+                          prompt_lens=(5, 40), cfg=None,
+                          n_prompts: int = 5) -> None:
+    """``arch`` reduced (or ``cfg``, which ``arch`` then names in the
+    log), in f32, served on the slab or the paged pool, ``n_prompts``
     prompts drawn in ``prompt_lens``: the card's greedy streams through
     the kernels equal the CPU's through the plain versions."""
     import torch
@@ -1163,11 +1186,12 @@ def small_reference_check(arch: str = "qwen15-moe-a27b", *,
     from repro_torch.models.model import build_model
     from repro_torch.serve import Request, ServeEngine, VirtualClock, \
         engine_config_for
-    cfg = get_config(arch).reduced()
+    if cfg is None:
+        cfg = get_config(arch).reduced()
     rng = torch.Generator().manual_seed(seed)
     lo, hi = prompt_lens
     reqs = [(int(torch.randint(lo, hi, (1,), generator=rng)),)
-            for _ in range(5)]
+            for _ in range(n_prompts)]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy()
                for (n,) in reqs]
     streams = {}
@@ -2077,7 +2101,12 @@ def small_ep_reference_check(seed: int = 0) -> None:
 # ----------------------------------------------------------------------
 # phase 5: whole-prompt prefill + slab decode
 # ----------------------------------------------------------------------
-def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
+def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed,
+                        tag="prefill"):
+    """``cfg`` drawn from ``seed`` through ``launch.steps``: the
+    whole-prompt prefill of ``batch`` prompts, then greedy slab decode
+    steps; the ``[tag]`` line and its gates (flash once a layer of the
+    prefill, ``moe_gmm`` launched); returns the summary and weights."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -2088,7 +2117,7 @@ def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
     params = model.init(seed)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[prefill] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on "
+    log(f"[{tag}] {cfg.name}: {n_params / 1e9:.2f} B parameters drawn on "
         f"the card in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -2130,7 +2159,7 @@ def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
         "launches_in_prefill": after_prefill,
         "attention_dispatch": branches,
     }
-    log(f"[prefill] {json.dumps(summary)}")
+    log(f"[{tag}] {json.dumps(summary)}")
     # --- checks -------------------------------------------------------
     if int(pos) != prompt_len + new_tokens:
         raise AssertionError(f"position {int(pos)} after the run")
@@ -2151,17 +2180,18 @@ def prefill_decode_path(cfg, *, batch, prompt_len, s_max, new_tokens, seed):
     return summary, params
 
 
-def small_prefill_reference_check(seed: int = 0) -> None:
-    """Reduced moonshot-v1-16b-a3b in f32 through ``launch.steps``: the
-    card's greedy tokens (flash and moe_gmm kernels) equal the CPU's
-    (their plain versions).  The prompt of 100 tokens spans a ragged
-    second q tile of the flash kernel."""
+def small_prefill_reference_check(seed: int = 0, cfg=None) -> None:
+    """Reduced moonshot-v1-16b-a3b (or ``cfg``) in f32 through
+    ``launch.steps``: the card's greedy tokens (flash and moe_gmm kernels)
+    equal the CPU's (their plain versions).  The prompt of 100 tokens
+    spans a ragged second q tile of the flash kernel."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import build_model
-    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    if cfg is None:
+        cfg = get_config("moonshot-v1-16b-a3b").reduced()
     B, S, n = 3, 100, 8
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
     params = build_model(cfg, batch=B, seq_len=S, device="cpu").init(seed)
@@ -2181,9 +2211,9 @@ def small_prefill_reference_check(seed: int = 0) -> None:
         raise AssertionError(f"small prefill reference: card tokens "
                              f"{tokens['cuda'].tolist()} != cpu tokens "
                              f"{tokens['cpu'].tolist()}")
-    log(f"[reference] reduced {cfg.name} f32: {B} x {n} greedy tokens "
-        f"through launch.steps on the card equal the CPU plain-version "
-        f"tokens")
+    log(f"[reference] reduced {cfg.name} f32 (hd "
+        f"{cfg.resolved_head_dim}): {B} x {n} greedy tokens through "
+        f"launch.steps on the card equal the CPU plain-version tokens")
 
 
 # Reduced moonshot in bf16.  The card (tensor-core kernels, cuBLAS) and the
@@ -2376,6 +2406,102 @@ def switch_path(switch, *, seed, **shape):
             switch, params, f"switch128_{pool}", paged=paged, n_requests=4,
             prompt_lens=(64, 129), new_tokens=16, seed=seed, **shape))
     return out, caps
+
+
+# ----------------------------------------------------------------------
+# phase 6b: every head width the TPU kernels take; the relu_mlp MLP
+# ----------------------------------------------------------------------
+# the engine run at hd 112 (reduced qwen15-moe-a27b: 4 heads of 112) and
+# the whole-prompt run at hd 256 (reduced moonshot-v1-16b-a3b: 4 of 256)
+WIDTHS_SERVE = dict(slots=4, n_requests=4, prompt_lens=(40, 129),
+                    new_tokens=8, max_seq_len=256 + 32, prefill_chunk=32,
+                    block_size=16)
+WIDTHS_WHOLE = dict(batch=2, prompt_len=320, s_max=320 + 16, new_tokens=8)
+
+
+def widths_kernel_parity():
+    """Phase 2's cases at the widths the kernels pad, and at 256 without a
+    softcap: ``paged_attention`` at zamba2-7b's 32 q / 32 kv heads of 112
+    (decode over chains of 1-544 positions in bf16 and f32, a 32-query
+    chunk over a 544-position slab scratch in bf16 and f32) and at 32 x
+    80 (decode, bf16); ``flash_attention`` causal over 1,024 positions
+    at gemma2-2b's 8 q / 4 kv heads of 256 with no softcap and at 32 x
+    112 (bf16), and ragged at hd 256 in f32 (S 201)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.paged_attention.ops import largest_block_divisor
+    zamba = get_config("zamba2-7b")
+    gemma = get_config("gemma2-2b")
+    H, hd = zamba.num_heads, zamba.resolved_head_dim          # 32, 112
+    bf, f32 = torch.bfloat16, torch.float32
+    scratch, bsl = 544, largest_block_divisor(544)
+    decode = dict(B=4, S=1, bs=16, lengths=[1, 129, 336, 544],
+                  n_blocks=scratch // 16)
+    chunk = dict(B=1, S=32, bs=bsl, lengths=[448], n_blocks=scratch // bsl,
+                 slab=True)
+    out = {"paged_attention": [], "flash_attention": []}
+    seed = 180
+    for label, dtype, heads, shape in (
+            ("hd112_decode", bf, (H, H, hd), decode),
+            ("hd112_decode", f32, (H, H, hd), decode),
+            ("hd112_prefill_chunk", bf, (H, H, hd), chunk),
+            ("hd112_prefill_chunk", f32, (H, H, hd), chunk),
+            ("hd80_decode", bf, (H, H, 80), decode)):
+        rec = paged_attention_case(label, H=heads[0], Hkv=heads[1],
+                                   hd=heads[2], softcap=0.0, dtype=dtype,
+                                   seed=seed, time_it=True, **shape)
+        seed += 1
+        out["paged_attention"].append(rec)
+        log(f"[parity] paged_attention {json.dumps(rec)}")
+    for label, dtype, (Hq, Hkv, d), S in (
+            ("hd256_prefill", bf, (gemma.num_heads, gemma.num_kv_heads,
+                                   gemma.resolved_head_dim), 1024),
+            ("hd112_prefill", bf, (H, H, hd), 1024),
+            ("f32_hd256_ragged", f32, (gemma.num_heads, gemma.num_kv_heads,
+                                       gemma.resolved_head_dim), 201)):
+        rec = flash_attention_case(label, B=1, H=Hq, Hkv=Hkv, Sq=S, Sk=S,
+                                   hd=d, causal=True, dtype=dtype, seed=seed)
+        seed += 1
+        out["flash_attention"].append(rec)
+        log(f"[parity] flash_attention {json.dumps(rec)}")
+    return out
+
+
+def widths_path():
+    """Phase 6b: reduced qwen15-moe-a27b at hd 112 served at G = 1 on the
+    paged pool (f32: the card's greedy streams equal the CPU's; bf16:
+    ``paged_attention`` once a layer a chunk and a decode step,
+    ``pattern_serve``'s gates); reduced moonshot-v1-16b-a3b at hd 256
+    through ``launch.steps``' whole-prompt prefill (bf16: ``flash_attention``
+    once a layer, on the tensor cores' padded width 256; f32: the card's
+    tokens equal the CPU's); and a reduced dense model with
+    ``act="relu_mlp"`` served in f32, card streams equal the CPU's.
+    Returns the bf16 runs' summaries."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    qwen = get_config("qwen15-moe-a27b").reduced().replace(head_dim=112)
+    small_reference_check("qwen15-moe-a27b hd 112", cfg=qwen, n_prompts=4)
+    qb = qwen.replace(dtype="bfloat16")
+    params = build_model(qb, batch=WIDTHS_SERVE["slots"],
+                         seq_len=WIDTHS_SERVE["max_seq_len"]).init(0)
+    out = {"serve_qwen15_moe_a27b_reduced_hd112_paged": pattern_serve(
+        qb, params, "widths-serve", paged=True, seed=0, **WIDTHS_SERVE)}
+    del params
+    moon = get_config("moonshot-v1-16b-a3b").reduced().replace(head_dim=256)
+    rec, params = prefill_decode_path(moon.replace(dtype="bfloat16"),
+                                      seed=0, tag="widths-prefill",
+                                      **WIDTHS_WHOLE)
+    out["prefill_decode_moonshot_v1_16b_a3b_reduced_hd256"] = rec
+    del params
+    small_prefill_reference_check(cfg=moon)
+    relu = get_config("phi4-mini-3.8b").reduced().replace(act="relu_mlp")
+    small_reference_check("phi4-mini-3.8b relu_mlp", cfg=relu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 6b: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -6847,6 +6973,11 @@ GRID_STEPS = dict(steps=4, ckpt_every=2, fail_at=2)
 # ulps at that magnitude.  Every planted fault must miss the bf16 bound
 GRID_TOL = {"float32": TRAIN_TOL, "bfloat16": 2.0 ** -6}
 GRID_REF = {"bfloat16": "bf16", "float32": "f32"}
+# (a) routes under phase 4b's skew (0.9 of the mass on expert 0, q = 1,
+# ``ep_moe_config``) on this key, the processes and their VirtualGroup(2)
+# references alike, so that units move and the fetched rows' gradient
+# goes back to the rank that hosts them; (b)-(d) train on learned routes
+GRID_SKEW_KEY = (19,)
 # the NCCL route at world size 1 under a launcher, against the same argv
 # without one (reduced switch128, f32; run by phase 10 (a)'s processes
 # after their CLI run, which saves a fresh process's start): each loss
@@ -6871,6 +7002,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import dispatch as D
+from repro_torch.core.router import SkewKey
 from repro_torch.data.pipeline import synthetic_batches
 from repro_torch.launch import train as LT
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -6899,6 +7031,8 @@ for name in ("all_reduce", "all_gather_into_tensor", "all_to_all_single"):
     setattr(dist, name, timed)
 
 cut = get_config("switch128").replace(num_layers=C["layers"])
+skewed = CS.ep_moe_config(cut)
+key = SkewKey(tuple(spec["skew_key"]))
 S = C["seq_len"]
 pcfg = ParallelConfig(attn_chunk=min(512, S), loss_chunk=min(2048, S))
 batch = next(synthetic_batches(C["dataset"], batch=C["batch"], seq_len=S,
@@ -6921,20 +7055,27 @@ def worst(got, want):
     return {"err": e[i], "leaf": paths[i]}
 
 
-def model_of(dtype):
-    return build_model(cut.replace(dtype=dtype), pcfg,
+def model_of(dtype, cfg=cut):
+    return build_model(cfg.replace(dtype=dtype), pcfg,
                        batch=grid.local_batch(C["batch"]), seq_len=S,
                        device=dev, ep_degree=grid.model, comm=grid.comm())
 
 
+def avg_of(name):
+    # the data-parallel mean of the two halves' references
+    return [((a.float() + b.float()) / 2).to(a.dtype) for a, b in
+            zip(refs(f"{name}_0", params), refs(f"{name}_1", params))]
+
+
 # (a) this row's data half over its EP group of two processes against
-# VirtualGroup(2) on the same weights and rows: bf16, then f32 (row 0)
-model = model_of("bfloat16")
+# VirtualGroup(2) on the same weights and rows, both under the skew:
+# bf16, then f32 (row 0)
+model = model_of("bfloat16", skewed)
 params = model.init(C["seed"])
 paths = tree.paths(params)
 torch.cuda.synchronize()
 t0 = time.perf_counter()
-loss, diags, raw = loss_and_grads(model, params, mine)
+loss, diags, raw = loss_and_grads(model, params, mine, skew_key=key)
 torch.cuda.synchronize()
 out["a_step_s"] = time.perf_counter() - t0
 ref_row = refs(f"ref_bf16_{grid.row}", params)
@@ -6943,30 +7084,29 @@ out["a_worst"] = worst(raw, ref_row)
 out["a_moved_units"] = float(diags["moved_units"])
 out["a_drops"] = float(diags["send_drops"] + diags["dest_drops"])
 # the planted faults, each against the reference it must miss
-avg = [((a.float() + b.float()) / 2).to(a.dtype)
-       for a, b in zip(refs("ref_bf16_0", params), refs("ref_bf16_1", params))]
-faults = {"dp_average_dropped": worst(raw, avg)}
+faults = {"dp_average_dropped": worst(raw, avg_of("ref_bf16"))}
 enter = D.DistComm.enter
 D.DistComm.enter = lambda self, x: x     # the ranks' cotangents not summed
-faults["enter_not_summed"] = worst(loss_and_grads(model, params, mine)[2],
-                                   ref_row)
+faults["enter_not_summed"] = worst(
+    loss_and_grads(model, params, mine, skew_key=key)[2], ref_row)
 D.DistComm.enter = enter
-if out["a_moved_units"] > 0:
-    # the foreign rows' gradient kept by the rank that fetched them
-    back = D._DistHostedFetch.backward
-    D._DistHostedFetch.backward = staticmethod(
-        lambda ctx, ct: (ct.new_zeros(ctx.shape), None, None))
-    faults["fetch_grad_not_sent_back"] = worst(
-        loss_and_grads(model, params, mine)[2], ref_row)
-    D._DistHostedFetch.backward = back
+# the foreign rows' gradient kept by the rank that fetched them
+back = D._DistHostedFetch.backward
+D._DistHostedFetch.backward = staticmethod(
+    lambda ctx, ct: (ct.new_zeros(ctx.shape), None, None))
+faults["fetch_grad_not_sent_back"] = worst(
+    loss_and_grads(model, params, mine, skew_key=key)[2], ref_row)
+D._DistHostedFetch.backward = back
 out["faults"] = faults
+# (b) holds its first step against the learned routes' references
+avg = avg_of("ref_bf16_learned")
 del raw, ref_row, params, model
 gc.collect()
 torch.cuda.empty_cache()
 if grid.row == 0:
-    model = model_of("float32")
+    model = model_of("float32", skewed)
     params = model.init(C["seed"])
-    loss32, _, g32 = loss_and_grads(model, params, mine)
+    loss32, _, g32 = loss_and_grads(model, params, mine, skew_key=key)
     out["a_f32_loss"] = float(loss32)
     out["a_f32_worst"] = worst(g32, refs("ref_f32_0", params))
     del g32, params, model
@@ -7074,9 +7214,11 @@ dist.destroy_process_group()
 
 def grid_reference(work):
     """VirtualGroup(2)'s gradients on each data half of the first batch in
-    bf16, and on half 0 in f32, on the same weights as the processes',
-    saved for them as checkpoints (each restores its own expert rows);
-    returns the references' losses and moved units."""
+    bf16, and on half 0 in f32, under (a)'s skew (``GRID_SKEW_KEY``); and
+    on each half in bf16 on learned routes, for (b)'s first step; on the
+    same weights as the processes', saved for them as checkpoints (each
+    restores its own expert rows); returns the references' losses and
+    moved units."""
     import torch
     from repro_torch import tree
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -7086,6 +7228,7 @@ def grid_reference(work):
     from repro_torch.launch.grid import data_rows
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.model import build_model
+    from repro_torch.core.router import SkewKey
     C = GRID_CELL
     cut = get_config("switch128").replace(num_layers=C["layers"])
     S = C["seq_len"]
@@ -7097,21 +7240,29 @@ def grid_reference(work):
     for dtype, halves in (("bfloat16", (0, 1)), ("float32", (0,))):
         model = build_model(cut.replace(dtype=dtype), pcfg,
                             batch=C["batch"] // 2, seq_len=S, ep_degree=2)
+        skewed = build_model(ep_moe_config(cut).replace(dtype=dtype), pcfg,
+                             batch=C["batch"] // 2, seq_len=S, ep_degree=2)
         params = model.init(C["seed"])
         structure = tree.flatten(params)[1]
+        runs = [(skewed, SkewKey(GRID_SKEW_KEY), GRID_REF[dtype])]
+        if dtype == "bfloat16":
+            runs.append((model, None, "bf16_learned"))
         for d in halves:
             rows = data_rows(C["batch"], 2, d)
             mine = {k: torch.from_numpy(v[rows]).cuda()
                     for k, v in batch.items()}
-            loss, diags, grads = loss_and_grads(model, params, mine)
-            Checkpointer(os.path.join(work, f"ref_{GRID_REF[dtype]}_{d}"),
-                         keep=0).save(0, tree.unflatten(structure, grads),
-                                      blocking=True)
-            out[f"{GRID_REF[dtype]}_{d}"] = {
-                "loss": float(loss),
-                "moved_units": float(diags["moved_units"])}
-            del grads
-        del params, model
+            for m, key, name in runs:
+                loss, diags, grads = loss_and_grads(m, params, mine,
+                                                    skew_key=key)
+                Checkpointer(os.path.join(work, f"ref_{name}_{d}"),
+                             keep=0).save(0, tree.unflatten(structure,
+                                                            grads),
+                                          blocking=True)
+                out[f"{name}_{d}"] = {
+                    "loss": float(loss),
+                    "moved_units": float(diags["moved_units"])}
+                del grads
+        del params, model, skewed
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -7198,7 +7349,8 @@ def grid_path():
         log(f"[grid-ref] VirtualGroup(2) on each data half: "
             f"{json.dumps(refs)} ({ref_s:.1f} s)")
         with open(os.path.join(tmp, "spec.json"), "w") as f:
-            json.dump({"cell": C, "steps": ST}, f)
+            json.dump({"cell": C, "steps": ST,
+                       "skew_key": list(GRID_SKEW_KEY)}, f)
         with socket.socket() as sk:
             sk.bind(("localhost", 0))
             port = str(sk.getsockname()[1])
@@ -7243,10 +7395,24 @@ def grid_path():
             if rec["b_first_worst"]["err"] > GRID_TOL["bfloat16"]:
                 bad.append(f"(b) process {r}: {rec['b_first_worst']}")
             for name, f in rec["faults"].items():
-                if f["err"] <= GRID_TOL["bfloat16"]:
+                if name != "fetch_grad_not_sent_back" \
+                        and f["err"] <= GRID_TOL["bfloat16"]:
                     bad.append(f"fault {name} passed on process {r}: {f}")
             if rec["a_drops"]:
                 bad.append(f"(a) process {r}: drops {rec['a_drops']}")
+            if not rec["a_moved_units"] > 0:
+                bad.append(f"(a) process {r}: no unit moved under the "
+                           f"skew, so the fetch's backward went unchecked")
+        # the fetched rows' gradient is lost on the rank that hosts them
+        # (the fetching rank's own rows are untouched): each row's hosts
+        # must miss the bound
+        for row in (0, 1):
+            f = max((rec["faults"]["fetch_grad_not_sent_back"]
+                     for rec in ranks if rec["place"][0] == row),
+                    key=lambda f: f["err"])
+            if f["err"] <= GRID_TOL["bfloat16"]:
+                bad.append(f"fault fetch_grad_not_sent_back passed on "
+                           f"row {row}: {f}")
         # every process of a row computes its row's loss; (b)'s step
         # losses are the data-parallel mean, the same on all four
         b_losses = [[s["loss"] for s in rec["b_steps"]] for rec in ranks]
@@ -7449,6 +7615,13 @@ def main() -> int:
         grid_path()
         elapsed("phase 19")
         return 0
+    if "--only-widths" in sys.argv[1:]:
+        # a shorter run for work on phase 6b: its parity cases and the
+        # phase itself, without the kernels line and the result line
+        widths_kernel_parity()
+        widths_path()
+        elapsed("phase 6b")
+        return 0
     if "--only-mixtral" in sys.argv[1:]:
         # a shorter run for work on phase 11: its parity cases and the
         # phase itself, without the kernels line and the result line
@@ -7470,6 +7643,8 @@ def main() -> int:
     for name, recs in gemma2_kernel_parity().items():
         parity[name] += recs
     for name, recs in encdec_kernel_parity().items():
+        parity[name] += recs
+    for name, recs in widths_kernel_parity().items():
         parity[name] += recs
 
     elapsed("phase 2")
@@ -7536,6 +7711,9 @@ def main() -> int:
             small_reference_check(arch, paged=paged)
 
     elapsed("phase 6 (+ 7 on moonshot and switch128)")
+    # --- phase 6b: the padded head widths; the relu_mlp MLP -------------
+    widths = widths_path()
+    elapsed("phase 6b")
     # --- phase 9: the serving CLI, sampled, in its own processes ------------
     log(f"[env] before the CLI runs: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
@@ -7607,6 +7785,8 @@ def main() -> int:
                     whole_summary["launches"][name],
                 **{path: rec["launches"][name]
                    for path, rec in patterns.items()},
+                **{path: rec["launches"][name]
+                   for path, rec in widths.items()},
                 **{f"{tag}_qwen15_moe_a27b_sampled": rec["launches"][name]
                    for tag, rec in clis.items()},
                 "cli_nccl_qwen15_moe_a27b_g1":

@@ -2,7 +2,7 @@
 """Wall seconds of each kernel's ``nvcc``, all started together as
 ``build.build_all`` starts them, under two sets of flags.
 
-    python3 scripts/kernel_build_times.py
+    python3 scripts/kernel_build_times.py [VARIANT ...]
 
 ``as_built``: each source with the flags ``kernels/build.py`` gives it
 (``--split-compile=0`` for the sources of ``SPLIT_COMPILE``); ``unsplit``:
@@ -10,7 +10,8 @@ every source with ``NVCC_FLAGS`` alone; ``all_split``: every source with
 ``--split-compile=0``.  Each variant compiles into a fresh temporary
 directory, so nothing is cached.  One JSON line a variant: each source's
 seconds from the start and exit code, and the first ptxas register
-counts of each library.  Needs the CUDA toolkit (``nvcc``), no device.
+counts of each library.  Given variant names, only those run.  Needs the
+CUDA toolkit (``nvcc``), no device.
 """
 from __future__ import annotations
 
@@ -58,6 +59,8 @@ def main() -> None:
         "all_split": lambda name: build.NVCC_FLAGS + ["--split-compile=0"],
     }
     for tag, flags_of in variants.items():
+        if sys.argv[1:] and tag not in sys.argv[1:]:
+            continue
         print(json.dumps({"variant": tag, **run(build, flags_of)}),
               flush=True)
 

@@ -101,6 +101,10 @@ class ModelConfig:
         return self.moe is not None and self.moe.num_experts > 0
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def supports_long_context(self) -> bool:
         """True iff every sequence-mixing layer is sub-quadratic (SSM,
         hybrid, or a sliding window over every layer), as in JAX: the
@@ -108,6 +112,10 @@ class ModelConfig:
         if self.family in ("ssm", "hybrid"):
             return True
         return self.sliding_window > 0 and self.global_attn_every == 0
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # every family decodes (whisper is encoder-decoder)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -690,7 +690,10 @@ class VirtualGroup:
         if w_all is None:
             w_all = torch.stack(xs)
         w_all = w_all.reshape((-1,) + tuple(xs[0].shape[1:]))
-        with self._side.fork(fids_all) as done:
+        # under autograd w_all is a stack made here on the current stream
+        # and freed on return (the gather's backward keeps no reference):
+        # the side stream's gather must keep its memory from reuse
+        with self._side.fork(fids_all, w_all) as done:
             rows = device_tables(topo, self.device).expert_row[
                 torch.clamp(fids_all, min=0).long()]         # [G, K]
             keep = (fids_all >= 0).to(w_all.dtype)

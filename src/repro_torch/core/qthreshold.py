@@ -30,3 +30,19 @@ def q_threshold(hw: HardwareSpec = H100, *, ep_degree: int = 1,
     beta_eff = hw.link_bw / max(penalty, 1)
     q = hw.peak_flops * hw.dtype_bytes / (2.0 * beta_eff)
     return int(q) + 1
+
+
+def expert_fetch_seconds(expert_bytes: float, hw: HardwareSpec = H100, *,
+                         ep_degree: int = 1, dense_fetch: bool = True) -> float:
+    """Seconds to fetch one expert's ``expert_bytes`` over the link, the
+    dense all-to-all's zeros counted as ``q_threshold`` counts them."""
+    penalty = ep_degree if dense_fetch else 1
+    return expert_bytes * penalty / hw.link_bw
+
+
+def expert_compute_seconds(tokens: float, d_model: int, d_ff: int,
+                           n_matrices: int, hw: HardwareSpec = H100) -> float:
+    """Seconds of ``tokens`` through an expert of ``n_matrices`` d_model x
+    d_ff products at the card's peak rate."""
+    flops = 2.0 * tokens * d_model * d_ff * n_matrices
+    return flops / hw.peak_flops

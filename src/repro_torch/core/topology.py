@@ -33,6 +33,10 @@ class EPTopology:
     slot_map: np.ndarray      # [G, experts_per_rank] expert id of each local slot
     host_of: np.ndarray       # [Ep, hosts_per_expert] host ranks of each expert
 
+    @property
+    def is_replicated(self) -> bool:
+        return self.hosts_per_expert > 1
+
 
 def make_topology(num_ranks: int, num_experts: int,
                   placement=None) -> EPTopology:

@@ -27,8 +27,15 @@
 // softmax runs in registers on the accumulator fragments (row max and sum
 // over the 4 lanes of a row; interior tiles skip the mask); O += P V is
 // wgmma m64n{hd}k16 with P as the register A operand, rounded to bf16
-// exactly where the TPU rounds p, and V N-major from shared memory.  hd
-// is padded to 64 or 128 with zero columns.  One
+// exactly where the TPU rounds p, and V N-major from shared memory.  hd,
+// any multiple of 8 up to 256 (the TPU kernel takes any), is padded to
+// HDP = 64, 128 or 256 with zero columns: the copies past hd are
+// zero-filled (a 16-byte chunk lies wholly inside hd or past it), so they
+// add exact zeros to q k^T and to P V, and no column past hd is stored.
+// At HDP 256 the ring holds 2 stages instead of 3 (Q 64 KB and three
+// stage pairs of 64 KB would exceed the 227 KB a block can have), and
+// P V is two m64n128 products over V's two halves, O being 128 f32
+// registers a thread beside the 64 x 64 score tile's 32.  One
 // change of arithmetic order: the TPU kernel scales q in f32 before the
 // product (flash_attention.py:44); wgmma takes bf16 operands, so the f32
 // scores are multiplied by hd^-0.5 instead, which differs only by f32
@@ -37,9 +44,11 @@
 // f32 (flash_attn), for the f32 parity checks: the CUDA-core kernel of
 // the first port, its arithmetic unchanged.  One block of 256 threads
 // per 64-row q tile walks 64-position kv tiles staged in shared memory as
-// f32, each thread a 4 x 4 patch of the score tile and a 4 x (hd / 16)
-// accumulator patch; q is scaled in f32 before the product as on the TPU.
-// wgmma has no f32 x f32 form (its f32 route is TF32, ~3 decimal digits).
+// f32, each thread a 4 x 4 patch of the score tile and a 4 x
+// ceil(hd / 16) accumulator patch (DPT columns compiled: 8 up to hd 128,
+// 16 above, one block an SM there: 213,760 bytes of shared memory at hd
+// 256); q is scaled in f32 before the product as on the TPU.  wgmma has
+// no f32 x f32 form (its f32 route is TF32, ~3 decimal digits).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -53,8 +62,6 @@ constexpr int TX = 16;           // threads along a row (kv / hd columns)
 constexpr int TY = 16;           // threads along the q rows
 constexpr int RPT = BQ / TY;     // q rows per thread (4)
 constexpr int CPT = BK / TX;     // kv columns per thread (4)
-constexpr int HD_MAX = 128;
-constexpr int DPT = HD_MAX / TX; // accumulator columns per thread, at most 8
 constexpr float NEG_INF = -1e30f;
 
 // max / sum over the 16 lanes of one half-warp (the threads of one q row)
@@ -72,8 +79,10 @@ __host__ __device__ constexpr size_t smem_floats(int hd) {
          + (size_t)BQ * (BK + 1);
 }
 
-// Strides are in elements: (batch, position, head); the hd axis is contiguous.
-__global__ void __launch_bounds__(TX * TY, 2)
+// Strides are in elements: (batch, position, head); the hd axis is
+// contiguous.  DPT: accumulator columns a thread, 8 for hd <= 128, 16 above.
+template <int DPT>
+__global__ void __launch_bounds__(TX * TY, DPT <= 8 ? 2 : 1)
 flash_attn(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk, int H,
            int Hkv, int hd,
@@ -92,7 +101,6 @@ flash_attn(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, g = h / (H / Hkv);
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int q0 = t * BQ;
-  const int nj = hd / TX;
 
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + g * ksh;
@@ -185,7 +193,7 @@ flash_attn(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < RPT; ++i) pv[i] = ps[(ty * RPT + i) * (BK + 1) + kk];
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
-        if (j < nj) {
+        if (tx + TX * j < hd) {
           const float vv = vs[kk * hd + tx + TX * j];
 #pragma unroll
           for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
@@ -202,7 +210,7 @@ flash_attn(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + (((size_t)b * Sq + row) * H + h) * hd;
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      if (j < nj) o[tx + TX * j] = acc[i][j] * inv;
+      if (tx + TX * j < hd) o[tx + TX * j] = acc[i][j] * inv;
   }
 }
 
@@ -211,16 +219,21 @@ flash_attn(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int WQ = 128;         // q rows per block: two warpgroups of 64
 constexpr int WK = 64;          // kv positions per tile
-constexpr int W_STAGES = 3;     // K/V tile pairs in the shared-memory ring
 constexpr int W_THREADS = 256;
 
+// K/V tile pairs in the shared-memory ring: 3, and 2 at HDP 256
 template <int HDP>
-constexpr int wgmma_smem_bytes() {
-  return WQ * HDP * 2 + 2 * W_STAGES * WK * HDP * 2 + 1024;  // + alignment slack
+__host__ __device__ constexpr int w_stages() {
+  return HDP == 256 ? 2 : 3;
+}
+template <int HDP>
+constexpr int wgmma_smem_bytes() {  // + alignment slack (197,632 at HDP 256)
+  return WQ * HDP * 2 + 2 * w_stages<HDP>() * WK * HDP * 2 + 1024;
 }
 
-// HDP: hd padded to 64 or 128.  Strides are in elements: (batch, position,
-// head); the hd axis is contiguous and every row starts on 16 bytes.
+// HDP: hd padded to 64, 128 or 256.  Strides are in elements: (batch,
+// position, head); the hd axis is contiguous and every row starts on 16
+// bytes.
 template <int HDP>
 __global__ void __launch_bounds__(W_THREADS, 1)
 flash_attn_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -231,8 +244,12 @@ flash_attn_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  long long vsb, long long vss, long long vsh, int causal, float scale) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
+  constexpr int W_STAGES = w_stages<HDP>();
   constexpr uint32_t Q_BYTES = WQ * HDP * 2, KV_BYTES = WK * HDP * 2;
   constexpr int CPR = HDP / 8;                   // 16-byte chunks per row
+  // O as NH accumulators of ON f32 a thread: one m64n{HDP} product, or at
+  // HDP 256 two m64n128 over V's column blocks 0-1 and 2-3
+  constexpr int NH = HDP > 128 ? HDP / 128 : 1, ON = HDP / NH / 2;
   const uint32_t s_q = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t s_k = s_q + Q_BYTES;            // K ring
   const uint32_t s_v = s_k + W_STAGES * KV_BYTES;  // V ring
@@ -271,9 +288,11 @@ flash_attn_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   const int row0 = q0 + wg * 64;                 // this warpgroup's rows
   const int qpos[2] = {row0 + frag_row(wt, 0), row0 + frag_row(wt, 2)};
-  float o[HDP / 2];
+  float o[NH][ON];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[n][i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   // Per tile: S = Q K^T, the softmax, O += P V, each product waited for in
@@ -346,19 +365,28 @@ flash_attn_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * corr[hh] + psum[hh];
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) o[n][i] *= corr[(i >> 1) & 1];
 
-    reg_fence(o);
+#pragma unroll
+    for (int n = 0; n < NH; ++n) reg_fence(o[n]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
-      const uint64_t dv = desc(s_v + st + kk * (16 * 128), WK * 128, 1024);
-      if constexpr (HDP == 128) wgmma_rs_n128<1>(o, pa[kk], dv, 1);
-      else wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        // half n starts at V's column block 2 n (128 columns a half)
+        const uint64_t dv =
+            desc(s_v + st + kk * (16 * 128) + n * 2 * (WK * 128), WK * 128, 1024);
+        if constexpr (ON == 64) wgmma_rs_n128<1>(o[n], pa[kk], dv, 1);
+        else wgmma_rs_n64<1>(o[n], pa[kk], dv, 1);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence(o);
+#pragma unroll
+    for (int n = 0; n < NH; ++n) reg_fence(o[n]);
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) reg_fence(pa[kk]);
   }
@@ -372,12 +400,14 @@ flash_attn_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     inv[hh] = 1.f / fmaxf(l, 1e-30f);
   }
 #pragma unroll
-  for (int i = 0; i < HDP / 2; i += 2) {
-    const int hh = (i >> 1) & 1, row = qpos[hh], col = frag_col(wt, i);
-    if (row < Sq && col < hd)
-      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Sq + row) * H + h) * hd + col) =
-          __floats2bfloat162_rn(o[i] * inv[hh], o[i + 1] * inv[hh]);
-  }
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int i = 0; i < ON; i += 2) {
+      const int hh = (i >> 1) & 1, row = qpos[hh], col = n * 128 + frag_col(wt, i);
+      if (row < Sq && col < hd)
+        *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Sq + row) * H + h) * hd + col) =
+            __floats2bfloat162_rn(o[n][i] * inv[hh], o[n][i + 1] * inv[hh]);
+    }
 }
 
 template <int HDP>
@@ -396,16 +426,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   return (int)cudaGetLastError();
 }
 
+template <int DPT>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
                int H, int Hkv, int hd, const long long* st, int causal, float scale,
                cudaStream_t s) {
   const size_t bytes = smem_floats(hd) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_attn,
+  cudaError_t e = cudaFuncSetAttribute(flash_attn<DPT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attn<<<grid, TX * TY, bytes, s>>>(
+  flash_attn<DPT><<<grid, TX * TY, bytes, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk, H, Hkv, hd,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, scale);
   return (int)cudaGetLastError();
@@ -415,16 +446,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  strides: 9
 // element strides, (batch, position, head) of q, k and v.  The Python
-// wrapper checks hd % 16 == 0, hd <= 128, H % Hkv == 0, a contiguous hd
-// axis, Sq == Sk when causal, and for bf16 16-byte aligned rows.
+// wrapper checks the head-width domain (hd % 8 == 0, 8 <= hd <= 256:
+// ops.py `padded_head_dim`), H % Hkv == 0, a contiguous hd axis, Sq == Sk
+// when causal, and for bf16 16-byte aligned rows.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq, int Sk,
                                       int H, int Hkv, int hd, const long long* strides,
                                       int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (hd < 8 || hd % 8 || hd > 256) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
+    return hd <= 128
+               ? launch_f32<8>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s)
+               : launch_f32<16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
   if (hd <= 64)
     return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
-  return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
+  if (hd <= 128)
+    return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
+  return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, strides, causal, scale, s);
 }

@@ -51,12 +51,22 @@
 //     every stage, P from registers); everything else, decode (a GEMV) and
 //     every f32 tile, on the CUDA cores, each 16-byte chunk of a position
 //     dotted by one lane and summed over the lanes that hold the row.
-//   * Head dims 32, 64, 128 and 256.  At hd 256 a position's vector can be
-//     wider than a warp's 32 16-byte chunks (64 chunks in f32): each lane
-//     then holds two chunks, c and c + 32, and a warp one position at a
-//     time.  On the tensor cores, hd 256 keeps O (128 f32 a thread) in
-//     registers and reads Q's fragments from shared memory at every stage
-//     instead of holding them too (64 more registers would spill).
+//   * Head dims: every multiple of 8 from 8 to 256, as the TPU kernel
+//     takes any.  hd is carried at run time; the code is compiled for the
+//     padded width HD = 32, 64, 128 or 256 (ops.py `padded_head_dim`), the
+//     next at or above hd.  Shared memory holds HD columns a row: the
+//     copies of q, K and V past hd are zero-filled (cp.async with
+//     src-size 0 reads nothing), so the padded columns add exact zeros to
+//     q k^T and to P V, and no output column past hd is written.  A 16-
+//     byte chunk is 8 bf16 or 4 f32 values, so at hd % 8 == 0 every chunk
+//     lies wholly inside hd or wholly past it.  At hd 112 the padding
+//     costs 16 of 128 columns of arithmetic and none of HBM.
+//   * At HD 256 a position's vector can be wider than a warp's 32 16-byte
+//     chunks (64 chunks in f32): each lane then holds two chunks, c and
+//     c + 32, and a warp one position at a time.  On the tensor cores, HD
+//     256 keeps O (128 f32 a thread) in registers and reads Q's fragments
+//     from shared memory at every stage instead of holding them too (64
+//     more registers would spill).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -82,7 +92,7 @@ struct Args {
   void* out;
   float* ws;     // partials: acc [G * n_splits * QT * hd], then m, then l
   int* tickets;  // [G], zero between calls
-  int S, H, Hkv, bs, n_blocks, n_tiles, n_splits, span;
+  int S, H, Hkv, hd, bs, n_blocks, n_tiles, n_splits, span;  // hd: the real width
   float softcap, scale;
 };
 
@@ -117,15 +127,15 @@ __device__ __forceinline__ bool visible(const Args& a, const Tile& t, int r, int
 }
 
 // Element offset of tile row `row`'s q (and output) vector.
-__device__ __forceinline__ size_t q_offset(const Args& a, const Tile& t, int row, int hd) {
+__device__ __forceinline__ size_t q_offset(const Args& a, const Tile& t, int row) {
   const int rep = a.H / a.Hkv;
-  return (((size_t)t.b * a.S + row / rep) * a.H + t.g * rep + row % rep) * hd;
+  return (((size_t)t.b * a.S + row / rep) * a.H + t.g * rep + row % rep) * a.hd;
 }
 
 // Element offset of position p's K/V vector for the tile's kv head.
-__device__ __forceinline__ size_t kv_offset(const Args& a, const Tile& t, int p, int hd) {
+__device__ __forceinline__ size_t kv_offset(const Args& a, const Tile& t, int p) {
   const int blk = __ldg(a.bt + (size_t)t.b * a.n_blocks + p / a.bs);
-  return (((size_t)blk * a.bs + p % a.bs) * a.Hkv + t.g) * hd;
+  return (((size_t)blk * a.bs + p % a.bs) * a.Hkv + t.g) * a.hd;
 }
 
 __device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
@@ -177,7 +187,8 @@ __device__ __forceinline__ void fma4(float4& acc, float c, float4 v) {
 }
 
 // Combine the WARPS per-warp states of the CTA (st: m [WARPS][QT], l
-// [WARPS][QT], acc [WARPS][QT][HD] in shared memory), then either write the
+// [WARPS][QT], acc [WARPS][QT][HD] in shared memory; HD the padded width,
+// of which the first a.hd columns are written out), then either write the
 // output (one span a group) or write the CTA's partial and, in the group's
 // last CTA, merge all partials into the output.  Each thread handles
 // quads of four neighbouring elements of a row; every load of a phase is
@@ -220,9 +231,9 @@ __device__ void finish(const Args& a, const Tile& t, float* st) {
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
       fma4(acc, cw[w][r], *reinterpret_cast<const float4*>(wacc + (w * QT + r) * HD + d));
-    if (NS == 1)
-      store4(out + q_offset(a, t, t.row0 + r, HD) + d, acc, 1.f / fmaxf(rl[r], 1e-30f));
-    else
+    if (NS == 1) {
+      if (d < a.hd) store4(out + q_offset(a, t, t.row0 + r) + d, acc, 1.f / fmaxf(rl[r], 1e-30f));
+    } else
       *reinterpret_cast<float4*>(part_acc + (p0 + (size_t)t.split * QT + r) * HD + d) = acc;
   }
   if (NS == 1) return;
@@ -293,15 +304,15 @@ __device__ void finish(const Args& a, const Tile& t, float* st) {
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int e = 4 * (q0 + i * NQC), r = e / HD;
-    if (e < QT * HD && r < t.nrows)
-      store4(out + q_offset(a, t, t.row0 + r, HD) + e % HD, acc[i], 1.f / fmaxf(lt[r], 1e-30f));
+    if (e < QT * HD && r < t.nrows && e % HD < a.hd)
+      store4(out + q_offset(a, t, t.row0 + r) + e % HD, acc[i], 1.f / fmaxf(lt[r], 1e-30f));
   }
   if (threadIdx.x == 0) a.tickets[gidx] = 0;  // ready for the next call
 }
 
 // ---------------------------------------------------------------------------
 // CUDA cores: decode (GEMV) and every f32 tile.  A position's vector is CH
-// 16-byte chunks; a lane group of LPP = min(CH, 32) lanes holds it, lane c
+// 16-byte chunks of the padded width (those past hd zero); a lane group of LPP = min(CH, 32) lanes holds it, lane c
 // its chunks c + i LPP (i < CPL = CH / LPP: two at hd 256 in f32, else
 // one).  A warp holds NPW = 32 / LPP positions at a time and walks J = 4 of
 // them a stage, so a stage is KC = 16 NPW positions (16 KB of K and V, 32
@@ -337,8 +348,8 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
   for (int r = 0; r < QT; ++r) {
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
-      if (r < t.nrows) {
-        load16(q + q_offset(a, t, t.row0 + r, HD) + (c + i * LPP) * VEC, qf[r][i]);
+      if (r < t.nrows && (c + i * LPP) * VEC < a.hd) {
+        load16(q + q_offset(a, t, t.row0 + r) + (c + i * LPP) * VEC, qf[r][i]);
 #pragma unroll
         for (int v = 0; v < VEC; ++v) qf[r][i][v] *= a.scale;
       } else {
@@ -351,16 +362,17 @@ __global__ void __launch_bounds__(THREADS) pa_cuda_cores(const Args a) {
   auto load_stage = [&](int k) {
     const int slot = k % STAGES, base = t.lo + k * KC;
     const int ch = threadIdx.x % CH;  // the chunk this thread copies
+    const bool real = ch * VEC < a.hd;  // else padding: zero-filled
     size_t off[PER];  // every block-table read in flight before any copy
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int p = base + (threadIdx.x + i * THREADS) / CH;
-      off[i] = p < t.end ? kv_offset(a, t, p, HD) + ch * VEC : 0;
+      off[i] = p < t.end && real ? kv_offset(a, t, p) + ch * VEC : 0;
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int pp = (threadIdx.x + i * THREADS) / CH;
-      const bool ok = base + pp < t.end;
+      const bool ok = base + pp < t.end && real;
       const size_t dst = ((size_t)slot * KC + pp) * HD + ch * VEC;
       cp_async16(smem_addr(ks + dst), kp + off[i], ok);
       cp_async16(smem_addr(vs + dst), vp + off[i], ok);
@@ -509,9 +521,9 @@ __global__ void __launch_bounds__(THREADS) pa_tensor_cores(const Args a) {
 
   for (int i = threadIdx.x; i < QT * CHR; i += THREADS) {
     const int r = i / CHR, cc = i % CHR;
-    const bool ok = r < t.nrows;
+    const bool ok = r < t.nrows && cc * 8 < a.hd;  // columns past hd: zeros
     cp_async16(qs + hopper::sw128(r, cc * 8, QT),
-               q + (ok ? q_offset(a, t, t.row0 + r, HD) + cc * 8 : 0), ok);
+               q + (ok ? q_offset(a, t, t.row0 + r) + cc * 8 : 0), ok);
   }
   const int nst = t.end > t.lo ? (t.end - t.lo + KC - 1) / KC : 0;
   auto load_stage = [&](int k) {
@@ -521,14 +533,15 @@ __global__ void __launch_bounds__(THREADS) pa_tensor_cores(const Args a) {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int c = threadIdx.x + i * THREADS, p = base + c / CHR;
-      off[i] = p < t.end ? kv_offset(a, t, p, HD) + c % CHR * 8 : 0;
+      off[i] = p < t.end && c % CHR * 8 < a.hd ? kv_offset(a, t, p) + c % CHR * 8 : 0;
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int c = threadIdx.x + i * THREADS, pp = c / CHR;
       const uint32_t o = hopper::sw128(pp, c % CHR * 8, KC);
-      cp_async16(kst + o, kp + off[i], base + pp < t.end);
-      cp_async16(vst + o, vp + off[i], base + pp < t.end);
+      const bool ok = base + pp < t.end && c % CHR * 8 < a.hd;  // past hd: zeros
+      cp_async16(kst + o, kp + off[i], ok);
+      cp_async16(vst + o, vp + off[i], ok);
     }
   };
 
@@ -706,8 +719,8 @@ int launch_cuda_cores(int qt, dim3 grid, cudaStream_t s, const Args& a) {
 }
 
 template <typename T>
-int launch_cuda_cores(int hd, int qt, dim3 grid, cudaStream_t s, const Args& a) {
-  switch (hd) {
+int launch_cuda_cores(int hdp, int qt, dim3 grid, cudaStream_t s, const Args& a) {
+  switch (hdp) {
     case 32: return launch_cuda_cores<T, 32>(qt, grid, s, a);
     case 64: return launch_cuda_cores<T, 64>(qt, grid, s, a);
     case 128: return launch_cuda_cores<T, 128>(qt, grid, s, a);
@@ -719,26 +732,30 @@ int launch_cuda_cores(int hd, int qt, dim3 grid, cudaStream_t s, const Args& a) 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  tensor_cores: 1 for a bf16 q tile of 16
-// rows (qt must be 16), 0 for the CUDA cores (qt 1, 2, 4 or 8).  The grid
-// is (n_tiles * n_splits, Hkv, B); ws and tickets are read only when
-// n_splits > 1.  The Python wrapper checks hd in {32, 64, 128, 256}, H % Hkv,
-// contiguity, 16-byte alignment and int32 tables.
+// rows (qt must be 16), 0 for the CUDA cores (qt 1, 2, 4 or 8).  hd is the
+// real head width (a multiple of 8), hdp the padded one the code was
+// compiled for (32, 64, 128 or 256, at least hd), which also sizes ws's
+// rows.  The grid is (n_tiles * n_splits, Hkv, B); ws and tickets are
+// read only when n_splits > 1.  The Python wrapper checks the head-width
+// domain (ops.py `padded_head_dim`), H % Hkv, contiguity, 16-byte
+// alignment and int32 tables.
 extern "C" int paged_attention_launch(int dtype, int tensor_cores, int qt, const void* q,
                                       const void* k_pool, const void* v_pool,
                                       const int* block_table, const int* cache_len, void* out,
                                       float* ws, int* tickets, int B, int S, int H, int Hkv,
-                                      int hd, int block_size, int n_blocks, int n_tiles,
-                                      int n_splits, int span, float softcap, float scale,
-                                      void* stream) {
+                                      int hd, int hdp, int block_size, int n_blocks,
+                                      int n_tiles, int n_splits, int span, float softcap,
+                                      float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Args a{q,  k_pool,   v_pool,  block_table, cache_len, out,      ws,
-               tickets, S, H, Hkv, block_size, n_blocks, n_tiles, n_splits, span,
+               tickets, S, H, Hkv, hd, block_size, n_blocks, n_tiles, n_splits, span,
                softcap, scale};
   const dim3 grid(n_tiles * n_splits, Hkv, B);
   if (n_splits < 1 || n_splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  if (hd < 8 || hd % 8 || hd > hdp) return (int)cudaErrorInvalidValue;
   if (tensor_cores) {
     if (dtype != 1 || qt != 16) return (int)cudaErrorInvalidValue;
-    switch (hd) {
+    switch (hdp) {
       case 32: return launch<pa_tensor_cores<32>, tensor_core_smem<32>()>(grid, s, a);
       case 64: return launch<pa_tensor_cores<64>, tensor_core_smem<64>()>(grid, s, a);
       case 128: return launch<pa_tensor_cores<128>, tensor_core_smem<128>()>(grid, s, a);
@@ -746,6 +763,6 @@ extern "C" int paged_attention_launch(int dtype, int tensor_cores, int qt, const
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 0) return launch_cuda_cores<float>(hd, qt, grid, s, a);
-  return launch_cuda_cores<__nv_bfloat16>(hd, qt, grid, s, a);
+  if (dtype == 0) return launch_cuda_cores<float>(hdp, qt, grid, s, a);
+  return launch_cuda_cores<__nv_bfloat16>(hdp, qt, grid, s, a);
 }

@@ -9,7 +9,8 @@ to the other.  The kernel's design is chosen by ``q.dtype``, explicitly
 (no input can reach both): bfloat16, the prefill path's type, runs on the
 tensor cores (``wgmma``) and needs every row of q, k and v to start on 16
 bytes; float32 runs on the CUDA cores, since ``wgmma``'s only f32 route
-is TF32.
+is TF32.  Either takes every head width that is a multiple of 8 up to
+256 (``padded_head_dim``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,34 @@ from repro_torch.kernels import build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the widths the tensor-core design is compiled for; any hd % 8 == 0 up to
+# 256 runs at the next of them, its columns past hd zero
+HEAD_DIMS = (64, 128, 256)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel's domain of head widths: every multiple of 8 from 8 to
+    256.  Returns the width the bf16 design is compiled for at ``hd``
+    (the first of ``HEAD_DIMS`` at or above it); raises ``ValueError``
+    naming the domain outside it.  At hd % 8 == 0 a 16-byte chunk of a
+    bf16 row lies wholly inside hd or past it."""
+    if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention kernel takes hd a multiple of 8 "
+                         f"from 8 to {HEAD_DIMS[-1]}; got hd={hd}")
+    return next(w for w in HEAD_DIMS if w >= hd)
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """The kernel's dynamic shared memory at ``hd`` (``csrc``'s
+    ``wgmma_smem_bytes`` and ``smem_floats``): bf16, the 128-row q tile
+    and the ring of 64-position K/V tile pairs at the padded width (3
+    stages, 2 at 256) plus 1 KB of alignment slack; f32, q and K with a
+    column of padding, V, and the 64 x 65 tile of p."""
+    if dtype == torch.bfloat16:
+        hdp = padded_head_dim(hd)
+        stages = 2 if hdp == 256 else 3
+        return 128 * hdp * 2 + 2 * stages * 64 * hdp * 2 + 1024
+    return 4 * (2 * 64 * (hd + 1) + 64 * hd + 64 * 65)
 
 
 def _check_causal(Sq: int, Sk: int, causal: bool) -> None:
@@ -80,12 +109,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention takes float32 or bfloat16 q and k/v "
                         "of q's dtype")
-    if hd % 16 or hd > 128 or H % Hkv or k.shape != (B, Sk, Hkv, hd) \
+    padded_head_dim(hd)
+    if H % Hkv or k.shape != (B, Sk, Hkv, hd) \
             or v.shape != k.shape or Sq == 0 or Sk == 0:
-        raise ValueError(f"flash_attention kernel needs hd % 16 == 0, "
-                         f"hd <= 128, H % Hkv == 0 and k/v of one shape; "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+        raise ValueError(f"flash_attention kernel needs H % Hkv == 0 and "
+                         f"k/v of one shape; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("flash_attention: k and v must be on q's device")

@@ -22,6 +22,8 @@ from repro_torch.kernels import build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the widths the kernel is compiled for; any hd % 8 == 0 up to 256 runs at
+# the next of them, its columns past hd zero (``padded_head_dim``)
 HEAD_DIMS = (32, 64, 128, 256)
 H100_SMS = 132
 TC_ROWS = 16          # q rows of a tensor-core tile (mma.sync m16n8k16)
@@ -30,8 +32,21 @@ MAX_SPLITS = 256      # spans a chain at most (the merge's shared memory)
 WAVES = 4             # the planner's target: WAVES x SMs blocks
 
 
+def padded_head_dim(hd: int) -> int:
+    """The kernel's domain of head widths: every multiple of 8 from 8 to
+    256.  Returns the compiled width that runs ``hd``, the first of
+    ``HEAD_DIMS`` at or above it; raises ``ValueError`` naming the domain
+    outside it.  A 16-byte chunk is 8 bf16 or 4 f32 values, so at
+    hd % 8 == 0 every chunk of a row lies wholly inside hd or past it."""
+    if hd % 8 or not 8 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"paged_attention kernel takes hd a multiple of 8 "
+                         f"from 8 to {HEAD_DIMS[-1]}; got hd={hd}")
+    return next(w for w in HEAD_DIMS if w >= hd)
+
+
 class LaunchPlan(NamedTuple):
     tensor_cores: bool   # bf16 tiles of 16 rows on mma.sync, else CUDA cores
+    hdp: int             # the compiled (padded) head width
     qt: int              # q rows of a tile
     n_tiles: int         # q tiles of each (row, kv head)
     n_splits: int        # position spans of each chain
@@ -63,26 +78,44 @@ def launch_plan(B: int, S: int, H: int, Hkv: int, hd: int,
                 sms: int = H100_SMS) -> LaunchPlan:
     """The kernel's route and grid for these shapes.  bf16 tiles of at
     least 16 rows (S * rep) take the tensor cores; decode and every f32
-    tile the CUDA cores, with tiles of 1, 2, 4 or 8 rows.  A CUDA-core
-    stage holds 16 * max(1, 32 / (hd * size / 16)) positions (16 KB of K
-    and V; 32 KB at hd 256 in f32, whose positions take a warp each) and
+    tile the CUDA cores, with tiles of 1, 2, 4 or 8 rows.  The stages are
+    laid out at the padded width ``hdp`` (``padded_head_dim``).  A
+    CUDA-core stage holds 16 * max(1, 32 / (hdp * size / 16)) positions
+    (16 KB of K and V; 32 KB at hdp 256 in f32, whose positions take a
+    warp each) and
     a span at least two of them, so that its ring overlaps a copy with a
     stage's math (spans of one stage ran slower on serve decode: more
     blocks, nothing overlapped); a tensor-core stage is 64 positions and a
     span at least one."""
+    hdp = padded_head_dim(hd)
     rows = S * (H // Hkv)
     tc = dtype == torch.bfloat16 and rows >= TC_ROWS
     if tc:
         qt, min_span = TC_ROWS, TC_STAGE
     else:
         qt = min(8, 1 << (rows - 1).bit_length())
-        chunks = hd * (torch.finfo(dtype).bits // 8) // 16
+        chunks = hdp * (torch.finfo(dtype).bits // 8) // 16
         min_span = 2 * 16 * max(1, 32 // chunks)
     n_tiles = -(-rows // qt)
     n_splits, span = split_plan(n_blocks * block_size, B * Hkv * n_tiles,
                                 min_span, sms)
-    return LaunchPlan(tc, qt, n_tiles, n_splits, span,
+    return LaunchPlan(tc, hdp, qt, n_tiles, n_splits, span,
                       n_tiles * n_splits * Hkv * B)
+
+
+def smem_bytes(plan: LaunchPlan, dtype: torch.dtype) -> int:
+    """The kernel's dynamic shared memory for ``plan`` (``csrc``'s
+    ``cuda_core_smem`` / ``tensor_core_smem``): the CUDA cores' ring of 4
+    stages of K and V, 16 positions a warp's lane group, in the pool's
+    type; the tensor cores' q tile of 16 rows and 3 stages of 64
+    positions, 128 bytes a row per 64 columns.  After the loop the ring
+    holds each warp's state and then the merge's weights."""
+    if plan.tensor_cores:
+        return (TC_ROWS + 2 * 3 * TC_STAGE) * 128 * (-(-plan.hdp // 64))
+    size = torch.finfo(dtype).bits // 8
+    chunks = plan.hdp * size // 16
+    kc = 4 * (32 // min(chunks, 32)) * 4
+    return 4 * 2 * kc * plan.hdp * size
 
 
 def largest_block_divisor(n: int, cap: int = 128) -> int:
@@ -138,7 +171,7 @@ def _lib():
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, i, i, f, f, p]
+                       i, i, i, i, i, i, i, i, i, i, i, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -197,12 +230,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             or v_pool.dtype != q.dtype:
         raise TypeError("paged_attention takes float32 or bfloat16 q and "
                         "pools of q's dtype")
-    if hd not in HEAD_DIMS or H % Hkv or P % block_size \
+    padded_head_dim(hd)
+    if H % Hkv or P % block_size \
             or k_pool.shape != (1, P, Hkv, hd) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"paged_attention kernel needs hd in {HEAD_DIMS}, "
-                         f"H % Hkv == 0 and whole blocks; got "
-                         f"q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, "
-                         f"block_size {block_size}")
+        raise ValueError(f"paged_attention kernel needs H % Hkv == 0 and "
+                         f"whole blocks; got q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pool.shape)}, block_size {block_size}")
     if block_table.dtype != torch.int32 or block_table.shape[0] != B:
         raise ValueError("paged_attention: block_table must be int32 [B, n]")
     for t in (q, k_pool, v_pool, block_table):
@@ -218,7 +251,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     ws = tickets = None
     if plan.n_splits > 1:          # the partials (acc, m, l) of every span
-        ws = torch.empty(plan.ctas * plan.qt * (hd + 2),
+        ws = torch.empty(plan.ctas * plan.qt * (plan.hdp + 2),
                          dtype=torch.float32, device=q.device)
         tickets = _ticket_buffer(q.device, plan.ctas // plan.n_splits)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -227,7 +260,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                 block_table.data_ptr(), cl.data_ptr(), out.data_ptr(),
                 ws.data_ptr() if ws is not None else None,
                 tickets.data_ptr() if tickets is not None else None,
-                B, S, H, Hkv, hd, block_size, block_table.shape[1],
+                B, S, H, Hkv, hd, plan.hdp, block_size, block_table.shape[1],
                 plan.n_tiles, plan.n_splits, plan.span, float(softcap),
                 float(hd ** -0.5), stream)
     build.check(rc, "paged_attention")

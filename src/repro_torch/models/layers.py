@@ -85,10 +85,10 @@ def mlp(x: torch.Tensor, p: Dict[str, torch.Tensor],
         act: str) -> torch.Tensor:
     """The MLP of a dense layer or of the shared experts: SwiGLU
     (``w_gate``, ``w_in``, ``w_out``), gemma2's gated GELU (``gelu``:
-    ``gelu(x @ w_gate) * (x @ w_in)``) or, for ``gelu_mlp``, GELU between
-    two products; GELU is the tanh form (``jax.nn.gelu``'s default).
-    Plain ``torch.matmul`` products, as the JAX package leaves them to
-    XLA."""
+    ``gelu(x @ w_gate) * (x @ w_in)``) or, for ``gelu_mlp`` and
+    ``relu_mlp``, GELU or ReLU between two products, with no gate; GELU is
+    the tanh form (``jax.nn.gelu``'s default).  Plain ``torch.matmul``
+    products, as the JAX package leaves them to XLA."""
     h = x @ p["w_in"]
     if act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
@@ -96,6 +96,8 @@ def mlp(x: torch.Tensor, p: Dict[str, torch.Tensor],
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
     elif act == "gelu_mlp":
         h = F.gelu(h, approximate="tanh")
+    elif act == "relu_mlp":
+        h = F.relu(h)
     else:
-        raise NotImplementedError(f"{act} MLP is not ported yet")
+        raise ValueError(act)
     return h @ p["w_out"]

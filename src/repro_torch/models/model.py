@@ -622,9 +622,8 @@ def build_model(cfg: ModelConfig, pcfg: ParallelConfig = ParallelConfig(), *,
             or (cfg.family == "moe") != cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not "
                                   f"ported yet")
-    if cfg.act not in ("swiglu", "gelu", "gelu_mlp"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.act} MLPs not ported "
-                                  f"yet")
+    if cfg.act not in ("swiglu", "gelu", "gelu_mlp", "relu_mlp"):
+        raise ValueError(f"{cfg.name}: unknown MLP activation {cfg.act!r}")
     moe_spec = moe_spec_decode = None
     if cfg.is_moe:
         moe_spec = MoEBlockSpec(

@@ -253,6 +253,105 @@ def test_flash_attention_kernel_matches_plain_at_gqa_rep3(cuda, dtype, B, S):
                                rtol=_tol(dtype))
 
 
+def _paged_inputs(g, cuda, dtype, *, H, Hkv, hd, S, lengths, bs, slab):
+    """q, the pools, a table and the lengths: identity chains over a slab
+    with 96 positions of slack, or shuffled chains with their tails on
+    the null block 0."""
+    B = len(lengths)
+    n_blocks = -(-max(lengths) // bs)
+    if slab:
+        n_blocks = -(-(max(lengths) + 96) // bs)
+        num_phys = B * n_blocks
+        table = torch.arange(num_phys, dtype=torch.int32,
+                             device=cuda).reshape(B, n_blocks)
+    else:
+        num_phys = 1 + B * n_blocks
+        perm = torch.randperm(num_phys - 1, generator=g, device=cuda) + 1
+        table = torch.zeros((B, n_blocks), dtype=torch.int32, device=cuda)
+        for b, L in enumerate(lengths):
+            nb = -(-L // bs)
+            table[b, :nb] = perm[b * n_blocks:b * n_blocks + nb].to(
+                torch.int32)
+    P = num_phys * bs
+    k = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, P, Hkv, hd), generator=g, device=cuda).to(dtype)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, k, v, table, cl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 80, 112, 136, 256])
+@pytest.mark.parametrize("H,Hkv,S,lengths,bs,slab", [
+    (32, 32, 1, [1, 129, 336, 544], 16, False),   # decode, zamba2's heads
+    (32, 32, 32, [544], 68, True),                # a chunk over the scratch
+    (8, 2, 5, [5, 77, 190], 16, False),           # a GQA verify window
+], ids=["decode", "slab_chunk", "verify"])
+def test_paged_attention_kernel_matches_plain_at_padded_widths(
+        cuda, dtype, hd, H, Hkv, S, lengths, bs, slab):
+    """Widths between the compiled ones (8 pads to 32, 80 and 112 to 128,
+    136 to 256) and 256, on both routes: the padded columns must add
+    exact zeros, and a write past hd would land in the next head's row,
+    so every element is held to the plain version."""
+    from repro_torch.kernels.paged_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(10 + hd)
+    q, k, v, table, cl = _paged_inputs(g, cuda, dtype, H=H, Hkv=Hkv, hd=hd,
+                                       S=S, lengths=lengths, bs=bs,
+                                       slab=slab)
+    kw = dict(block_size=bs, softcap=30.0)
+    n0 = ops.paged_attention.launches
+    got = ops.paged_attention(q, k, v, table, cl, **kw)
+    ref = ops.paged_attention_plain(q, k, v, table, cl, **kw)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 72, 80, 112, 136, 256])
+@pytest.mark.parametrize("H,Hkv,S", [(8, 4, 256), (32, 32, 129)])
+def test_flash_attention_kernel_matches_plain_at_padded_widths(
+        cuda, dtype, hd, H, Hkv, S):
+    """Causal whole prompts at widths the kernel pads (to 64, 128 or 256)
+    and at 256 (gemma2-2b's 8 q / 4 kv heads without the softcap): the
+    bf16 design's two-stage ring and split P V at 256, the f32 design's
+    ragged last accumulator column group at hd % 16 == 8."""
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device=cuda).manual_seed(20 + hd)
+    q = torch.randn((1, S, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, S, Hkv, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, S, Hkv, hd), generator=g, device=cuda).to(dtype)
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    ref = ops.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("hd", [100, 264])
+def test_kernels_refuse_widths_outside_the_domain(cuda, hd):
+    """A CUDA tensor outside hd % 8 == 0, 8 <= hd <= 256 raises
+    ``ValueError`` naming the domain; nothing falls back to the plain
+    version and nothing launches."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    q = torch.zeros((1, 4, 2, hd), device=cuda)
+    n0 = (pa.paged_attention.launches, fa.flash_attention.launches)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        fa.flash_attention(q, q, q, causal=True)
+    pool = torch.zeros((1, 16, 2, hd), device=cuda)
+    table = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        pa.paged_attention(q, pool, pool, table, 4, block_size=4)
+    assert (pa.paged_attention.launches,
+            fa.flash_attention.launches) == n0
+
+
 @settings(max_examples=400, deadline=None,
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(G=st.sampled_from([1, 2, 4, 8]), E=st.integers(1, 128),
@@ -398,7 +497,7 @@ def test_flash_attention_kernel_reads_strided_views(cuda, dtype):
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
         cuda):
     from repro_torch.kernels.flash_attention import ops
-    z = torch.zeros((1, 8, 2, 160), device=cuda)              # hd > 128
+    z = torch.zeros((1, 8, 2, 264), device=cuda)              # hd > 256
     with pytest.raises(ValueError, match="hd"):
         ops.flash_attention(z, z, z)
     q = torch.zeros((1, 8, 2, 64), device=cuda)
@@ -425,8 +524,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     tg = torch.zeros((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="d % 64"):
         gmm.moe_gmm(x, w, torch.zeros((1, 64, 96), device=cuda), tg)
-    q = torch.zeros((1, 1, 2, 160), device=cuda)             # hd 160
-    pool = torch.zeros((1, 16, 2, 160), device=cuda)
+    q = torch.zeros((1, 1, 2, 100), device=cuda)             # hd % 8 != 0
+    pool = torch.zeros((1, 16, 2, 100), device=cuda)
     with pytest.raises(ValueError, match="hd"):
         pa.paged_attention(q, pool, pool,
                            torch.zeros((1, 1), dtype=torch.int32,

@@ -2,7 +2,8 @@
 plain version and the ``ops`` wrapper, which runs it for CPU tensors)
 against the JAX package's Pallas kernel in interpret mode and its oracle
 ``flash_attention_ref``, over the sweep of ``tests/test_kernels.py``
-(MHA, GQA rep 2, MQA; causal and full; f32 at 2e-5, bf16 at 2e-2).  Same
+(MHA, GQA rep 2, MQA; causal and full; f32 at 2e-5, bf16 at 2e-2) and
+at head widths 80, 112 and 256.  Same
 numpy inputs on both sides; the JAX side takes [B, H, S, hd], the port
 the model layout [B, S, H, hd]."""
 import jax.numpy as jnp
@@ -62,6 +63,19 @@ def test_flash_attention_matches_jax_kernel_and_ref(dtype, causal, shape):
         np.testing.assert_allclose(_port_to_jax_layout(plain),
                                    np.asarray(other, np.float32),
                                    atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [80, 112, 256])
+def test_flash_attention_matches_jax_kernel_at_new_widths(hd, dtype):
+    """The widths the CUDA kernel pads (80 and 112 to 128) and 256, causal
+    GQA rep 2, against the TPU kernel in interpret mode."""
+    j, t = _inputs(6, 1, 4, 2, 64, 64, hd, dtype)
+    kern = flash_attention_kernel(*j, causal=True, block_q=32, block_k=32,
+                                  interpret=True)
+    np.testing.assert_allclose(
+        _port_to_jax_layout(flash_attention(*t, causal=True)),
+        np.asarray(kern, np.float32), atol=_tol(dtype), rtol=_tol(dtype))
 
 
 @pytest.mark.parametrize("causal", [True, False])

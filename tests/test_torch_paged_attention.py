@@ -1,7 +1,8 @@
 """Paged attention of the PyTorch port (kernels/paged_attention, CPU plain
 version) against the JAX package's Pallas kernel in interpret mode and its
 oracle ``paged_attention_ref``: ragged lengths, null-block holes, odd
-block sizes, GQA, softcap, decode and multi-query windows; plus the
+block sizes, GQA, softcap, decode and multi-query windows, head widths 16,
+80, 112 and 256; plus the
 slab-as-pool prefill view against the port's and the JAX package's
 ``chunked_attention``.  Same numpy inputs on both sides."""
 import jax.numpy as jnp
@@ -89,6 +90,24 @@ def test_paged_attention_matches_pallas_interpret(q_len, rep, bs):
     out = paged_attention(*t, block_size=bs, softcap=30.0)
     np.testing.assert_allclose(out.numpy(), np.asarray(kern), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [80, 112, 256])
+def test_paged_attention_matches_pallas_interpret_at_new_widths(hd, dtype):
+    """The widths the kernel pads (80 and 112 to 128) and 256, against the
+    TPU kernel in interpret mode: a 4-query GQA window (rep 2) with the
+    softcap over chains with holes, block size 5."""
+    bs, q_len = 5, 4
+    lengths = [q_len, q_len + 17, q_len + 9]
+    j, t = _both(_setup(4, B=3, Hkv=2, rep=2, hd=hd, bs=bs, n_logical=5,
+                        lengths=lengths, q_len=q_len), dtype)
+    kern = jax_paged(*j, block_size=bs, softcap=30.0, interpret=True)
+    out = paged_attention(*t, block_size=bs, softcap=30.0)
+    assert out.dtype == _TDT[dtype] and out.shape == t[0].shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(kern, np.float32),
+                               atol=_tol(dtype), rtol=_tol(dtype))
 
 
 @pytest.mark.parametrize("q_offset", [0, 13])

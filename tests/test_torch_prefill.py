@@ -176,10 +176,11 @@ def test_prefill_decode_consistency(models):
 
 @pytest.mark.parametrize("change", [
     # local/global layers, softcaps and post-norms are ported (gemma2-2b,
-    # tests/test_torch_gemma2.py); what the port still refuses: an MLP
-    # no configuration uses, a family it does not know, and a family that
-    # contradicts the MoE sub-config
-    {"act": "relu_mlp"}, {"family": "retrieval"}, {"family": "dense"}])
+    # tests/test_torch_gemma2.py) and so is the relu_mlp MLP
+    # (tests/test_torch_head_dims.py); what the port still refuses: a
+    # family it does not know, and a family that contradicts the MoE
+    # sub-config
+    {"family": "retrieval"}, {"family": "dense"}])
 def test_build_model_rejects_unported_patterns(change):
     cfg = get_config("moonshot-v1-16b-a3b").reduced()
     if "moe" in change:

@@ -11,6 +11,10 @@ without a GPU), on reduced f32 qwen15-moe-a27b at G = 4 with q = 1:
 - the captured decode step and prefill chunk hold the fork and the join:
   captured streams equal eager ones, with and without skew, and the
   side stream's rows are the gather's;
+- ``VirtualGroup``'s fetch under autograd (training: the ranks' rows
+  stacked into a temporary the side stream gathers from) gives on every
+  call, with the card's memory reused between calls, the loss and
+  gradients of the same fetch on the current stream;
 - ``DistComm`` on a one-process NCCL group at G = 1, every entry
   captured, gives ``LocalComm``'s streams; on a gloo group the engine
   refuses to capture and serves the same streams inside
@@ -143,6 +147,51 @@ def _nullcontext():
 
 
 @pytest.mark.cuda
+def test_fetch_under_autograd_equals_the_current_stream_fetch(cuda):
+    """Units move (skew 0.9, q = 1) and the fetched rows carry gradient:
+    four calls with the side stream, each after allocations that churn
+    the caching allocator, against the same call with the fetch on the
+    current stream.  Before the stack was kept for the side stream, the second
+    call's loss moved by ~0.1 on full-width switch128 (the gather read
+    memory the current stream had reused)."""
+    from contextlib import contextmanager
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.router import SkewKey
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = _cfg(skew=0.9)
+    B, S = 2, 64
+    model = build_model(cfg, ParallelConfig(attn_chunk=S, loss_chunk=S),
+                        batch=B, seq_len=S, device=cuda, ep_degree=G)
+    params = model.init(0)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                device=cuda) for k in ("tokens", "labels")}
+
+    def run():
+        loss, diags, grads = loss_and_grads(model, params, batch,
+                                            skew_key=SkewKey((19,)))
+        assert float(diags["moved_units"]) > 0
+        return [loss] + grads
+
+    fork = TD._SideStream.fork
+
+    @contextmanager
+    def inline(self, *inputs):
+        yield None
+    TD._SideStream.fork = inline
+    try:
+        want = run()
+    finally:
+        TD._SideStream.fork = fork
+    for _ in range(4):
+        churn = [torch.empty(1 << n, device=cuda) for n in range(10, 22)]
+        got = run()
+        del churn
+        for a, b in zip(got, want):      # the dispatch's atomics reorder
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
 def test_distcomm_on_nccl_captured_equals_local(cuda, tmp_path):
     """A one-process NCCL group: ``DistComm`` at G = 1 with the dense
     fetch, every entry captured, serves ``LocalComm``'s streams."""
